@@ -1,0 +1,446 @@
+"""Fused rANS decode kernels of the MICW direct modes (zzd / vdd / pdd).
+
+Counterpart of the decode half of ``mic_tpu.tpu.pallas_rans``:
+
+* ``build_packed_tables`` / ``build_alias_bucket_tables`` — the numpy
+  operand builders, carried over unchanged so their arrays are identical
+  (pinned by ``tests/test_torch_host_format.py``);
+* ``to_device`` — numpy ``uint32`` operands to int32 bit-view tensors;
+* ``rans_decode_zzd`` / ``rans_decode_alias`` — the wrappers of the two
+  CUDA kernels in ``csrc/rans_decode.cu``, each with a plain-PyTorch twin
+  (``*_plain``) and a launch counter (``.launches``).
+
+A wrapper takes the plain version only for tensors on the CPU.  For a
+CUDA tensor it launches its kernel or raises.
+
+Torch has no uint32 arithmetic on the CPU, so operands travel as int32
+bit-views of the builders' ``uint32`` arrays and the plain versions hold
+every u32 quantity in int64, masking with ``& 0xFFFFFFFF`` where the
+kernel's u32 arithmetic wraps.  Outputs are int16 bit-views of the u16
+symbols or pixels (``.numpy().view(np.uint16)`` at the numpy boundary).
+
+Out-of-range guards, taken identically by the kernels and the plain
+versions (valid operands never reach them): a logical shift by >= 32
+gives 0, as ``jax.lax.shift_right_logical`` does; a packed-table slot or
+rank beyond its table reads 0, as the Pallas sweep does; an alias bucket
+index clamps to 127; the renorm word window's first row clamps to
+``rows - 2`` and the escape cursor to ``rows * 128 - 256``, as the
+Pallas kernels' dynamic slices do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .device_rans import alias_construct, slot_tables
+
+__all__ = [
+    "build_packed_tables",
+    "build_alias_bucket_tables",
+    "to_device",
+    "rans_decode_zzd",
+    "rans_decode_zzd_plain",
+    "rans_decode_alias",
+    "rans_decode_alias_plain",
+]
+
+_U32 = 0xFFFFFFFF
+_VDD_WS = (0, 1, 2, 4, 8)
+
+
+def build_packed_tables(parsed, table_log: int, min_steps: int = 0):
+    """Packed-kernel table build; returns None if any strip's tableLog
+    exceeds 12 or alphabet exceeds 4096 symbols.  Otherwise returns
+    (init, tpk, alpha, words, mask, shift, counts, steps, asweep)
+    with tpk[slot] = bias<<12 | rank and alpha[rank] = (freq-1)<<16 | sym.
+    ``min_steps`` pads the scan length (and the word-stream margins that
+    depend on it) up to a caller-chosen bucket size."""
+    S = len(parsed)
+    if table_log > 12:
+        return None
+    TS = 1 << table_log
+    init = np.zeros((S, 128), np.uint32)
+    tpk = np.zeros((S, TS), np.uint32)
+    steps = max(min_steps, max((p[2] + 127) // 128 for p in parsed))
+    steps = (steps + 7) // 8 * 8  # kernel stores 8-step blocks
+    # Margin: a shorter strip keeps renorming garbage states off the zero
+    # padding after its stream ends, for (steps*128 - count) lane-steps.
+    margin = max(steps * 128 - p[2] for p in parsed) + 256
+    wmax = ((max(len(p[4]) for p in parsed) + margin + 127) // 128) * 128
+    words = np.zeros((S, wmax), np.uint32)
+    mask = np.zeros((S, 128), np.uint32)
+    shift = np.zeros((S, 128), np.uint32)
+    counts = []
+    alphas = []
+    for i, p in enumerate(parsed):
+        L, tl, count, states, wrds, norm, _sl, alias = p
+        if L != 128:
+            raise ValueError("pallas rANS kernel requires 128 lanes per strip")
+        norm = np.asarray(norm)
+        alpha_syms = np.nonzero(norm)[0].astype(np.uint32)
+        if len(alpha_syms) > 4096:
+            return None
+        sym, fs, bs, _, _ = slot_tables(norm, tl, alias)
+        rank = np.searchsorted(alpha_syms, sym).astype(np.uint32)
+        packed = (bs.astype(np.uint32) << 12) | rank
+        reps = TS // (1 << tl)
+        tpk[i] = np.tile(packed, reps)
+        init[i] = states
+        words[i, : len(wrds)] = wrds
+        mask[i, :] = (1 << tl) - 1
+        shift[i, :] = tl
+        counts.append(count)
+        fr = norm[alpha_syms].copy()
+        fr[fr < 0] = 1  # low-prob (-1) symbols decode with freq 1
+        alphas.append(((fr.astype(np.uint32) - 1) << 16) | alpha_syms)
+    asweep = max(1, (max(len(a) for a in alphas) + 127) // 128)
+    p2 = 1
+    while p2 < asweep:
+        p2 *= 2
+    asweep = p2
+    alpha = np.zeros((S, asweep * 128), np.uint32)
+    for i, a in enumerate(alphas):
+        alpha[i, : len(a)] = a
+    words = words.reshape(S, -1, 128)
+    return init, tpk, alpha, words, mask, shift, counts, steps, asweep
+
+
+def build_alias_bucket_tables(parsed, min_steps: int = 0):
+    """Bucket-table build for alias-mapped strips (mict_parse outputs
+    whose ``alias`` element is a (esc_val, esc_values) tuple).  Returns
+    (init, w0, w1, w2, words, mask, shift, escv, esides, counts, steps).
+    ``min_steps`` pads the scan length like build_packed_tables."""
+    S = len(parsed)
+    init = np.zeros((S, 128), np.uint32)
+    w0 = np.zeros((S, 128), np.uint32)
+    w1 = np.zeros((S, 128), np.uint32)
+    w2 = np.zeros((S, 128), np.uint32)
+    steps = max(min_steps, max((p[2] + 127) // 128 for p in parsed))
+    steps = (steps + 7) // 8 * 8
+    margin = max(steps * 128 - p[2] for p in parsed) + 256
+    wmax = ((max(len(p[4]) for p in parsed) + margin + 127) // 128) * 128
+    words = np.zeros((S, wmax), np.uint32)
+    mask = np.zeros((S, 128), np.uint32)
+    shift = np.zeros((S, 128), np.uint32)
+    escv = np.full((S, 128), 0xFFFFFFFF, np.uint32)
+    # Side-stream margin: pad-step escape reads clamp in-kernel, so the
+    # allocation only needs the clamp headroom (384 >= 256 + window).
+    emax = ((max(len(p[7][1]) for p in parsed) + 384 + 127) // 128) * 128
+    esides = np.zeros((S, emax), np.uint32)
+    counts = []
+    for i, p in enumerate(parsed):
+        L, tl, count, states, wrds, norm, _sl, alias = p
+        if L != 128:
+            raise ValueError("alias kernel requires 128 lanes per strip")
+        if tl > 12:
+            # (freq-1)/sbp/sba overflow their 12-bit w1/w2 fields.
+            raise ValueError("alias kernel requires tableLog <= 12")
+        if alias is None:
+            raise ValueError("build_alias_bucket_tables: standard-magic strip")
+        al = alias_construct(norm, tl)
+        w0[i] = (al["p"] << 16) | al["a"]
+        w1[i] = (al["t"] << 24) | ((al["fp"] - 1) << 12) | al["sbp"]
+        w2[i] = ((al["fa"] - 1) << 12) | al["sba"]
+        init[i] = states
+        words[i, : len(wrds)] = wrds
+        mask[i, :] = (1 << tl) - 1
+        shift[i, :] = tl
+        esc_val, esc_values = alias
+        if len(esc_values):
+            escv[i, :] = esc_val
+            esides[i, : len(esc_values)] = esc_values
+        counts.append(count)
+    words = words.reshape(S, -1, 128)
+    esides = esides.reshape(S, -1, 128)
+    return init, w0, w1, w2, words, mask, shift, escv, esides, counts, steps
+
+
+def to_device(arrays, device) -> tuple[torch.Tensor, ...]:
+    """Numpy ``uint32`` operands -> contiguous int32 bit-view tensors on
+    ``device`` (torch has no uint32 arithmetic on the CPU)."""
+    out = []
+    for a in arrays:
+        a = np.ascontiguousarray(a, dtype=np.uint32)
+        out.append(torch.from_numpy(a.view(np.int32)).to(device))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Shared checks and plain-PyTorch building blocks
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 (uint32 bit-view), got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, other operands on {device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_steps(steps: int, vdd_ws: int):
+    if steps <= 0 or steps % 8:
+        raise ValueError(f"steps must be a positive multiple of 8, got {steps}")
+    if vdd_ws not in _VDD_WS:
+        raise ValueError(f"vdd_ws must be one of {_VDD_WS}, got {vdd_ws}")
+
+
+def _u(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit-view -> its uint32 value in int64."""
+    return t.to(torch.int64) & _U32
+
+
+def _shr(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Logical u32 shift right; shifts >= 32 give 0."""
+    return torch.where(s < 32, x >> s.clamp(max=31), torch.zeros_like(x))
+
+
+def _as_i16(v: torch.Tensor) -> torch.Tensor:
+    """Low 16 bits of ``v`` as an int16 bit-view."""
+    return (((v & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
+
+
+def _renorm(xn, cur, words, rows):
+    """Lanes whose state fell below 2^16 pull the next words of their
+    strip's stream, in lane order (exclusive prefix sum over the need
+    mask).  Returns the new states and cursors."""
+    need = xn < (1 << 16)
+    n = need.to(torch.int64)
+    k = torch.cumsum(n, dim=1) - n
+    row = torch.clamp(cur >> 7, max=rows - 2)
+    wv = torch.gather(words, 1, row * 128 + (cur & 127) + k)
+    x = torch.where(need, ((xn << 16) | wv) & _U32, xn)
+    return x, cur + n.sum(dim=1, keepdim=True)
+
+
+class _Inverse:
+    """The direct predictors' inverse fused into both kernels: unzigzag,
+    then either the row prefix sum with its per-strip row reset every
+    ``ws`` steps (zzd, and pdd's first pass) or the previous-row carry
+    of ``vdd_ws`` 128-lane chunks (vdd)."""
+
+    def __init__(self, S, vdd_ws, ws, device):
+        self.vdd_ws = vdd_ws
+        self.ws = ws[:, :1].to(torch.int64)  # int32 view, as the kernel reads it
+        self.rowc = torch.zeros((S, max(vdd_ws, 1), 128 if vdd_ws else 1),
+                                dtype=torch.int64, device=device)
+        self.rcnt = torch.zeros((S, 1), dtype=torch.int64, device=device)
+
+    def __call__(self, t: int, sym: torch.Tensor) -> torch.Tensor:
+        si = ((sym & _U32) ^ 0x80000000) - 0x80000000  # int32 reading of the u32
+        dz = (si >> 1) ^ (-(si & 1))
+        if self.vdd_ws:
+            col = t % self.vdd_ws
+            pix = (self.rowc[:, col] + dz) & 0xFFFF
+            self.rowc[:, col] = pix
+            return pix
+        rowc = torch.where(self.rcnt == 0, 0, self.rowc[:, 0])
+        pix = (rowc + torch.cumsum(dz, dim=1)) & 0xFFFF
+        self.rowc[:, 0] = pix[:, 127:]
+        self.rcnt = self.rcnt + 1
+        self.rcnt = torch.where(self.rcnt >= self.ws, 0, self.rcnt)
+        return pix
+
+
+# ---------------------------------------------------------------------------
+# FF 57 packed-table kernel
+# ---------------------------------------------------------------------------
+
+
+def _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps, vdd_ws):
+    _check_steps(steps, vdd_ws)
+    S = init.shape[0]
+    dev = init.device
+    if S == 0 or init.dim() != 2 or words.dim() != 3:
+        raise ValueError("init must be [S>0, 128] and words [S, rows, 128]")
+    ts, asz, rows = tpk.shape[-1], alpha.shape[-1], words.shape[1]
+    if not (0 < ts <= 4096 and 0 < asz <= 4096 and rows >= 2):
+        raise ValueError(f"tpk width {ts} and alpha width {asz} must be in "
+                         f"1..4096 and words must have >= 2 rows ({rows})")
+    for name, t, shape in (("init", init, (S, 128)), ("tpk", tpk, (S, ts)),
+                           ("alpha", alpha, (S, asz)),
+                           ("words", words, (S, rows, 128)),
+                           ("mask", mask, (S, 128)), ("shift", shift, (S, 128)),
+                           ("ws", ws, (S, 128))):
+        _check(name, t, shape, dev)
+    return S, ts, asz, rows
+
+
+def rans_decode_zzd_plain(init, tpk, alpha, words, mask, shift, ws, *,
+                          steps: int, vdd_ws: int = 0) -> torch.Tensor:
+    """Plain-PyTorch twin of the zzd kernel (any device).  Same operands
+    and output as :func:`rans_decode_zzd`."""
+    S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift,
+                                     ws, steps, vdd_ws)
+    x = _u(init)
+    tpk, alpha, m, sft = _u(tpk), _u(alpha), _u(mask), _u(shift)
+    words = _u(words).reshape(S, -1)
+    cur = torch.zeros((S, 1), dtype=torch.int64, device=init.device)
+    inverse = _Inverse(S, vdd_ws, ws, init.device)
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    for t in range(steps):
+        slot = x & m
+        pk = torch.where(slot < ts, torch.gather(tpk, 1, slot.clamp(max=ts - 1)), 0)
+        rank = pk & 0xFFF
+        av = torch.where(rank < asz, torch.gather(alpha, 1, rank.clamp(max=asz - 1)), 0)
+        xn = (((av >> 16) + 1) * _shr(x, sft) + (pk >> 12)) & _U32
+        x, cur = _renorm(xn, cur, words, rows)
+        out[:, t] = _as_i16(inverse(t, av & 0xFFFF))
+    return out
+
+
+def rans_decode_zzd(init, tpk, alpha, words, mask, shift, ws, *,
+                    steps: int, vdd_ws: int = 0) -> torch.Tensor:
+    """Fused MICW decode of FF 57 strips: packed-table rANS + unzigzag +
+    the zzd row prefix sum (``vdd_ws == 0``) or the vdd previous-row
+    carry (``vdd_ws`` = width/128 in {1, 2, 4, 8}).
+
+    Operands are int32 bit-views (:func:`to_device`) of
+    :func:`build_packed_tables`' arrays plus ``ws`` [S, 128], each
+    strip's row width in 128-lane steps.  Returns int16 [S, steps, 128]
+    (bit-view of u16 pixels).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel of ``csrc/rans_decode.cu``.
+    """
+    S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift,
+                                     ws, steps, vdd_ws)
+    if init.device.type == "cpu":
+        return rans_decode_zzd_plain(init, tpk, alpha, words, mask, shift, ws,
+                                     steps=steps, vdd_ws=vdd_ws)
+    if init.device.type != "cuda":
+        raise ValueError(f"unsupported device {init.device}")
+    from .._build import kernel_library
+
+    lib = kernel_library()
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    with torch.cuda.device(init.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_rans_decode_zzd(
+            init.data_ptr(), tpk.data_ptr(), ts, alpha.data_ptr(), asz,
+            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), S, steps, vdd_ws, stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_rans_decode_zzd launch failed: CUDA error {rc}")
+    rans_decode_zzd.launches += 1
+    return out
+
+
+rans_decode_zzd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# FF 41 alias-bucket kernel
+# ---------------------------------------------------------------------------
+
+
+def _alias_operands(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
+                    steps, vdd_ws):
+    _check_steps(steps, vdd_ws)
+    S = init.shape[0]
+    dev = init.device
+    if S == 0 or init.dim() != 2 or words.dim() != 3 or esides.dim() != 3:
+        raise ValueError("init must be [S>0, 128], words and esides [S, rows, 128]")
+    rows, erows = words.shape[1], esides.shape[1]
+    if rows < 2 or erows < 2:
+        raise ValueError(f"words ({rows}) and esides ({erows}) need >= 2 rows")
+    for name, t, shape in (("init", init, (S, 128)), ("w0", w0, (S, 128)),
+                           ("w1", w1, (S, 128)), ("w2", w2, (S, 128)),
+                           ("words", words, (S, rows, 128)),
+                           ("mask", mask, (S, 128)), ("shift", shift, (S, 128)),
+                           ("escv", escv, (S, 128)),
+                           ("esides", esides, (S, erows, 128)),
+                           ("ws", ws, (S, 128))):
+        _check(name, t, shape, dev)
+    return S, rows, erows
+
+
+def rans_decode_alias_plain(init, w0, w1, w2, words, mask, shift, escv,
+                            esides, ws, *, steps: int, vdd_ws: int = 0,
+                            fused: bool = True, esc: bool = True) -> torch.Tensor:
+    """Plain-PyTorch twin of the alias kernel (any device).  Same
+    operands and output as :func:`rans_decode_alias`."""
+    S, rows, erows = _alias_operands(init, w0, w1, w2, words, mask, shift,
+                                     escv, esides, ws, steps, vdd_ws)
+    x = _u(init)
+    w0, w1, w2, m, sft, ev_cmp = _u(w0), _u(w1), _u(w2), _u(mask), _u(shift), _u(escv)
+    words = _u(words).reshape(S, -1)
+    esides = _u(esides).reshape(S, -1)
+    emax = erows * 128 - 256
+    cur = torch.zeros((S, 1), dtype=torch.int64, device=init.device)
+    ecur = torch.zeros_like(cur)
+    inverse = _Inverse(S, vdd_ws, ws, init.device)
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    for t in range(steps):
+        slot = x & m
+        bi = _shr(slot, (sft - 7) & _U32).clamp(max=127)
+        o = slot & (m >> 7)
+        g0 = torch.gather(w0, 1, bi)
+        g1 = torch.gather(w1, 1, bi)
+        g2 = torch.gather(w2, 1, bi)
+        tp = g1 >> 24
+        is_p = o < tp
+        fm1 = torch.where(is_p, g1 >> 12, g2 >> 12) & 0xFFF
+        sb = torch.where(is_p, g1, g2) & 0xFFF
+        j = (sb + o - torch.where(is_p, 0, tp)) & _U32
+        sym = torch.where(is_p, g0 >> 16, g0 & 0xFFFF)
+        xn = ((fm1 + 1) * _shr(x, sft) + j) & _U32
+        if esc:
+            is_esc = sym == ev_cmp
+            ne = is_esc.to(torch.int64)
+            ke = torch.cumsum(ne, dim=1) - ne
+            ecl = torch.clamp(ecur, max=emax)
+            sym = torch.where(is_esc, torch.gather(esides, 1, ecl + ke), sym)
+            ecur = ecur + ne.sum(dim=1, keepdim=True)
+        x, cur = _renorm(xn, cur, words, rows)
+        out[:, t] = _as_i16(inverse(t, sym) if fused else sym)
+    return out
+
+
+def rans_decode_alias(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
+                      *, steps: int, vdd_ws: int = 0, fused: bool = True,
+                      esc: bool = True) -> torch.Tensor:
+    """Fused MICW decode of FF 41 alias strips: three 128-entry bucket
+    lookups, escape substitution from the side stream (``esc``), then the
+    zzd/vdd inverse of :func:`rans_decode_zzd`; ``fused=False`` returns
+    the symbols.
+
+    Operands are int32 bit-views (:func:`to_device`) of
+    :func:`build_alias_bucket_tables`' arrays plus ``ws`` [S, 128].
+    Returns int16 [S, steps, 128] (bit-view of u16).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel of
+    ``csrc/rans_decode.cu``.
+    """
+    S, rows, erows = _alias_operands(init, w0, w1, w2, words, mask, shift,
+                                     escv, esides, ws, steps, vdd_ws)
+    if init.device.type == "cpu":
+        return rans_decode_alias_plain(init, w0, w1, w2, words, mask, shift,
+                                       escv, esides, ws, steps=steps,
+                                       vdd_ws=vdd_ws, fused=fused, esc=esc)
+    if init.device.type != "cuda":
+        raise ValueError(f"unsupported device {init.device}")
+    from .._build import kernel_library
+
+    lib = kernel_library()
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    with torch.cuda.device(init.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_rans_decode_alias(
+            init.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(),
+            escv.data_ptr(), esides.data_ptr(), erows, ws.data_ptr(),
+            out.data_ptr(), S, steps, vdd_ws if fused else 0, int(fused),
+            int(esc), stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_rans_decode_alias launch failed: CUDA error {rc}")
+    rans_decode_alias.launches += 1
+    return out
+
+
+rans_decode_alias.launches = 0

@@ -1,0 +1,377 @@
+"""MICW container parse and the batch decode plan of its direct modes.
+
+Port of the decode path of ``mic_tpu.tpu.strips``: the container parse
+(a jax-free copy, pinned to the original by the tests) and
+``MicwDecodePlan`` / ``micw_decode_many`` for the direct modes zzd, vdd
+and pdd on both entropy families (FF 57 standard, FF 41 alias).
+
+The plan pools the strips of every image of a batch into buckets keyed
+on (entropy family, predictor, padded step count, geometry), as
+``mic_tpu`` keys them, and runs each bucket as ONE launch of one of the
+two fused kernels of ``rans_decode``.  pdd's second (column) prefix sum
+is a plain ``torch.cumsum`` on the kernel's output, as ``mic_tpu`` leaves
+it to XLA.  Raw and constant strips are copied on the host.
+
+Strips outside this slice raise ``NotImplementedError`` at plan
+construction: the r-modes and escaped modes (zz, avg, zzr, vdr, pdr),
+lanes != 128, width % 128 != 0, vdd with width/128 not in {1,2,4,8},
+FF 41 with tableLog > 12, FF 57 with tableLog > 12 or an alphabet over
+4096 symbols.
+
+Container layout::
+
+    "MICW" | width u32 | height u32 | numStrips u32 | stripH u32
+    maxValue u16 | flags u8 | lanes_log2 u8
+    [FLAG_BANDED: orig_width u32 | orig_height u32]
+    per strip: offset u32 | length u32 | nSoa u32 | nTokens u32 | nRuns u32 | nSame u32 | mode u32
+    concatenated MICT entropy blobs (one per strip)
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+import torch
+
+from .device_rans import mict_parse
+from .rans_decode import (
+    _as_i16,
+    build_alias_bucket_tables,
+    build_packed_tables,
+    rans_decode_alias,
+    rans_decode_zzd,
+    to_device,
+)
+
+__all__ = [
+    "micw_parse",
+    "micw_band_info",
+    "band_split",
+    "band_merge",
+    "strip_predictor",
+    "MicwDecodePlan",
+    "micw_decode_many",
+    "MICW_MAGIC",
+    "MICW_BAND_W",
+]
+
+MICW_MAGIC = b"MICW"
+MICW_HEADER = 24
+MICW_ENTRY = 28
+FLAG_AVG_PREDICTOR = 0x01
+FLAG_DIRECT = 0x02  # zz-direct: no RLE, no escapes (mod-2^16 ZigZag diffs)
+FLAG_ADAPTIVE = 0x04  # v4: per-strip predictor modes
+FLAG_BANDED = 0x08  # v5: wide images stored as stacked column bands
+FLAG_RDENSE = 0x10  # v6: r-mode run streams are dense
+STRIP_MODE_MICT = 0  # legacy: predictor from the global flags
+STRIP_MODE_RAW = 1  # raw u16 pixels
+STRIP_MODE_ZZD = 2  # zz-direct (no RLE)
+STRIP_MODE_ZZ = 3  # zz + SoA-RLE + escapes
+STRIP_MODE_AVG = 4  # avg + SoA-RLE + escapes
+STRIP_MODE_CONST = 5  # constant strip: payload is ONE u16 value
+STRIP_MODE_VDD = 6  # vertical-direct (up-delta, no RLE)
+STRIP_MODE_PDD = 7  # plane-direct (W+N-NW delta, no RLE)
+STRIP_MODE_ZZR = 8  # zz-direct + SoA-RLE
+STRIP_MODE_VDR = 9  # vertical-direct + SoA-RLE
+STRIP_MODE_PDR = 10  # plane-direct + SoA-RLE
+MAX_ALPHABET = 4096  # packed-kernel cap (12-bit rank)
+ALIAS_TABLE_LOG = 12  # alias-kernel cap (12-bit bucket-table fields)
+MICW_BAND_W = 512  # column-band width for FLAG_BANDED containers
+
+_MODE_PRED = {
+    STRIP_MODE_ZZD: "zzd",
+    STRIP_MODE_ZZ: "zz",
+    STRIP_MODE_AVG: "avg",
+    STRIP_MODE_VDD: "vdd",
+    STRIP_MODE_PDD: "pdd",
+    STRIP_MODE_ZZR: "zzr",
+    STRIP_MODE_VDR: "vdr",
+    STRIP_MODE_PDR: "pdr",
+}
+_DIRECT_PREDS = ("zzd", "vdd", "pdd")  # no RLE, no escapes
+
+
+def strip_predictor(global_pred: str, mode: int) -> str | None:
+    """Effective predictor of one strip (None = raw or constant)."""
+    if mode in (STRIP_MODE_RAW, STRIP_MODE_CONST):
+        return None
+    if mode == STRIP_MODE_MICT:
+        return global_pred
+    return _MODE_PRED[mode]
+
+
+def band_split(pixels: np.ndarray, width: int, height: int,
+               band_w: int = MICW_BAND_W):
+    """Split a wide image into vertically-stacked column bands: a
+    (h, B*bw) image becomes a (B*h, bw) image, band b in rows
+    [b*h, (b+1)*h).  Returns (stacked pixels, band_w, B*h)."""
+    bands = width // band_w
+    img = np.asarray(pixels, dtype=np.uint16).reshape(height, width)
+    stacked = img.reshape(height, bands, band_w).transpose(1, 0, 2)
+    return np.ascontiguousarray(stacked).reshape(-1), band_w, bands * height
+
+
+def band_merge(stacked: np.ndarray, band_w: int, orig_w: int, orig_h: int) -> np.ndarray:
+    """Inverse of :func:`band_split`."""
+    bands = orig_w // band_w
+    img = np.asarray(stacked, dtype=np.uint16).reshape(bands, orig_h, band_w)
+    return np.ascontiguousarray(img.transpose(1, 0, 2)).reshape(-1)
+
+
+def micw_band_info(blob: bytes):
+    """(orig_width, orig_height) of a FLAG_BANDED container, else None.
+    Decoding runs in the stacked band space that micw_parse reports;
+    only the user-facing results are un-banded."""
+    if len(blob) < MICW_HEADER or blob[:4] != MICW_MAGIC:
+        raise ValueError("micw: invalid magic")
+    flags = blob[22]
+    if not flags & FLAG_BANDED:
+        return None
+    if len(blob) < MICW_HEADER + 8:
+        raise ValueError("micw: truncated banded extension")
+    return struct.unpack_from("<II", blob, MICW_HEADER)
+
+
+def _unband(pixels: np.ndarray, width: int, height: int, blob: bytes):
+    info = micw_band_info(blob)
+    if info is None:
+        return pixels, width, height
+    ow, oh = info
+    return band_merge(pixels, width, ow, oh), ow, oh
+
+
+def micw_parse(blob: bytes):
+    """Returns (width, height, num_strips, strip_h, max_value, predictor,
+    lanes, strips) with strips = [(mict bytes, n_soa, n_tok, n_runs,
+    n_same, mode)]; width/height are the stacked band space's."""
+    if len(blob) < MICW_HEADER or blob[:4] != MICW_MAGIC:
+        raise ValueError("micw: invalid magic")
+    width, height, num_strips, strip_h = struct.unpack_from("<IIII", blob, 4)
+    max_value, flags, lanes_log2 = struct.unpack_from("<HBB", blob, 20)
+    hdr = MICW_HEADER
+    if flags & FLAG_BANDED:
+        hdr += 8  # orig_width/orig_height extension (see micw_band_info)
+    if len(blob) < hdr + num_strips * MICW_ENTRY:
+        raise ValueError("micw: truncated strip table")
+    table = [
+        struct.unpack_from("<IIIIIII", blob, hdr + s * MICW_ENTRY) for s in range(num_strips)
+    ]
+    data0 = hdr + num_strips * MICW_ENTRY
+    strips = []
+    for off, ln, n_soa, n_tok, n_runs, n_same, mode in table:
+        start = data0 + off
+        if start + ln > len(blob):
+            raise ValueError("micw: strip data out of bounds")
+        strips.append((blob[start : start + ln], n_soa, n_tok, n_runs, n_same, mode))
+    if flags & FLAG_DIRECT:
+        predictor = "zzd"
+    elif flags & FLAG_AVG_PREDICTOR:
+        predictor = "avg"
+    else:
+        predictor = "zz"
+    return width, height, num_strips, strip_h, max_value, predictor, 1 << lanes_log2, strips
+
+
+def _strip_bucket(p, pred: str, mode: int, width: int, strip_h: int):
+    """Bucket key of one entropy strip, or NotImplementedError when the
+    strip lies outside the ported slice."""
+    if pred not in _DIRECT_PREDS:
+        raise NotImplementedError(
+            f"micw: strip mode {mode} ({pred}) is not ported to mic_tpu_torch yet")
+    if width % 128:
+        raise NotImplementedError(
+            f"micw: {pred} strip of width {width} (not a multiple of 128)")
+    if pred == "vdd" and width // 128 not in (1, 2, 4, 8):
+        raise NotImplementedError(
+            f"micw: vdd strip of width {width} (width/128 not in 1, 2, 4, 8)")
+    is_alias = p[7] is not None
+    if is_alias and p[1] > ALIAS_TABLE_LOG:
+        raise NotImplementedError(f"micw: FF 41 {pred} strip with tableLog {p[1]} > 12")
+    if not is_alias and (p[1] > 12 or np.count_nonzero(p[5]) > MAX_ALPHABET):
+        raise NotImplementedError(
+            f"micw: FF 57 {pred} strip with tableLog {p[1]} or alphabet "
+            f"{np.count_nonzero(p[5])} beyond the packed kernel's 12 / 4096")
+    # Padded step count, a power of two >= 8: strips of similar size share
+    # a launch, so short strips do not pad to the longest one.
+    need = max(8, -(-p[2] // 128))
+    b = 8
+    while b < need:
+        b *= 2
+    a = "a" if is_alias else ""
+    if pred == "pdd":
+        return (a + "pdd", b, width, strip_h)  # the column cumsum needs the geometry
+    if pred == "vdd":
+        return (a + "vdd", b, width)
+    return (a + "zzd", b)  # widths mix through the ws operand
+
+
+class _Bucket:
+    """One kernel launch: device operands, kernel arguments and, for pdd,
+    the (width, strip_h) of the column prefix sum."""
+
+    def __init__(self, key, entries, device):
+        kind, steps = key[0], key[1]
+        S = len(entries)
+        parsed = [e[0] for e in entries]
+        ws = np.zeros((S, 128), np.uint32)
+        ws[:] = np.array([w // 128 for _p, w in entries], np.uint32)[:, None]
+        self.geom = (key[2], key[3]) if kind.endswith("pdd") else None
+        vdd_ws = key[2] // 128 if kind.endswith("vdd") else 0
+        self.n = S
+        if kind.startswith("a"):
+            built = build_alias_bucket_tables(parsed, min_steps=steps)
+            self.fn = rans_decode_alias
+            self.ops = to_device(built[:9] + (ws,), device)
+            esc = any(len(p[7][1]) for p in parsed)
+            self.kwargs = dict(steps=built[10], vdd_ws=vdd_ws, fused=True, esc=esc)
+        else:
+            tl = max(max(p[1] for p in parsed), 7)
+            built = build_packed_tables(parsed, tl, min_steps=steps)
+            if built is None:  # _strip_bucket rejects what the builder would
+                raise RuntimeError(f"micw: packed tables refused bucket {key}")
+            self.fn = rans_decode_zzd
+            self.ops = to_device(built[:6] + (ws,), device)
+            self.kwargs = dict(steps=built[7], vdd_ws=vdd_ws)
+
+    def __call__(self) -> torch.Tensor:
+        out = self.fn(*self.ops, **self.kwargs).reshape(self.n, -1)
+        if self.geom is None:
+            return out
+        w, sh = self.geom
+        need = w * sh
+        if out.shape[1] < need:  # a short last strip of a taller bucket
+            out = torch.nn.functional.pad(out, (0, need - out.shape[1]))
+        img = (out[:, :need].to(torch.int32) & 0xFFFF).reshape(self.n, sh, w)
+        return _as_i16(torch.cumsum(img, dim=1, dtype=torch.int32)).reshape(self.n, -1)
+
+
+class MicwDecodePlan:
+    """A staged decode of a fixed batch of MICW blobs on ``device``.
+
+    Host work (parsing, table building, the copy of operands to the
+    device) runs once here; :meth:`run` executes only the bucket
+    launches and returns device-resident outputs; :meth:`assemble`
+    copies a run's outputs back to per-image host arrays.
+    """
+
+    def __init__(self, blobs, device):
+        self.device = torch.device(device)
+        self.blobs = list(blobs)
+        self.metas = []  # (width, height, num_strips, strip_h) per blob
+        self.keys_per_blob = []  # per strip: ("raw", i) or (bucket key, row)
+        self.raw_strips = []
+        entries: dict[tuple, list] = {}
+        # Replicated batches pass the same blob object many times: parse
+        # each distinct container and strip once.
+        parse_memo: dict[int, tuple] = {}
+        mict_memo: dict[int, tuple] = {}
+        for blob in self.blobs:
+            parsed_c = parse_memo.get(id(blob))
+            if parsed_c is None:
+                parsed_c = parse_memo[id(blob)] = micw_parse(blob)
+            width, height, num_strips, strip_h, _mv, gpred, lanes, strips = parsed_c
+            if lanes != 128:
+                raise NotImplementedError(f"micw: {lanes} lanes per strip (the port decodes 128)")
+            self.metas.append((width, height, num_strips, strip_h))
+            keys = []
+            for st in strips:
+                pred = strip_predictor(gpred, st[5])
+                if pred is None:
+                    self.raw_strips.append(st)
+                    keys.append(("raw", len(self.raw_strips) - 1))
+                    continue
+                p = mict_memo.get(id(st[0]))
+                if p is None:
+                    p = mict_memo[id(st[0])] = mict_parse(st[0])
+                bk = _strip_bucket(p, pred, st[5], width, strip_h)
+                bucket = entries.setdefault(bk, [])
+                keys.append((bk, len(bucket)))
+                bucket.append((p, width))
+            self.keys_per_blob.append(keys)
+        self.buckets = {k: _Bucket(k, e, self.device) for k, e in entries.items()}
+
+    def run(self) -> dict:
+        """Launch every bucket; returns {bucket key: int16 [S, cols]
+        device tensor} (bit-views of the u16 pixels)."""
+        return {k: b() for k, b in self.buckets.items()}
+
+    def _strip_rows(self, bi: int):
+        """(y0, rows, key, index) of every strip of blob ``bi``."""
+        width, height, _ns, strip_h = self.metas[bi]
+        for i, (k, idx) in enumerate(self.keys_per_blob[bi]):
+            y0 = i * strip_h
+            yield y0, min(strip_h, height - y0), k, idx
+
+    def _raw_pixels(self, idx: int, n: int) -> np.ndarray:
+        st = self.raw_strips[idx]
+        if st[5] == STRIP_MODE_CONST:
+            return np.full(n, np.frombuffer(st[0], dtype="<u2", count=1)[0], np.uint16)
+        return np.frombuffer(st[0], dtype="<u2", count=n)
+
+    def _mismatches(self, decoded: dict, expected_by_blob: dict) -> int:
+        """Count of decoded pixels that differ from ``expected_by_blob``
+        ({blob index: pixels in image order}).  Bucket outputs compare on
+        the device against expected arrays of their own shape (rows of
+        other blobs masked out); raw strips compare on the host."""
+        segs: dict = {}
+        host = 0
+        for bi, expected in expected_by_blob.items():
+            expected = np.asarray(expected, dtype=np.uint16).ravel()
+            width, height = self.metas[bi][:2]
+            info = micw_band_info(self.blobs[bi])
+            if info is not None:
+                expected = band_split(expected, info[0], info[1])[0]
+            if expected.size != width * height:
+                raise ValueError(f"blob {bi}: expected {width * height} pixels, got {expected.size}")
+            for y0, sh, k, idx in self._strip_rows(bi):
+                seg = expected[y0 * width : (y0 + sh) * width]
+                if k == "raw":
+                    host += int(np.count_nonzero(self._raw_pixels(idx, seg.size) != seg))
+                else:
+                    segs.setdefault(k, {})[idx] = seg
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        for k, rows in segs.items():
+            dev = decoded[k]
+            cols = max(len(s) for s in rows.values())
+            exp = np.zeros((dev.shape[0], cols), np.uint16)
+            valid = np.zeros((dev.shape[0], 1), np.int64)
+            for i, s in rows.items():
+                exp[i, : len(s)] = s
+                valid[i, 0] = len(s)
+            exp_d = torch.from_numpy(exp.view(np.int16)).to(self.device)
+            valid_d = torch.from_numpy(valid).to(self.device)
+            lane = torch.arange(cols, device=self.device)[None, :]
+            total += ((dev[:, :cols] != exp_d) & (lane < valid_d)).sum()
+        return host + int(total)
+
+    def verify_batch(self, decoded: dict, expected_per_blob) -> int:
+        """Mismatching pixel count of EVERY blob of the batch (0 = all
+        bit-exact); ``expected_per_blob`` is in blob order."""
+        return self._mismatches(decoded, dict(enumerate(expected_per_blob)))
+
+    def verify_against(self, decoded: dict, expected, bi: int = 0) -> int:
+        """Mismatching pixel count of blob ``bi`` alone."""
+        return self._mismatches(decoded, {bi: expected})
+
+    def assemble(self, decoded: dict):
+        """Copy one run's outputs to host pixel arrays, blob order:
+        [(pixels u16, width, height)]."""
+        host = {k: v.cpu().numpy().view(np.uint16) for k, v in decoded.items()}
+        results = []
+        for bi, blob in enumerate(self.blobs):
+            width, height = self.metas[bi][:2]
+            out = np.empty(width * height, dtype=np.uint16)
+            for y0, sh, k, idx in self._strip_rows(bi):
+                seg = out[y0 * width : (y0 + sh) * width]
+                seg[:] = self._raw_pixels(idx, seg.size) if k == "raw" else host[k][idx][: seg.size]
+            results.append(_unband(out, width, height, blob))
+        return results
+
+
+def micw_decode_many(blobs, device):
+    """Decode a batch of MICW images on ``device`` in one launch per
+    bucket.  Images may differ in size and statistics.  Returns a list
+    of (pixels u16, width, height), blob order."""
+    plan = MicwDecodePlan(blobs, device)
+    return plan.assemble(plan.run())
