@@ -9,18 +9,34 @@ Phases (any failure exits non-zero; nothing is caught):
    power limit, builds the CUDA kernels from ``mic_tpu_torch/csrc`` and
    prints the build seconds and nvcc's per-kernel resource report.
 2. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card, on the operands of the main path's buckets (CT_dev x256 = 1024
-   strips of 512 steps, CT_dev_alias x256, MR_dev_alias x512, plus the
-   alias kernel with fused=False), whole output array, tolerance 0.
-   Times from CUDA events after a warm-up.
-3. Main path: ``MicwDecodePlan`` over a mixed batch (CT_dev x256, the
+   card, whole output arrays, tolerance 0.  Decode: on the operands of
+   the main path's buckets (CT_dev x256 = 1024 strips of 512 steps,
+   CT_dev_alias x256, MR_dev_alias x512, plus the alias kernel with
+   fused=False).  Encode: on the operands of CT_dev x128 under
+   ``micw_compress_device_many`` (auto-fast; standard, and alias for the
+   FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
+   steps, one image's operands replicated.  Times from CUDA events after
+   a warm-up.
+3. Decode path: ``MicwDecodePlan`` over a mixed batch (CT_dev x256, the
    batch size the reference bench targets, plus MR_dev, MR_dev_alias,
    wide_banded and CT_dev_alias replicated); every strip of every
-   replica is verified against the ``.raw`` pixels, and each kernel
+   replica is verified against the ``.raw`` pixels, and each decode
    wrapper must have launched during the run.  Prints staging seconds,
    decode GB/s over ``plan.run()``, the launch counts and a torch.profiler
    breakdown of one ``plan.run()`` by device kernel.
-4. Prints the kernel report as one JSON line, then, as the last line,
+4. Encode path: ``MicwEncodePlan`` (what ``micw_compress_device_many``
+   runs) over each fixture setting, replicated (CT_dev x64 is a 64-slice
+   CT series, 32 MiB of pixels); every container must equal its fixture
+   byte for byte, and both encode wrappers must have launched during the
+   phase.  Prints, per setting and in total, host seconds of candidate
+   generation, of the device encode call (host staging + kernel +
+   compaction) and of selection, end-to-end MB/s of input pixels and
+   launches per family, all from the unprofiled run; the kernel
+   milliseconds from a second device-encode call under torch.profiler;
+   and the host staging seconds from a third, separate run of the
+   staging alone.  The auto-fast containers are then decoded on the card by
+   ``MicwDecodePlan`` and verified pixel for pixel.
+5. Prints the kernel report as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor mic_tpu's device tier.
@@ -47,9 +63,26 @@ BATCH = {
     "wide_banded": (TESTDATA / "wide_banded.micw", TESTDATA / "wide_banded.raw", 32),
     "CT_dev_alias": (CT_ALIAS, TESTDATA / "CT_dev.raw", 32),
 }
-KERNEL_REPLACES = {
-    "rans_decode_zzd": "mic_tpu/tpu/pallas_rans.py:415",
-    "rans_decode_alias": "mic_tpu/tpu/pallas_rans.py:567",
+# name -> (container, pixels, predictor, entropy, replicas in the encode phase)
+ENCODE = {
+    "CT_dev": (TESTDATA / "CT_dev.micw", TESTDATA / "CT_dev.raw", "auto-fast", "standard", 64),
+    "CT_dev_alias": (CT_ALIAS, TESTDATA / "CT_dev.raw", "auto-fast", "alias", 16),
+    "MR_dev": (TESTDATA / "MR_dev.micw", TESTDATA / "MR_dev.raw", "auto-fast", "standard", 16),
+    "MR_dev_alias": (TESTDATA / "MR_dev_alias.micw", TESTDATA / "MR_dev_alias.raw",
+                     "auto-fast", "alias", 16),
+    "MR_dev_rbest": (TESTDATA / "MR_dev_rbest.micw", TESTDATA / "MR_dev_rbest.raw",
+                     "auto-r", "best", 16),
+    "MR_dev_auto": (TESTDATA / "MR_dev_auto.micw", TESTDATA / "MR_dev_auto.raw",
+                    "auto", "standard", 4),
+    "wide_banded": (TESTDATA / "wide_banded.micw", TESTDATA / "wide_banded.raw",
+                    "auto-fast", "standard", 8),
+}
+# name -> (CUDA source, file:line of the Pallas kernel body it replaces)
+KERNELS = {
+    "rans_decode_zzd": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:415"),
+    "rans_decode_alias": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:567"),
+    "rans_encode": ("mic_tpu_torch/csrc/rans_encode.cu", "mic_tpu/tpu/pallas_enc.py:115"),
+    "rans_encode_alias": ("mic_tpu_torch/csrc/rans_encode.cu", "mic_tpu/tpu/pallas_enc.py:115"),
 }
 
 
@@ -68,31 +101,177 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profile(plan) -> None:
-    """Device time of one ``plan.run()`` by kernel, from torch.profiler."""
+def _profiled(fn):
+    """Run ``fn()`` under torch.profiler; returns (result, wall ms, device
+    ms by kernel name, device span ms).  The name dict is empty when the
+    profiler recorded no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan.run()
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    span = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+            if events else 0) / 1e3
+    return out, wall_ms, by_name, span
+
+
+def _profile(plan) -> None:
+    """Device time of one ``plan.run()`` by kernel, from torch.profiler."""
+    _out, wall_ms, by_name, span = _profiled(plan.run)
+    if not by_name:
         print(f"profile: wall_ms={wall_ms:.3f}; no device events recorded "
               "(device breakdown not measured)")
         return
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
-    print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy / 1e3:.3f} "
-          f"device_span_ms={span / 1e3:.3f} idle_share_of_span={1 - busy / span:.3f} "
-          f"device_events={len(kernels)}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"profile: {us / 1e3:8.3f} ms {100 * us / busy:5.1f}%  {name[:110]}")
+    print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+          f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
+          f"device_kernel_names={len(by_name)}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
+
+
+def _max_abs_err(got, want) -> int:
+    """Largest difference of the bit-view values over all outputs."""
+    import torch
+
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got, want))
+
+
+def _encode_kernels_vs_plain(dev, report) -> None:
+    """Phase 2, encode half: both forms of the encode kernel against their
+    plain versions on CT_dev x128's candidate operands."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu.strips import ALIAS_TABLE_LOG, MAX_TABLE_LOG, micw_parse
+
+    blob = (TESTDATA / "CT_dev.micw").read_bytes()
+    w, h, _ns, _sh, mv = micw_parse(blob)[:5]
+    px = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")
+    reps = 128
+    for alias, name in ((False, "rans_encode"), (True, "rans_encode_alias")):
+        plan = renc.MicwEncodePlan([(px, w, h, mv)], "alias" if alias else "standard",
+                                   "auto-fast")
+        staged = renc.stage_encode_batch(
+            [j[0] for j in plan.jobs[alias]], on_error="none", alias=alias,
+            max_table_log=ALIAS_TABLE_LOG if alias else MAX_TABLE_LOG)
+        staged.ops = tuple(np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1)))
+                           for a in staged.ops)
+        ops = renc.staged_to_device(staged, dev)
+        kernel = getattr(renc, name)
+        plain = getattr(renc, name + "_plain")
+        got = kernel(*ops, steps=staged.steps)
+        want = plain(*ops, steps=staged.steps)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
+        ms = _cuda_ms(lambda: kernel(*ops, steps=staged.steps), 10)
+        plain_ms = _cuda_ms(lambda: plain(*ops, steps=staged.steps), 1)
+        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(f"kernel-vs-plain {name} CT_dev{'_alias' if alias else ''}x{reps} "
+              f"streams={ops[0].shape[0]} steps={staged.steps} table_width={ops[1].shape[1]} "
+              f"equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+
+
+def _encode_phase(dev):
+    """Phase 4: the encode path over every fixture setting; returns the
+    launch counts of the phase and the auto-fast containers with their
+    expected pixels."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu.strips import (
+        ALIAS_TABLE_LOG,
+        MAX_TABLE_LOG,
+        micw_band_info,
+        micw_parse,
+    )
+
+    tot = {"bytes": 0, "cand_s": 0.0, "enc_s": 0.0, "sel_s": 0.0, "kernel_ms": 0.0,
+           "stage_s": 0.0}
+    launches = {"rans_encode": 0, "rans_encode_alias": 0}
+    decode_batch, decode_expected = [], []
+    for name, (blob_p, raw_p, pred, ent, reps) in ENCODE.items():
+        want = blob_p.read_bytes()
+        w, h, _ns, _sh, mv = micw_parse(want)[:5]
+        band = micw_band_info(want)
+        if band is not None:
+            w, h = band
+        px = np.fromfile(raw_p, dtype="<u2")
+        images = [(px, w, h, mv)] * reps
+        # The main path, unprofiled: its launches and its rate count.
+        renc.rans_encode.launches = 0
+        renc.rans_encode_alias.launches = 0
+        t0 = time.perf_counter()
+        plan = renc.MicwEncodePlan(images, ent, pred)
+        cand_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = plan.encode(dev)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = plan.assemble(results)
+        sel_s = time.perf_counter() - t0
+        run = (renc.rans_encode.launches, renc.rans_encode_alias.launches)
+        launches["rans_encode"] += run[0]
+        launches["rans_encode_alias"] += run[1]
+        # Kernel milliseconds from a second device-encode call under
+        # torch.profiler; its launches are not counted.
+        _r, _wall, by_name, _span = _profiled(lambda: plan.encode(dev))
+        kernel_ms = sum(v for k, v in by_name.items() if "rans_enc_kernel" in k)
+        # The host staging of the device-encode call (histogram,
+        # normalization, ncount header, tables, ranks), timed in a third,
+        # separate run with no launch.
+        t0 = time.perf_counter()
+        for alias, jobs in plan.jobs.items():
+            if jobs:
+                renc.stage_encode_batch(
+                    [j[0] for j in jobs], on_error="none", alias=alias,
+                    max_table_log=ALIAS_TABLE_LOG if alias else MAX_TABLE_LOG)
+        stage_s = time.perf_counter() - t0
+        bad = [i for i, o in enumerate(outs) if o != want]
+        n_bytes = px.nbytes * reps
+        total_s = cand_s + enc_s + sel_s
+        print(f"encode {name} x{reps} {pred}/{ent}: streams std={len(plan.jobs[False])} "
+              f"alias={len(plan.jobs[True])} candidates_s={cand_s:.3f} "
+              f"device_encode_s={enc_s:.3f} (host staging_s={stage_s:.3f}, separate run) "
+              f"kernel_ms={kernel_ms:.3f} (profiled run) "
+              f"select_s={sel_s:.3f} total_s={total_s:.3f} "
+              f"MBps={n_bytes / total_s / 1e6:.3f} launches(std,alias)={run} "
+              f"equal_to_fixture={not bad}")
+        if bad:
+            raise AssertionError(f"encode {name}: containers {bad[:10]} differ from the fixture")
+        if not by_name:
+            print(f"encode {name}: no device events recorded (kernel ms not measured)")
+        for k, v in (("bytes", n_bytes), ("cand_s", cand_s), ("enc_s", enc_s),
+                     ("sel_s", sel_s), ("kernel_ms", kernel_ms), ("stage_s", stage_s)):
+            tot[k] += v
+        if pred == "auto-fast":
+            decode_batch += outs
+            decode_expected += [px] * reps
+    total_s = tot["cand_s"] + tot["enc_s"] + tot["sel_s"]
+    host_s = total_s - tot["kernel_ms"] / 1e3
+    print(f"encode path: {sum(v[4] for v in ENCODE.values())} images, "
+          f"{tot['bytes']} input bytes in {total_s:.3f} s = {tot['bytes'] / total_s / 1e6:.3f} MB/s "
+          f"(unprofiled); candidates_s={tot['cand_s']:.3f} device_encode_s={tot['enc_s']:.3f} "
+          f"(host staging_s={tot['stage_s']:.3f}, separate runs) "
+          f"select_s={tot['sel_s']:.3f} kernel_ms={tot['kernel_ms']:.3f} (profiled runs) "
+          f"host_share={host_s / total_s:.5f} launches={launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the encode path")
+    return launches, decode_batch, decode_expected
 
 
 def main() -> int:
@@ -134,6 +313,7 @@ def main() -> int:
 
     # --- 2. each kernel against its plain version, main-path shapes --------
     report = {name: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0} for name in wrappers}
+    _encode_kernels_vs_plain(dev, report)
     for name, reps in (("CT_dev", 256), ("CT_dev_alias", 256), ("MR_dev_alias", 512)):
         plan = MicwDecodePlan([blobs[name]] * reps, dev)
         for key, b in plan.buckets.items():
@@ -163,7 +343,7 @@ def main() -> int:
                       f"equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
         del plan
 
-    # --- 3. main path ---------------------------------------------------------
+    # --- 3. decode path -------------------------------------------------------
     names = [k for k, v in BATCH.items() for _ in range(v[2])]
     batch = [blobs[k] for k in names]
     expected = [raws[k] for k in names]
@@ -189,27 +369,39 @@ def main() -> int:
     outs = plan.assemble(decoded)
     bad = [i for i, ((px, _w, _h), exp) in enumerate(zip(outs, expected))
            if px.dtype != np.uint16 or not np.array_equal(px, exp)]
-    print(f"main path: {len(batch)} images, {n_strips} entropy strips in "
+    print(f"decode path: {len(batch)} images, {n_strips} entropy strips in "
           f"{len(plan.buckets)} buckets, stage_s={stage_s:.3f} "
           f"first_run_s={first_run_s:.3f} mismatches={mism} bad_images={len(bad)} "
           f"launches={launches}")
     if mism or bad:
-        raise AssertionError(f"main path decoded wrong pixels: {mism} mismatches, images {bad[:10]}")
+        raise AssertionError(f"decode path decoded wrong pixels: {mism} mismatches, images {bad[:10]}")
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
+            raise AssertionError(f"{name} was not launched by the decode path")
     run_ms = _cuda_ms(plan.run, 5)
-    print(f"main path decode: {run_ms:.3f} ms per plan.run(), "
+    print(f"decode path: {run_ms:.3f} ms per plan.run(), "
           f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
           f"({timed_bytes} bytes)")
 
     _profile(plan)
+    del plan, decoded
 
-    # --- 4. report ------------------------------------------------------------
-    kernels = [{"name": name, "route": "cuda", "source": "mic_tpu_torch/csrc/rans_decode.cu",
-                "replaces": KERNEL_REPLACES[name], "launches": launches[name],
-                "max_abs_err": report[name]["max_abs_err"], "ms": report[name]["ms"],
-                "plain_ms": report[name]["plain_ms"]} for name in wrappers]
+    # --- 4. encode path -------------------------------------------------------
+    enc_launches, enc_blobs, enc_expected = _encode_phase(dev)
+    launches.update(enc_launches)
+    plan = MicwDecodePlan(enc_blobs, dev)
+    decoded = plan.run()
+    mism = plan.verify_batch(decoded, enc_expected)
+    print(f"encode path: {len(enc_blobs)} auto-fast containers decoded on the card, "
+          f"mismatches={mism}")
+    if mism:
+        raise AssertionError(f"encoded containers decode to wrong pixels: {mism} mismatches")
+
+    # --- 5. report ------------------------------------------------------------
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
+                "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
+               for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

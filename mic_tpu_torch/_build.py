@@ -37,6 +37,10 @@ _SIGNATURES = {
     # out, n_strips, steps, vdd_ws, fused, esc, stream
     "mic_rans_decode_alias": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                               _P, _I, _I, _I, _I, _I, _P],
+    # ranks, te1, te2, aw, ar1, ar2, count, tls, out_w, out_f, out_x,
+    # n_strips, steps, alias, stream
+    "mic_rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _P],
 }
 
 

@@ -1,2 +1,2 @@
-"""Device tier of the port: MICT/MICW decode-side host code and the
-fused rANS decode kernels' wrappers (counterpart of ``mic_tpu.tpu``)."""
+"""Device tier of the port: MICT/MICW host code and the wrappers of the
+rANS encode and decode kernels (counterpart of ``mic_tpu.tpu``)."""

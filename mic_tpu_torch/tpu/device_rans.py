@@ -1,11 +1,15 @@
-"""Decode side of the wide-lane rANS device format (MICT, FF 57 / FF 41).
+"""Host side of the wide-lane rANS device format (MICT, FF 57 / FF 41).
 
-A jax-free copy of the decode half of ``mic_tpu.tpu.device_rans``: the
-stream parser and the slot / alias table builders the kernels' operands
-are made from.  ``mic_tpu.tpu`` imports jax at package import, so the
-port cannot reuse it on a machine without jax; the copies here are
-pinned array for array to the originals by ``tests/test_torch_host_format.py``.
-No encoder lives here.
+A jax-free copy of the parts of ``mic_tpu.tpu.device_rans`` the port's
+kernels need.  Decode: the stream parser and the slot / alias table
+builders the decode kernels' operands are made from.  Encode: the
+normalization + ncount header (``_norm_and_header``) and the alias
+escape-fold plan (``_alias_plan`` / ``_alias_apply`` /
+``alias_encode_plan``) that define an encoded blob's bytes; the rANS
+scan itself is the encode kernel's (``rans_encode``).  ``mic_tpu.tpu``
+imports jax at package import, so the port cannot reuse it on a machine
+without jax; the copies here are pinned to the originals by
+``tests/test_torch_host_format.py`` and ``tests/test_torch_rans_encode.py``.
 
 Stream layout (magic 0xFF 0x57 'W'; FF 41 adds the escape fields)::
 
@@ -23,8 +27,14 @@ import struct
 
 import numpy as np
 
-from mic_tpu.native import read_ncount_native
-from mic_tpu.ops.fse import read_ncount
+from mic_tpu.native import normalize_write_count_native, read_ncount_native
+from mic_tpu.ops.fse import (
+    IncompressibleError,
+    normalize_count,
+    optimal_table_log,
+    read_ncount,
+    write_count,
+)
 
 __all__ = [
     "MICT_MAGIC",
@@ -38,6 +48,7 @@ __all__ = [
     "alias_slot_tables",
     "slot_tables",
     "mict_parse",
+    "alias_encode_plan",
 ]
 
 MICT_MAGIC = b"\xffW"
@@ -253,3 +264,76 @@ def mict_parse(blob: bytes):
         esc_values = np.frombuffer(blob, dtype="<u2", count=n_esc, offset=pos).copy()
         alias = (esc_val, esc_values)
     return L, table_log, count, states, words, norm, symbol_len, alias
+
+
+def _norm_and_header(counts, n, tl, sl):
+    """normalize_count + write_count: (norm, ncount header bytes).  The
+    native pair when ``mic_tpu.native`` is built, else numpy (the same
+    algorithms, bit-identical)."""
+    nat = normalize_write_count_native(counts, n, tl, sl)
+    if nat is not None:
+        return nat
+    norm = normalize_count(counts, n, tl, sl)
+    if int(np.abs(norm).sum()) != (1 << tl):  # reference validateNorm
+        raise ValueError("normalize: table does not sum to 1<<tableLog")
+    return norm, write_count(norm, sl, tl)
+
+
+def _alias_plan(counts, symbol_len, kept: int):
+    """Folding plan for a symbol stream's tail: keep the ``kept`` most
+    frequent values (count desc, value asc); rare occurrences recode as
+    ``esc_val`` (the smallest value with zero count).
+
+    Returns (kept_vals, counts2, symbol_len2, esc_val)."""
+    nzv = np.nonzero(counts)[0]
+    order = np.lexsort((nzv, -counts[nzv]))  # count desc, value asc
+    kept_vals = np.sort(nzv[order[:kept]])
+    zero = np.nonzero(counts == 0)[0]
+    if len(zero):
+        esc_val = int(zero[0])
+    elif symbol_len <= 65535:
+        esc_val = symbol_len
+    else:
+        raise IncompressibleError("alias: no free symbol value for ESC")
+    sl2 = max(int(kept_vals.max()), esc_val) + 1
+    counts2 = np.zeros(sl2, np.int64)
+    counts2[kept_vals] = counts[kept_vals]
+    n_rare = int(counts[nzv].sum() - counts[kept_vals].sum())
+    counts2[esc_val] = n_rare
+    return kept_vals, counts2, sl2, esc_val
+
+
+def _alias_apply(symbols, kept_vals, esc_val):
+    """Apply a fold plan to the stream: (recoded i64[n], esc_values
+    u16 in stream order)."""
+    is_kept = np.zeros(65536, bool)
+    is_kept[kept_vals] = True
+    rare_mask = ~is_kept[symbols]
+    esc_values = symbols[rare_mask].astype(np.uint16)
+    recoded = np.where(rare_mask, esc_val, symbols).astype(np.int64)
+    return recoded, esc_values
+
+
+def alias_encode_plan(counts, symbol_len, n, table_log, max_table_log=None):
+    """The byte-format-defining FF 41 encode setup: kept-reduction retry
+    loop, tableLog clamp (at most 12, at least 7), normalization + ncount
+    header, tables and the alias layout.  Returns (kept_vals, esc_val,
+    tl, header, freq, cumul, al); raises the usual sentinel errors."""
+    counts = np.asarray(counts[:symbol_len], dtype=np.int64)
+    kept = min(int((counts > 0).sum()), ALIAS_MAX_KEPT)
+    while True:
+        kept_vals, counts2, sl2, esc_val = _alias_plan(counts, symbol_len, kept)
+        tl = optimal_table_log(table_log, n, sl2)
+        tl = min(tl, 12 if max_table_log is None else min(max_table_log, 12))
+        tl = max(tl, 7)  # 128 buckets need at least 128 slots
+        try:
+            norm, header = _norm_and_header(counts2, n, tl, sl2)
+            freq, cumul = encode_tables(norm, tl)
+            al = alias_construct(norm, tl)
+            return kept_vals, esc_val, tl, header, freq, cumul, al
+        except AliasInfeasible:
+            kept -= 64
+            if kept < 8:
+                raise IncompressibleError("alias layout infeasible")
+        except ValueError as e:
+            raise IncompressibleError(str(e)) from e

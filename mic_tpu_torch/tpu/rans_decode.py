@@ -173,11 +173,12 @@ def to_device(arrays, device) -> tuple[torch.Tensor, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+           dtype: torch.dtype = torch.int32):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32 (uint32 bit-view), got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype} (unsigned bit-view), got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, other operands on {device}")
     if tuple(t.shape) != shape:

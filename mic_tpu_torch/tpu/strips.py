@@ -1,9 +1,17 @@
-"""MICW container parse and the batch decode plan of its direct modes.
+"""MICW container parse, strip encode helpers and the batch decode plan.
 
-Port of the decode path of ``mic_tpu.tpu.strips``: the container parse
-(a jax-free copy, pinned to the original by the tests) and
-``MicwDecodePlan`` / ``micw_decode_many`` for the direct modes zzd, vdd
-and pdd on both entropy families (FF 57 standard, FF 41 alias).
+Port of ``mic_tpu.tpu.strips``, in three parts:
+
+* the container parse (a jax-free copy, pinned to the original by the
+  tests);
+* the encode side shared by the host and device encoders: the direct
+  predictors' symbol transforms, candidate generation, the requests the
+  device batch encoder pre-encodes and the size-first selection
+  (``_strip_candidates`` / ``_strip_requests`` / ``_strip_select``,
+  jax-free copies pinned byte for byte by the tests; the device encoder
+  itself is ``rans_encode.micw_compress_device_many``);
+* ``MicwDecodePlan`` / ``micw_decode_many`` for the direct modes zzd,
+  vdd and pdd on both entropy families (FF 57 standard, FF 41 alias).
 
 The plan pools the strips of every image of a batch into buckets keyed
 on (entropy family, predictor, padded step count, geometry), as
@@ -29,12 +37,16 @@ Container layout::
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
 import torch
 
-from .device_rans import mict_parse
+from mic_tpu.ops.predictors import _interleave_escapes, delta_params, predictor_encode, zigzag
+from mic_tpu.ops.rle import soa_encode
+
+from .device_rans import ALIAS_MAX_KEPT, mict_parse
 from .rans_decode import (
     _as_i16,
     build_alias_bucket_tables,
@@ -75,9 +87,12 @@ STRIP_MODE_PDD = 7  # plane-direct (W+N-NW delta, no RLE)
 STRIP_MODE_ZZR = 8  # zz-direct + SoA-RLE
 STRIP_MODE_VDR = 9  # vertical-direct + SoA-RLE
 STRIP_MODE_PDR = 10  # plane-direct + SoA-RLE
+RDENSE_MIN_SAME = 16  # r-mode same-runs span >= 16 px (FLAG_RDENSE)
+MAX_TABLE_LOG = 11  # FF 57 encode cap (the decode reads tl <= 12)
 MAX_ALPHABET = 4096  # packed-kernel cap (12-bit rank)
 ALIAS_TABLE_LOG = 12  # alias-kernel cap (12-bit bucket-table fields)
 MICW_BAND_W = 512  # column-band width for FLAG_BANDED containers
+MID_DIRECT = 16383  # RLE midCount of the r-modes (a format constant)
 
 _MODE_PRED = {
     STRIP_MODE_ZZD: "zzd",
@@ -90,6 +105,9 @@ _MODE_PRED = {
     STRIP_MODE_PDR: "pdr",
 }
 _DIRECT_PREDS = ("zzd", "vdd", "pdd")  # no RLE, no escapes
+_RLE_DIRECT_PREDS = ("zzr", "vdr", "pdr")  # SoA-RLE, no escapes
+AUTO_FAST_TRIALS = ("zzd", "vdd", "pdd")  # scan-parallel decode modes only
+_PRED_MODE = {v: k for k, v in _MODE_PRED.items()}
 
 
 def strip_predictor(global_pred: str, mode: int) -> str | None:
@@ -99,6 +117,232 @@ def strip_predictor(global_pred: str, mode: int) -> str | None:
     if mode == STRIP_MODE_MICT:
         return global_pred
     return _MODE_PRED[mode]
+
+
+def _rle_mid(max_value: int) -> int:
+    """MICW's RLE midCount: derived from the escape delimiter like the
+    host formats, but floored at 127."""
+    _thr, delim = delta_params(max_value)
+    delim = max(int(delim), 255)
+    return (1 << (delim.bit_length() - 1)) - 1
+
+
+def _zigzag16(d: np.ndarray) -> np.ndarray:
+    """mod-2^16 ZigZag of int64 differences, as u16 symbols."""
+    d16 = d.astype(np.uint16).astype(np.int16)
+    return (
+        ((d16.astype(np.int32) << 1) ^ (d16.astype(np.int32) >> 15)) & 0xFFFF
+    ).astype(np.uint16).ravel()
+
+
+def _zzd_syms(strip_px: np.ndarray, width: int, sh: int) -> np.ndarray:
+    """zz-direct symbols: per-row mod-2^16 ZigZag left-deltas."""
+    img = strip_px.reshape(sh, width).astype(np.int64)
+    left = np.zeros_like(img)
+    left[:, 1:] = img[:, :-1]
+    return _zigzag16(img - left)
+
+
+def _vdd_syms(strip_px: np.ndarray, width: int, sh: int) -> np.ndarray:
+    """Vertical-direct symbols: per-column mod-2^16 ZigZag up-deltas."""
+    img = strip_px.reshape(sh, width).astype(np.int64)
+    up = np.zeros_like(img)
+    up[1:, :] = img[:-1, :]
+    return _zigzag16(img - up)
+
+
+def _pdd_syms(strip_px: np.ndarray, width: int, sh: int) -> np.ndarray:
+    """Plane-direct symbols: mod-2^16 ZigZag of p - W - N + NW (zero
+    boundary); the inverse is two prefix sums."""
+    img = strip_px.reshape(sh, width).astype(np.int64)
+    w = np.zeros_like(img)
+    w[:, 1:] = img[:, :-1]
+    n = np.zeros_like(img)
+    n[1:, :] = img[:-1, :]
+    nw = np.zeros_like(img)
+    nw[1:, 1:] = img[:-1, :-1]
+    return _zigzag16(img - w - n + nw)
+
+
+_DIRECT_SYMS = {
+    "zzd": _zzd_syms, "vdd": _vdd_syms, "pdd": _pdd_syms,
+    "zzr": _zzd_syms, "vdr": _vdd_syms, "pdr": _pdd_syms,
+}
+
+
+def _escaped_tokens(strip_px, width, sh, max_value, pred) -> np.ndarray:
+    """Escaped residual token stream including the leading maxValue word
+    (the fused Delta+RLE layout of the zz and avg modes)."""
+    thr, delim = delta_params(max_value)
+    if pred == "zz":
+        img = np.asarray(strip_px, dtype=np.uint16).reshape(sh, width)
+        p = img.astype(np.int64)
+        left = np.zeros_like(p)
+        left[:, 1:] = p[:, :-1]
+        diff = p - left
+        escape = np.abs(diff) >= thr
+        stream = _interleave_escapes(
+            zigzag(diff.astype(np.int16)).ravel(), img.ravel(), escape.ravel(), delim
+        )
+    else:
+        stream = predictor_encode(strip_px, width, sh, max_value, "avg")
+    return np.concatenate(
+        [np.array([max_value], dtype=np.uint16), stream.astype(np.uint16)]
+    )
+
+
+def _estimate_bytes(syms: np.ndarray, alias: bool = False,
+                    counts: np.ndarray | None = None) -> float:
+    """Zeroth-order entropy size estimate for ranking candidates; +inf
+    for alphabets no kernel takes.  Alias alphabets beyond the 255 kept
+    symbols are modelled as escape-folded (2 bytes per escape)."""
+    if counts is None:
+        counts = np.bincount(syms)
+    nz = counts[counts > 0]
+    n = len(syms)
+    if alias and len(nz) > ALIAS_MAX_KEPT:
+        kept = np.sort(nz)[::-1][:ALIAS_MAX_KEPT].astype(np.int64)
+        esc = n - int(kept.sum())
+        parts = np.concatenate([kept, [esc]]) if esc else kept
+        p = parts / n
+        h_bits = float(-(p * np.log2(p)).sum()) * n
+        return h_bits / 8 + 1.2 * len(parts) + 2.0 * esc
+    if len(nz) > (MAX_ALPHABET if not alias else 65536):
+        return float("inf")
+    p = nz / n
+    h_bits = float(-(p * np.log2(p)).sum()) * n
+    return h_bits / 8 + 1.2 * len(nz)  # ~ncount header cost per symbol
+
+
+def _trials_for(predictor: str) -> list[str]:
+    """Trial set of a predictor spec: "auto" (every mode), "auto-r"
+    (direct + RLE'd direct), "auto-fast" (direct only) or one mode."""
+    if predictor == "auto":
+        return ["zzd", "vdd", "pdd", "zzr", "vdr", "pdr", "zz", "avg"]
+    if predictor == "auto-r":
+        return list(_DIRECT_PREDS) + list(_RLE_DIRECT_PREDS)
+    if predictor == "auto-fast":
+        return list(AUTO_FAST_TRIALS)
+    if predictor in _MODE_PRED.values():
+        return [predictor]
+    raise ValueError(f"micw: unknown predictor {predictor!r}")
+
+
+def _r_margin() -> float:
+    """``MICW_R_MARGIN`` (the reference's variable, read the same way):
+    minimum fractional size win a non-direct strip candidate must show
+    over the best direct one (0 = pure size, the default)."""
+    try:
+        return float(os.environ.get("MICW_R_MARGIN", "0"))
+    except ValueError:
+        return 0.0
+
+
+def _strip_candidates(strip_px, width, sh, max_value, mid, trials, entropy):
+    """Phase 1 of strip encoding: the candidate streams
+    [(est, syms, counts, meta, mode)], sorted by the H0 size estimate."""
+    candidates = []
+    direct_cache = {}
+
+    def direct_syms(key):
+        if key not in direct_cache:
+            direct_cache[key] = _DIRECT_SYMS[key](strip_px, width, sh)
+        return direct_cache[key]
+
+    for pred in trials:
+        if pred in _DIRECT_PREDS:
+            syms = direct_syms(pred)
+            meta = (len(syms), len(syms), 0, 0)
+        elif pred in _RLE_DIRECT_PREDS:
+            base = direct_syms({"zzr": "zzd", "vdr": "vdd",
+                                "pdr": "pdd"}[pred])
+            syms, n_runs, n_same = soa_encode(base, MID_DIRECT,
+                                              min_same=RDENSE_MIN_SAME)
+            meta = (len(syms), len(base), n_runs, n_same)
+        else:
+            tokens = _escaped_tokens(strip_px, width, sh, max_value, pred)
+            syms, n_runs, n_same = soa_encode(tokens, mid)
+            meta = (len(syms), len(tokens), n_runs, n_same)
+        # "best" keeps wide-alphabet candidates standard would drop:
+        # alias can escape-fold them.
+        cnts = np.bincount(syms)
+        est = _estimate_bytes(syms, alias=entropy in ("alias", "best"),
+                              counts=cnts)
+        if est != float("inf"):
+            candidates.append((est, syms, cnts, meta, _PRED_MODE[pred]))
+    candidates.sort(key=lambda c: c[0])
+    return candidates
+
+
+def _strip_requests(candidates, n_trials, entropy):
+    """Every (candidate_idx, alias) pair :func:`_strip_select` may ask
+    its encoder for: the device batch encoder pre-encodes exactly this
+    set."""
+    use_alias = entropy == "alias"
+    direct_modes = {_PRED_MODE[p] for p in _DIRECT_PREDS}
+    reqs = set()
+    for i in range(min(5 if n_trials > 1 else 1, len(candidates))):
+        reqs.add((i, use_alias))
+        if entropy == "best":
+            reqs.add((i, True))
+    if _r_margin() > 0.0:
+        for i, c in enumerate(candidates):
+            if c[4] in direct_modes:
+                reqs.add((i, use_alias))
+                if entropy == "best":
+                    reqs.add((i, True))
+    return sorted(reqs)
+
+
+def _strip_select(candidates, strip_px, n_trials, entropy, enc):
+    """Phase 2 of strip encoding: pick the winning blob.  ``enc(i,
+    alias)`` returns candidate i's encoded bytes or None.  Size-first
+    over the top five estimates, with the "best" dual encode, the
+    MICW_R_MARGIN guard and the raw fallback.  Returns (blob, (n_soa,
+    n_tok, n_runs, n_same, mode))."""
+    use_alias = entropy == "alias"
+    best = best_direct = None  # (len, blob, meta, mode)
+    direct_modes = {_PRED_MODE[p] for p in _DIRECT_PREDS}
+
+    def enc_best(i):
+        blob = enc(i, use_alias)
+        if entropy == "best":
+            blob_a = enc(i, True)
+            if blob_a is not None and (blob is None or len(blob_a) < len(blob)):
+                blob = blob_a
+        return blob
+
+    for i, (_est, _syms, _cnts, meta, mode) in enumerate(
+            candidates[: 5 if n_trials > 1 else 1]):
+        blob = enc_best(i)
+        if blob is None:
+            continue
+        if best is None or len(blob) < best[0]:
+            best = (len(blob), blob, meta, mode)
+        if mode in direct_modes and (best_direct is None
+                                     or len(blob) < best_direct[0]):
+            best_direct = (len(blob), blob, meta, mode)
+    margin = _r_margin()
+    if (best is not None and best_direct is None and margin > 0.0
+            and best[3] not in direct_modes):
+        # The margin needs a direct comparator: encode the best-estimated
+        # direct candidate explicitly.
+        for i, (_est, _syms, _cnts, meta, mode) in enumerate(candidates):
+            if mode not in direct_modes:
+                continue
+            blob = enc_best(i)
+            if blob is not None:
+                best_direct = (len(blob), blob, meta, mode)
+                break
+    if (best is not None and best_direct is not None
+            and best[3] not in direct_modes and margin > 0.0
+            and best[0] > (1.0 - margin) * best_direct[0]):
+        best = best_direct
+    raw = strip_px.astype("<u2").tobytes()
+    if best is None or best[0] >= len(raw):
+        n = len(strip_px)
+        return raw, (n, n, 0, 0, STRIP_MODE_RAW)
+    return best[1], (*best[2], best[3])
 
 
 def band_split(pixels: np.ndarray, width: int, height: int,

@@ -106,7 +106,7 @@ def test_band_and_predictor_helpers():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, mic_tpu_torch; "
+    code = ("import sys, mic_tpu_torch, mic_tpu_torch.tpu.rans_encode; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mic_tpu.tpu'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
