@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
    card, whole output arrays, tolerance 0.  Decode: on the operands of
    the main path's buckets (CT_dev x256 = 1024 strips of 512 steps,
    CT_dev_alias x256, MR_dev_alias x512, plus the alias kernel with
-   fused=False).  Encode: on the operands of CT_dev x128 under
+   fused=False).  r-mode decode: on every bucket of phase 5's batch, each
+   with its own ``dense`` and with the other one.  Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
    steps, one image's operands replicated.  Times from CUDA events after
@@ -36,7 +37,19 @@ Phases (any failure exits non-zero; nothing is caught):
    and the host staging seconds from a third, separate run of the
    staging alone.  The auto-fast containers are then decoded on the card by
    ``MicwDecodePlan`` and verified pixel for pixel.
-5. Prints the kernel report as one JSON line, then, as the last line,
+5. r-mode decode path: ``MicwDecodePlan`` over the tissue fixtures
+   (``tests/data/torch_port/tissue_*.micw``: the three planes of
+   ``web/testdata/tissue_dev.raw`` under auto-r standard and best, and
+   pdr / zzr-alias of the green plane) x64, plus pdr and zzr-alias with
+   FLAG_RDENSE cleared x32: 576 images of 512x384, 1728 r-mode strips, a
+   WSI tile server decoding a batch of one slide's tiles.  Every strip of
+   every replica is verified against the plane's pixels and both r-mode
+   wrappers must have launched during the run.  Prints staging seconds,
+   decode GB/s over ``plan.run()``, the launch counts and a profiler
+   breakdown.  Then the six auto-r settings are encoded on the card by
+   ``micw_compress_device_many`` and must equal their fixtures byte for
+   byte.
+6. Prints the kernel report as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor mic_tpu's device tier.
@@ -53,7 +66,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TESTDATA = ROOT / "web" / "testdata"
-CT_ALIAS = ROOT / "tests" / "data" / "torch_port" / "CT_dev_alias.micw"
+PORT_DATA = ROOT / "tests" / "data" / "torch_port"
+CT_ALIAS = PORT_DATA / "CT_dev_alias.micw"
 
 # name -> (container, expected pixels, replicas in the main-path batch)
 BATCH = {
@@ -77,12 +91,20 @@ ENCODE = {
     "wide_banded": (TESTDATA / "wide_banded.micw", TESTDATA / "wide_banded.raw",
                     "auto-fast", "standard", 8),
 }
+# r-mode batch: (tissue fixture, replicas, FLAG_RDENSE cleared); the
+# plane is the letter after "tissue_"
+R_FIXTURES = [f"tissue_{c}_{s}" for s in ("rstd", "rbest") for c in "rgb"]
+R_BATCH = ([(n, 64, False) for n in R_FIXTURES + ["tissue_g_pdr", "tissue_g_zzr_alias"]]
+           + [("tissue_g_pdr", 32, True), ("tissue_g_zzr_alias", 32, True)])
 # name -> (CUDA source, file:line of the Pallas kernel body it replaces)
 KERNELS = {
     "rans_decode_zzd": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:415"),
     "rans_decode_alias": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:567"),
     "rans_encode": ("mic_tpu_torch/csrc/rans_encode.cu", "mic_tpu/tpu/pallas_enc.py:115"),
     "rans_encode_alias": ("mic_tpu_torch/csrc/rans_encode.cu", "mic_tpu/tpu/pallas_enc.py:115"),
+    "rans_decode_rle": ("mic_tpu_torch/csrc/rans_rle.cu", "mic_tpu/tpu/pallas_rans.py:1078"),
+    "rans_decode_rle_alias": ("mic_tpu_torch/csrc/rans_rle.cu",
+                              "mic_tpu/tpu/pallas_rans.py:1095"),
 }
 
 
@@ -181,6 +203,122 @@ def _encode_kernels_vs_plain(dev, report) -> None:
         print(f"kernel-vs-plain {name} CT_dev{'_alias' if alias else ''}x{reps} "
               f"streams={ops[0].shape[0]} steps={staged.steps} table_width={ops[1].shape[1]} "
               f"equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+
+
+def _tissue_plane(c):
+    import numpy as np
+
+    px = np.fromfile(TESTDATA / "tissue_dev.raw", "u1").reshape(384, 512, 3)
+    return px[:, :, "rgb".index(c)].astype(np.uint16).ravel()
+
+
+def _r_batch():
+    """Phase 5's containers and expected pixels, in batch order."""
+    planes = {c: _tissue_plane(c) for c in "rgb"}
+    blobs, expected = [], []
+    for name, reps, stripped in R_BATCH:
+        blob = bytearray((PORT_DATA / f"{name}.micw").read_bytes())
+        if stripped:
+            blob[22] &= ~0x10  # FLAG_RDENSE
+        blob = bytes(blob)
+        blobs += [blob] * reps
+        expected += [planes[name[len("tissue_")]]] * reps
+    return blobs, expected
+
+
+def _rle_kernels_vs_plain(dev, report) -> None:
+    """Phase 2, r-mode half: both r-kernels against their plain versions on
+    every bucket of phase 5's batch, with the bucket's own ``dense`` (timed)
+    and with the other one."""
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import rans_decode as rd
+
+    plain = {rd.rans_decode_rle: rd.rans_decode_rle_plain,
+             rd.rans_decode_rle_alias: rd.rans_decode_rle_alias_plain}
+    plan = MicwDecodePlan(_r_batch()[0], dev)
+    for key, b in plan.buckets.items():
+        for own in (True, False):
+            kw = dict(b.kwargs, dense=b.kwargs["dense"] == own)
+            name = b.fn.__name__
+            got = b.fn(*b.ops, **kw)
+            want = plain[b.fn](*b.ops, **kw)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {key} {kw}: kernel != plain (max abs err {err})")
+            r = report[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            line = (f"kernel-vs-plain {name} r-batch bucket={key} strips={b.n} "
+                    f"steps={kw['steps']} out_rows={kw['out_rows']} maxr={kw['maxr']} "
+                    f"dense={kw['dense']} equal=True")
+            if own:
+                ms = _cuda_ms(lambda: b.fn(*b.ops, **kw), 10)
+                plain_ms = _cuda_ms(lambda: plain[b.fn](*b.ops, **kw), 1)
+                r["ms"] += ms
+                r["plain_ms"] += plain_ms
+                line += f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}"
+            print(line)
+    del plan
+
+
+def _rle_phase(dev):
+    """Phase 5: the r-mode decode path, then the encode of the six auto-r
+    settings compared with their fixtures; returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan, micw_compress_device_many
+    from mic_tpu_torch.tpu import rans_decode as rd
+
+    batch, expected = _r_batch()
+    timed_bytes = 2 * sum(e.size for e in expected)  # every strip is an r-mode strip
+    rd.rans_decode_rle.launches = 0
+    rd.rans_decode_rle_alias.launches = 0
+    t0 = time.perf_counter()
+    plan = MicwDecodePlan(batch, dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = plan.run()
+    torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
+    launches = {"rans_decode_rle": rd.rans_decode_rle.launches,
+                "rans_decode_rle_alias": rd.rans_decode_rle_alias.launches}
+    n_strips = sum(b.n for b in plan.buckets.values())
+    mism = plan.verify_batch(decoded, expected)
+    outs = plan.assemble(decoded)
+    bad = [i for i, ((px, _w, _h), exp) in enumerate(zip(outs, expected))
+           if px.dtype != np.uint16 or not np.array_equal(px, exp)]
+    print(f"r-mode path: {len(batch)} images, {n_strips} entropy strips in "
+          f"{len(plan.buckets)} buckets, stage_s={stage_s:.3f} "
+          f"first_run_s={first_run_s:.3f} mismatches={mism} bad_images={len(bad)} "
+          f"launches={launches}")
+    if mism or bad:
+        raise AssertionError(f"r-mode path decoded wrong pixels: {mism} mismatches, "
+                             f"images {bad[:10]}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the r-mode path")
+    run_ms = _cuda_ms(plan.run, 5)
+    print(f"r-mode path: {run_ms:.3f} ms per plan.run(), "
+          f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
+          f"({timed_bytes} bytes)")
+    _profile(plan)
+    del plan, decoded, outs
+
+    images = [(_tissue_plane(c), 512, 384, 255) for c in "rgb"]
+    for ent, tag in (("standard", "rstd"), ("best", "rbest")):
+        t0 = time.perf_counter()
+        blobs = micw_compress_device_many(images, dev, entropy=ent, predictor="auto-r")
+        enc_s = time.perf_counter() - t0
+        want = [(PORT_DATA / f"tissue_{c}_{tag}.micw").read_bytes() for c in "rgb"]
+        print(f"r-mode encode auto-r/{ent}: 3 planes in {enc_s:.3f} s, "
+              f"equal_to_fixture={blobs == want}")
+        if blobs != want:
+            raise AssertionError(f"auto-r/{ent} containers differ from the tissue fixtures")
+    return launches
 
 
 def _encode_phase(dev):
@@ -312,8 +450,10 @@ def main() -> int:
                 "rans_decode_alias": (rd.rans_decode_alias, rd.rans_decode_alias_plain)}
 
     # --- 2. each kernel against its plain version, main-path shapes --------
-    report = {name: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0} for name in wrappers}
+    report = {name: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0}
+              for name in ("rans_decode_rle", "rans_decode_rle_alias", *wrappers)}
     _encode_kernels_vs_plain(dev, report)
+    _rle_kernels_vs_plain(dev, report)
     for name, reps in (("CT_dev", 256), ("CT_dev_alias", 256), ("MR_dev_alias", 512)):
         plan = MicwDecodePlan([blobs[name]] * reps, dev)
         for key, b in plan.buckets.items():
@@ -397,7 +537,10 @@ def main() -> int:
     if mism:
         raise AssertionError(f"encoded containers decode to wrong pixels: {mism} mismatches")
 
-    # --- 5. report ------------------------------------------------------------
+    # --- 5. r-mode decode path ---------------------------------------------------
+    launches.update(_rle_phase(dev))
+
+    # --- 6. report ------------------------------------------------------------
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
                 "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with nvcc into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), loaded with
-ctypes.  The library lands in ``build/`` at the repository root, named by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing file.  The build happens on first use.
+``csrc/*.cu`` compile with nvcc, one process per source, all started
+together, and link into one shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds), loaded with ctypes.  The
+library lands in ``build/`` at the repository root, named by a hash of
+the sources (headers included) and flags, so an edited source rebuilds
+and an unchanged one loads the existing file.  The build happens on
+first use.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ __all__ = ["build", "kernel_library"]
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,17 @@ _SIGNATURES = {
     # out, n_strips, steps, vdd_ws, fused, esc, stream
     "mic_rans_decode_alias": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                               _P, _I, _I, _I, _I, _I, _P],
+    # init, tpk, ts, alpha, asz, words, rows, mask, shift, ws, nrun, nsame,
+    # out, syms, st1, st2, n_strips, steps, out_rows, maxr, vdd_ws, dense,
+    # stream
+    "mic_rans_decode_rle": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # init, w0, w1, w2, words, rows, mask, shift, escv, esides, erows, ws,
+    # nrun, nsame, out, syms, st1, st2, n_strips, steps, out_rows, maxr,
+    # vdd_ws, dense, esc, stream
+    "mic_rans_decode_rle_alias": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                                  _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P],
     # ranks, te1, te2, aw, ar1, ar2, count, tls, out_w, out_f, out_x,
     # n_strips, steps, alias, stream
     "mic_rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -73,20 +86,24 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(_CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
-        lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(_CSRC.glob("*.cu")):
+            objs.append(os.path.join(tmp, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        link = [nvcc, *ARCH, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+        if all(rc == 0 for _c, _o, rc in outs):
+            res = subprocess.run(link, capture_output=True, text=True)
+            outs.append((link, res.stdout + res.stderr, res.returncode))
+        for cmd, out, rc in outs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+        lib.with_suffix(".log").write_text("".join(out for _c, out, _rc in outs))
+        os.replace(os.path.join(tmp, "lib.so"), lib)  # atomic: a loader sees all or nothing
     return lib
 
 

@@ -15,7 +15,9 @@
 // the need mask plus one word read) and apply the predictor inverse:
 // unzigzag, then the row prefix sum with its per-strip row reset every
 // ws steps (zzd, and pdd's first pass) or the previous-row carry of
-// vdd_ws 128-lane chunks (vdd).
+// vdd_ws 128-lane chunks (vdd).  The step of each front end, the scan and
+// the inverse live in rans_common.cuh, shared with the r-mode kernels of
+// rans_rle.cu.
 //
 // What bounds them on this card: the decode is a serial chain of
 // dependent steps per strip (the TPU grid's sequential carry becomes the
@@ -41,111 +43,9 @@
 // -Xcompiler -fPIC (mic_tpu_torch/_build.py).  Each C entry point returns
 // cudaGetLastError() after its launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rans_common.cuh"
 
 namespace {
-
-constexpr int kLanes = 128;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t shr(uint32_t x, uint32_t s) {
-  return s < 32u ? (x >> s) : 0u;
-}
-
-// Inclusive sum of two values over the block's 128 threads, plus both
-// block totals.  buf holds 2 x 8 ints; phase alternates between its
-// halves, so one barrier per call is enough: a thread can only write a
-// half again after every thread has passed the barrier of the call in
-// between, i.e. after every read of that half.
-__device__ __forceinline__ void block_scan2(uint32_t& a, uint32_t& b,
-                                            uint32_t& tot_a, uint32_t& tot_b,
-                                            uint32_t* buf, int& phase) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t ta = __shfl_up_sync(kFull, a, o);
-    const uint32_t tb = __shfl_up_sync(kFull, b, o);
-    if (lane >= o) {
-      a += ta;
-      b += tb;
-    }
-  }
-  uint32_t* s = buf + phase * 8;
-  if (lane == 31) {
-    s[warp] = a;
-    s[4 + warp] = b;
-  }
-  __syncthreads();
-  uint32_t oa = 0, ob = 0;
-  tot_a = 0;
-  tot_b = 0;
-#pragma unroll
-  for (int w = 0; w < kLanes / 32; ++w) {
-    const uint32_t va = s[w], vb = s[4 + w];
-    if (w < warp) {
-      oa += va;
-      ob += vb;
-    }
-    tot_a += va;
-    tot_b += vb;
-  }
-  a += oa;
-  b += ob;
-  phase ^= 1;
-}
-
-// Renorm of one lane: k is the lane's exclusive rank among the lanes
-// that need a word, total the strip's count of them this step.
-__device__ __forceinline__ uint32_t renorm(uint32_t xn, bool need, uint32_t k,
-                                           uint32_t total, int& cur,
-                                           const uint32_t* words, int rows) {
-  if (need) {
-    const int row = min(cur >> 7, rows - 2);
-    xn = (xn << 16) | words[row * kLanes + (cur & 127) + (int)k];
-  }
-  cur += (int)total;
-  return xn;
-}
-
-__device__ __forceinline__ int unzigzag(uint32_t sym) {
-  const int si = (int)sym;
-  return (si >> 1) ^ (-(si & 1));
-}
-
-// Predictor inverse state of one lane.  VWS == 0: zzd row prefix sum;
-// VWS in {1,2,4,8}: vdd previous row, chunk c of VWS (c = step % VWS is
-// a compile-time constant in the unrolled step loop, so prev stays in
-// registers).
-template <int VWS>
-struct Inverse {
-  uint32_t prev[VWS > 0 ? VWS : 1];
-  uint32_t rowc;
-  int rcnt;
-  int ws;
-
-  __device__ __forceinline__ explicit Inverse(int ws_) : rowc(0), rcnt(0), ws(ws_) {
-#pragma unroll
-    for (int i = 0; i < (VWS > 0 ? VWS : 1); ++i) prev[i] = 0;
-  }
-
-  __device__ __forceinline__ uint16_t operator()(uint32_t sym, int c,
-                                                 uint32_t* buf, int& phase) {
-    uint32_t dz = (uint32_t)unzigzag(sym);
-    if (VWS > 0) {
-      const uint32_t pix = (prev[c] + dz) & 0xFFFFu;
-      prev[c] = pix;
-      return (uint16_t)pix;
-    }
-    uint32_t zero = 0, tot, tot0;
-    block_scan2(dz, zero, tot, tot0, buf, phase);
-    if (rcnt == 0) rowc = 0;
-    const uint32_t pix = (rowc + dz) & 0xFFFFu;
-    rowc = (rowc + tot) & 0xFFFFu;  // the row's last lane, carried on
-    if (++rcnt >= ws) rcnt = 0;
-    return (uint16_t)pix;
-  }
-};
 
 template <int VWS>
 __global__ void __launch_bounds__(kLanes)
@@ -165,26 +65,17 @@ rans_zzd_kernel(const uint32_t* __restrict__ init, const uint32_t* __restrict__ 
   __syncthreads();
 
   const size_t li = (size_t)s * kLanes + lane;
-  uint32_t x = init[li];
-  const uint32_t m = mask[li], sft = shift[li];
-  const uint32_t* w = words + (size_t)s * rows * kLanes;
+  const PackedFront front{s_tpk, ts, s_alpha, asz};
+  Lane l{init[li], mask[li], shift[li], 0, words + (size_t)s * rows * kLanes, rows};
   uint16_t* o = out + (size_t)s * steps * kLanes + lane;
   Inverse<VWS> inverse((int)ws[(size_t)s * kLanes]);
-  int cur = 0, phase = 0;
+  int phase = 0;
   constexpr int U = VWS > 0 ? VWS : 1;
   for (int t0 = 0; t0 < steps; t0 += U) {
 #pragma unroll
     for (int c = 0; c < U; ++c) {
-      const uint32_t slot = x & m;
-      const uint32_t pk = slot < (uint32_t)ts ? s_tpk[slot] : 0u;
-      const uint32_t rank = pk & 0xFFFu;
-      const uint32_t av = rank < (uint32_t)asz ? s_alpha[rank] : 0u;
-      const uint32_t xn = ((av >> 16) + 1u) * shr(x, sft) + (pk >> 12);
-      const bool need = xn < (1u << 16);
-      uint32_t k = need, zero = 0, total, tot0;
-      block_scan2(k, zero, total, tot0, scan_buf, phase);
-      x = renorm(xn, need, k - need, total, cur, w, rows);
-      o[(size_t)(t0 + c) * kLanes] = inverse(av & 0xFFFFu, c, scan_buf, phase);
+      const uint32_t sym = front.step(l, scan_buf, phase);
+      o[(size_t)(t0 + c) * kLanes] = inverse(sym, c, scan_buf, phase);
     }
   }
 }
@@ -207,38 +98,17 @@ rans_alias_kernel(const uint32_t* __restrict__ init, const uint32_t* __restrict_
   s_w2[lane] = w2[li];
   __syncthreads();
 
-  uint32_t x = init[li];
-  const uint32_t m = mask[li], sft = shift[li], ecmp = escv[li];
-  const uint32_t* w = words + (size_t)s * rows * kLanes;
-  const uint32_t* e = esides + (size_t)s * erows * kLanes;
-  const int emax = erows * kLanes - 256;
+  AliasFront<ESC> front{s_w0, s_w1, s_w2, escv[li], esides + (size_t)s * erows * kLanes,
+                        erows * kLanes - 256, 0};
+  Lane l{init[li], mask[li], shift[li], 0, words + (size_t)s * rows * kLanes, rows};
   uint16_t* o = out + (size_t)s * steps * kLanes + lane;
   Inverse<VWS> inverse((int)ws[(size_t)s * kLanes]);
-  int cur = 0, ecur = 0, phase = 0;
+  int phase = 0;
   constexpr int U = VWS > 0 ? VWS : 1;
   for (int t0 = 0; t0 < steps; t0 += U) {
 #pragma unroll
     for (int c = 0; c < U; ++c) {
-      const uint32_t slot = x & m;
-      const uint32_t bi = min(shr(slot, sft - 7u), 127u);
-      const uint32_t off = slot & (m >> 7);
-      const uint32_t g0 = s_w0[bi], g1 = s_w1[bi], g2 = s_w2[bi];
-      const uint32_t t = g1 >> 24;
-      const bool is_p = off < t;
-      const uint32_t fm1 = (is_p ? (g1 >> 12) : (g2 >> 12)) & 0xFFFu;
-      const uint32_t sb = (is_p ? g1 : g2) & 0xFFFu;
-      const uint32_t j = sb + off - (is_p ? 0u : t);
-      uint32_t sym = is_p ? (g0 >> 16) : (g0 & 0xFFFFu);
-      const uint32_t xn = (fm1 + 1u) * shr(x, sft) + j;
-      const bool need = xn < (1u << 16);
-      const bool is_esc = ESC && sym == ecmp;
-      uint32_t k = need, ke = is_esc, total, etot;
-      block_scan2(k, ke, total, etot, scan_buf, phase);
-      if (ESC) {
-        if (is_esc) sym = e[min(ecur, emax) + (int)(ke - 1u)];
-        ecur += (int)etot;
-      }
-      x = renorm(xn, need, k - need, total, cur, w, rows);
+      const uint32_t sym = front.step(l, scan_buf, phase);
       o[(size_t)(t0 + c) * kLanes] =
           FUSED ? inverse(sym, c, scan_buf, phase) : (uint16_t)sym;
     }

@@ -1,4 +1,5 @@
-"""Fused rANS decode kernels of the MICW direct modes (zzd / vdd / pdd).
+"""Fused rANS decode kernels of MICW: the direct modes (zzd / vdd / pdd)
+and the r-modes (zzr / vdr / pdr).
 
 Counterpart of the decode half of ``mic_tpu.tpu.pallas_rans``:
 
@@ -7,8 +8,13 @@ Counterpart of the decode half of ``mic_tpu.tpu.pallas_rans``:
   (pinned by ``tests/test_torch_host_format.py``);
 * ``to_device`` — numpy ``uint32`` operands to int32 bit-view tensors;
 * ``rans_decode_zzd`` / ``rans_decode_alias`` — the wrappers of the two
-  CUDA kernels in ``csrc/rans_decode.cu``, each with a plain-PyTorch twin
-  (``*_plain``) and a launch counter (``.launches``).
+  direct-mode CUDA kernels in ``csrc/rans_decode.cu``;
+* ``rans_decode_rle`` / ``rans_decode_rle_alias`` — the wrappers of the
+  fused r-mode kernels in ``csrc/rans_rle.cu`` (either entropy front end,
+  then the SoA-RLE expand and the direct inverse);
+
+each with a plain-PyTorch twin (``*_plain``) and a launch counter
+(``.launches``).
 
 A wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches its kernel or raises.
@@ -25,12 +31,22 @@ gives 0, as ``jax.lax.shift_right_logical`` does; a packed-table slot or
 rank beyond its table reads 0, as the Pallas sweep does; an alias bucket
 index clamps to 127; the renorm word window's first row clamps to
 ``rows - 2`` and the escape cursor to ``rows * 128 - 256``, as the
-Pallas kernels' dynamic slices do.
+Pallas kernels' dynamic slices do.  The r-kernels add: a decoded symbol
+keeps its low 16 bits (the builders' side streams are u16); ``nrun``
+clamps to [0, maxr] and ``nsame`` to [0, steps * 128]; the run-length and
+literal-length carries saturate at 2^29; the same-value and literal
+reads go through the Pallas kernel's 256-symbol windows (first row
+clamped to [0, steps - 2], offset to [0, 255]) and the literal cursor
+clamps to ``steps * 128 - 1``, as in ``_expand_rle_phase``; the run search
+reads no table entry past ``maxr - 1``.  The run search itself is a
+binary search over a window of 32 (``dense``) or 256 runs from the run
+holding the row's first pixel, where the Pallas kernel counts starts in
+a 32-candidate or a 384-entry window: on every honest stream both find
+the run holding each pixel, and on a dishonest one (a FLAG_RDENSE that
+lies, zero-length runs) they may decode different garbage.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -45,6 +61,10 @@ __all__ = [
     "rans_decode_zzd_plain",
     "rans_decode_alias",
     "rans_decode_alias_plain",
+    "rans_decode_rle",
+    "rans_decode_rle_plain",
+    "rans_decode_rle_alias",
+    "rans_decode_rle_alias_plain",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -275,26 +295,33 @@ def _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps, vdd_ws):
     return S, ts, asz, rows
 
 
-def rans_decode_zzd_plain(init, tpk, alpha, words, mask, shift, ws, *,
-                          steps: int, vdd_ws: int = 0) -> torch.Tensor:
-    """Plain-PyTorch twin of the zzd kernel (any device).  Same operands
-    and output as :func:`rans_decode_zzd`."""
-    S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift,
-                                     ws, steps, vdd_ws)
+def _packed_symbols(init, tpk, alpha, words, mask, shift, steps):
+    """The packed-table decode's symbols, one [S, 128] int64 tensor per
+    step (the plain version of ``PackedFront`` in ``csrc/rans_common.cuh``)."""
+    S, ts, asz, rows = init.shape[0], tpk.shape[-1], alpha.shape[-1], words.shape[1]
     x = _u(init)
     tpk, alpha, m, sft = _u(tpk), _u(alpha), _u(mask), _u(shift)
     words = _u(words).reshape(S, -1)
     cur = torch.zeros((S, 1), dtype=torch.int64, device=init.device)
-    inverse = _Inverse(S, vdd_ws, ws, init.device)
-    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
-    for t in range(steps):
+    for _t in range(steps):
         slot = x & m
         pk = torch.where(slot < ts, torch.gather(tpk, 1, slot.clamp(max=ts - 1)), 0)
         rank = pk & 0xFFF
         av = torch.where(rank < asz, torch.gather(alpha, 1, rank.clamp(max=asz - 1)), 0)
         xn = (((av >> 16) + 1) * _shr(x, sft) + (pk >> 12)) & _U32
         x, cur = _renorm(xn, cur, words, rows)
-        out[:, t] = _as_i16(inverse(t, av & 0xFFFF))
+        yield av & 0xFFFF
+
+
+def rans_decode_zzd_plain(init, tpk, alpha, words, mask, shift, ws, *,
+                          steps: int, vdd_ws: int = 0) -> torch.Tensor:
+    """Plain-PyTorch twin of the zzd kernel (any device).  Same operands
+    and output as :func:`rans_decode_zzd`."""
+    S = _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps, vdd_ws)[0]
+    inverse = _Inverse(S, vdd_ws, ws, init.device)
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    for t, sym in enumerate(_packed_symbols(init, tpk, alpha, words, mask, shift, steps)):
+        out[:, t] = _as_i16(inverse(t, sym))
     return out
 
 
@@ -362,13 +389,10 @@ def _alias_operands(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
     return S, rows, erows
 
 
-def rans_decode_alias_plain(init, w0, w1, w2, words, mask, shift, escv,
-                            esides, ws, *, steps: int, vdd_ws: int = 0,
-                            fused: bool = True, esc: bool = True) -> torch.Tensor:
-    """Plain-PyTorch twin of the alias kernel (any device).  Same
-    operands and output as :func:`rans_decode_alias`."""
-    S, rows, erows = _alias_operands(init, w0, w1, w2, words, mask, shift,
-                                     escv, esides, ws, steps, vdd_ws)
+def _alias_symbols(init, w0, w1, w2, words, mask, shift, escv, esides, steps, esc):
+    """The alias decode's symbols, one [S, 128] int64 tensor per step (the
+    plain version of ``AliasFront`` in ``csrc/rans_common.cuh``)."""
+    S, rows, erows = init.shape[0], words.shape[1], esides.shape[1]
     x = _u(init)
     w0, w1, w2, m, sft, ev_cmp = _u(w0), _u(w1), _u(w2), _u(mask), _u(shift), _u(escv)
     words = _u(words).reshape(S, -1)
@@ -376,9 +400,7 @@ def rans_decode_alias_plain(init, w0, w1, w2, words, mask, shift, escv,
     emax = erows * 128 - 256
     cur = torch.zeros((S, 1), dtype=torch.int64, device=init.device)
     ecur = torch.zeros_like(cur)
-    inverse = _Inverse(S, vdd_ws, ws, init.device)
-    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
-    for t in range(steps):
+    for _t in range(steps):
         slot = x & m
         bi = _shr(slot, (sft - 7) & _U32).clamp(max=127)
         o = slot & (m >> 7)
@@ -400,6 +422,20 @@ def rans_decode_alias_plain(init, w0, w1, w2, words, mask, shift, escv,
             sym = torch.where(is_esc, torch.gather(esides, 1, ecl + ke), sym)
             ecur = ecur + ne.sum(dim=1, keepdim=True)
         x, cur = _renorm(xn, cur, words, rows)
+        yield sym
+
+
+def rans_decode_alias_plain(init, w0, w1, w2, words, mask, shift, escv,
+                            esides, ws, *, steps: int, vdd_ws: int = 0,
+                            fused: bool = True, esc: bool = True) -> torch.Tensor:
+    """Plain-PyTorch twin of the alias kernel (any device).  Same
+    operands and output as :func:`rans_decode_alias`."""
+    S = _alias_operands(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
+                        steps, vdd_ws)[0]
+    inverse = _Inverse(S, vdd_ws, ws, init.device)
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    for t, sym in enumerate(_alias_symbols(init, w0, w1, w2, words, mask, shift,
+                                           escv, esides, steps, esc)):
         out[:, t] = _as_i16(inverse(t, sym) if fused else sym)
     return out
 
@@ -445,3 +481,213 @@ def rans_decode_alias(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
 
 
 rans_decode_alias.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused r-mode kernels: either front end + SoA-RLE expand + inverse
+# ---------------------------------------------------------------------------
+
+MID_DIRECT = 16383  # RLE midCount of the r-modes (a format constant)
+_HUGE = 1 << 30  # run-table entry past nrun (start 2^29 > any position)
+_CAP = 1 << 29  # saturation of the run-length and literal-length carries
+
+
+def _rle_operands(S, dev, ws, nrun, nsame, steps, out_rows, maxr):
+    if out_rows <= 0 or out_rows % 8:
+        raise ValueError(f"out_rows must be a positive multiple of 8, got {out_rows}")
+    if maxr <= 0 or maxr % 128 or maxr // 128 > steps:
+        raise ValueError(f"maxr must be a positive multiple of 128 and at most "
+                         f"steps * 128 = {steps * 128}, got {maxr}")
+    for name, t in (("ws", ws), ("nrun", nrun), ("nsame", nsame)):
+        _check(name, t, (S, 128), dev)
+
+
+def _find_run(st1, rb, pos, maxr: int, w: int):
+    """Last run r in [rb, min(rb + w, maxr) - 1] whose start <= pos (rb if
+    none): the kernel's branch-free binary search, lane by lane."""
+    r = rb.expand(pos.shape).clone()
+    step = w // 2
+    while step:
+        c = r + step
+        start = torch.gather(st1, 1, c.clamp(max=maxr - 1)) >> 1
+        r = torch.where((c < maxr) & (start <= pos), c, r)
+        step //= 2
+    return r
+
+
+def _rle_expand_plain(syms, ws, nrun, nsame, *, steps, out_rows, maxr, vdd_ws,
+                      dense) -> torch.Tensor:
+    """Phases 1.5 and 2 of the r-kernels on the decoded symbols ``syms``
+    (int64 [S, steps * 128], stream order): the run tables, then one
+    128-px row per step through the inverse of :class:`_Inverse`."""
+    S, dev = syms.shape[0], syms.device
+    lane = torch.arange(128, device=dev)[None, :]
+    nrun = nrun[:, :1].to(torch.int64).clamp(0, maxr)
+    nsame = nsame[:, :1].to(torch.int64).clamp(0, steps * 128)
+    st1 = torch.empty((S, maxr), dtype=torch.int64, device=dev)
+    st2 = torch.empty_like(st1)
+    len_c = torch.zeros((S, 1), dtype=torch.int64, device=dev)
+    same_c, lit_c = len_c.clone(), len_c.clone()
+
+    def exc(v):
+        return torch.cumsum(v, dim=1) - v
+
+    for rr in range(maxr // 128):
+        c = syms[:, rr * 128:(rr + 1) * 128]
+        valid = lane + rr * 128 < nrun
+        is_s = valid & (c <= MID_DIRECT)
+        si = is_s.to(torch.int64)
+        ln = torch.where(valid, torch.where(is_s, c, c - MID_DIRECT), 0)
+        litl = torch.where(is_s, 0, ln)
+        start, rank, lstart = len_c + exc(ln), same_c + exc(si), lit_c + exc(litl)
+        wrow = ((nrun + same_c) >> 7).clamp(0, steps - 2)
+        loc = (nrun + rank - (wrow << 7)).clamp(0, 255)
+        val = torch.gather(syms, 1, (wrow << 7) + loc)
+        st1[:, rr * 128:(rr + 1) * 128] = torch.where(valid, (start << 1) | si, _HUGE)
+        st2[:, rr * 128:(rr + 1) * 128] = torch.where(is_s, val,
+                                                      nrun + nsame + lstart - start)
+        len_c = (len_c + ln.sum(1, keepdim=True)).clamp(max=_CAP)
+        same_c = same_c + si.sum(1, keepdim=True)
+        lit_c = (lit_c + litl.sum(1, keepdim=True)).clamp(max=_CAP)
+
+    w = 32 if dense else 256
+    inverse = _Inverse(S, vdd_ws, ws, dev)
+    out = torch.empty((S, out_rows, 128), dtype=torch.int16, device=dev)
+    rb = torch.zeros((S, 1), dtype=torch.int64, device=dev)
+    lc = nrun + nsame
+    for t in range(out_rows):
+        pos = lane + t * 128
+        r = _find_run(st1, rb, pos.expand(S, 128), maxr, w)
+        rn = _find_run(st1, rb, torch.full((S, 1), (t + 1) * 128, device=dev), maxr, w)
+        g1, g2 = torch.gather(st1, 1, r), torch.gather(st2, 1, r)
+        is_s = (g1 & 1) == 1
+        lrow = (lc >> 7).clamp(max=steps - 2)
+        li = (g2 + pos - (lrow << 7)).clamp(0, 255)
+        tok = torch.where(is_s, g2, torch.gather(syms, 1, (lrow << 7) + li))
+        lc = (lc + (~is_s).sum(1, keepdim=True)).clamp(max=steps * 128 - 1)
+        rb = rn
+        out[:, t] = _as_i16(inverse(t, tok))
+    return out
+
+
+def _rle_scratch(S, steps, maxr, dev):
+    """Device scratch of the r-kernels: u16 symbols and the two run tables."""
+    return (torch.empty((S, steps * 128), dtype=torch.int16, device=dev),
+            torch.empty((S, maxr), dtype=torch.int32, device=dev),
+            torch.empty((S, maxr), dtype=torch.int32, device=dev))
+
+
+def rans_decode_rle_plain(init, tpk, alpha, words, mask, shift, ws, nrun, nsame, *,
+                          steps: int, out_rows: int, maxr: int, vdd_ws: int = 0,
+                          dense: bool = False) -> torch.Tensor:
+    """Plain-PyTorch twin of the FF 57 r-kernel (any device).  Same
+    operands and output as :func:`rans_decode_rle`."""
+    S = _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps, vdd_ws)[0]
+    _rle_operands(S, init.device, ws, nrun, nsame, steps, out_rows, maxr)
+    syms = torch.cat(list(_packed_symbols(init, tpk, alpha, words, mask, shift, steps)),
+                     dim=1)
+    return _rle_expand_plain(syms, ws, nrun, nsame, steps=steps, out_rows=out_rows,
+                             maxr=maxr, vdd_ws=vdd_ws, dense=dense)
+
+
+def rans_decode_rle(init, tpk, alpha, words, mask, shift, ws, nrun, nsame, *,
+                    steps: int, out_rows: int, maxr: int, vdd_ws: int = 0,
+                    dense: bool = False) -> torch.Tensor:
+    """Fused MICW decode of FF 57 r-mode strips (zzr / vdr / pdr):
+    packed-table rANS, the SoA-RLE expand, then the inverse of
+    :func:`rans_decode_zzd` (pdr's column prefix sum is the caller's).
+
+    Operands are those of :func:`rans_decode_zzd` plus ``nrun`` and
+    ``nsame`` [S, 128] (each strip's run and same-run counts, broadcast
+    over the lanes).  ``maxr`` is the run-table capacity (a multiple of
+    128, at most ``steps * 128``); ``dense`` selects the 32-run search
+    window of FLAG_RDENSE streams over the 256-run one.  Returns int16
+    [S, out_rows, 128] (bit-view of u16 pixels).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel of ``csrc/rans_rle.cu``.
+    """
+    S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift, ws,
+                                     steps, vdd_ws)
+    _rle_operands(S, init.device, ws, nrun, nsame, steps, out_rows, maxr)
+    if init.device.type == "cpu":
+        return rans_decode_rle_plain(init, tpk, alpha, words, mask, shift, ws, nrun,
+                                     nsame, steps=steps, out_rows=out_rows, maxr=maxr,
+                                     vdd_ws=vdd_ws, dense=dense)
+    if init.device.type != "cuda":
+        raise ValueError(f"unsupported device {init.device}")
+    from .._build import kernel_library
+
+    lib = kernel_library()
+    out = torch.empty((S, out_rows, 128), dtype=torch.int16, device=init.device)
+    syms, st1, st2 = _rle_scratch(S, steps, maxr, init.device)
+    with torch.cuda.device(init.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_rans_decode_rle(
+            init.data_ptr(), tpk.data_ptr(), ts, alpha.data_ptr(), asz,
+            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(), ws.data_ptr(),
+            nrun.data_ptr(), nsame.data_ptr(), out.data_ptr(), syms.data_ptr(),
+            st1.data_ptr(), st2.data_ptr(), S, steps, out_rows, maxr, vdd_ws,
+            int(dense), stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_rans_decode_rle launch failed: CUDA error {rc}")
+    rans_decode_rle.launches += 1
+    return out
+
+
+rans_decode_rle.launches = 0
+
+
+def rans_decode_rle_alias_plain(init, w0, w1, w2, words, mask, shift, escv, esides,
+                                ws, nrun, nsame, *, steps: int, out_rows: int,
+                                maxr: int, esc: bool, vdd_ws: int = 0,
+                                dense: bool = False) -> torch.Tensor:
+    """Plain-PyTorch twin of the FF 41 r-kernel (any device).  Same
+    operands and output as :func:`rans_decode_rle_alias`."""
+    S = _alias_operands(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
+                        steps, vdd_ws)[0]
+    _rle_operands(S, init.device, ws, nrun, nsame, steps, out_rows, maxr)
+    syms = torch.cat(list(_alias_symbols(init, w0, w1, w2, words, mask, shift, escv,
+                                         esides, steps, esc)), dim=1) & 0xFFFF
+    return _rle_expand_plain(syms, ws, nrun, nsame, steps=steps, out_rows=out_rows,
+                             maxr=maxr, vdd_ws=vdd_ws, dense=dense)
+
+
+def rans_decode_rle_alias(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
+                          nrun, nsame, *, steps: int, out_rows: int, maxr: int,
+                          esc: bool, vdd_ws: int = 0, dense: bool = False) -> torch.Tensor:
+    """Fused MICW decode of FF 41 r-mode strips: the alias front end of
+    :func:`rans_decode_alias` (escape substitution with ``esc``) behind
+    the expand and inverse of :func:`rans_decode_rle`, whose ``nrun``,
+    ``nsame``, ``out_rows``, ``maxr`` and ``dense`` it takes.  Returns
+    int16 [S, out_rows, 128].  CPU tensors take the plain version; CUDA
+    tensors launch the kernel of ``csrc/rans_rle.cu``.
+    """
+    S, rows, erows = _alias_operands(init, w0, w1, w2, words, mask, shift, escv,
+                                     esides, ws, steps, vdd_ws)
+    _rle_operands(S, init.device, ws, nrun, nsame, steps, out_rows, maxr)
+    if init.device.type == "cpu":
+        return rans_decode_rle_alias_plain(
+            init, w0, w1, w2, words, mask, shift, escv, esides, ws, nrun, nsame,
+            steps=steps, out_rows=out_rows, maxr=maxr, esc=esc, vdd_ws=vdd_ws,
+            dense=dense)
+    if init.device.type != "cuda":
+        raise ValueError(f"unsupported device {init.device}")
+    from .._build import kernel_library
+
+    lib = kernel_library()
+    out = torch.empty((S, out_rows, 128), dtype=torch.int16, device=init.device)
+    syms, st1, st2 = _rle_scratch(S, steps, maxr, init.device)
+    with torch.cuda.device(init.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_rans_decode_rle_alias(
+            init.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(), escv.data_ptr(),
+            esides.data_ptr(), erows, ws.data_ptr(), nrun.data_ptr(), nsame.data_ptr(),
+            out.data_ptr(), syms.data_ptr(), st1.data_ptr(), st2.data_ptr(), S, steps,
+            out_rows, maxr, vdd_ws, int(dense), int(esc), stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_rans_decode_rle_alias launch failed: CUDA error {rc}")
+    rans_decode_rle_alias.launches += 1
+    return out
+
+
+rans_decode_rle_alias.launches = 0

@@ -11,20 +11,23 @@ Port of ``mic_tpu.tpu.strips``, in three parts:
   jax-free copies pinned byte for byte by the tests; the device encoder
   itself is ``rans_encode.micw_compress_device_many``);
 * ``MicwDecodePlan`` / ``micw_decode_many`` for the direct modes zzd,
-  vdd and pdd on both entropy families (FF 57 standard, FF 41 alias).
+  vdd and pdd and the r-modes zzr, vdr and pdr, on both entropy families
+  (FF 57 standard, FF 41 alias).
 
 The plan pools the strips of every image of a batch into buckets keyed
-on (entropy family, predictor, padded step count, geometry), as
-``mic_tpu`` keys them, and runs each bucket as ONE launch of one of the
-two fused kernels of ``rans_decode``.  pdd's second (column) prefix sum
-is a plain ``torch.cumsum`` on the kernel's output, as ``mic_tpu`` leaves
-it to XLA.  Raw and constant strips are copied on the host.
+on (entropy family, predictor, padded step count, geometry and, for the
+r-modes, the container's FLAG_RDENSE), as ``mic_tpu`` keys them, and
+runs each bucket as ONE launch of one of the four fused kernels of
+``rans_decode``.  The second (column) prefix sum of pdd and pdr is a
+plain ``torch.cumsum`` on the kernel's output, as ``mic_tpu`` leaves it
+to XLA.  Raw and constant strips are copied on the host.
 
 Strips outside this slice raise ``NotImplementedError`` at plan
-construction: the r-modes and escaped modes (zz, avg, zzr, vdr, pdr),
-lanes != 128, width % 128 != 0, vdd with width/128 not in {1,2,4,8},
-FF 41 with tableLog > 12, FF 57 with tableLog > 12 or an alphabet over
-4096 symbols.
+construction: the escaped modes (zz, avg), lanes != 128, width % 128 !=
+0, vdd or vdr with width/128 not in {1,2,4,8}, FF 41 with tableLog > 12,
+FF 57 with tableLog > 12 or an alphabet over 4096 symbols.  An r-mode
+strip that claims more runs than symbols, or more pixels than its strip
+holds, raises ``ValueError``.
 
 Container layout::
 
@@ -48,10 +51,13 @@ from mic_tpu.ops.rle import soa_encode
 
 from .device_rans import ALIAS_MAX_KEPT, mict_parse
 from .rans_decode import (
+    MID_DIRECT,
     _as_i16,
     build_alias_bucket_tables,
     build_packed_tables,
     rans_decode_alias,
+    rans_decode_rle,
+    rans_decode_rle_alias,
     rans_decode_zzd,
     to_device,
 )
@@ -92,7 +98,6 @@ MAX_TABLE_LOG = 11  # FF 57 encode cap (the decode reads tl <= 12)
 MAX_ALPHABET = 4096  # packed-kernel cap (12-bit rank)
 ALIAS_TABLE_LOG = 12  # alias-kernel cap (12-bit bucket-table fields)
 MICW_BAND_W = 512  # column-band width for FLAG_BANDED containers
-MID_DIRECT = 16383  # RLE midCount of the r-modes (a format constant)
 
 _MODE_PRED = {
     STRIP_MODE_ZZD: "zzd",
@@ -417,18 +422,46 @@ def micw_parse(blob: bytes):
     return width, height, num_strips, strip_h, max_value, predictor, 1 << lanes_log2, strips
 
 
-def _strip_bucket(p, pred: str, mode: int, width: int, strip_h: int):
-    """Bucket key of one entropy strip, or NotImplementedError when the
-    strip lies outside the ported slice."""
-    if pred not in _DIRECT_PREDS:
+def _pow2_at_least(x: int, lo: int = 1) -> int:
+    b = lo
+    while b < x:
+        b *= 2
+    return b
+
+
+def _runs_floor(pred: str, width: int, strip_h: int) -> int:
+    """Floor for the r-modes' run-count bucket: px/64, pow2 (0 for the
+    other modes)."""
+    if pred not in _RLE_DIRECT_PREDS:
+        return 0
+    return 128 * _pow2_at_least((width * strip_h) // 8192, 1)
+
+
+def _rle_sizing(strips, pred: str, width: int, strip_h: int):
+    """(maxr, out_rows) of a group of r-mode strips (table entries), as
+    ``mic_tpu`` sizes its fused r-kernel launches: the run-table capacity,
+    a power of two >= 512 covering every strip's runs plus one table row
+    (its maxr / 128 rows also set the least entropy steps), and the output
+    rows, a power of two >= 8 covering every strip's pixels."""
+    runs = max(_runs_floor(pred, width, strip_h),
+               128 * _pow2_at_least((max(st[3] for st in strips) + 128) // 128))
+    return max(runs, 512), _pow2_at_least(-(-max(st[2] for st in strips) // 128), 8)
+
+
+def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool):
+    """Bucket key of one entropy strip (parsed MICT ``p``, table entry
+    ``st``), or NotImplementedError when the strip lies outside the
+    ported slice.  ``dense`` is the container's FLAG_RDENSE."""
+    mode = st[5]
+    if pred not in _DIRECT_PREDS + _RLE_DIRECT_PREDS:
         raise NotImplementedError(
             f"micw: strip mode {mode} ({pred}) is not ported to mic_tpu_torch yet")
     if width % 128:
         raise NotImplementedError(
             f"micw: {pred} strip of width {width} (not a multiple of 128)")
-    if pred == "vdd" and width // 128 not in (1, 2, 4, 8):
+    if pred in ("vdd", "vdr") and width // 128 not in (1, 2, 4, 8):
         raise NotImplementedError(
-            f"micw: vdd strip of width {width} (width/128 not in 1, 2, 4, 8)")
+            f"micw: {pred} strip of width {width} (width/128 not in 1, 2, 4, 8)")
     is_alias = p[7] is not None
     if is_alias and p[1] > ALIAS_TABLE_LOG:
         raise NotImplementedError(f"micw: FF 41 {pred} strip with tableLog {p[1]} > 12")
@@ -438,11 +471,15 @@ def _strip_bucket(p, pred: str, mode: int, width: int, strip_h: int):
             f"{np.count_nonzero(p[5])} beyond the packed kernel's 12 / 4096")
     # Padded step count, a power of two >= 8: strips of similar size share
     # a launch, so short strips do not pad to the longest one.
-    need = max(8, -(-p[2] // 128))
-    b = 8
-    while b < need:
-        b *= 2
+    b = _pow2_at_least(-(-p[2] // 128), 8)
     a = "a" if is_alias else ""
+    if pred in _RLE_DIRECT_PREDS:
+        # The sizing reads the table entry: a dishonest one must not make
+        # the run tables or the output outgrow the strip.
+        if st[3] > p[2] or st[2] > width * strip_h:
+            raise ValueError(f"micw: {pred} strip claims {st[3]} runs in {p[2]} "
+                             f"symbols and {st[2]} of its {width * strip_h} pixels")
+        return (a + pred, b, width, strip_h, dense)
     if pred == "pdd":
         return (a + "pdd", b, width, strip_h)  # the column cumsum needs the geometry
     if pred == "vdd":
@@ -451,32 +488,40 @@ def _strip_bucket(p, pred: str, mode: int, width: int, strip_h: int):
 
 
 class _Bucket:
-    """One kernel launch: device operands, kernel arguments and, for pdd,
-    the (width, strip_h) of the column prefix sum."""
+    """One kernel launch: device operands, kernel arguments and, for pdd
+    and pdr, the (width, strip_h) of the column prefix sum."""
 
     def __init__(self, key, entries, device):
         kind, steps = key[0], key[1]
         S = len(entries)
         parsed = [e[0] for e in entries]
         ws = np.zeros((S, 128), np.uint32)
-        ws[:] = np.array([w // 128 for _p, w in entries], np.uint32)[:, None]
-        self.geom = (key[2], key[3]) if kind.endswith("pdd") else None
-        vdd_ws = key[2] // 128 if kind.endswith("vdd") else 0
+        ws[:] = np.array([e[1] for e in entries], np.uint32)[:, None] // 128
+        pred = kind.lstrip("a")
+        self.geom = (key[2], key[3]) if pred in ("pdd", "pdr") else None
+        vdd_ws = key[2] // 128 if pred in ("vdd", "vdr") else 0
         self.n = S
+        rle = {}
+        if pred in _RLE_DIRECT_PREDS:
+            maxr, out_rows = _rle_sizing([e[2] for e in entries], pred, key[2], key[3])
+            steps = max(steps, maxr // 128)
+            counts = np.array([[e[2][3], e[2][4]] for e in entries], np.uint32)
+            runs = tuple(np.repeat(counts[:, i:i + 1], 128, axis=1) for i in (0, 1))
+            rle = dict(out_rows=out_rows, maxr=maxr, dense=key[4])
         if kind.startswith("a"):
             built = build_alias_bucket_tables(parsed, min_steps=steps)
-            self.fn = rans_decode_alias
-            self.ops = to_device(built[:9] + (ws,), device)
             esc = any(len(p[7][1]) for p in parsed)
-            self.kwargs = dict(steps=built[10], vdd_ws=vdd_ws, fused=True, esc=esc)
+            self.fn = rans_decode_rle_alias if rle else rans_decode_alias
+            self.ops = to_device(built[:9] + (ws,) + (runs if rle else ()), device)
+            self.kwargs = dict(steps=built[10], vdd_ws=vdd_ws, esc=esc, **rle)
         else:
             tl = max(max(p[1] for p in parsed), 7)
             built = build_packed_tables(parsed, tl, min_steps=steps)
             if built is None:  # _strip_bucket rejects what the builder would
                 raise RuntimeError(f"micw: packed tables refused bucket {key}")
-            self.fn = rans_decode_zzd
-            self.ops = to_device(built[:6] + (ws,), device)
-            self.kwargs = dict(steps=built[7], vdd_ws=vdd_ws)
+            self.fn = rans_decode_rle if rle else rans_decode_zzd
+            self.ops = to_device(built[:6] + (ws,) + (runs if rle else ()), device)
+            self.kwargs = dict(steps=built[7], vdd_ws=vdd_ws, **rle)
 
     def __call__(self) -> torch.Tensor:
         out = self.fn(*self.ops, **self.kwargs).reshape(self.n, -1)
@@ -515,6 +560,7 @@ class MicwDecodePlan:
             if parsed_c is None:
                 parsed_c = parse_memo[id(blob)] = micw_parse(blob)
             width, height, num_strips, strip_h, _mv, gpred, lanes, strips = parsed_c
+            dense = bool(blob[22] & FLAG_RDENSE)
             if lanes != 128:
                 raise NotImplementedError(f"micw: {lanes} lanes per strip (the port decodes 128)")
             self.metas.append((width, height, num_strips, strip_h))
@@ -528,10 +574,10 @@ class MicwDecodePlan:
                 p = mict_memo.get(id(st[0]))
                 if p is None:
                     p = mict_memo[id(st[0])] = mict_parse(st[0])
-                bk = _strip_bucket(p, pred, st[5], width, strip_h)
+                bk = _strip_bucket(p, st, pred, width, strip_h, dense)
                 bucket = entries.setdefault(bk, [])
                 keys.append((bk, len(bucket)))
-                bucket.append((p, width))
+                bucket.append((p, width, st))
             self.keys_per_blob.append(keys)
         self.buckets = {k: _Bucket(k, e, self.device) for k, e in entries.items()}
 

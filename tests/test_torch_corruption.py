@@ -21,13 +21,21 @@ from mic_tpu_torch import MicwDecodePlan, micw_parse
 from mic_tpu_torch.tpu import device_rans as dr
 from mic_tpu_torch.tpu import rans_decode as rd
 
-TESTDATA = Path(__file__).resolve().parent.parent / "web" / "testdata"
+ROOT = Path(__file__).resolve().parent.parent
+TESTDATA = ROOT / "web" / "testdata"
+PORT_DATA = ROOT / "tests" / "data" / "torch_port"
+# Direct-mode fixtures, and r-mode ones (every strip zzr / vdr / pdr) that
+# run the fused r-kernels: FF 57, and FF 41 with escapes.
+FIXTURES = {n: d / n for d, names in ((TESTDATA, ("MR_dev.micw", "MR_dev_alias.micw")),
+                                      (PORT_DATA, ("tissue_g_rstd.micw",
+                                                   "tissue_g_zzr_alias.micw")))
+            for n in names}
 KINDS = ["words", "states", "count_up", "count_down", "n_words_down", "escapes", "ncount"]
 
 
 def _corrupt(name: str, kind: str) -> bytes:
     """``name``'s container with its first strip's MICT stream damaged."""
-    blob = bytearray((TESTDATA / name).read_bytes())
+    blob = bytearray(FIXTURES[name].read_bytes())
     mict = micw_parse(bytes(blob))[7][0][0]
     at = bytes(blob).find(mict)
     L, _tl, count, _states, words, _norm, _sl, alias = dr.mict_parse(mict)
@@ -53,7 +61,7 @@ def _corrupt(name: str, kind: str) -> bytes:
     return bytes(blob)
 
 
-CASES = [(name, kind) for name in ("MR_dev.micw", "MR_dev_alias.micw") for kind in KINDS
+CASES = [(name, kind) for name in FIXTURES for kind in KINDS
          if kind != "escapes" or "alias" in name]  # FF 57 has no escape stream
 
 
@@ -65,7 +73,7 @@ def test_corrupt_stream_stays_in_bounds(name, kind):
     except (ValueError, NotImplementedError):
         return  # rejected at parse or table build
     (out, w, h), = plan.assemble(plan.run())
-    assert out.dtype == np.uint16 and out.size == w * h == 256 * 256
+    assert (w, h) == micw_parse(blob)[:2] and out.dtype == np.uint16 and out.size == w * h
 
 
 @pytest.mark.cuda
@@ -73,7 +81,9 @@ def test_cuda_corrupt_streams_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     plain = {rd.rans_decode_zzd: rd.rans_decode_zzd_plain,
-             rd.rans_decode_alias: rd.rans_decode_alias_plain}
+             rd.rans_decode_alias: rd.rans_decode_alias_plain,
+             rd.rans_decode_rle: rd.rans_decode_rle_plain,
+             rd.rans_decode_rle_alias: rd.rans_decode_rle_alias_plain}
     checked = 0
     for name, kind in CASES:
         try:

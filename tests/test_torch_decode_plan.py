@@ -117,7 +117,7 @@ def test_out_of_slice_raises(case):
     blob, match = {
         "avg_fixture": (lambda: (TESTDATA / "MR_dev_auto.micw").read_bytes(),
                         "mode 4 \\(avg\\)"),
-        "zzr": (lambda: _blob("zzr", 256, 16), "mode 8 \\(zzr\\)"),
+        "zzr": (lambda: _blob("zzr", 192, 16), "zzr strip of width 192"),
         "width_192": (lambda: _blob("zzd", 192, 16), "width 192"),
         "vdd_width_384": (lambda: _blob("vdd", 384, 16), "vdd strip of width 384"),
         "lanes_64": (lambda: _blob("zzd", 256, 16, lanes=64), "64 lanes"),
@@ -137,4 +137,5 @@ def test_out_of_slice_tables_raise():
     for bogus in ((128, 13, *p[2:7], alias), (128, 13, *p[2:7], None),
                   (128, 12, *p[2:5], wide, 5000, None)):
         with pytest.raises(NotImplementedError, match="beyond|> 12"):
-            st._strip_bucket(bogus, "zzd", st.STRIP_MODE_ZZD, 256, 16)
+            st._strip_bucket(bogus, (b"", 0, 0, 0, 0, st.STRIP_MODE_ZZD), "zzd", 256, 16,
+                             False)
