@@ -13,7 +13,12 @@ Phases (any failure exits non-zero; nothing is caught):
    the main path's buckets (CT_dev x256 = 1024 strips of 512 steps,
    CT_dev_alias x256, MR_dev_alias x512, plus the alias kernel with
    fused=False).  r-mode decode: on every bucket of phase 5's batch, each
-   with its own ``dense`` and with the other one.  Encode: on the operands of CT_dev x128 under
+   with its own ``dense`` and with the other one.  Post path: the
+   symbols-out kernels on every post bucket of phase 6's batch (packed
+   tables; two tables at tl 13, whose tables fit in shared memory; the
+   alias kernel with fused=False) and the two-table kernel on
+   CT_dev_1strip_tl15 x32 (tl 15, tables read from device memory).
+   Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
    steps, one image's operands replicated.  Times from CUDA events after
@@ -49,10 +54,26 @@ Phases (any failure exits non-zero; nothing is caught):
    breakdown.  Then the six auto-r settings are encoded on the card by
    ``micw_compress_device_many`` and must equal their fixtures byte for
    byte.
-6. Prints the kernel report as one JSON line, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+6. Post-path decode: ``MicwDecodePlan`` over the images whose strips the
+   fused kernels do not take, ~1250 strips: MR_dev_auto x128 (FF 57 avg,
+   what ``predictor="auto"`` writes), CT_dev under ``predictor="zz"``
+   standard x64 and alias x64 (escaped zz), wide_banded cropped to 800
+   columns x32 and to 640 x32 (auto-fast: widths not a multiple of 128,
+   vdd at width/128 = 5), the green plane of tissue_dev cropped to 500 x
+   384 x32 (auto-r: r-modes through the torch expand) and CT_dev_tl13 x32
+   (FF 57 at tl 13, a foreign writer's larger tables).  All but the
+   fixtures are encoded at the start of the phase by the port's own
+   encoder on the card.  Every strip of every replica is verified, and
+   both symbols-out wrappers and the alias wrapper must have launched
+   during the run.  Prints staging seconds, decode GB/s over
+   ``plan.run()``, the launch counts and a profiler breakdown that splits
+   the entropy kernels from the post path's torch ops.
+7. Prints the kernel report as one JSON line (with each kernel's bound:
+   the larger of its bytes over 3.35 TB/s and its integer operations over
+   67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
+   line, ``{"ok": true, "device": {...}}``.
 
-Imports neither jax nor mic_tpu's device tier.
+Imports neither jax nor anything of mic_tpu.
 """
 
 from __future__ import annotations
@@ -96,6 +117,18 @@ ENCODE = {
 R_FIXTURES = [f"tissue_{c}_{s}" for s in ("rstd", "rbest") for c in "rgb"]
 R_BATCH = ([(n, 64, False) for n in R_FIXTURES + ["tissue_g_pdr", "tissue_g_zzr_alias"]]
            + [("tissue_g_pdr", 32, True), ("tissue_g_zzr_alias", 32, True)])
+# Phase 6: (name, container or None to encode here, predictor, entropy,
+# replicas); the pixels come from _post_pixels.
+POST_BATCH = [
+    ("MR_dev_auto", TESTDATA / "MR_dev_auto.micw", "auto", "standard", 128),
+    ("CT_dev_zz", None, "zz", "standard", 64),
+    ("CT_dev_zz_alias", None, "zz", "alias", 64),
+    ("wide_800", None, "auto-fast", "standard", 32),
+    ("wide_640", None, "auto-fast", "standard", 32),
+    ("tissue_g_500", None, "auto-r", "standard", 32),
+    ("CT_dev_tl13", PORT_DATA / "CT_dev_tl13.micw", None, None, 32),
+]
+CT_TL15 = PORT_DATA / "CT_dev_1strip_tl15.micw"
 # name -> (CUDA source, file:line of the Pallas kernel body it replaces)
 KERNELS = {
     "rans_decode_zzd": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:415"),
@@ -105,7 +138,23 @@ KERNELS = {
     "rans_decode_rle": ("mic_tpu_torch/csrc/rans_rle.cu", "mic_tpu/tpu/pallas_rans.py:1078"),
     "rans_decode_rle_alias": ("mic_tpu_torch/csrc/rans_rle.cu",
                               "mic_tpu/tpu/pallas_rans.py:1095"),
+    "rans_decode_packed": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:233"),
+    "rans_decode": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:52"),
 }
+# The bound of a kernel's work: the larger of its bytes (every input read
+# once, every output written once) over the H100 SXM's 3.35 TB/s and its
+# integer operations over 67 T/s (the guide's CUDA-core rate, float32
+# outside the tensor cores; it lists no integer rate).  Operations per
+# output element, counted from each kernel's step in csrc/: the entropy
+# step (slot mask, table reads, bound checks, shift, multiply-add, renorm
+# test and word merge: 9; the alias front end 14), plus the fused
+# inverse's unzigzag and sum (4), plus the r-kernels' run search and
+# literal read per pixel (16); the encoder's division by magic multiply,
+# state update and renorm test (12; the alias slot search 8 more).
+MEM_BPS, CORE_OPS = 3.35e12, 67e12
+OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18, "rans_decode_packed": 9,
+                   "rans_decode": 9, "rans_decode_rle": 29, "rans_decode_rle_alias": 34,
+                   "rans_encode": 12, "rans_encode_alias": 20}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -167,6 +216,15 @@ def _max_abs_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def _account(r, name, inputs, outputs, ms, plain_ms) -> None:
+    """Adds one timed kernel call to its report entry: milliseconds, and
+    the bytes and operations its bound is computed from."""
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["bytes"] += sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    r["ops"] += OPS_PER_ELEMENT[name] * sum(t.numel() for t in outputs)
+
+
 def _encode_kernels_vs_plain(dev, report) -> None:
     """Phase 2, encode half: both forms of the encode kernel against their
     plain versions on CT_dev x128's candidate operands."""
@@ -199,7 +257,8 @@ def _encode_kernels_vs_plain(dev, report) -> None:
             raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
         ms = _cuda_ms(lambda: kernel(*ops, steps=staged.steps), 10)
         plain_ms = _cuda_ms(lambda: plain(*ops, steps=staged.steps), 1)
-        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        report[name]["max_abs_err"] = err
+        _account(report[name], name, ops, got, ms, plain_ms)
         print(f"kernel-vs-plain {name} CT_dev{'_alias' if alias else ''}x{reps} "
               f"streams={ops[0].shape[0]} steps={staged.steps} table_width={ops[1].shape[1]} "
               f"equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
@@ -256,8 +315,7 @@ def _rle_kernels_vs_plain(dev, report) -> None:
             if own:
                 ms = _cuda_ms(lambda: b.fn(*b.ops, **kw), 10)
                 plain_ms = _cuda_ms(lambda: plain[b.fn](*b.ops, **kw), 1)
-                r["ms"] += ms
-                r["plain_ms"] += plain_ms
+                _account(r, name, b.ops, (got,), ms, plain_ms)
                 line += f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}"
             print(line)
     del plan
@@ -412,6 +470,172 @@ def _encode_phase(dev):
     return launches, decode_batch, decode_expected
 
 
+def _post_pixels():
+    """name -> (pixels, width, height, max_value) of phase 6's images."""
+    import numpy as np
+
+    ct = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")
+    wide = np.fromfile(TESTDATA / "wide_banded.raw", dtype="<u2").reshape(512, 1024)
+    tissue = _tissue_plane("g").reshape(384, 512)[:, :500]
+    out = {"MR_dev_auto": (np.fromfile(TESTDATA / "MR_dev_auto.raw", dtype="<u2"), 256, 256),
+           "CT_dev_zz": (ct, 512, 512), "CT_dev_zz_alias": (ct, 512, 512),
+           "wide_800": (np.ascontiguousarray(wide[:, :800]).ravel(), 800, 512),
+           "wide_640": (np.ascontiguousarray(wide[:, :640]).ravel(), 640, 512),
+           "tissue_g_500": (np.ascontiguousarray(tissue).ravel(), 500, 384),
+           "CT_dev_tl13": (ct, 512, 512)}
+    return {k: (px, w, h, int(px.max())) for k, (px, w, h) in out.items()}
+
+
+def _post_batch(dev):
+    """Phase 6's containers (fixtures, or encoded here on the card by the
+    port's encoder), expected pixels and names, in batch order."""
+    import torch
+
+    from mic_tpu_torch import micw_compress_device_many
+
+    images = _post_pixels()
+    blobs, expected, names = [], [], []
+    t0 = time.perf_counter()
+    for name, path, pred, ent, reps in POST_BATCH:
+        px, w, h, mv = images[name]
+        if path is not None:
+            blob = path.read_bytes()
+        else:
+            (blob,) = micw_compress_device_many([(px, w, h, mv)], dev, entropy=ent,
+                                                predictor=pred)
+        blobs += [blob] * reps
+        expected += [px] * reps
+        names += [name] * reps
+    torch.cuda.synchronize()
+    print(f"post path: {len(set(names))} containers ready ({time.perf_counter() - t0:.3f} s, "
+          f"5 encoded on the card)")
+    return blobs, expected, names
+
+
+_POST_FNS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")
+
+
+def _post_kernels_vs_plain(dev, report, blobs) -> None:
+    """Phase 2, post half: the symbols-out kernels against their plain
+    versions on every post bucket of phase 6's batch, and the two-table
+    kernel at tl 15 (tables past the shared-memory limit)."""
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import rans_decode as rd
+
+    plans = [("post-batch", MicwDecodePlan(blobs, dev)),
+             ("CT_dev_1strip_tl15x32", MicwDecodePlan([CT_TL15.read_bytes()] * 32, dev))]
+    by_tl = {}
+    for tag, plan in plans:
+        for key, b in plan.buckets.items():
+            if key[0] != "post":
+                continue
+            name = b.fn.__name__
+            plain = getattr(rd, name + "_plain")
+            got = b.fn(*b.ops, **b.kwargs)
+            want = plain(*b.ops, **b.kwargs)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {tag} {key}: kernel != plain (max abs err {err})")
+            ms = _cuda_ms(lambda: b.fn(*b.ops, **b.kwargs), 10)
+            plain_ms = _cuda_ms(lambda: plain(*b.ops, **b.kwargs), 1)
+            r = report[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            line = (f"kernel-vs-plain {name} {tag} bucket={key} strips={b.n} "
+                    f"steps={b.kwargs['steps']} table_width={b.ops[1].shape[1]} equal=True "
+                    f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+            if name != "rans_decode_alias":  # its timed shapes are phase 3's
+                _account(r, name, b.ops, (got,), ms, plain_ms)
+            if name == "rans_decode":
+                tl = b.ops[1].shape[1].bit_length() - 1
+                smem = 8 * b.ops[1].shape[1]
+                line += f" tl={tl} tables_bytes_per_strip={smem}"
+                by_tl.setdefault(tl, [0, 0.0])
+                by_tl[tl][0] += b.n
+                by_tl[tl][1] += ms
+            print(line)
+    for tl, (n, ms) in sorted(by_tl.items()):
+        print(f"two-table kernel at tl {tl}: {n} strips, {ms:.3f} ms over its buckets")
+    del plans
+
+
+def _post_phase(dev, blobs, expected, names):
+    """Phase 6: the post-path decode; returns the run's launch counts."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu.strips import STRIP_MODE_CONST, STRIP_MODE_RAW, micw_parse
+
+    timed_bytes = 0
+    for blob in blobs:
+        bw, bh, _ns, strip_h, _mv, _gp, _lanes, strips = micw_parse(blob)
+        timed_bytes += 2 * sum(min(strip_h, bh - i * strip_h) * bw
+                               for i, st in enumerate(strips)
+                               if st[5] not in (STRIP_MODE_RAW, STRIP_MODE_CONST))
+    t0 = time.perf_counter()
+    plan = MicwDecodePlan(blobs, dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    fns = {n: getattr(rd, n) for n in (*_POST_FNS, "rans_decode_zzd")}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    decoded = plan.run()
+    torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in fns.items()}
+    kinds = {}
+    for key, b in plan.buckets.items():
+        kind = f"{key[1]}:{key[2]}" if key[0] == "post" else f"fused:{key[0]}"
+        kinds[kind] = kinds.get(kind, 0) + b.n
+    n_strips = sum(b.n for b in plan.buckets.values())
+    mism = plan.verify_batch(decoded, expected)
+    outs = plan.assemble(decoded)
+    bad = [i for i, ((px, _w, _h), exp) in enumerate(zip(outs, expected))
+           if px.dtype != np.uint16 or not np.array_equal(px, exp)]
+    print(f"post path: {len(blobs)} images, {n_strips} entropy strips in {len(plan.buckets)} "
+          f"buckets {kinds}, stage_s={stage_s:.3f} first_run_s={first_run_s:.3f} "
+          f"mismatches={mism} bad_images={len(bad)} launches={launches}")
+    if mism or bad:
+        raise AssertionError(f"post path decoded wrong pixels: {mism} mismatches, "
+                             f"images {[names[i] for i in bad[:10]]}")
+    for name in _POST_FNS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the post path")
+    run_ms = _cuda_ms(plan.run, 3)
+    print(f"post path: {run_ms:.3f} ms per plan.run(), "
+          f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
+          f"({timed_bytes} bytes)")
+    _out, wall_ms, by_name, span = _profiled(plan.run)
+    if not by_name:
+        print(f"profile: wall_ms={wall_ms:.3f}; no device events recorded "
+              "(device breakdown not measured)")
+    else:
+        busy = sum(by_name.values())
+        ent = sum(v for k, v in by_name.items() if "rans_" in k)
+        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+              f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
+              f"entropy_kernels_ms={ent:.3f} ({100 * ent / busy:.1f}% of busy) "
+              f"post_torch_ops_ms={busy - ent:.3f} device_kernel_names={len(by_name)}")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
+    # Wall time of each post bucket alone (host clock around a synchronised
+    # call), to split the phase between the bucket kinds.
+    for key, b in plan.buckets.items():
+        b()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b()
+        torch.cuda.synchronize()
+        print(f"post path bucket {key}: strips={b.n} wall_ms={(time.perf_counter() - t0) * 1e3:.3f}")
+    del plan, decoded, outs
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -450,10 +674,12 @@ def main() -> int:
                 "rans_decode_alias": (rd.rans_decode_alias, rd.rans_decode_alias_plain)}
 
     # --- 2. each kernel against its plain version, main-path shapes --------
-    report = {name: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0}
-              for name in ("rans_decode_rle", "rans_decode_rle_alias", *wrappers)}
+    report = {name: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+              for name in KERNELS}
     _encode_kernels_vs_plain(dev, report)
     _rle_kernels_vs_plain(dev, report)
+    post_blobs, post_expected, post_names = _post_batch(dev)
+    _post_kernels_vs_plain(dev, report, post_blobs)
     for name, reps in (("CT_dev", 256), ("CT_dev_alias", 256), ("MR_dev_alias", 512)):
         plan = MicwDecodePlan([blobs[name]] * reps, dev)
         for key, b in plan.buckets.items():
@@ -475,8 +701,7 @@ def main() -> int:
                 r = report[wname]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if name in ("CT_dev", "CT_dev_alias"):  # one main-path image's buckets
-                    r["ms"] += ms
-                    r["plain_ms"] += plain_ms
+                    _account(r, wname, b.ops, (got,), ms, plain_ms)
                 print(f"kernel-vs-plain {wname} {name}x{reps} bucket={key} "
                       f"strips={b.n} steps={kw['steps']} "
                       f"{'' if kw.get('fused', True) else 'fused=False '}"
@@ -540,11 +765,21 @@ def main() -> int:
     # --- 5. r-mode decode path ---------------------------------------------------
     launches.update(_rle_phase(dev))
 
-    # --- 6. report ------------------------------------------------------------
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
-                "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
-               for name, (src, replaces) in KERNELS.items()]
+    # --- 6. post-path decode -----------------------------------------------------
+    post_launches = _post_phase(dev, post_blobs, post_expected, post_names)
+    launches.update({k: post_launches[k] for k in ("rans_decode_packed", "rans_decode")})
+
+    # --- 7. report ------------------------------------------------------------
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        r = report[name]
+        mem_ms, ops_ms = r["bytes"] / MEM_BPS * 1e3, r["ops"] / CORE_OPS * 1e3
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": max(mem_ms, ops_ms),
+                        "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,12 @@ _SIGNATURES = {
     # n_strips, steps, vdd_ws, stream
     "mic_rans_decode_zzd": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P,
                             _I, _I, _I, _P],
+    # init, tpk, ts, alpha, asz, words, rows, mask, shift, out, n_strips,
+    # steps, stream
+    "mic_rans_decode_packed": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    # init, tsym, tfb, ts, words, rows, mask, shift, out, n_strips, steps,
+    # stream
+    "mic_rans_decode_two_table": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     # init, w0, w1, w2, words, rows, mask, shift, escv, esides, erows, ws,
     # out, n_strips, steps, vdd_ws, fused, esc, stream
     "mic_rans_decode_alias": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,

@@ -1,7 +1,7 @@
 // Device code shared by the rANS decode kernels (rans_decode.cu, rans_rle.cu):
 // the block scan, the renorm word pull, one decode step of each entropy
-// front end (FF 57 packed tables, FF 41 alias buckets) and the direct
-// predictors' inverse.  One block of 128 threads decodes one strip; thread
+// front end (FF 57 packed tables, FF 57 two tables, FF 41 alias buckets)
+// and the direct predictors' inverse.  One block of 128 threads decodes one strip; thread
 // = lane.  The out-of-range guards are listed in rans_decode.cu.
 
 #pragma once
@@ -105,6 +105,28 @@ struct PackedFront {
     block_scan2(k, zero, total, tot0, buf, phase);
     l.x = renorm(xn, need, k - need, total, l.cur, l.words, l.rows);
     return av & 0xFFFFu;
+  }
+};
+
+// One FF 57 step of the two-table form (tableLog up to 16, any alphabet):
+// tsym[slot] = sym, tfb[slot] = freq<<16 | bias, in shared memory where
+// they fit, else read from device memory.  Returns the symbol.
+struct TwoTableFront {
+  const uint32_t* tsym;
+  const uint32_t* tfb;
+  int ts;
+
+  __device__ __forceinline__ uint32_t step(Lane& l, uint32_t* buf, int& phase) const {
+    const uint32_t slot = l.x & l.m;
+    const bool in = slot < (uint32_t)ts;
+    const uint32_t sym = in ? tsym[slot] : 0u;
+    const uint32_t fb = in ? tfb[slot] : 0u;
+    const uint32_t xn = (fb >> 16) * shr(l.x, l.sft) + (fb & 0xFFFFu);
+    const bool need = xn < (1u << 16);
+    uint32_t k = need, zero = 0, total, tot0;
+    block_scan2(k, zero, total, tot0, buf, phase);
+    l.x = renorm(xn, need, k - need, total, l.cur, l.words, l.rows);
+    return sym;
   }
 };
 

@@ -6,9 +6,9 @@ builders the decode kernels' operands are made from.  Encode: the
 normalization + ncount header (``_norm_and_header``) and the alias
 escape-fold plan (``_alias_plan`` / ``_alias_apply`` /
 ``alias_encode_plan``) that define an encoded blob's bytes; the rANS
-scan itself is the encode kernel's (``rans_encode``).  ``mic_tpu.tpu``
-imports jax at package import, so the port cannot reuse it on a machine
-without jax; the copies here are pinned to the originals by
+scan itself is the encode kernel's (``rans_encode``).  The ncount header
+is read and written by the port's numpy copies in ``..ops.fse``.  The
+copies here are pinned to the originals by
 ``tests/test_torch_host_format.py`` and ``tests/test_torch_rans_encode.py``.
 
 Stream layout (magic 0xFF 0x57 'W'; FF 41 adds the escape fields)::
@@ -27,8 +27,7 @@ import struct
 
 import numpy as np
 
-from mic_tpu.native import normalize_write_count_native, read_ncount_native
-from mic_tpu.ops.fse import (
+from ..ops.fse import (
     IncompressibleError,
     normalize_count,
     optimal_table_log,
@@ -244,12 +243,7 @@ def mict_parse(blob: bytes):
     if is_alias:
         n_esc, esc_val = struct.unpack_from("<IH", blob, 12)
         hdr = 18
-    body = blob[hdr:]
-    nat = read_ncount_native(body)
-    if nat is not None:
-        norm, symbol_len, table_log, consumed = nat
-    else:
-        norm, symbol_len, table_log, consumed = read_ncount(body)
+    norm, symbol_len, table_log, consumed = read_ncount(blob[hdr:])
     if table_log != tl_hdr:
         raise ValueError("MICT: header tableLog mismatch")
     pos = hdr + consumed
@@ -267,12 +261,8 @@ def mict_parse(blob: bytes):
 
 
 def _norm_and_header(counts, n, tl, sl):
-    """normalize_count + write_count: (norm, ncount header bytes).  The
-    native pair when ``mic_tpu.native`` is built, else numpy (the same
-    algorithms, bit-identical)."""
-    nat = normalize_write_count_native(counts, n, tl, sl)
-    if nat is not None:
-        return nat
+    """normalize_count + write_count: (norm, ncount header bytes), the
+    same bytes as ``mic_tpu``'s native and numpy pairs."""
     norm = normalize_count(counts, n, tl, sl)
     if int(np.abs(norm).sum()) != (1 << tl):  # reference validateNorm
         raise ValueError("normalize: table does not sum to 1<<tableLog")

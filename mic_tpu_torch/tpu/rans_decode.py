@@ -1,14 +1,20 @@
-"""Fused rANS decode kernels of MICW: the direct modes (zzd / vdd / pdd)
-and the r-modes (zzr / vdr / pdr).
+"""rANS decode kernels of MICW: the fused direct modes (zzd / vdd / pdd),
+the fused r-modes (zzr / vdr / pdr) and the symbols-out forms the post
+path (``post.py``) decodes the other strips with.
 
 Counterpart of the decode half of ``mic_tpu.tpu.pallas_rans``:
 
-* ``build_packed_tables`` / ``build_alias_bucket_tables`` — the numpy
-  operand builders, carried over unchanged so their arrays are identical
-  (pinned by ``tests/test_torch_host_format.py``);
+* ``build_packed_tables`` / ``build_pallas_tables`` /
+  ``build_alias_bucket_tables`` — the numpy operand builders, carried
+  over unchanged so their arrays are identical (pinned by
+  ``tests/test_torch_host_format.py`` and ``tests/test_torch_post_decode.py``);
 * ``to_device`` — numpy ``uint32`` operands to int32 bit-view tensors;
 * ``rans_decode_zzd`` / ``rans_decode_alias`` — the wrappers of the two
-  direct-mode CUDA kernels in ``csrc/rans_decode.cu``;
+  direct-mode CUDA kernels in ``csrc/rans_decode.cu`` (``fused=False``
+  gives the alias symbols);
+* ``rans_decode_packed`` / ``rans_decode`` — the symbols-out FF 57 kernels
+  of ``csrc/rans_decode.cu``: packed tables (tableLog <= 12, alphabets
+  <= 4096) and two tables (tableLog up to 16, any alphabet);
 * ``rans_decode_rle`` / ``rans_decode_rle_alias`` — the wrappers of the
   fused r-mode kernels in ``csrc/rans_rle.cu`` (either entropy front end,
   then the SoA-RLE expand and the direct inverse);
@@ -55,10 +61,15 @@ from .device_rans import alias_construct, slot_tables
 
 __all__ = [
     "build_packed_tables",
+    "build_pallas_tables",
     "build_alias_bucket_tables",
     "to_device",
     "rans_decode_zzd",
     "rans_decode_zzd_plain",
+    "rans_decode_packed",
+    "rans_decode_packed_plain",
+    "rans_decode",
+    "rans_decode_plain",
     "rans_decode_alias",
     "rans_decode_alias_plain",
     "rans_decode_rle",
@@ -126,6 +137,45 @@ def build_packed_tables(parsed, table_log: int, min_steps: int = 0):
         alpha[i, : len(a)] = a
     words = words.reshape(S, -1, 128)
     return init, tpk, alpha, words, mask, shift, counts, steps, asweep
+
+
+def build_pallas_tables(parsed, table_log: int, min_steps: int = 0):
+    """Two-table build for FF 57 strips of any tableLog and alphabet.
+    Returns (init, tsym, tfb, words, mask, shift, counts, steps) with
+    tsym[slot] = sym and tfb[slot] = freq<<16 | bias; strips with smaller
+    tableLogs get their tables tiled up to 2^table_log (their slot masks
+    stay their own).  ``min_steps`` pads the scan length like
+    build_packed_tables."""
+    S = len(parsed)
+    TS = 1 << table_log
+    init = np.zeros((S, 128), np.uint32)
+    tsym = np.zeros((S, TS), np.uint32)
+    tfb = np.zeros((S, TS), np.uint32)
+    steps = max(min_steps, max((p[2] + 127) // 128 for p in parsed))
+    steps = (steps + 7) // 8 * 8
+    # See build_packed_tables: margin covers garbage-state renorms on the
+    # zero padding after a short strip's stream ends.
+    margin = max(steps * 128 - p[2] for p in parsed) + 256
+    wmax = ((max(len(p[4]) for p in parsed) + margin + 127) // 128) * 128
+    words = np.zeros((S, wmax), np.uint32)
+    mask = np.zeros((S, 128), np.uint32)
+    shift = np.zeros((S, 128), np.uint32)
+    counts = []
+    for i, p in enumerate(parsed):
+        L, tl, count, states, wrds, norm, _sl, alias = p
+        if L != 128:
+            raise ValueError("pallas rANS kernel requires 128 lanes per strip")
+        sym, fs, bs, _, _ = slot_tables(norm, tl, alias)
+        reps = TS // (1 << tl)
+        tsym[i] = np.tile(sym.astype(np.uint32), reps)
+        tfb[i] = np.tile((fs.astype(np.uint32) << 16) | bs.astype(np.uint32), reps)
+        init[i] = states
+        words[i, : len(wrds)] = wrds
+        mask[i, :] = (1 << tl) - 1
+        shift[i, :] = tl
+        counts.append(count)
+    words = words.reshape(S, -1, 128)
+    return init, tsym, tfb, words, mask, shift, counts, steps
 
 
 def build_alias_bucket_tables(parsed, min_steps: int = 0):
@@ -276,23 +326,40 @@ class _Inverse:
 # ---------------------------------------------------------------------------
 
 
-def _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps, vdd_ws):
+def _table_operands(init, tables, words, mask, shift, steps, vdd_ws=0):
+    """Checks of the operands every FF 57 wrapper takes; ``tables`` is
+    ((name, tensor, max width), ...).  Returns S, the table widths and
+    the word rows."""
     _check_steps(steps, vdd_ws)
     S = init.shape[0]
     dev = init.device
     if S == 0 or init.dim() != 2 or words.dim() != 3:
         raise ValueError("init must be [S>0, 128] and words [S, rows, 128]")
-    ts, asz, rows = tpk.shape[-1], alpha.shape[-1], words.shape[1]
-    if not (0 < ts <= 4096 and 0 < asz <= 4096 and rows >= 2):
-        raise ValueError(f"tpk width {ts} and alpha width {asz} must be in "
-                         f"1..4096 and words must have >= 2 rows ({rows})")
-    for name, t, shape in (("init", init, (S, 128)), ("tpk", tpk, (S, ts)),
-                           ("alpha", alpha, (S, asz)),
-                           ("words", words, (S, rows, 128)),
-                           ("mask", mask, (S, 128)), ("shift", shift, (S, 128)),
-                           ("ws", ws, (S, 128))):
+    rows = words.shape[1]
+    if rows < 2:
+        raise ValueError(f"words must have >= 2 rows ({rows})")
+    widths = []
+    for name, t, most in tables:
+        w = t.shape[-1] if isinstance(t, torch.Tensor) and t.dim() == 2 else 0
+        if not 0 < w <= most:
+            raise ValueError(f"{name} width {w} must be in 1..{most}")
+        _check(name, t, (S, w), dev)
+        widths.append(w)
+    for name, t, shape in (("init", init, (S, 128)), ("words", words, (S, rows, 128)),
+                           ("mask", mask, (S, 128)), ("shift", shift, (S, 128))):
         _check(name, t, shape, dev)
-    return S, ts, asz, rows
+    return S, *widths, rows
+
+
+def _packed_operands(init, tpk, alpha, words, mask, shift, steps, vdd_ws=0):
+    return _table_operands(init, (("tpk", tpk, 4096), ("alpha", alpha, 4096)), words,
+                           mask, shift, steps, vdd_ws)
+
+
+def _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps, vdd_ws):
+    out = _packed_operands(init, tpk, alpha, words, mask, shift, steps, vdd_ws)
+    _check("ws", ws, (out[0], 128), init.device)
+    return out
 
 
 def _packed_symbols(init, tpk, alpha, words, mask, shift, steps):
@@ -361,6 +428,132 @@ def rans_decode_zzd(init, tpk, alpha, words, mask, shift, ws, *,
 
 
 rans_decode_zzd.launches = 0
+
+
+def rans_decode_packed_plain(init, tpk, alpha, words, mask, shift, *,
+                             steps: int) -> torch.Tensor:
+    """Plain-PyTorch twin of the symbols-out packed kernel (any device).
+    Same operands and output as :func:`rans_decode_packed`."""
+    S = _packed_operands(init, tpk, alpha, words, mask, shift, steps)[0]
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    for t, sym in enumerate(_packed_symbols(init, tpk, alpha, words, mask, shift, steps)):
+        out[:, t] = _as_i16(sym)
+    return out
+
+
+def rans_decode_packed(init, tpk, alpha, words, mask, shift, *, steps: int) -> torch.Tensor:
+    """FF 57 packed-table rANS decode of S strips, symbols out (the
+    entropy stage of the post path).
+
+    Operands are int32 bit-views (:func:`to_device`) of
+    :func:`build_packed_tables`' first six arrays.  Returns int16 [S,
+    steps, 128] (bit-view of the u16 symbols, in stream order per strip;
+    steps past a short strip's end decode the zero padding).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel of
+    ``csrc/rans_decode.cu``.
+    """
+    S, ts, asz, rows = _packed_operands(init, tpk, alpha, words, mask, shift, steps)
+    if init.device.type == "cpu":
+        return rans_decode_packed_plain(init, tpk, alpha, words, mask, shift, steps=steps)
+    if init.device.type != "cuda":
+        raise ValueError(f"unsupported device {init.device}")
+    from .._build import kernel_library
+
+    lib = kernel_library()
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    with torch.cuda.device(init.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_rans_decode_packed(
+            init.data_ptr(), tpk.data_ptr(), ts, alpha.data_ptr(), asz,
+            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(), out.data_ptr(),
+            S, steps, stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_rans_decode_packed launch failed: CUDA error {rc}")
+    rans_decode_packed.launches += 1
+    return out
+
+
+rans_decode_packed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# FF 57 two-table kernel (tableLog up to 16, any alphabet)
+# ---------------------------------------------------------------------------
+
+MAX_TABLE = 1 << 16  # the format's tableLog cap, 16
+
+
+def _two_table_operands(init, tsym, tfb, words, mask, shift, steps):
+    out = _table_operands(init, (("tsym", tsym, MAX_TABLE), ("tfb", tfb, MAX_TABLE)),
+                          words, mask, shift, steps)
+    if out[1] != out[2]:
+        raise ValueError(f"tsym width {out[1]} != tfb width {out[2]}")
+    return out[0], out[1], out[3]
+
+
+def _two_table_symbols(init, tsym, tfb, words, mask, shift, steps):
+    """The two-table decode's symbols, one [S, 128] int64 tensor per step
+    (the plain version of ``TwoTableFront`` in ``csrc/rans_common.cuh``)."""
+    S, ts, rows = init.shape[0], tsym.shape[-1], words.shape[1]
+    x = _u(init)
+    tsym, tfb, m, sft = _u(tsym), _u(tfb), _u(mask), _u(shift)
+    words = _u(words).reshape(S, -1)
+    cur = torch.zeros((S, 1), dtype=torch.int64, device=init.device)
+    for _t in range(steps):
+        slot = x & m
+        inb = slot < ts
+        sc = slot.clamp(max=ts - 1)
+        sym = torch.where(inb, torch.gather(tsym, 1, sc), 0)
+        fb = torch.where(inb, torch.gather(tfb, 1, sc), 0)
+        xn = ((fb >> 16) * _shr(x, sft) + (fb & 0xFFFF)) & _U32
+        x, cur = _renorm(xn, cur, words, rows)
+        yield sym
+
+
+def rans_decode_plain(init, tsym, tfb, words, mask, shift, *, steps: int) -> torch.Tensor:
+    """Plain-PyTorch twin of the two-table kernel (any device).  Same
+    operands and output as :func:`rans_decode`."""
+    S = _two_table_operands(init, tsym, tfb, words, mask, shift, steps)[0]
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    for t, sym in enumerate(_two_table_symbols(init, tsym, tfb, words, mask, shift, steps)):
+        out[:, t] = _as_i16(sym)
+    return out
+
+
+def rans_decode(init, tsym, tfb, words, mask, shift, *, steps: int) -> torch.Tensor:
+    """FF 57 two-table rANS decode of S strips, symbols out: the form for
+    tableLog > 12 or alphabets over 4096 that the packed tables cannot
+    hold.
+
+    Operands are int32 bit-views (:func:`to_device`) of
+    :func:`build_pallas_tables`' first six arrays (tables up to 2^16
+    wide).  Returns int16 [S, steps, 128] (bit-view of the u16 symbols).
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``csrc/rans_decode.cu``, which stages the tables in shared memory when
+    they fit a block (tableLog <= 14 on an H100) and reads them from
+    device memory otherwise.
+    """
+    S, ts, rows = _two_table_operands(init, tsym, tfb, words, mask, shift, steps)
+    if init.device.type == "cpu":
+        return rans_decode_plain(init, tsym, tfb, words, mask, shift, steps=steps)
+    if init.device.type != "cuda":
+        raise ValueError(f"unsupported device {init.device}")
+    from .._build import kernel_library
+
+    lib = kernel_library()
+    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
+    with torch.cuda.device(init.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_rans_decode_two_table(
+            init.data_ptr(), tsym.data_ptr(), tfb.data_ptr(), ts, words.data_ptr(), rows,
+            mask.data_ptr(), shift.data_ptr(), out.data_ptr(), S, steps, stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_rans_decode_two_table launch failed: CUDA error {rc}")
+    rans_decode.launches += 1
+    return out
+
+
+rans_decode.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mic_tpu.ops.fse import (
+from ..ops.fse import (
     DEFAULT_TABLE_LOG,
     IncompressibleError,
     UseRLEError,

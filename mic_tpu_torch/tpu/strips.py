@@ -10,24 +10,32 @@ Port of ``mic_tpu.tpu.strips``, in three parts:
   (``_strip_candidates`` / ``_strip_requests`` / ``_strip_select``,
   jax-free copies pinned byte for byte by the tests; the device encoder
   itself is ``rans_encode.micw_compress_device_many``);
-* ``MicwDecodePlan`` / ``micw_decode_many`` for the direct modes zzd,
-  vdd and pdd and the r-modes zzr, vdr and pdr, on both entropy families
-  (FF 57 standard, FF 41 alias).
+* ``MicwDecodePlan`` / ``micw_decode_many`` / ``micw_decompress_device``
+  for every strip mode (zzd, vdd, pdd, zzr, vdr, pdr, zz, avg) at any
+  width, on both entropy families (FF 57 standard at tableLog up to 16,
+  FF 41 alias).
 
-The plan pools the strips of every image of a batch into buckets keyed
-on (entropy family, predictor, padded step count, geometry and, for the
-r-modes, the container's FLAG_RDENSE), as ``mic_tpu`` keys them, and
-runs each bucket as ONE launch of one of the four fused kernels of
-``rans_decode``.  The second (column) prefix sum of pdd and pdr is a
-plain ``torch.cumsum`` on the kernel's output, as ``mic_tpu`` leaves it
-to XLA.  Raw and constant strips are copied on the host.
+The plan pools the strips of every image of a batch into buckets and
+runs each bucket as one launch of a kernel of ``rans_decode``.  A strip
+takes a fused kernel where ``mic_tpu``'s plan does: zzd, pdd and vdd
+(width/128 in {1, 2, 4, 8}) and the r-modes (vdr likewise) at widths that
+are a multiple of 128, FF 41 or FF 57 with packed tables (tableLog <= 12,
+alphabet <= 4096).  Those buckets are keyed on (entropy family,
+predictor, padded step count, geometry and, for the r-modes, the
+container's FLAG_RDENSE).  Every other strip takes the post path: a
+symbols-out entropy launch (packed tables, two tables, or the alias
+kernel with ``fused=False``) and then ``post.post_batch``, keyed on
+(entropy form, predictor, padded step count, width, strip height and the
+post constants mid / delim), as ``mic_tpu`` keys its post groups.  The
+second (column) prefix sum of pdd and pdr is a plain ``torch.cumsum`` on
+the kernel's output, as ``mic_tpu`` leaves it to XLA.  Raw and constant
+strips are copied on the host.
 
-Strips outside this slice raise ``NotImplementedError`` at plan
-construction: the escaped modes (zz, avg), lanes != 128, width % 128 !=
-0, vdd or vdr with width/128 not in {1,2,4,8}, FF 41 with tableLog > 12,
-FF 57 with tableLog > 12 or an alphabet over 4096 symbols.  An r-mode
-strip that claims more runs than symbols, or more pixels than its strip
-holds, raises ``ValueError``.
+Strips with lanes != 128 and FF 41 strips with tableLog > 12 raise
+``NotImplementedError`` at plan construction (in ``mic_tpu`` only the
+XLA scan tier decodes them).  A strip whose table entry claims more runs
+than symbols, or more pixels (zz, avg: tokens) than its strip can hold,
+raises ``ValueError``.
 
 Container layout::
 
@@ -46,16 +54,19 @@ import struct
 import numpy as np
 import torch
 
-from mic_tpu.ops.predictors import _interleave_escapes, delta_params, predictor_encode, zigzag
-from mic_tpu.ops.rle import soa_encode
-
+from ..ops.predictors import _interleave_escapes, delta_params, predictor_encode, zigzag
+from ..ops.rle import soa_encode
 from .device_rans import ALIAS_MAX_KEPT, mict_parse
+from .post import post_batch
 from .rans_decode import (
     MID_DIRECT,
     _as_i16,
     build_alias_bucket_tables,
     build_packed_tables,
+    build_pallas_tables,
+    rans_decode,
     rans_decode_alias,
+    rans_decode_packed,
     rans_decode_rle,
     rans_decode_rle_alias,
     rans_decode_zzd,
@@ -70,6 +81,7 @@ __all__ = [
     "strip_predictor",
     "MicwDecodePlan",
     "micw_decode_many",
+    "micw_decompress_device",
     "MICW_MAGIC",
     "MICW_BAND_W",
 ]
@@ -448,50 +460,81 @@ def _rle_sizing(strips, pred: str, width: int, strip_h: int):
     return max(runs, 512), _pow2_at_least(-(-max(st[2] for st in strips) // 128), 8)
 
 
-def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool):
+def _post_params(pred: str, mid: int, delim: int) -> tuple[int, int]:
+    """(mid_count, delim) as the post path reads them: the direct modes
+    use neither (zeroed), the r-modes the format constant MID_DIRECT, the
+    escaped modes the container's (from its maxValue)."""
+    if pred in _DIRECT_PREDS:
+        return 0, 0
+    if pred in _RLE_DIRECT_PREDS:
+        return MID_DIRECT, 0
+    return mid, delim
+
+
+def _post_sizing(strips, pred: str, width: int, strip_h: int):
+    """(max_runs, max_tokens) of a post bucket's strips (table entries),
+    as ``mic_tpu`` sizes its post programs: 128 each for the direct
+    modes, else powers of two (x128) covering every strip's runs and
+    tokens plus one row, the runs floored at ``_runs_floor``."""
+    if pred in _DIRECT_PREDS:
+        return 128, 128
+    runs = max(_runs_floor(pred, width, strip_h),
+               128 * _pow2_at_least((max(st[3] for st in strips) + 128) // 128))
+    return runs, 128 * _pow2_at_least((max(st[2] for st in strips) + 128) // 128)
+
+
+def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool,
+                  max_value: int = 0):
     """Bucket key of one entropy strip (parsed MICT ``p``, table entry
-    ``st``), or NotImplementedError when the strip lies outside the
-    ported slice.  ``dense`` is the container's FLAG_RDENSE."""
-    mode = st[5]
-    if pred not in _DIRECT_PREDS + _RLE_DIRECT_PREDS:
-        raise NotImplementedError(
-            f"micw: strip mode {mode} ({pred}) is not ported to mic_tpu_torch yet")
-    if width % 128:
-        raise NotImplementedError(
-            f"micw: {pred} strip of width {width} (not a multiple of 128)")
-    if pred in ("vdd", "vdr") and width // 128 not in (1, 2, 4, 8):
-        raise NotImplementedError(
-            f"micw: {pred} strip of width {width} (width/128 not in 1, 2, 4, 8)")
+    ``st``; ``dense`` is the container's FLAG_RDENSE, ``max_value`` its
+    maxValue, which sets the escaped modes' post constants).  Raises
+    NotImplementedError for FF 41 strips above tableLog 12, and
+    ValueError for a table entry whose counts would size the decode past
+    the strip."""
     is_alias = p[7] is not None
     if is_alias and p[1] > ALIAS_TABLE_LOG:
         raise NotImplementedError(f"micw: FF 41 {pred} strip with tableLog {p[1]} > 12")
-    if not is_alias and (p[1] > 12 or np.count_nonzero(p[5]) > MAX_ALPHABET):
-        raise NotImplementedError(
-            f"micw: FF 57 {pred} strip with tableLog {p[1]} or alphabet "
-            f"{np.count_nonzero(p[5])} beyond the packed kernel's 12 / 4096")
+    # The sizing reads the table entry: a dishonest one must not make the
+    # run tables, tokens or output outgrow the strip.
+    if pred in _RLE_DIRECT_PREDS and (st[3] > p[2] or st[2] > width * strip_h):
+        raise ValueError(f"micw: {pred} strip claims {st[3]} runs in {p[2]} "
+                         f"symbols and {st[2]} of its {width * strip_h} pixels")
+    if pred in ("zz", "avg") and (st[3] > p[2] or st[2] > 2 * width * strip_h + 1):
+        raise ValueError(f"micw: {pred} strip claims {st[3]} runs in {p[2]} "
+                         f"symbols and {st[2]} tokens for its {width * strip_h} pixels")
+    packed = is_alias or (p[1] <= 12 and np.count_nonzero(p[5]) <= MAX_ALPHABET)
     # Padded step count, a power of two >= 8: strips of similar size share
     # a launch, so short strips do not pad to the longest one.
     b = _pow2_at_least(-(-p[2] // 128), 8)
     a = "a" if is_alias else ""
-    if pred in _RLE_DIRECT_PREDS:
-        # The sizing reads the table entry: a dishonest one must not make
-        # the run tables or the output outgrow the strip.
-        if st[3] > p[2] or st[2] > width * strip_h:
-            raise ValueError(f"micw: {pred} strip claims {st[3]} runs in {p[2]} "
-                             f"symbols and {st[2]} of its {width * strip_h} pixels")
+    whole = width % 128 == 0 and (pred not in ("vdd", "vdr")
+                                  or width // 128 in (1, 2, 4, 8))
+    if packed and whole and pred in _RLE_DIRECT_PREDS:
         return (a + pred, b, width, strip_h, dense)
-    if pred == "pdd":
-        return (a + "pdd", b, width, strip_h)  # the column cumsum needs the geometry
-    if pred == "vdd":
-        return (a + "vdd", b, width)
-    return (a + "zzd", b)  # widths mix through the ws operand
+    if packed and whole and pred in _DIRECT_PREDS:
+        if pred == "pdd":
+            return (a + "pdd", b, width, strip_h)  # the column cumsum needs the geometry
+        if pred == "vdd":
+            return (a + "vdd", b, width)
+        return (a + "zzd", b)  # widths mix through the ws operand
+    form = "alias" if is_alias else ("packed" if packed else "two_table")
+    mid = delim = 0
+    if pred in ("zz", "avg"):
+        mid, delim = _rle_mid(max_value), delta_params(max_value)[1]
+    return ("post", form, pred, b, width, strip_h, *_post_params(pred, mid, delim))
 
 
 class _Bucket:
     """One kernel launch: device operands, kernel arguments and, for pdd
-    and pdr, the (width, strip_h) of the column prefix sum."""
+    and pdr, the (width, strip_h) of the column prefix sum; for a post
+    bucket, the symbols-out launch and the post function's arguments."""
 
     def __init__(self, key, entries, device):
+        self.n = len(entries)
+        self.geom = self.post = None
+        if key[0] == "post":
+            self._init_post(key, entries, device)
+            return
         kind, steps = key[0], key[1]
         S = len(entries)
         parsed = [e[0] for e in entries]
@@ -500,7 +543,6 @@ class _Bucket:
         pred = kind.lstrip("a")
         self.geom = (key[2], key[3]) if pred in ("pdd", "pdr") else None
         vdd_ws = key[2] // 128 if pred in ("vdd", "vdr") else 0
-        self.n = S
         rle = {}
         if pred in _RLE_DIRECT_PREDS:
             maxr, out_rows = _rle_sizing([e[2] for e in entries], pred, key[2], key[3])
@@ -523,8 +565,38 @@ class _Bucket:
             self.ops = to_device(built[:6] + (ws,) + (runs if rle else ()), device)
             self.kwargs = dict(steps=built[7], vdd_ws=vdd_ws, **rle)
 
+    def _init_post(self, key, entries, device):
+        form, pred, steps, width, strip_h, mid, delim = key[1:]
+        parsed = [e[0] for e in entries]
+        if form == "alias":
+            built = build_alias_bucket_tables(parsed, min_steps=steps)
+            ws = np.zeros((self.n, 128), np.uint32)  # read only by the fused form
+            self.fn = rans_decode_alias
+            self.ops = to_device(built[:9] + (ws,), device)
+            self.kwargs = dict(steps=built[10], fused=False,
+                               esc=any(len(p[7][1]) for p in parsed))
+        else:
+            tl = max(max(p[1] for p in parsed), 7)  # the Pallas sweeps' floor
+            if form == "packed":
+                built = build_packed_tables(parsed, tl, min_steps=steps)
+                self.fn = rans_decode_packed
+            else:
+                built = build_pallas_tables(parsed, tl, min_steps=steps)
+                self.fn = rans_decode
+            self.ops = to_device(built[:6], device)
+            self.kwargs = dict(steps=built[7])
+        table = [e[2] for e in entries]
+        max_runs, max_tokens = _post_sizing(table, pred, width, strip_h)
+        meta = torch.tensor([[t[2], t[3], t[4]] for t in table], dtype=torch.int64)
+        self.meta = meta.to(device)
+        self.post = dict(width=width, strip_h=strip_h, max_runs=max_runs,
+                         max_tokens=max_tokens, mid_count=mid, delim=delim, predictor=pred)
+
     def __call__(self) -> torch.Tensor:
         out = self.fn(*self.ops, **self.kwargs).reshape(self.n, -1)
+        if self.post is not None:
+            m = self.meta
+            return post_batch(out, m[:, 0], m[:, 1], m[:, 2], **self.post)
         if self.geom is None:
             return out
         w, sh = self.geom
@@ -559,7 +631,7 @@ class MicwDecodePlan:
             parsed_c = parse_memo.get(id(blob))
             if parsed_c is None:
                 parsed_c = parse_memo[id(blob)] = micw_parse(blob)
-            width, height, num_strips, strip_h, _mv, gpred, lanes, strips = parsed_c
+            width, height, num_strips, strip_h, mv, gpred, lanes, strips = parsed_c
             dense = bool(blob[22] & FLAG_RDENSE)
             if lanes != 128:
                 raise NotImplementedError(f"micw: {lanes} lanes per strip (the port decodes 128)")
@@ -574,7 +646,7 @@ class MicwDecodePlan:
                 p = mict_memo.get(id(st[0]))
                 if p is None:
                     p = mict_memo[id(st[0])] = mict_parse(st[0])
-                bk = _strip_bucket(p, st, pred, width, strip_h, dense)
+                bk = _strip_bucket(p, st, pred, width, strip_h, dense, mv)
                 bucket = entries.setdefault(bk, [])
                 keys.append((bk, len(bucket)))
                 bucket.append((p, width, st))
@@ -665,3 +737,10 @@ def micw_decode_many(blobs, device):
     of (pixels u16, width, height), blob order."""
     plan = MicwDecodePlan(blobs, device)
     return plan.assemble(plan.run())
+
+
+def micw_decompress_device(blob: bytes, device):
+    """Decode one MICW container on ``device`` (the counterpart of
+    ``mic_tpu``'s ``micw_decompress_device_pallas``): a one-blob plan.
+    Returns (pixels u16, width, height)."""
+    return micw_decode_many([blob], device)[0]

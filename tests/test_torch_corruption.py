@@ -6,8 +6,9 @@ with bounds-checked gathers, so a corrupted stream that decodes on the
 CPU without an index error reads nothing out of bounds on the card
 either; the ``cuda`` test checks kernel == plain on the same streams.
 A corrupted stream may decode to garbage (the format has no checksum)
-or raise ValueError / NotImplementedError at parse or table build.
-Needs no jax.
+or raise ValueError / NotImplementedError at parse or table build.  The
+post path's torch ops clamp every gather, and the ``cuda`` test holds the
+whole plan on the card against the same plan on the CPU.  Needs no jax.
 """
 
 import struct
@@ -24,11 +25,15 @@ from mic_tpu_torch.tpu import rans_decode as rd
 ROOT = Path(__file__).resolve().parent.parent
 TESTDATA = ROOT / "web" / "testdata"
 PORT_DATA = ROOT / "tests" / "data" / "torch_port"
-# Direct-mode fixtures, and r-mode ones (every strip zzr / vdr / pdr) that
-# run the fused r-kernels: FF 57, and FF 41 with escapes.
-FIXTURES = {n: d / n for d, names in ((TESTDATA, ("MR_dev.micw", "MR_dev_alias.micw")),
+# Direct-mode fixtures, r-mode ones (every strip zzr / vdr / pdr) that run
+# the fused r-kernels (FF 57, and FF 41 with escapes), and post-path ones:
+# avg strips through the packed symbols kernel, CT at tl 13 through the
+# two-table kernel.
+FIXTURES = {n: d / n for d, names in ((TESTDATA, ("MR_dev.micw", "MR_dev_alias.micw",
+                                                  "MR_dev_auto.micw")),
                                       (PORT_DATA, ("tissue_g_rstd.micw",
-                                                   "tissue_g_zzr_alias.micw")))
+                                                   "tissue_g_zzr_alias.micw",
+                                                   "CT_dev_tl13.micw")))
             for n in names}
 KINDS = ["words", "states", "count_up", "count_down", "n_words_down", "escapes", "ncount"]
 
@@ -83,11 +88,14 @@ def test_cuda_corrupt_streams_match_plain():
     plain = {rd.rans_decode_zzd: rd.rans_decode_zzd_plain,
              rd.rans_decode_alias: rd.rans_decode_alias_plain,
              rd.rans_decode_rle: rd.rans_decode_rle_plain,
-             rd.rans_decode_rle_alias: rd.rans_decode_rle_alias_plain}
+             rd.rans_decode_rle_alias: rd.rans_decode_rle_alias_plain,
+             rd.rans_decode_packed: rd.rans_decode_packed_plain,
+             rd.rans_decode: rd.rans_decode_plain}
     checked = 0
     for name, kind in CASES:
+        blob = _corrupt(name, kind)
         try:
-            plan = MicwDecodePlan([_corrupt(name, kind)], torch.device("cuda"))
+            plan = MicwDecodePlan([blob], torch.device("cuda"))
         except (ValueError, NotImplementedError):
             continue
         for b in plan.buckets.values():
@@ -95,4 +103,8 @@ def test_cuda_corrupt_streams_match_plain():
             torch.cuda.synchronize()
             assert torch.equal(got, plain[b.fn](*b.ops, **b.kwargs)), (name, kind)
             checked += 1
+        # The post path's torch ops: the same garbage on the card as on the CPU.
+        got, want = plan.run(), MicwDecodePlan([blob], torch.device("cpu")).run()
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (name, kind, k)
     assert checked

@@ -109,33 +109,46 @@ def _blob(pred, w, h, lanes=128):
     rng = np.random.default_rng(9)
     px = _smooth(rng, h, w).ravel()
     return ref_st.micw_compress(px, w, h, int(px.max()), num_strips=1,
-                                predictor=pred, lanes=lanes)
+                                predictor=pred, lanes=lanes), px
 
 
 @pytest.mark.parametrize("case", ["avg_fixture", "zzr", "width_192", "vdd_width_384", "lanes_64"])
 def test_out_of_slice_raises(case):
-    blob, match = {
-        "avg_fixture": (lambda: (TESTDATA / "MR_dev_auto.micw").read_bytes(),
-                        "mode 4 \\(avg\\)"),
-        "zzr": (lambda: _blob("zzr", 192, 16), "zzr strip of width 192"),
-        "width_192": (lambda: _blob("zzd", 192, 16), "width 192"),
-        "vdd_width_384": (lambda: _blob("vdd", 384, 16), "vdd strip of width 384"),
-        "lanes_64": (lambda: _blob("zzd", 256, 16, lanes=64), "64 lanes"),
-    }[case]
-    with pytest.raises(NotImplementedError, match=match):
-        MicwDecodePlan([blob()], CPU)
+    """Strips once outside the port's slice: the avg fixture, zzr and zzd
+    at width 192 and vdd at 384 now take the post path and decode
+    bit-exact against the pixels and micw_decompress_host; lanes != 128
+    still raises."""
+    if case == "lanes_64":
+        with pytest.raises(NotImplementedError, match="64 lanes"):
+            MicwDecodePlan([_blob("zzd", 256, 16, lanes=64)[0]], CPU)
+        return
+    blob, px = {
+        "avg_fixture": lambda: ((TESTDATA / "MR_dev_auto.micw").read_bytes(),
+                                np.fromfile(TESTDATA / "MR_dev_auto.raw", dtype="<u2")),
+        "zzr": lambda: _blob("zzr", 192, 16),
+        "width_192": lambda: _blob("zzd", 192, 16),
+        "vdd_width_384": lambda: _blob("vdd", 384, 16),
+    }[case]()
+    plan = MicwDecodePlan([blob], CPU)
+    assert all(k[0] == "post" for k in plan.buckets)
+    ((out, w, h),) = plan.assemble(plan.run())
+    assert np.array_equal(out, px)
+    host, hw, hh = ref_st.micw_decompress_host(blob)
+    assert (hw, hh) == (w, h) and np.array_equal(out, np.asarray(host).ravel())
 
 
 def test_out_of_slice_tables_raise():
-    """FF 41 with tableLog > 12 and FF 57 beyond the packed kernel's
-    tableLog 12 / alphabet 4096 (hand-made parses: the encoders never
-    write them)."""
+    """FF 41 with tableLog > 12 still raises; FF 57 beyond the packed
+    kernel's tableLog 12 / alphabet 4096 now keys a two-table post bucket
+    (hand-made parses: the encoders never write them; real containers at
+    tl 13-15 decode in tests/test_torch_post_decode.py)."""
     blob, _raw, _w, _h = _load("MR_dev")
     p = mict_parse(ref_st.micw_parse(blob)[7][0][0])
     alias = (1, np.zeros(0, np.uint16))
     wide = np.ones(5000, np.int64)
-    for bogus in ((128, 13, *p[2:7], alias), (128, 13, *p[2:7], None),
-                  (128, 12, *p[2:5], wide, 5000, None)):
-        with pytest.raises(NotImplementedError, match="beyond|> 12"):
-            st._strip_bucket(bogus, (b"", 0, 0, 0, 0, st.STRIP_MODE_ZZD), "zzd", 256, 16,
-                             False)
+    entry = (b"", 0, 0, 0, 0, st.STRIP_MODE_ZZD)
+    with pytest.raises(NotImplementedError, match="> 12"):
+        st._strip_bucket((128, 13, *p[2:7], alias), entry, "zzd", 256, 16, False)
+    for bogus in ((128, 13, *p[2:7], None), (128, 12, *p[2:5], wide, 5000, None)):
+        key = st._strip_bucket(bogus, entry, "zzd", 256, 16, False)
+        assert key[:3] == ("post", "two_table", "zzd"), key

@@ -1,0 +1,181 @@
+"""The port imports nothing of mic_tpu, and its copies of mic_tpu.ops are
+pinned to the originals.
+
+* ``import mic_tpu_torch`` and ``import chip_smoke`` load no module of
+  ``mic_tpu`` (a fresh interpreter), and no source of the port names
+  ``mic_tpu`` in an import;
+* ``mic_tpu_torch.ops.fse`` against ``mic_tpu.ops.fse`` (and the C++ pair
+  of ``mic_tpu.native`` where it is built): histograms, tableLog choice,
+  normalization, and the ncount header written and read back at tableLogs
+  5-16, byte for byte;
+* ``mic_tpu_torch.ops.predictors`` and ``.rle`` against
+  ``mic_tpu.ops.predictors`` / ``.rle`` on seeded images and streams.
+
+Tolerance 0: these define the bytes of the format.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from mic_tpu.ops import fse as ref_fse
+from mic_tpu.ops import predictors as ref_pred
+from mic_tpu.ops import rle as ref_rle
+from mic_tpu_torch.ops import fse, predictors, rle
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("module", ["mic_tpu_torch", "chip_smoke"])
+def test_import_loads_no_mic_tpu(module):
+    code = (f"import sys, {module}; "
+            "bad = [m for m in sys.modules if m == 'mic_tpu' or m.startswith('mic_tpu.') "
+            "or m == 'jax' or m.startswith('jax.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_import_no_mic_tpu():
+    pat = re.compile(r"^\s*(from|import)\s+mic_tpu(\.|\s|$)", re.M)
+    files = sorted((ROOT / "mic_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 10
+    bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
+
+
+def _histograms():
+    """Seeded symbol streams: geometric, wide noise, a two-symbol stream,
+    sparse large values."""
+    rng = np.random.default_rng(0)
+    yield np.minimum(rng.geometric(0.05, 5000), 400).astype(np.uint16)
+    yield (np.abs(rng.standard_normal(60000)) * 1500).astype(np.uint16)
+    yield rng.integers(0, 2, 3000).astype(np.uint16)
+    yield (rng.integers(0, 40, 20000) * 1637).astype(np.uint16)
+    yield np.minimum(rng.geometric(0.3, 200), 30).astype(np.uint16)
+
+
+def test_histogram_and_table_log_match():
+    for data in _histograms():
+        got, want = fse.histogram(data), ref_fse.histogram(data)
+        assert np.array_equal(got[0], want[0]) and got[0].dtype == want[0].dtype
+        assert got[1:] == want[1:]
+    for tl in (5, 9, 11, 12, 13, 16):
+        for n in (2, 100, 4096, 70000, 1 << 20):
+            for sl in (2, 50, 300, 600, 5000, 65536):
+                assert fse.optimal_table_log(tl, n, sl) == ref_fse.optimal_table_log(tl, n, sl)
+
+
+@pytest.mark.parametrize("table_log", list(range(5, 17)))
+def test_normalize_and_ncount_round_trip(table_log):
+    """normalize_count, write_count and read_ncount at every tableLog,
+    against mic_tpu.ops.fse and, where built, mic_tpu.native."""
+    from mic_tpu import native
+
+    checked = 0
+    for data in _histograms():
+        counts, _mx, sl = ref_fse.histogram(data)
+        n = data.size
+        if (1 << table_log) < np.count_nonzero(counts):
+            continue
+        try:
+            want = ref_fse.normalize_count(counts, n, table_log, sl)
+        except ValueError:
+            with pytest.raises(ValueError):
+                fse.normalize_count(counts, n, table_log, sl)
+            continue
+        got = fse.normalize_count(counts, n, table_log, sl)
+        assert np.array_equal(got, want) and got.dtype == want.dtype
+        if int(np.abs(want).sum()) != (1 << table_log):
+            continue
+        hdr = fse.write_count(got, sl, table_log)
+        assert hdr == ref_fse.write_count(want, sl, table_log)
+        back = fse.read_ncount(hdr + b"\0" * 8)
+        ref_back = ref_fse.read_ncount(hdr + b"\0" * 8)
+        assert np.array_equal(back[0], ref_back[0]) and back[1:] == ref_back[1:]
+        assert np.array_equal(back[0], want) and back[1:3] == (sl, table_log)
+        if native.available():
+            nat = native.normalize_write_count_native(counts, n, table_log, sl)
+            assert nat is not None and np.array_equal(nat[0], got) and nat[1] == hdr
+            nat_back = native.read_ncount_native(hdr + b"\0" * 8)
+            assert np.array_equal(nat_back[0], back[0]) and nat_back[1:] == back[1:]
+        checked += 1
+    assert checked >= 2
+
+
+def _outcome(fn, data):
+    try:
+        norm, *rest = fn(data)
+        return ("ok", norm.tolist(), rest)
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+def test_read_ncount_damaged_headers_like_reference():
+    """Truncated, saturated, zeroed and bit-flipped headers: the same
+    error, or the same parse, on both sides."""
+    hdr = fse.write_count(fse.normalize_count(*_counts_of(np.arange(600) % 37), 10, 37), 37, 10)
+    rng = np.random.default_rng(6)
+    cases = [hdr[:2], bytes([0xFF]) * 6, bytes(len(hdr) + 4), hdr[:3] + bytes(5)]
+    for _ in range(20):
+        b = bytearray(hdr + bytes(4))
+        b[int(rng.integers(0, len(hdr)))] ^= 1 << int(rng.integers(0, 8))
+        cases.append(bytes(b))
+    outcomes = [_outcome(fse.read_ncount, b) for b in cases]
+    assert outcomes == [_outcome(ref_fse.read_ncount, b) for b in cases]
+    assert {o[0] for o in outcomes} == {"ok", "ValueError"}
+
+
+def _counts_of(data):
+    counts, _mx, _sl = ref_fse.histogram(np.asarray(data, np.uint16))
+    return counts, len(data)
+
+
+def test_errors_are_the_ports_own():
+    assert fse.IncompressibleError is not ref_fse.IncompressibleError
+    assert issubclass(fse.UseRLEError, Exception)
+    assert (fse.MAX_TABLE_LOG, fse.DEFAULT_TABLE_LOG, fse.MIN_TABLE_LOG) == (
+        ref_fse.MAX_TABLE_LOG, ref_fse.DEFAULT_TABLE_LOG, ref_fse.MIN_TABLE_LOG)
+
+
+@pytest.mark.parametrize("kind", ["avg", "med", "grad"])
+def test_predictor_encode_matches(kind):
+    rng = np.random.default_rng(3)
+    for h, w, mv in ((7, 13, 4095), (32, 200, 65535), (1, 5, 255), (20, 1, 1023)):
+        img = (rng.standard_normal((h, w)).cumsum(1) * 30 + mv // 2).clip(0, mv)
+        img = img.astype(np.uint16)
+        img[rng.random((h, w)) < 0.05] = mv
+        got = predictors.predictor_encode(img.ravel(), w, h, mv, kind)
+        want = ref_pred.predictor_encode(img.ravel(), w, h, mv, kind)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_zigzag_delta_params_and_escapes_match():
+    x = np.arange(-32768, 32768, 7, dtype=np.int64).astype(np.int16)
+    assert np.array_equal(predictors.zigzag(x), ref_pred.zigzag(x))
+    for mv in (1, 2, 255, 256, 4095, 65535):
+        assert predictors.delta_params(mv) == ref_pred.delta_params(mv)
+    rng = np.random.default_rng(4)
+    coded = rng.integers(0, 500, 300).astype(np.uint16)
+    raw = rng.integers(0, 4096, 300).astype(np.uint16)
+    esc = rng.random(300) < 0.2
+    assert np.array_equal(predictors._interleave_escapes(coded, raw, esc, 4095),
+                          ref_pred._interleave_escapes(coded, raw, esc, 4095))
+
+
+@pytest.mark.parametrize("mid,min_same", [(127, 3), (1023, 3), (16383, 16), (16383, 3)])
+def test_soa_encode_matches(mid, min_same):
+    rng = np.random.default_rng(mid + min_same)
+    streams = [np.repeat(rng.integers(0, 300, 800), rng.integers(1, 40, 800)).astype(np.uint16),
+               np.full(40000, 7, np.uint16), rng.integers(0, 5, 3000).astype(np.uint16),
+               np.zeros(0, np.uint16)]
+    for t in streams:
+        got = rle.soa_encode(t, mid, min_same=min_same)
+        want = ref_rle.soa_encode(t, mid, min_same=min_same)
+        assert np.array_equal(got[0], want[0]) and got[0].dtype == want[0].dtype
+        assert got[1:] == want[1:]

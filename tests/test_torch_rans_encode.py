@@ -340,7 +340,7 @@ def test_device_batch_failures_and_budgets(ref, alias):
     over-budget stream and encodes the rest; on_error="raise" raises the
     host encoder's error.  None budgets take the raw-size default."""
     _jnp, rdr, pe, _st = ref
-    from mic_tpu.ops.fse import IncompressibleError, UseRLEError
+    from mic_tpu_torch.ops.fse import IncompressibleError, UseRLEError
 
     rng = np.random.default_rng(10)
     good = [_zz_stream(rng, 8, 128, 9), _zz_stream(rng, 12, 128, 20)]
@@ -370,7 +370,7 @@ def test_device_batch_failures_and_budgets(ref, alias):
 def test_device_batch_rejects_wide_alphabets():
     """Standard streams whose alphabet exceeds the kernel's 4096 ranks
     (tableLog 13 admits them) fail like any sentinel error."""
-    from mic_tpu.ops.fse import IncompressibleError
+    from mic_tpu_torch.ops.fse import IncompressibleError
 
     syms = np.random.default_rng(11).integers(0, 5000, 65536).astype(np.uint16)
     assert len(np.unique(syms)) > 4096

@@ -360,7 +360,7 @@ def test_round_trip_through_port(ent):
 
 
 # ---------------------------------------------------------------------------
-# (f) strips still outside the slice
+# (f) strips once outside the slice
 # ---------------------------------------------------------------------------
 
 
@@ -368,7 +368,7 @@ def _smooth_blob(ref_st, pred, w, h=16):
     rng = np.random.default_rng(3)
     px = (rng.standard_normal((h, w)).cumsum(axis=1) * 9 + 700).clip(0, 4095)
     px = px.astype(np.uint16).ravel()
-    return ref_st.micw_compress(px, w, h, int(px.max()), num_strips=1, predictor=pred)
+    return ref_st.micw_compress(px, w, h, int(px.max()), num_strips=1, predictor=pred), px
 
 
 @pytest.mark.parametrize("pred,width,match", [
@@ -378,10 +378,17 @@ def _smooth_blob(ref_st, pred, w, h=16):
     ("zz", 256, "mode 3 \\(zz\\)"),
 ])
 def test_out_of_slice_raises(ref, pred, width, match):
-    blob = _smooth_blob(ref[2], pred, width)
+    """These strips raised NotImplementedError (``match``) before the post
+    path; now they take it and decode bit-exact against the pixels and
+    ``micw_decompress_host``."""
+    blob, px = _smooth_blob(ref[2], pred, width)
     assert st.micw_parse(blob)[7][0][5] == st._PRED_MODE[pred]
-    with pytest.raises(NotImplementedError, match=match):
-        MicwDecodePlan([blob], CPU)
+    plan = MicwDecodePlan([blob], CPU)
+    assert [k[:3] for k in plan.buckets] == [("post", "packed", pred)], match
+    ((out, w, h),) = plan.assemble(plan.run())
+    assert np.array_equal(out, px)
+    host, _hw, _hh = ref[2].micw_decompress_host(blob)
+    assert np.array_equal(out, np.asarray(host).ravel())
 
 
 # ---------------------------------------------------------------------------
