@@ -21,8 +21,11 @@ Phases (any failure exits non-zero; nothing is caught):
    Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
-   steps, one image's operands replicated.  Times from CUDA events after
-   a warm-up.
+   steps, one image's operands replicated.  tANS decode: on each launch
+   group of phase 7's archive batch (N = 2, 4 and 8, FF 84 and FF 08
+   tables, tableLogs 10-13 and counts mixed in a launch).  Times from
+   CUDA events after a warm-up (the plain tANS version: its one compared
+   call).
 3. Decode path: ``MicwDecodePlan`` over a mixed batch (CT_dev x256, the
    batch size the reference bench targets, plus MR_dev, MR_dev_alias,
    wide_banded and CT_dev_alias replicated); every strip of every
@@ -68,7 +71,24 @@ Phases (any failure exits non-zero; nothing is caught):
    during the run.  Prints staging seconds, decode GB/s over
    ``plan.run()``, the launch counts and a profiler breakdown that splits
    the entropy kernels from the post path's torch ops.
-7. Prints the kernel report as one JSON line (with each kernel's bound:
+7. Reference-format decode: ``fse_decompress_device_batch`` over an
+   archive batch of the in-repo reference fixtures' entropy streams
+   (MR MIC1 payloads at 2, 4 and 8 states and FF 08 x64, CT_pics8 strips
+   x32, MR_pics4 and MR_pics8 strips x64, the compressed planes of
+   tissue.mic3 and grey.mic3 x16: 1537 kernel streams, ~77 MB of u16
+   symbols; and the 7 streams the headers route to the host, once:
+   CT_{2s,4s,8s,rans8} at tableLog 16 and CT_pics4's strips 1-3 at 14).
+   Every stream is verified against the port's host decoder of its
+   distinct blob, the host-routed set must be exactly the headers', and
+   the kernel must have launched.  Prints staging seconds, ms per
+   ``run()`` and GB/s of symbols over the kernel streams (CUDA events,
+   staging excluded), and a profiler line.  Then each entry point of
+   ``tpu.ref_decode`` once on fewer replicas against the ``.raw`` pixels
+   (MIC3 level 1 against the same call on the CPU), with the host seconds
+   of the entropy and post stages, and ``ingest_plan(entropy="device",
+   device_encode=True)`` on MR_pics4 x16 + MR_4s x16, whose decode plan
+   must give back the pixels.
+8. Prints the kernel report as one JSON line (with each kernel's bound:
    the larger of its bytes over 3.35 TB/s and its integer operations over
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -140,6 +160,7 @@ KERNELS = {
                               "mic_tpu/tpu/pallas_rans.py:1095"),
     "rans_decode_packed": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:233"),
     "rans_decode": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:52"),
+    "tans_decode": ("mic_tpu_torch/csrc/tans_decode.cu", "mic_tpu/tpu/pallas_tans.py:79"),
 }
 # The bound of a kernel's work: the larger of its bytes (every input read
 # once, every output written once) over the H100 SXM's 3.35 TB/s and its
@@ -150,11 +171,14 @@ KERNELS = {
 # test and word merge: 9; the alias front end 14), plus the fused
 # inverse's unzigzag and sum (4), plus the r-kernels' run search and
 # literal read per pixel (16); the encoder's division by magic multiply,
-# state update and renorm test (12; the alias slot search 8 more).
+# state update and renorm test (12; the alias slot search 8 more); the
+# tANS step per symbol (table and alphabet reads with their bound checks,
+# the active test, the lane scan, the window clamp, two word reads, the
+# funnel shift, mask and state add, the cursor update and the store: 24).
 MEM_BPS, CORE_OPS = 3.35e12, 67e12
 OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18, "rans_decode_packed": 9,
                    "rans_decode": 9, "rans_decode_rle": 29, "rans_decode_rle_alias": 34,
-                   "rans_encode": 12, "rans_encode_alias": 20}
+                   "rans_encode": 12, "rans_encode_alias": 20, "tans_decode": 24}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -172,10 +196,12 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profiled(fn):
+def _profiled(fn, records: list | None = None):
     """Run ``fn()`` under torch.profiler; returns (result, wall ms, device
     ms by kernel name, device span ms).  The name dict is empty when the
-    profiler recorded no device events."""
+    profiler recorded no device events.  ``records``, when a list,
+    receives (name, start us from the first, duration us) per device
+    event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -190,6 +216,10 @@ def _profiled(fn):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     span = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
             if events else 0) / 1e3
+    if records is not None and events:
+        t_first = min(e.time_range.start for e in events)
+        records.extend((e.name, e.time_range.start - t_first, e.time_range.elapsed_us())
+                       for e in events)
     return out, wall_ms, by_name, span
 
 
@@ -635,6 +665,347 @@ def _post_phase(dev, blobs, expected, names):
     del plan, decoded, outs
     return launches
 
+# Phase 7's archive batch: (reference fixture, replicas).  The kernel part
+# is every entropy stream of these fixtures; the host part is the streams
+# of REF_HOST, once each (the headers send 7 of them to the host).
+REF_BATCH = [("MR_2s.mic", 64), ("MR_4s.mic", 64), ("MR_8s.mic", 64), ("MR_rans8.mic", 64),
+             ("CT_pics8.pics", 32), ("MR_pics4.pics", 64), ("MR_pics8.pics", 64),
+             ("tissue.mic3", 16), ("grey.mic3", 16)]
+REF_HOST = ["CT_2s.mic", "CT_4s.mic", "CT_8s.mic", "CT_rans8.mic", "CT_pics4.pics"]
+REF_HOST_STREAMS = 7
+
+
+def _ref_streams(name):
+    """The entropy streams of one reference fixture: a MIC1 payload, the
+    strips of a PICS container, or the compressed planes of every tile of
+    a MIC3 pyramid."""
+    import struct
+
+    from mic_tpu_torch.models.rgb import PLANE_COMPRESSED
+    from mic_tpu_torch.parallel.strips import pics_strip_blobs
+    from mic_tpu_torch.parallel.wsi import extract_tile_blob, read_mic3_header
+    from mic_tpu_torch.utils.io import read_mic1
+
+    data = (TESTDATA / name).read_bytes()
+    if name.endswith(".mic"):
+        return [read_mic1(data)[3]]
+    if name.endswith(".pics"):
+        return [blob for _y0, _h, blob in pics_strip_blobs(data)[3]]
+    hdr, entries, off = read_mic3_header(data)
+    out = []
+    for g in range(len(entries)):
+        blob = extract_tile_blob(data, entries, off, g)
+        planes = [blob]
+        if hdr.channels == 3 and hdr.bits_per_sample == 8:
+            lens, o, planes = struct.unpack_from("<III", blob, 0), 12, []
+            for ln in lens:
+                planes.append(blob[o:o + ln])
+                o += ln
+        out += [p[1:] for p in planes if p and p[0] == PLANE_COMPRESSED]
+    return out
+
+
+def _ref_batch():
+    """Phase 7's streams (replicas share one bytes object), the host
+    indices the headers give (1-state, or tableLog > 13), and for each
+    kernel stream (by index) the bytes its decode needs: its bits, its own
+    table and alphabet, its u16 symbols out (the kernel's bound)."""
+    from mic_tpu_torch.ops.fse import read_ncount
+    from mic_tpu_torch.tpu.tans_decode import TANS_MAX_TABLE_LOG, _pack_dtable, fse_parse_header
+
+    batch, host, work = [], [], {}
+    for name, reps in REF_BATCH + [(h, 1) for h in REF_HOST]:
+        for blob in _ref_streams(name):
+            n, count, body, coder = fse_parse_header(blob)
+            norm, sl, tl, used = read_ncount(body)
+            to_host = n == 1 or tl > TANS_MAX_TABLE_LOG
+            nbytes = 0
+            if not to_host:
+                alpha = _pack_dtable(norm, sl, tl, coder)[1]
+                nbytes = len(body) - used + 4 * ((1 << tl) + len(alpha)) + 2 * count
+            for _ in range(reps):
+                if to_host:
+                    host.append(len(batch))
+                else:
+                    work[len(batch)] = nbytes
+                batch.append(blob)
+    return batch, host, work
+
+
+def _tans_kernels_vs_plain(dev, report) -> None:
+    """Phase 2, tANS half: the kernel against its plain version on every
+    launch group of phase 7's batch.  The bound counts what the groups'
+    streams need (their bits, tables and symbols), not the padded
+    operands."""
+    import torch
+
+    from mic_tpu_torch.tpu import tans_decode as td
+
+    batch, _host, work = _ref_batch()
+    plan = td.TansDecodePlan(batch, dev)
+    r = report["tans_decode"]
+    for idx, counts, ops, kw in plan.groups:
+        got = td.tans_decode(*ops, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = td.tans_decode_plain(*ops, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"tans_decode {kw}: kernel != plain (max abs err {err})")
+        ms = _cuda_ms(lambda: td.tans_decode(*ops, **kw), 10)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        n_sym = sum(counts)
+        r["bytes"] += sum(work[i] for i in idx)
+        r["ops"] += OPS_PER_ELEMENT["tans_decode"] * n_sym
+        print(f"kernel-vs-plain tans_decode group N={kw['n_states']} streams={len(idx)} "
+              f"steps={kw['steps']} table_log={kw['table_log']} "
+              f"alphabet_width={ops[4].shape[1]} symbols={n_sym} equal=True "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (one call)")
+    del plan
+
+
+def _series_frames():
+    """The frames of tests/data/torch_port/MR_series_{ind,tmp}.mic2 (made
+    from MR_2s.raw)."""
+    import numpy as np
+
+    mr = np.fromfile(TESTDATA / "MR_2s.raw", dtype="<u2").reshape(256, 256)
+    return {"ind": [mr, mr[::-1], np.roll(mr, 3, axis=1)],
+            "tmp": [np.roll(mr, k, axis=0) for k in range(3)]}
+
+
+def _ref_entry_points(dev) -> None:
+    """Phase 7, second half: every entry point of tpu.ref_decode once, and
+    ingest_plan, against the fixtures' pixels."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import (
+        decompress_frames_device,
+        decompress_mic2_device,
+        decompress_mic2_frame_device,
+        decompress_pics_device_many,
+        decompress_wsi_level_device,
+        decompress_wsi_region_device,
+        decompress_wsi_tile_device,
+        fse_decompress_device_batch,
+        ingest_plan,
+    )
+    from mic_tpu_torch.parallel.strips import pics_strip_blobs
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu.ref_decode import _invert
+    from mic_tpu_torch.tpu.tans_decode import tans_decode
+    from mic_tpu_torch.utils.io import read_mic1
+
+    def raw(name, dtype="<u2"):
+        return np.fromfile(TESTDATA / f"{name}.raw", dtype=dtype)
+
+    def check(what, ok):
+        print(f"entry point {what}: equal={ok}")
+        if not ok:
+            raise AssertionError(f"{what} decoded wrong pixels")
+
+    def counted(what, fn, wrappers=(tans_decode,)):
+        """fn() with the wrappers' launch counts set to 0 just before it;
+        fails unless each of them launched in that call."""
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        counts = {w.__name__: w.launches for w in wrappers}
+        print(f"launches {what}: {counts}")
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"{what} did not launch {counts}")
+        return out
+
+    # MIC1 frames, and the same batch split into its entropy and post stages.
+    names = ["MR_2s", "MR_4s", "MR_8s", "MR_rans8"] * 8
+    mic1 = {n: read_mic1((TESTDATA / f"{n}.mic").read_bytes()) for n in set(names)}
+    blobs, dims = [mic1[n][3] for n in names], [mic1[n][:2] for n in names]
+    t0 = time.perf_counter()
+    outs = counted("decompress_frames_device", lambda: decompress_frames_device(blobs, dims, dev))
+    total_s = time.perf_counter() - t0
+    check(f"decompress_frames_device MR x8 ({len(blobs)} frames, {total_s:.3f} s)",
+          all(np.array_equal(o, raw(n)) for o, n in zip(outs, names)))
+    t0 = time.perf_counter()
+    syms = counted("fse_decompress_device_batch (frames)",
+                   lambda: fse_decompress_device_batch(blobs, dev))
+    ent_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for sy, (w, h) in zip(syms, dims):
+        _invert(sy, w, h, "avg")
+    post_s = time.perf_counter() - t0
+    px_bytes = sum(2 * w * h for w, h in dims)
+    print(f"frames split: entropy_s={ent_s:.3f} (device batch, host copies included) "
+          f"post_s={post_s:.3f} (host RLE + predictor inverse) for {px_bytes} pixel bytes: "
+          f"{px_bytes / (ent_s + post_s) / 1e6:.3f} MB/s end to end")
+
+    # PICS containers, four fixtures x4, and the same split.
+    names = ["MR_pics4", "MR_pics8", "CT_pics4", "CT_pics8"] * 4
+    pics = {n: (TESTDATA / f"{n}.pics").read_bytes() for n in set(names)}
+    t0 = time.perf_counter()
+    outs = counted("decompress_pics_device_many",
+                   lambda: decompress_pics_device_many([pics[n] for n in names], dev))
+    total_s = time.perf_counter() - t0
+    check(f"decompress_pics_device_many x4 ({len(names)} containers, {total_s:.3f} s)",
+          all(np.array_equal(px, raw(n)) for (px, _w, _h), n in zip(outs, names)))
+    parsed = [pics_strip_blobs(pics[n]) for n in names]
+    strips = [(st, p[0]) for p in parsed for st in p[3]]
+    t0 = time.perf_counter()
+    syms = counted("fse_decompress_device_batch (PICS strips)",
+                   lambda: fse_decompress_device_batch([st[2] for st, _w in strips], dev))
+    ent_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for sy, ((_y0, sh, _b), w) in zip(syms, strips):
+        _invert(sy, w, sh, "avg")
+    post_s = time.perf_counter() - t0
+    px_bytes = sum(2 * p[0] * p[1] for p in parsed)
+    print(f"pics split: entropy_s={ent_s:.3f} post_s={post_s:.3f} for {px_bytes} pixel bytes: "
+          f"{px_bytes / (ent_s + post_s) / 1e6:.3f} MB/s end to end")
+
+    # MIC2 series (independent and temporal), whole and one frame.
+    for name, frames in _series_frames().items():
+        blob = (PORT_DATA / f"MR_series_{name}.mic2").read_bytes()
+        got, _hdr = counted(f"decompress_mic2_device MR_series_{name}",
+                            lambda: decompress_mic2_device(blob, dev))
+        check(f"decompress_mic2_device MR_series_{name}",
+              all(np.array_equal(g, f.ravel()) for g, f in zip(got, frames)))
+        px, _hdr = counted(f"decompress_mic2_frame_device MR_series_{name}",
+                           lambda: decompress_mic2_frame_device(blob, 2, dev))
+        check(f"decompress_mic2_frame_device MR_series_{name} frame 2",
+              np.array_equal(px, frames[2].ravel()))
+
+    # MIC3: grey (16-bit) and tissue (RGB, YCoCg-R) level 0 against the
+    # pixels; tissue's level 1 has no .raw: the same call on the CPU.
+    grey = (TESTDATA / "grey.mic3").read_bytes()
+    gpx = raw("grey").reshape(256, 256)
+    check("decompress_wsi_tile_device grey (0,0)",
+          counted("decompress_wsi_tile_device grey",
+                  lambda: decompress_wsi_tile_device(grey, 0, 0, 0, dev)) == gpx.tobytes())
+    check("decompress_wsi_region_device grey",
+          counted("decompress_wsi_region_device grey",
+                  lambda: decompress_wsi_region_device(grey, 0, 10, 20, 200, 100, dev))
+          == gpx[20:120, 10:210].tobytes())
+    check("decompress_wsi_level_device grey level 0",
+          counted("decompress_wsi_level_device grey",
+                  lambda: decompress_wsi_level_device(grey, 0, dev)) == gpx.tobytes())
+    tissue = (TESTDATA / "tissue.mic3").read_bytes()
+    tpx = raw("tissue", np.uint8).reshape(384, 512 * 3)
+    check("decompress_wsi_tile_device tissue (1,1)",
+          counted("decompress_wsi_tile_device tissue",
+                  lambda: decompress_wsi_tile_device(tissue, 0, 1, 1, dev))
+          == tpx[256:, 768:].tobytes())
+    check("decompress_wsi_region_device tissue",
+          counted("decompress_wsi_region_device tissue",
+                  lambda: decompress_wsi_region_device(tissue, 0, 200, 100, 100, 200, dev))
+          == tpx[100:300, 600:900].tobytes())
+    check("decompress_wsi_level_device tissue level 0",
+          counted("decompress_wsi_level_device tissue level 0",
+                  lambda: decompress_wsi_level_device(tissue, 0, dev)) == tpx.tobytes())
+    check("decompress_wsi_level_device tissue level 1 (vs device=cpu)",
+          counted("decompress_wsi_level_device tissue level 1",
+                  lambda: decompress_wsi_level_device(tissue, 1, dev))
+          == decompress_wsi_level_device(tissue, 1, torch.device("cpu")))
+
+    # Ingest: MR_pics4 x16 + MR_4s x16 to MICW on the card, then decoded.
+    mr4 = mic1["MR_4s"]
+    ref_blobs = [pics["MR_pics4"]] * 16 + [mr4[3]] * 16
+    dims = [None] * 16 + [mr4[:2]] * 16
+    timings = {}
+    t0 = time.perf_counter()
+    plan = counted("ingest_plan",
+                   lambda: ingest_plan(ref_blobs, dims, dev, entropy="device",
+                                       device_encode=True, timings=timings),
+                   (tans_decode, renc.rans_encode))
+    total_s = time.perf_counter() - t0
+    decoded = counted("ingest_plan's MicwDecodePlan.run", plan.run, (rd.rans_decode_zzd,))
+    mism = plan.verify_batch(decoded, [raw("MR_pics4")] * 16 + [raw("MR_4s")] * 16)
+    print(f"ingest_plan MR_pics4 x16 + MR_4s x16 (entropy=device, device_encode=True): "
+          f"{total_s:.3f} s, " + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
+          + f" mismatches={mism}")
+    if mism:
+        raise AssertionError(f"ingest_plan's containers decode to wrong pixels: {mism}")
+
+
+def _ref_phase(dev):
+    """Phase 7: the reference-format archive batch through
+    fse_decompress_device_batch, then the entry points; returns the
+    batch call's launch count."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import fse_decompress_device_batch
+    from mic_tpu_torch.ops.fse_codec import fse_decompress_auto
+    from mic_tpu_torch.tpu import tans_decode as td
+
+    batch, host, _work = _ref_batch()
+    td.tans_decode.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    syms = fse_decompress_device_batch(batch, dev, stats=stats)
+    call_s = time.perf_counter() - t0
+    launches = td.tans_decode.launches
+    t0 = time.perf_counter()
+    refs = {}
+    for blob in batch:
+        if id(blob) not in refs:
+            refs[id(blob)] = fse_decompress_auto(blob)
+    ref_s = time.perf_counter() - t0
+    bad = [i for i, (g, b) in enumerate(zip(syms, batch))
+           if g.dtype != np.uint16 or not np.array_equal(g, refs[id(b)])]
+    print(f"reference path: {len(batch)} streams ({len(refs)} distinct), kernel={stats['kernel']} "
+          f"host={len(stats['host'])} (from the headers: {len(host)}) launches={launches} "
+          f"call_s={call_s:.3f} (host route and copies included) bad_streams={len(bad)} "
+          f"(verified against the host decoder of each distinct blob, {ref_s:.3f} s)")
+    if bad:
+        raise AssertionError(f"reference path decoded wrong symbols: streams {bad[:10]}")
+    if stats["host"] != host or len(host) != REF_HOST_STREAMS:
+        raise AssertionError(f"host route {stats['host']} != the headers' {host}")
+    if launches <= 0:
+        raise AssertionError("tans_decode was not launched by the reference path")
+    del syms
+
+    t0 = time.perf_counter()
+    plan = td.TansDecodePlan(batch, dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    run_ms = _cuda_ms(plan.run, 5)
+    sym_bytes = 2 * plan.stats["symbols"]
+    print(f"reference path: {run_ms:.3f} ms per plan.run(), "
+          f"{sym_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of u16 symbols ({sym_bytes} bytes, "
+          f"{plan.stats['kernel']} kernel streams in {plan.stats['groups']} launches), "
+          f"stage_s={stage_s:.3f}")
+    # Device time of each launch from CUDA events (the run's own split).
+    for (idx, _counts, ops, kw) in plan.groups:
+        ms = _cuda_ms(lambda: td.tans_decode(*ops, **kw), 3)
+        print(f"reference path launch N={kw['n_states']} streams={len(idx)} "
+              f"steps={kw['steps']}: {ms:.3f} ms")
+    # torch.profiler's view of one run.  Its idle share counts only when
+    # the trace holds one kernel record per launch; otherwise the records
+    # it has are listed and the idle share is not measured.
+    records = []
+    _out, wall_ms, by_name, span = _profiled(plan.run, records)
+    n_tans = sum(1 for name, _t, _d in records if "tans_kernel" in name)
+    if n_tans == len(plan.groups):
+        busy = sum(by_name.values())
+        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+              f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
+              f"tans_kernel_records={n_tans} of {len(plan.groups)} launches")
+    else:
+        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f}; the trace holds "
+              f"{n_tans} tans_kernel records for {len(plan.groups)} launches: "
+              "idle share not measured")
+    for name, t_us, dur_us in records:
+        print(f"profile record: {name[:60]} start_us={t_us:.3f} dur_us={dur_us:.3f}")
+    del plan, _out
+    _ref_entry_points(dev)
+    return {"tans_decode": launches}
+
 
 def main() -> int:
     import numpy as np
@@ -680,6 +1051,7 @@ def main() -> int:
     _rle_kernels_vs_plain(dev, report)
     post_blobs, post_expected, post_names = _post_batch(dev)
     _post_kernels_vs_plain(dev, report, post_blobs)
+    _tans_kernels_vs_plain(dev, report)
     for name, reps in (("CT_dev", 256), ("CT_dev_alias", 256), ("MR_dev_alias", 512)):
         plan = MicwDecodePlan([blobs[name]] * reps, dev)
         for key, b in plan.buckets.items():
@@ -769,7 +1141,10 @@ def main() -> int:
     post_launches = _post_phase(dev, post_blobs, post_expected, post_names)
     launches.update({k: post_launches[k] for k in ("rans_decode_packed", "rans_decode")})
 
-    # --- 7. report ------------------------------------------------------------
+    # --- 7. reference-format decode ---------------------------------------------
+    launches.update(_ref_phase(dev))
+
+    # --- 8. report ------------------------------------------------------------
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = report[name]

@@ -60,6 +60,9 @@ _SIGNATURES = {
     # n_strips, steps, alias, stream
     "mic_rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
+    # init, pos, cnt, tpk, ts, alpha, asz, words, wb, out, n_streams, steps,
+    # n_states, table_log, stream
+    "mic_tans_decode": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -2,9 +2,11 @@
 normalization and the normalized-count header.
 
 A numpy copy of the parts of ``mic_tpu.ops.fse`` the port needs (the
-MICT stream header of both entropy families is this header), with the
-same names and the same bytes; pinned to the original and, where it is
-built, to ``mic_tpu.native``'s C++ pair by ``tests/test_torch_isolation.py``.
+MICT stream header of both entropy families is this header, and the
+reference formats' tANS streams decode through ``build_dtable``), with
+the same names and the same bytes; pinned to the original and, where it
+is built, to ``mic_tpu.native``'s C++ pair by
+``tests/test_torch_isolation.py`` and ``tests/test_torch_tans_decode.py``.
 Reference files: fseu16.go, fsecompressu16.go, fsedecompressu16.go.
 """
 
@@ -24,6 +26,7 @@ __all__ = [
     "normalize_count",
     "write_count",
     "read_ncount",
+    "build_dtable",
 ]
 
 # Reference: fseu16.go:15-29.  maxMemoryUsage=18 => maxTableLog=16.
@@ -392,3 +395,80 @@ def read_ncount(data: bytes) -> tuple[np.ndarray, int, int, int]:
         )
     off += (bit_count + 7) >> 3
     return norm[:symbol_len].copy(), symbol_len, table_log, off
+
+
+def _table_step(table_size: int) -> int:
+    # Reference: fseu16.go:166-168.
+    return (table_size >> 1) + (table_size >> 3) + 3
+
+
+def _spread_symbols(norm: np.ndarray, symbol_len: int, table_log: int) -> np.ndarray:
+    """Spread symbols over the state table: low-probability (-1) symbols
+    occupy the top of the table; the rest are scattered by the co-prime
+    step walk skipping the low-prob region (fsedecompressu16.go:221-240)."""
+    table_size = 1 << table_log
+    table_symbol = np.zeros(table_size, dtype=np.uint16)
+    high_threshold = table_size - 1
+    for i in range(symbol_len):
+        if norm[i] == -1:
+            table_symbol[high_threshold] = i
+            high_threshold -= 1
+
+    step = _table_step(table_size)
+    mask = table_size - 1
+    position = 0
+    for sym in range(symbol_len):
+        v = int(norm[sym])
+        for _ in range(v if v > 0 else 0):
+            table_symbol[position] = sym
+            position = (position + step) & mask
+            while position > high_threshold:
+                position = (position + step) & mask
+    if position != 0:
+        raise ValueError("corrupted input (position != 0)")
+    return table_symbol
+
+
+def build_dtable(
+    norm: np.ndarray, symbol_len: int, table_log: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
+    """Build the decode table (fsedecompressu16.go:198-263).
+
+    Returns ``(new_state u32[ts], symbol u16[ts], nb_bits u8[ts], zero_bits)``.
+    Decode step from state x: emit ``symbol[x]``; then
+    ``x' = new_state[x] + read_bits(nb_bits[x])``.
+    """
+    table_size = 1 << table_log
+    norm = np.asarray(norm, dtype=np.int64)
+    table_symbol = _spread_symbols(norm, symbol_len, table_log)
+
+    zero_bits = bool(np.any(norm[norm != -1] >= (1 << (table_log - 1))))
+
+    # Each slot's occurrence rank within its symbol group, in table order:
+    # symbol_next[s] starts at norm[s] (1 for low-prob) and counts up.
+    start = np.where(norm == -1, 1, np.maximum(norm, 0)).astype(np.int64)
+    order = np.argsort(table_symbol, kind="stable")
+    first_slot = np.concatenate(([0], np.cumsum(start)))[:-1]
+    ranks = np.empty(table_size, dtype=np.int64)
+    ranks[order] = np.arange(table_size) - first_slot[table_symbol[order]]
+
+    next_state = start[table_symbol] + ranks
+    hb = np.zeros(table_size, dtype=np.int64)  # exact floor(log2)
+    v = next_state.copy()
+    for shift in (16, 8, 4, 2, 1):
+        m = v >= (1 << shift)
+        hb[m] += shift
+        v[m] >>= shift
+    nb = table_log - hb
+    new_state = ((next_state << nb) - table_size).astype(np.int64)
+    if np.any((new_state < 0) | (new_state >= table_size)):
+        raise ValueError("buildDtable: newState outside table")
+    bad = (new_state == np.arange(table_size)) & (nb == 0)
+    if np.any(bad):
+        raise ValueError("buildDtable: newState == oldState with no bits")
+    return (
+        new_state.astype(np.uint32),
+        table_symbol.astype(np.uint16),
+        nb.astype(np.uint8),
+        zero_bits,
+    )

@@ -1,15 +1,19 @@
-"""Structure-of-arrays RLE of the MICW strip modes, encode side.
+"""RLE of the MICW strip modes (structure-of-arrays, encode side) and of
+the reference formats (interleaved blocks, decode side).
 
-A numpy copy of ``mic_tpu.ops.rle.soa_encode`` (same name, same output;
-pinned by ``tests/test_torch_isolation.py``).  The decode side is the
-port's device expand (``tpu/post.py:soa_rle_expand``).
+Numpy copies of ``mic_tpu.ops.rle``'s ``soa_encode``, ``rle_expand``,
+``rle_decompress`` and ``rle_decompress_stream`` (same names, same
+outputs; pinned by ``tests/test_torch_isolation.py``).  The MICW decode
+side is the port's device expand (``tpu/post.py:soa_rle_expand``); the
+reference formats' blocks expand here, on the host, after the device
+entropy decode (``tpu/ref_decode.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["soa_encode"]
+__all__ = ["soa_encode", "rle_expand", "rle_decompress", "rle_decompress_stream"]
 
 
 def soa_encode(tokens, mid_count: int, min_same: int = 3):
@@ -98,3 +102,69 @@ def soa_encode(tokens, mid_count: int, min_same: int = 3):
         [counts, np.array(same_vals, dtype=np.uint16), lits.astype(np.uint16)]
     )
     return soa, len(counts), len(same_vals)
+
+
+def rle_expand(stream: np.ndarray, start: int, mid_count: int, n: int | None = None):
+    """Expand RLE blocks beginning at ``stream[start]`` into a flat symbol
+    array.  Stops after ``n`` symbols if given, else when input exhausts.
+    A count <= ``mid_count`` is a same-run (count, value); a count above
+    it a literal run of count - mid symbols.  Returns (symbols, index
+    after the last block read)."""
+    s = np.asarray(stream)
+    i = int(start)
+    total = len(s)
+    out_len = 0
+    ordered: list[tuple[bool, int, int]] = []  # (is_same, value|lo, count|hi)
+    while i < total and (n is None or out_len < n):
+        c = int(s[i])
+        i += 1
+        if c > mid_count:
+            k = c - mid_count
+            ordered.append((False, i, i + k))
+            i += k
+            out_len += k
+        else:
+            v = int(s[i])
+            i += 1
+            ordered.append((True, v, c))
+            out_len += c
+    arrs = []
+    for is_same, a, b in ordered:
+        if is_same:
+            arrs.append(np.full(b, a, dtype=np.uint16))
+        else:
+            arrs.append(s[a:b].astype(np.uint16))
+    if not arrs:
+        return np.zeros(0, dtype=np.uint16), i
+    out = np.concatenate(arrs)
+    if n is not None:
+        out = out[:n]
+    return out, i
+
+
+def rle_decompress(stream) -> np.ndarray:
+    """One-shot RLE decompress of a Compress()-style stream with the
+    leading maxValue word and 32-bit length (reference
+    RleDecompressU16.Decompress)."""
+    s = np.asarray(stream, dtype=np.uint16)
+    max_value = int(s[0])
+    depth = max_value.bit_length()
+    mid_count = (1 << (depth - 1)) - 1
+    out_len = (int(s[1]) << 16) + int(s[2])
+    out, _ = rle_expand(s, 3, mid_count, out_len)
+    if len(out) != out_len:
+        raise ValueError(f"RLE: expected {out_len} symbols, got {len(out)}")
+    return out
+
+
+def rle_decompress_stream(stream) -> tuple[np.ndarray, int]:
+    """Expand an RLE stream that has a leading maxValue word but no length
+    prefix (the Delta+RLE fused layout, deltarlecompressu16.go:24-67).
+    Returns ``(symbols, mid_count)``, symbols being everything after the
+    maxValue word, fully expanded."""
+    s = np.asarray(stream, dtype=np.uint16)
+    max_value = int(s[0])
+    depth = max_value.bit_length()
+    mid_count = (1 << (depth - 1)) - 1
+    out, _ = rle_expand(s, 1, mid_count, None)
+    return out, mid_count

@@ -9,7 +9,11 @@ pinned to the originals.
   normalization, and the ncount header written and read back at tableLogs
   5-16, byte for byte;
 * ``mic_tpu_torch.ops.predictors`` and ``.rle`` against
-  ``mic_tpu.ops.predictors`` / ``.rle`` on seeded images and streams.
+  ``mic_tpu.ops.predictors`` / ``.rle`` on seeded images and streams,
+  both sides (the decode side serves the reference formats), and the
+  decode-side copies of ``deltarle``, ``color`` and ``models.rgb``.
+  ``bitio``, ``fse_codec`` and ``rans`` are pinned in
+  ``tests/test_torch_tans_decode.py``.
 
 Tolerance 0: these define the bytes of the format.
 """
@@ -22,15 +26,20 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from mic_tpu.models import rgb as ref_rgb
+from mic_tpu.ops import color as ref_color
+from mic_tpu.ops import deltarle as ref_deltarle
 from mic_tpu.ops import fse as ref_fse
 from mic_tpu.ops import predictors as ref_pred
 from mic_tpu.ops import rle as ref_rle
-from mic_tpu_torch.ops import fse, predictors, rle
+from mic_tpu_torch.models import rgb
+from mic_tpu_torch.ops import color, deltarle, fse, predictors, rle
 
 ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("module", ["mic_tpu_torch", "chip_smoke"])
+@pytest.mark.parametrize("module", ["mic_tpu_torch", "chip_smoke",
+                                    "mic_tpu_torch.tpu.ref_decode", "mic_tpu_torch.tpu.ingest"])
 def test_import_loads_no_mic_tpu(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'mic_tpu' or m.startswith('mic_tpu.') "
@@ -179,3 +188,67 @@ def test_soa_encode_matches(mid, min_same):
         want = ref_rle.soa_encode(t, mid, min_same=min_same)
         assert np.array_equal(got[0], want[0]) and got[0].dtype == want[0].dtype
         assert got[1:] == want[1:]
+
+
+def _rle_streams():
+    """Seeded reference-format RLE streams: a Compress()-style stream with
+    its length prefix, and the fused Delta+RLE layout of three predictors."""
+    rng = np.random.default_rng(8)
+    data = np.repeat(rng.integers(0, 900, 400), rng.integers(1, 30, 400)).astype(np.uint16)
+    yield "plain", ref_rle.rle_compress(data, len(data), 1, 1023)
+    img = (rng.standard_normal((24, 40)).cumsum(1) * 20 + 2000).clip(0, 4095).astype(np.uint16)
+    img[3:9, 5:30] = 77
+    for kind, comp in (("avg", ref_deltarle.delta_rle_compress),
+                       ("grad", ref_deltarle.grad_delta_rle_compress),
+                       ("zz", ref_deltarle.zz_delta_rle_compress)):
+        yield kind, comp(img.ravel(), 40, 24, int(img.max()))
+
+
+def test_rle_and_predictor_decode_match():
+    """rle_expand / rle_decompress / rle_decompress_stream, parse_escaped,
+    predictor_decode (avg, grad, med, zz), the fused Delta+RLE decoders
+    and unzigzag / temporal_delta_decode, against mic_tpu.ops."""
+    for kind, stream in _rle_streams():
+        if kind == "plain":
+            got = rle.rle_decompress(stream)
+            assert got.dtype == np.uint16 and np.array_equal(got, ref_rle.rle_decompress(stream))
+            for n in (None, 5, 10**6):
+                a, b = rle.rle_expand(stream, 3, 511, n), ref_rle.rle_expand(stream, 3, 511, n)
+                assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+            continue
+        a, b = rle.rle_decompress_stream(stream), ref_rle.rle_decompress_stream(stream)
+        assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+        mv = int(a[0][0])
+        _thr, delim = predictors.delta_params(mv)
+        vals, raw = predictors.parse_escaped(a[0][1:], delim, 40 * 24)
+        rvals, rraw = ref_pred.parse_escaped(a[0][1:], delim, 40 * 24)
+        assert np.array_equal(vals, rvals) and np.array_equal(raw, rraw)
+        for pk in ("avg", "grad", "med", "zz"):
+            assert np.array_equal(predictors.predictor_decode(vals, raw, 40, 24, mv, pk),
+                                  ref_pred.predictor_decode(vals, raw, 40, 24, mv, pk))
+        if kind in ("avg", "grad"):
+            fn = "delta_rle_decompress" if kind == "avg" else "grad_delta_rle_decompress"
+            assert np.array_equal(getattr(deltarle, fn)(stream, 40, 24),
+                                  getattr(ref_deltarle, fn)(stream, 40, 24))
+    with pytest.raises(ValueError):
+        predictors.parse_escaped(np.zeros(3, np.uint16), 7, 10)
+    rng = np.random.default_rng(12)
+    ux = rng.integers(0, 65536, 5000).astype(np.uint16)
+    prev = rng.integers(0, 65536, 5000).astype(np.uint16)
+    assert np.array_equal(predictors.unzigzag(ux), ref_pred.unzigzag(ux))
+    assert np.array_equal(predictors.temporal_delta_decode(ux, prev),
+                          ref_pred.temporal_delta_decode(ux, prev))
+    assert np.array_equal(predictors.temporal_delta_decode(ux, None), ux)
+
+
+def test_color_and_plane_modes_match():
+    rng = np.random.default_rng(13)
+    y, co, cg = (rng.integers(0, 511, 600).astype(np.uint16) for _ in range(3))
+    assert np.array_equal(color.ycocgr_inverse(y, co, cg, 30, 20),
+                          ref_color.ycocgr_inverse(y, co, cg, 30, 20))
+    rgb_px = rng.integers(0, 256, 600 * 3).astype(np.uint8)
+    planes = ref_color.ycocgr_forward(rgb_px, 30, 20)
+    assert np.array_equal(color.ycocgr_inverse(*planes, 30, 20), rgb_px)
+    assert (rgb.PLANE_CONSTANT_ZERO, rgb.PLANE_CONSTANT, rgb.PLANE_COMPRESSED,
+            rgb.PLANE_RAW) == (ref_rgb.PLANE_CONSTANT_ZERO, ref_rgb.PLANE_CONSTANT,
+                               ref_rgb.PLANE_COMPRESSED, ref_rgb.PLANE_RAW)
