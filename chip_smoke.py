@@ -23,9 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
    steps, one image's operands replicated.  tANS decode: on each launch
    group of phase 7's archive batch (N = 2, 4 and 8, FF 84 and FF 08
-   tables, tableLogs 10-13 and counts mixed in a launch).  Times from
-   CUDA events after a warm-up (the plain tANS version: its one compared
-   call).
+   tables, tableLogs 10-13 and counts mixed in a launch).  Transforms:
+   the YCoCg-R pair on full-range random u16 planes and on the planes of
+   phase 8's slide (16.5 M pixels each), the 5/3 lifting pair on random
+   int32 rows in the u16 range at even, odd and non-multiple-of-4 widths.
+   Times from CUDA events after a warm-up (the plain tANS version: its
+   one compared call).
 3. Decode path: ``MicwDecodePlan`` over a mixed batch (CT_dev x256, the
    batch size the reference bench targets, plus MR_dev, MR_dev_alias,
    wide_banded and CT_dev_alias replicated); every strip of every
@@ -88,7 +91,35 @@ Phases (any failure exits non-zero; nothing is caught):
    of the entropy and post stages, and ``ingest_plan(entropy="device",
    device_encode=True)`` on MR_pics4 x16 + MR_4s x16, whose decode plan
    must give back the pixels.
-8. Prints the kernel report as one JSON line (with each kernel's bound:
+8. RGB and WSI containers: a WSI tile server and its ingest.  One slide
+   is built from ``web/testdata/tissue_dev.raw`` (512x384 RGB): a mosaic
+   of 8x8 copies, alternate copies mirrored, inside a constant white
+   margin of one tile: 4608x3584 pixels, 49.5 MB of RGB, 252 tiles of
+   256x256 at level 0 (60 of them constant) and 345 over the pyramid.
+   ``w3d_compress(device_encode=True)`` encodes it on the card (seconds
+   split into tiling, the forward transform and the encode call);
+   ``w3d_decompress_level`` at levels 0 and 1 and ``w3d_decompress_region``
+   over a region that crosses tile borders and touches a constant tile
+   are verified against the source pixels (level 1 against the port's
+   ``downsample2x_rgb``).  Level 0's decode is then staged once and timed
+   with CUDA events, with a profiler split between the entropy kernels,
+   the YCoCg-R kernel and the assemble's torch ops.  Then an RGB tile
+   batch through ``micwr_decode_many``: ``tissue_dev.mwr3`` x64 (the
+   "auto" planes: escaped zz and avg strips through the post path) and the
+   same image under ``predictor="auto-r"``, encoded here, x64 (the
+   r-kernels), every byte verified; ``micwr_compress`` must reproduce
+   ``tissue_dev.mwr3``.  Then the device-format MIC2 fixtures
+   ``series_dev_{ind,tmp}.mic2``: decoded 16 times each against their
+   ``.raw`` and re-encoded byte for byte.  The YCoCg-R wrappers, the
+   encode wrapper and the decode wrappers of these paths must each have
+   launched, counted from 0.
+9. Wavelet: ``wavelet_forward_2d_separated`` and its inverse at 5 levels
+   on ``CT_dev.raw`` (512x512), on the green channel of the slide
+   (4608x3584) and on a 1001x749 crop of it (odd edges).  The forward
+   must equal the same call on the CPU (the plain twins), the inverse
+   must give back the input, and both row wrappers must have launched.
+   Prints ms per transform (CUDA events).
+10. Prints the kernel report as one JSON line (with each kernel's bound:
    the larger of its bytes over 3.35 TB/s and its integer operations over
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -161,6 +192,10 @@ KERNELS = {
     "rans_decode_packed": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:233"),
     "rans_decode": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:52"),
     "tans_decode": ("mic_tpu_torch/csrc/tans_decode.cu", "mic_tpu/tpu/pallas_tans.py:79"),
+    "ycocgr_forward": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:44"),
+    "ycocgr_inverse": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:75"),
+    "wt53_rows_forward": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:109"),
+    "wt53_rows_inverse": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:130"),
 }
 # The bound of a kernel's work: the larger of its bytes (every input read
 # once, every output written once) over the H100 SXM's 3.35 TB/s and its
@@ -174,11 +209,18 @@ KERNELS = {
 # state update and renorm test (12; the alias slot search 8 more); the
 # tANS step per symbol (table and alphabet reads with their bound checks,
 # the active test, the lane scan, the window clamp, two word reads, the
-# funnel shift, mask and state add, the cursor update and the store: 24).
+# funnel shift, mask and state add, the cursor update and the store: 24);
+# the YCoCg-R pixel (four adds, two shifts, two zigzags or unzigzags, the
+# masks and the packing: 15 for three outputs, 5 each); the lifting pair
+# (two or three neighbour predicts, the update, the index arithmetic: 16
+# for two outputs, 8 each).
 MEM_BPS, CORE_OPS = 3.35e12, 67e12
 OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18, "rans_decode_packed": 9,
                    "rans_decode": 9, "rans_decode_rle": 29, "rans_decode_rle_alias": 34,
-                   "rans_encode": 12, "rans_encode_alias": 20, "tans_decode": 24}
+                   "rans_encode": 12, "rans_encode_alias": 20, "tans_decode": 24,
+                   "ycocgr_forward": 5, "ycocgr_inverse": 5,
+                   "wt53_rows_forward": 8, "wt53_rows_inverse": 8}
+TILE = 256  # phase 8's tile edge and the slide's margin
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -812,16 +854,7 @@ def _ref_entry_points(dev) -> None:
             raise AssertionError(f"{what} decoded wrong pixels")
 
     def counted(what, fn, wrappers=(tans_decode,)):
-        """fn() with the wrappers' launch counts set to 0 just before it;
-        fails unless each of them launched in that call."""
-        for w in wrappers:
-            w.launches = 0
-        out = fn()
-        counts = {w.__name__: w.launches for w in wrappers}
-        print(f"launches {what}: {counts}")
-        if min(counts.values()) <= 0:
-            raise AssertionError(f"{what} did not launch {counts}")
-        return out
+        return _counted(what, fn, wrappers)[0]
 
     # MIC1 frames, and the same batch split into its entropy and post stages.
     names = ["MR_2s", "MR_4s", "MR_8s", "MR_rans8"] * 8
@@ -1007,6 +1040,319 @@ def _ref_phase(dev):
     return {"tans_decode": launches}
 
 
+def _slide():
+    """Phase 8's slide: (interleaved RGB uint8 [height, width, 3], width,
+    height).  8x8 copies of tissue_dev.raw, alternate copies mirrored,
+    inside a constant white margin of one tile."""
+    import numpy as np
+
+    t = np.fromfile(TESTDATA / "tissue_dev.raw", np.uint8).reshape(384, 512, 3)
+    rows = [np.concatenate([t if (i + j) % 2 == 0 else t[:, ::-1] for j in range(8)], axis=1)
+            for i in range(8)]
+    body = np.concatenate(rows, axis=0)
+    slide = np.full((body.shape[0] + 2 * TILE, body.shape[1] + 2 * TILE, 3), 255, np.uint8)
+    slide[TILE:-TILE, TILE:-TILE] = body
+    return slide, slide.shape[1], slide.shape[0]
+
+
+def _transform_kernels_vs_plain(dev, report, slide) -> None:
+    """Phase 2, transform half: the four kernels of csrc/transforms.cu
+    against their plain versions."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch.tpu import kernels as K
+
+    rng = np.random.default_rng(6)
+    n = slide.shape[0] * slide.shape[1]
+    rand = [torch.from_numpy(rng.integers(0, 65536, n).astype(np.uint16).view(np.int16)).to(dev)
+            for _ in range(3)]
+    px = torch.from_numpy(slide).to(dev).view(-1, 3).to(torch.int16)
+    rgb = [px[:, c].contiguous() for c in range(3)]
+    ycc = list(K.ycocgr_forward_plain(*rgb))
+    cases = [("ycocgr_forward", "random u16", rand), ("ycocgr_forward", "slide RGB", rgb),
+             ("ycocgr_inverse", "random u16", rand), ("ycocgr_inverse", "slide YCoCg", ycc)]
+    for name, tag, planes in cases:
+        kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+        got, want = kernel(*planes), plain(*planes)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} {tag}: kernel != plain (max abs err {err})")
+        ms = _cuda_ms(lambda: kernel(*planes), 10)
+        plain_ms = _cuda_ms(lambda: plain(*planes), 2)
+        r = report[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if tag.startswith("slide"):  # the main path's planes
+            _account(r, name, planes, got, ms, plain_ms)
+        print(f"kernel-vs-plain {name} {tag} pixels={n} equal=True kernel_ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} GBps={12 * n / (ms / 1e3) / 1e9:.3f}")
+    del rand, px, rgb, ycc
+    # rows x cols: the slide's green plane, an odd crop, an even width that
+    # is no multiple of 4, and the transposed slide (the column pass)
+    for rows, cols in ((3584, 4608), (749, 1001), (2304, 1794), (4608, 3584)):
+        x = torch.from_numpy(rng.integers(0, 65536, (rows, cols)).astype(np.int32)).to(dev)
+        for name in ("wt53_rows_forward", "wt53_rows_inverse"):
+            kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+            got, want = kernel(x), plain(x)
+            torch.cuda.synchronize()
+            err = _max_abs_err((got,), (want,))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {rows}x{cols}: kernel != plain (max abs err {err})")
+            ms = _cuda_ms(lambda: kernel(x), 10)
+            plain_ms = _cuda_ms(lambda: plain(x), 2)
+            r = report[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if (rows, cols) in ((3584, 4608), (4608, 3584)):  # level 0 of phase 9's slide
+                _account(r, name, (x,), (got,), ms, plain_ms)
+            print(f"kernel-vs-plain {name} rows={rows} cols={cols} equal=True "
+                  f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                  f"GBps={8 * rows * cols / (ms / 1e3) / 1e9:.3f}")
+        del x
+
+
+def _counted(what, fn, wrappers):
+    """fn() with the wrappers' launch counts set to 0 just before it;
+    returns (result, {name: launches}) and fails unless each launched."""
+    for w in wrappers:
+        w.launches = 0
+    out = fn()
+    counts = {w.__name__: w.launches for w in wrappers}
+    print(f"launches {what}: {counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"{what} did not launch {counts}")
+    return out, counts
+
+
+def _timed_rgb_decode(what, blobs, dev, n_bytes) -> None:
+    """Stage a batch of MWR3 blobs once, then time the device part of
+    ``micwr_decode_many`` (entropy launches, assemble, crop, YCoCg-R
+    inverse, interleave) with CUDA events and split it with the profiler."""
+    import torch
+
+    from mic_tpu_torch.tpu import rgb_device
+
+    t0 = time.perf_counter()
+    metas, plan = rgb_device._stage(blobs, dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    ms = _cuda_ms(lambda: rgb_device._run(metas, plan), 5)
+    n_strips = sum(b.n for b in plan.buckets.values())
+    print(f"{what}: {len(blobs)} MWR3 blobs, {n_strips} entropy strips in "
+          f"{len(plan.buckets)} buckets, stage_s={stage_s:.3f}, {ms:.3f} ms per decode "
+          f"(staged; CUDA events), {n_bytes / (ms / 1e3) / 1e9:.3f} GB/s of RGB bytes out "
+          f"({n_bytes} bytes)")
+    _out, wall_ms, by_name, span = _profiled(lambda: rgb_device._run(metas, plan))
+    if not by_name:
+        print(f"profile {what}: wall_ms={wall_ms:.3f}; no device events recorded "
+              "(device breakdown not measured)")
+        return
+    busy = sum(by_name.values())
+    ent = sum(v for k, v in by_name.items() if "rans_" in k)
+    ycc = sum(v for k, v in by_name.items() if "ycocgr" in k)
+    if not ent:
+        # Seen inside this long run, not in a process of its own
+        # (scripts/profile_rgb_decode.py): the trace lacks the region's
+        # first records.
+        print(f"profile {what}: the trace holds no entropy-kernel record for "
+              f"{len(plan.buckets)} launches: incomplete, the split below is not the whole run")
+    print(f"profile {what}: wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+          f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
+          f"entropy_kernels_ms={ent:.3f} ycocgr_kernel_ms={ycc:.3f} "
+          f"assemble_and_other_torch_ops_ms={busy - ent - ycc:.3f} "
+          f"device_kernel_names={len(by_name)}")
+    for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"profile: {kms:8.3f} ms {100 * kms / busy:5.1f}%  {name[:110]}")
+
+
+def _rgb_wsi_phase(dev, slide):
+    """Phase 8: the W3D1 slide, the MWR3 tile batch and the device MIC2
+    fixtures; returns the launch counts of the YCoCg-R wrappers."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import (
+        compress_multi_frame_device,
+        decompress_multi_frame_device,
+        micwr_compress,
+        micwr_decode_many,
+        w3d_compress,
+        w3d_decompress_level,
+        w3d_decompress_region,
+        w3d_header,
+    )
+    from mic_tpu_torch.ops.pyramid import downsample2x_rgb
+    from mic_tpu_torch.tpu import kernels as K
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu import rgb_device, wsi_device
+
+    total = {"ycocgr_forward": 0, "ycocgr_inverse": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+    def check(what, ok):
+        print(f"rgb/wsi {what}: equal={ok}")
+        if not ok:
+            raise AssertionError(f"{what}: wrong bytes")
+
+    # --- the slide: ingest ------------------------------------------------
+    rgb, width, height = slide.reshape(-1), slide.shape[1], slide.shape[0]
+    t0 = time.perf_counter()
+    blob, counts = _counted(
+        "w3d_compress",
+        lambda: w3d_compress(rgb, width, height, dev, tile_w=TILE, tile_h=TILE,
+                             device_encode=True),
+        (K.ycocgr_forward, renc.rans_encode))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    add(counts)
+    # The split, from a second run of the tiling and the transform alone.
+    t0 = time.perf_counter()
+    _n_levels, tiles = wsi_device._tiles(rgb, width, height, TILE, TILE, 0)
+    tiles_s = time.perf_counter() - t0
+    rgbs = [(t[4], TILE, TILE) for t in tiles if t[3] == wsi_device.TILE_MWR3]
+    t0 = time.perf_counter()
+    planes = rgb_device._forward_planes(rgbs, dev)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    (w, h, _tw, _th, levels), entries, _off = w3d_header(blob)
+    n_const = sum(1 for e in entries if e[3] == wsi_device.TILE_CONST)
+    lvl0 = [e for e in entries if e[0] == 0]
+    plane_bytes = 2 * 3 * TILE * TILE * len(rgbs)
+    print(f"rgb/wsi slide {w}x{h}: {len(rgb)} RGB bytes -> {len(blob)} bytes W3D1 "
+          f"(ratio {len(rgb) / len(blob):.3f}), {levels} levels, {len(entries)} tiles "
+          f"({n_const} constant; level 0: {len(lvl0)}, "
+          f"{sum(1 for e in lvl0 if e[3] == wsi_device.TILE_CONST)} constant), "
+          f"{3 * len(rgbs)} planes = {plane_bytes} bytes of u16 encoded; "
+          f"w3d_compress total_s={total_s:.3f}; separate runs: tiling_s={tiles_s:.3f} "
+          f"forward_transform_s={forward_s:.3f} (upload, kernel, download); "
+          f"encode_call_s={total_s - tiles_s - forward_s:.3f} (by subtraction: plane padding, "
+          f"micw_compress_device_many, container); "
+          f"MBps={len(rgb) / total_s / 1e6:.3f} of RGB bytes in")
+    del planes, rgbs, tiles
+
+    # --- the slide: tile server --------------------------------------------
+    decode_fns = (K.ycocgr_inverse, rd.rans_decode_zzd)
+    (got, gw, gh), counts = _counted("w3d_decompress_level 0",
+                                     lambda: w3d_decompress_level(blob, dev, 0), decode_fns)
+    add(counts)
+    check(f"w3d_decompress_level 0 ({gw}x{gh})", (gw, gh) == (width, height)
+          and np.array_equal(got, rgb))
+    want1, w1, h1 = downsample2x_rgb(rgb, width, height)
+    (got, gw, gh), counts = _counted("w3d_decompress_level 1",
+                                     lambda: w3d_decompress_level(blob, dev, 1), decode_fns)
+    add(counts)
+    check(f"w3d_decompress_level 1 ({gw}x{gh}) vs downsample2x_rgb", (gw, gh) == (w1, h1)
+          and np.array_equal(got, want1))
+    x, y, rw, rh = 200, 180, 700, 600  # tile (0, 0) is the constant margin
+    (got, gw, gh), counts = _counted(
+        "w3d_decompress_region", lambda: w3d_decompress_region(blob, x, y, rw, rh, dev),
+        decode_fns)
+    add(counts)
+    check(f"w3d_decompress_region x={x} y={y} {rw}x{rh}", (gw, gh) == (rw, rh)
+          and np.array_equal(got.reshape(rh, rw, 3), slide[y : y + rh, x : x + rw]))
+    data_off = 28 + 24 * len(entries)
+    mwr = [blob[data_off + e[4] : data_off + e[4] + e[5]] for e in lvl0
+           if e[3] == wsi_device.TILE_MWR3]
+    _timed_rgb_decode("rgb/wsi level-0 decode", mwr, dev, 3 * TILE * TILE * len(mwr))
+    del mwr, blob
+
+    # --- MWR3 tile batch: the auto fixture and an auto-r container ----------
+    fixture = (TESTDATA / "tissue_dev.mwr3").read_bytes()
+    tissue = np.fromfile(TESTDATA / "tissue_dev.raw", np.uint8)
+    made, counts = _counted("micwr_compress auto", lambda: micwr_compress(tissue, 512, 384, dev),
+                            (K.ycocgr_forward, renc.rans_encode))
+    add(counts)
+    check("micwr_compress(tissue_dev.raw) vs tissue_dev.mwr3", made == fixture)
+    auto_r, counts = _counted(
+        "micwr_compress auto-r", lambda: micwr_compress(tissue, 512, 384, dev, predictor="auto-r"),
+        (K.ycocgr_forward, renc.rans_encode))
+    add(counts)
+    batch = [fixture] * 64 + [auto_r] * 64
+    t0 = time.perf_counter()
+    outs, counts = _counted("micwr_decode_many", lambda: micwr_decode_many(batch, dev),
+                            (K.ycocgr_inverse, rd.rans_decode_packed, rd.rans_decode_rle))
+    call_s = time.perf_counter() - t0
+    add(counts)
+    check(f"micwr_decode_many tissue_dev.mwr3 x64 + auto-r x64 ({call_s:.3f} s, staging included)",
+          all((w, h) == (512, 384) and np.array_equal(o, tissue) for o, w, h in outs))
+    del outs
+    _timed_rgb_decode("rgb/wsi tile batch decode", batch, dev, tissue.size * len(batch))
+
+    # --- device-format MIC2 --------------------------------------------------
+    for name in ("ind", "tmp"):
+        fx = (TESTDATA / f"series_dev_{name}.mic2").read_bytes()
+        raw = np.fromfile(TESTDATA / f"series_dev_{name}.raw", "<u2").reshape(3, -1)
+        t0 = time.perf_counter()
+        ok = True
+        for i in range(16):
+            if i == 0:
+                (frames, hdr), _c = _counted(
+                    f"decompress_multi_frame_device series_dev_{name}",
+                    lambda: decompress_multi_frame_device(fx, dev), (rd.rans_decode_zzd,))
+            else:
+                frames, hdr = decompress_multi_frame_device(fx, dev)
+            ok = ok and len(frames) == 3 and all(np.array_equal(f, r) for f, r in zip(frames, raw))
+        dec_s = time.perf_counter() - t0
+        check(f"decompress_multi_frame_device series_dev_{name} x16 ({dec_s:.3f} s, "
+              f"{16 * raw.nbytes / dec_s / 1e6:.3f} MB/s of pixels, staging included)", ok)
+        t0 = time.perf_counter()
+        made, _c = _counted(
+            f"compress_multi_frame_device series_dev_{name}",
+            lambda: compress_multi_frame_device(list(raw), hdr.width, hdr.height,
+                                                int(raw[0].max()), dev, temporal=hdr.temporal),
+            (renc.rans_encode,))
+        check(f"compress_multi_frame_device series_dev_{name} vs fixture "
+              f"({time.perf_counter() - t0:.3f} s)", made == fx)
+    return total
+
+
+def _wavelet_phase(dev, slide):
+    """Phase 9: the multi-level 2-D wavelet at 5 levels; returns the row
+    wrappers' launch counts."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import wavelet_forward_2d_separated, wavelet_inverse_2d_separated
+    from mic_tpu_torch.tpu import kernels as K
+
+    green = np.ascontiguousarray(slide[:, :, 1]).astype(np.int32)
+    images = {"CT_dev 512x512": np.fromfile(TESTDATA / "CT_dev.raw", "<u2").astype(np.int32)
+              .reshape(512, 512),
+              f"slide green {green.shape[1]}x{green.shape[0]}": green,
+              "slide green crop 1001x749": np.ascontiguousarray(green[300:1049, 500:1501])}
+    total = {"wt53_rows_forward": 0, "wt53_rows_inverse": 0}
+    for name, img in images.items():
+        rows, cols = img.shape
+        x = torch.from_numpy(img).to(dev)
+        kw = dict(rows=rows, cols=cols, levels=5)
+        coeffs, c_f = _counted(f"wavelet_forward_2d_separated {name}",
+                               lambda: wavelet_forward_2d_separated(x, **kw),
+                               (K.wt53_rows_forward,))
+        back, c_i = _counted(f"wavelet_inverse_2d_separated {name}",
+                             lambda: wavelet_inverse_2d_separated(coeffs, **kw),
+                             (K.wt53_rows_inverse,))
+        torch.cuda.synchronize()
+        total["wt53_rows_forward"] += c_f["wt53_rows_forward"]
+        total["wt53_rows_inverse"] += c_i["wt53_rows_inverse"]
+        t0 = time.perf_counter()
+        want = wavelet_forward_2d_separated(torch.from_numpy(img), **kw)  # CPU: the plain twins
+        cpu_s = time.perf_counter() - t0
+        fwd_ok, inv_ok = torch.equal(coeffs.cpu(), want), torch.equal(back, x)
+        fwd_ms = _cuda_ms(lambda: wavelet_forward_2d_separated(x, **kw), 5)
+        inv_ms = _cuda_ms(lambda: wavelet_inverse_2d_separated(coeffs, **kw), 5)
+        print(f"wavelet {name} levels=5: forward_equals_cpu={fwd_ok} inverse_gives_input={inv_ok} "
+              f"forward_ms={fwd_ms:.3f} inverse_ms={inv_ms:.3f} (CUDA events, 2 row launches "
+              f"a level plus torch transposes and de-interleaves) cpu_forward_s={cpu_s:.3f}")
+        if not (fwd_ok and inv_ok):
+            raise AssertionError(f"wavelet {name}: forward_equals_cpu={fwd_ok} "
+                                 f"inverse_gives_input={inv_ok}")
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1052,6 +1398,8 @@ def main() -> int:
     post_blobs, post_expected, post_names = _post_batch(dev)
     _post_kernels_vs_plain(dev, report, post_blobs)
     _tans_kernels_vs_plain(dev, report)
+    slide = _slide()[0]
+    _transform_kernels_vs_plain(dev, report, slide)
     for name, reps in (("CT_dev", 256), ("CT_dev_alias", 256), ("MR_dev_alias", 512)):
         plan = MicwDecodePlan([blobs[name]] * reps, dev)
         for key, b in plan.buckets.items():
@@ -1144,7 +1492,13 @@ def main() -> int:
     # --- 7. reference-format decode ---------------------------------------------
     launches.update(_ref_phase(dev))
 
-    # --- 8. report ------------------------------------------------------------
+    # --- 8. RGB and WSI containers ---------------------------------------------
+    launches.update(_rgb_wsi_phase(dev, slide))
+
+    # --- 9. wavelet -------------------------------------------------------------
+    launches.update(_wavelet_phase(dev, slide))
+
+    # --- 10. report -----------------------------------------------------------
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = report[name]

@@ -19,6 +19,15 @@ MIC3 pyramids through it; ``tpu.ingest`` (``transcode_frame``,
 ``transcode_pics``, ``transcode_auto``, ``ingest_plan``) transcodes them
 to MICW, byte-identical to ``mic_tpu.tpu.ingest``.
 
+The device RGB, WSI and series containers ride the same kernels: MWR3
+(``micwr_compress`` / ``micwr_compress_device_many`` / ``micwr_decode_many``,
+the YCoCg-R transform on the GPU through ``tpu.kernels``), W3D1
+(``w3d_compress`` / ``w3d_decompress_level`` / ``w3d_decompress_region``)
+and the device-format MIC2 (``compress_multi_frame_device`` /
+``decompress_multi_frame_device``).  ``tpu.kernels`` also holds the 5/3
+lifting wavelet (``wavelet_forward_2d_separated`` and its inverse).
+``python -m mic_tpu_torch.cli`` drives the MICW and MWR3 paths.
+
 Every entry point takes an explicit ``torch.device``.  On the CPU the
 kernels' plain PyTorch versions run instead, which is how the tests hold
 the port against ``mic_tpu``.  The package imports nothing of
@@ -27,7 +36,9 @@ with ``mic_tpu`` is copied into ``mic_tpu_torch.ops`` and
 ``mic_tpu_torch.tpu``, each copy pinned to its original by a test.
 """
 
+from .parallel.multiframe import compress_multi_frame_device, decompress_multi_frame_device
 from .tpu.ingest import ingest_plan, transcode_auto, transcode_frame, transcode_pics
+from .tpu.kernels import wavelet_forward_2d_separated, wavelet_inverse_2d_separated
 from .tpu.rans_encode import micw_compress_device, micw_compress_device_many
 from .tpu.ref_decode import (
     decompress_frames_device,
@@ -39,14 +50,24 @@ from .tpu.ref_decode import (
     decompress_wsi_region_device,
     decompress_wsi_tile_device,
 )
+from .tpu.rgb_device import (
+    micwr_compress,
+    micwr_compress_device,
+    micwr_compress_device_many,
+    micwr_decode_many,
+    micwr_decompress_device,
+)
 from .tpu.strips import MicwDecodePlan, micw_decode_many, micw_decompress_device, micw_parse
 from .tpu.tans_decode import fse_decompress_device_batch
+from .tpu.wsi_device import w3d_compress, w3d_decompress_level, w3d_decompress_region, w3d_header
 
 __all__ = [
     "MicwDecodePlan",
+    "compress_multi_frame_device",
     "decompress_frames_device",
     "decompress_mic2_device",
     "decompress_mic2_frame_device",
+    "decompress_multi_frame_device",
     "decompress_pics_device",
     "decompress_pics_device_many",
     "decompress_wsi_level_device",
@@ -59,7 +80,18 @@ __all__ = [
     "micw_decode_many",
     "micw_decompress_device",
     "micw_parse",
+    "micwr_compress",
+    "micwr_compress_device",
+    "micwr_compress_device_many",
+    "micwr_decode_many",
+    "micwr_decompress_device",
     "transcode_auto",
     "transcode_frame",
     "transcode_pics",
+    "w3d_compress",
+    "w3d_decompress_level",
+    "w3d_decompress_region",
+    "w3d_header",
+    "wavelet_forward_2d_separated",
+    "wavelet_inverse_2d_separated",
 ]

@@ -30,6 +30,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # init, tpk, ts, alpha, asz, words, rows, mask, shift, ws, out,
     # n_strips, steps, vdd_ws, stream
@@ -63,6 +64,10 @@ _SIGNATURES = {
     # init, pos, cnt, tpk, ts, alpha, asz, words, wb, out, n_streams, steps,
     # n_states, table_log, stream
     "mic_tans_decode": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    # a0, a1, a2, o0, o1, o2, n, inverse, stream
+    "mic_ycocgr": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
+    # x, out, rows, n, inverse, stream
+    "mic_wt53_rows": [_P, _P, _L, _I, _I, _P],
 }
 
 

@@ -1,7 +1,10 @@
 """Fused predictor + RLE pipelines of the reference formats, decode side.
 
 A numpy copy of the decode half of ``mic_tpu.ops.deltarle`` (same
-names, same outputs; pinned by ``tests/test_torch_isolation.py``).
+names, same outputs; pinned by ``tests/test_torch_isolation.py``), plus
+``med_delta_rle_decompress``: the med predictor through the same fused
+decode, which is what ``mic_tpu``'s C++ tier decodes a kind-2 frame with
+(pinned against it, where it is built, by ``tests/test_torch_ingest.py``).
 Stream layout (deltarlecompressu16.go:24-67): an RLE stream whose Init
 maxValue word is the delimiter for the pixel depth, and whose first
 encoded symbol is the image's true maxValue, followed by the escaped
@@ -16,7 +19,8 @@ import numpy as np
 from .predictors import delta_params, parse_escaped, predictor_decode
 from .rle import rle_decompress_stream
 
-__all__ = ["delta_rle_decompress", "grad_delta_rle_decompress"]
+__all__ = ["delta_rle_decompress", "grad_delta_rle_decompress", "med_delta_rle_decompress",
+           "zz_delta_rle_decompress"]
 
 
 def _fused_decompress(stream, width: int, height: int, kind: str) -> np.ndarray:
@@ -35,3 +39,14 @@ def delta_rle_decompress(stream, width, height) -> np.ndarray:
 def grad_delta_rle_decompress(stream, width, height) -> np.ndarray:
     """Reference GradDeltaRleDecompressU16 (deltagradrlecompressu16.go:71)."""
     return _fused_decompress(stream, width, height, "grad")
+
+
+def med_delta_rle_decompress(stream, width, height) -> np.ndarray:
+    """The fused decode with the MED predictor (deltamedcompressu16.go:56
+    behind the RLE stage)."""
+    return _fused_decompress(stream, width, height, "med")
+
+
+def zz_delta_rle_decompress(stream, width, height) -> np.ndarray:
+    """Reference DeltaRleZZU16.Decompress (deltazzrlecompressu16.go:49)."""
+    return _fused_decompress(stream, width, height, "zz")

@@ -211,8 +211,18 @@ def predictor_decode(
     return out.astype(np.uint16)
 
 
+def temporal_delta_encode(current, prev) -> np.ndarray:
+    """Inter-frame ZigZag residual (temporaldelta.go:11-23)."""
+    current = np.asarray(current, dtype=np.uint16)
+    if prev is None:
+        return current.copy()
+    prev = np.asarray(prev, dtype=np.uint16)
+    diff = (current.astype(np.int64) - prev.astype(np.int64)).astype(np.int16)
+    return zigzag(diff)
+
+
 def temporal_delta_decode(residual, prev) -> np.ndarray:
-    """Inverse of the inter-frame ZigZag residual (temporaldelta.go:27-39)."""
+    """Inverse of temporal_delta_encode (temporaldelta.go:27-39)."""
     residual = np.asarray(residual, dtype=np.uint16)
     if prev is None:
         return residual.copy()

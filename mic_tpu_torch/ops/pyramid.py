@@ -1,0 +1,22 @@
+"""Pyramid downsampling: 2x2 box filter with +2 rounding, odd trailing
+pixels dropped (reference wsipyramid.go:10-55).  A numpy copy of
+``mic_tpu.ops.pyramid.downsample2x_rgb`` (pinned by
+``tests/test_torch_wsi_device.py``)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["downsample2x_rgb"]
+
+
+def downsample2x_rgb(src: np.ndarray, width: int, height: int):
+    """Halve an interleaved RGB byte image.  Returns (data, w, h) or
+    (None, 0, 0) when too small, matching Downsample2xRGB."""
+    new_w, new_h = width // 2, height // 2
+    if new_w == 0 or new_h == 0:
+        return None, 0, 0
+    a = np.asarray(src, dtype=np.uint8).reshape(height, width, 3).astype(np.uint32)
+    a = a[: new_h * 2, : new_w * 2]
+    q = (a[0::2, 0::2] + a[0::2, 1::2] + a[1::2, 0::2] + a[1::2, 1::2] + 2) // 4
+    return q.astype(np.uint8).ravel(), new_w, new_h

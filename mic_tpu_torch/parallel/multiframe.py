@@ -1,23 +1,41 @@
-"""MIC2 multi-frame container (reference multiframe.go), the parser:
-copies of ``mic_tpu.parallel.multiframe``'s ``MIC2Header``,
+"""MIC2 multi-frame container (reference multiframe.go): copies of
+``mic_tpu.parallel.multiframe``'s ``MIC2Header``, ``write_mic2``,
 ``read_mic2_header`` and ``extract_frame`` (pinned by
-``tests/test_torch_ref_decode.py``).  Format (multiframe.go:14-32)::
+``tests/test_torch_ref_decode.py`` and ``tests/test_torch_multiframe.py``),
+and the device-format series: ``compress_multi_frame_device`` /
+``decompress_multi_frame_device``, whose frame payloads are MICW blobs,
+with an added ``device``.  Format (multiframe.go:14-32)::
 
     "MIC2" | width u32 | height u32 | frameCount u32
     flags u8 (bit0 = spatial, always set; bit1 = temporal) | 3 reserved
     frame table: N x [offset u32, length u32]
     concatenated frame blobs
+
+Independent mode gives O(1) random frame access; temporal mode stores
+ZigZag inter-frame residuals (frames 1..k need frames 0..k-1).
 """
 
 from __future__ import annotations
 
 import struct
 
-__all__ = ["MIC2Header", "read_mic2_header", "extract_frame"]
+import numpy as np
+
+from ..ops.predictors import temporal_delta_decode, temporal_delta_encode
+
+__all__ = [
+    "MIC2Header",
+    "write_mic2",
+    "read_mic2_header",
+    "extract_frame",
+    "compress_multi_frame_device",
+    "decompress_multi_frame_device",
+]
 
 MIC2_MAGIC = b"MIC2"
 MIC2_HEADER_SIZE = 20
 MIC2_ENTRY_SIZE = 8
+PIPELINE_SPATIAL = 0x01
 PIPELINE_TEMPORAL = 0x02
 
 
@@ -27,6 +45,23 @@ class MIC2Header:
         self.height = height
         self.frame_count = frame_count
         self.temporal = temporal
+
+
+def write_mic2(hdr: MIC2Header, frames: list[bytes]) -> bytes:
+    if len(frames) != hdr.frame_count:
+        raise ValueError(f"frame count mismatch: header={hdr.frame_count}, frames={len(frames)}")
+    flags = PIPELINE_SPATIAL | (PIPELINE_TEMPORAL if hdr.temporal else 0)
+    out = bytearray()
+    out += MIC2_MAGIC
+    out += struct.pack("<III", hdr.width, hdr.height, hdr.frame_count)
+    out += bytes([flags, 0, 0, 0])
+    offset = 0
+    for f in frames:
+        out += struct.pack("<II", offset, len(f))
+        offset += len(f)
+    for f in frames:
+        out += f
+    return bytes(out)
 
 
 def read_mic2_header(data: bytes):
@@ -58,3 +93,59 @@ def extract_frame(data: bytes, entries, data_offset: int, frame_idx: int) -> byt
     if end > len(data):
         raise ValueError(f"MIC2: frame {frame_idx} data extends beyond file")
     return data[start:end]
+
+
+def compress_multi_frame_device(frames, width, height, max_value, device, lanes: int = 128,
+                                temporal: bool = False, entropy: str = "standard",
+                                device_encode: bool = False) -> bytes:
+    """MIC2 container whose frame payloads are MICW device-format blobs,
+    the bytes ``mic_tpu.parallel.multiframe.compress_multi_frame_device``
+    writes.
+
+    Independent mode (default): O(1) random frame access, every frame's
+    strips pool into the decode plan's launches.  Temporal mode mirrors
+    the host MIC2 (multiframe*.go): frame i > 0 stores zigzag residuals
+    against frame i-1; the residual planes still decode in one batch and
+    only the final add chains across frames.
+
+    Every frame's strips are encoded in one call on ``device``: with
+    ``device_encode=True`` the zzd pipeline (what ``mic_tpu``'s device
+    encoder writes; ``lanes`` is not read, as there), otherwise the
+    "auto-fast" trial set of ``mic_tpu``'s host ``micw_compress``.  The
+    port's encoder writes 128 lanes per strip only: any other ``lanes``
+    on that path raises ``NotImplementedError``."""
+    from ..tpu.rans_encode import micw_compress_device_many
+
+    if not device_encode and lanes != 128:
+        raise NotImplementedError(f"micw: {lanes} lanes per strip (the port encodes 128)")
+    planes = []
+    for i, f in enumerate(frames):
+        f = np.asarray(f, dtype=np.uint16)
+        if temporal and i > 0:
+            plane = temporal_delta_encode(f, np.asarray(frames[i - 1], dtype=np.uint16))
+            mv = max(int(plane.max()), 1)
+        else:
+            plane = f
+            mv = max_value
+        planes.append((plane, width, height, mv))
+    blobs = micw_compress_device_many(planes, device, entropy=entropy,
+                                      predictor="zzd" if device_encode else "auto-fast")
+    return write_mic2(MIC2Header(width, height, len(frames), temporal=temporal), blobs)
+
+
+def decompress_multi_frame_device(data: bytes, device):
+    """Batch-decode a device-format MIC2 on ``device``: every frame's
+    strips (or residual-plane strips in temporal mode) pool into as few
+    launches as possible; the temporal add chain is a numpy pass, as in
+    ``mic_tpu``.  Returns (frames, header)."""
+    from ..tpu.strips import micw_decode_many
+
+    hdr, entries, data_offset = read_mic2_header(data)
+    blobs = [extract_frame(data, entries, data_offset, i) for i in range(hdr.frame_count)]
+    planes = [p for p, _w, _h in micw_decode_many(blobs, device)]
+    if not hdr.temporal:
+        return planes, hdr
+    frames = [np.asarray(planes[0], dtype=np.uint16)]
+    for i in range(1, hdr.frame_count):
+        frames.append(temporal_delta_decode(np.asarray(planes[i], dtype=np.uint16), frames[-1]))
+    return frames, hdr

@@ -12,11 +12,15 @@ path that ingests each image once and decodes it many times.
 * ``entropy="native"`` is the Python tier, ``models/single_frame.py`` and
   ``parallel/strips.decompress_parallel_strips``: what ``mic_tpu`` runs
   when its C++ tier (``libmicfse``) is not built.  Unlike that tier,
-  which decodes every frame as avg, it honours ``kind`` 1 (grad), as the
-  C++ tier does.
+  which decodes every frame as avg, it honours ``kind``, as the C++ tier
+  does: 1 (grad), 2 (med) and 3 (zz).
 
-Kinds 2 and 3 (med, zz) decode only in ``mic_tpu``'s C++ tier, which the
-port does not copy: they raise ``NotImplementedError``.  The re-encode is
+Frames of kinds 2 and 3 take the Python tier under either ``entropy``
+(``mic_tpu`` sends them to its C++ tier, never to the device): the fused
+Delta+RLE decode of ``ops/deltarle.py`` with the med / zz predictor,
+which equals ``libmicfse``'s ``decompress_frame_native(kind=2 / 3)``
+(pinned where the library is built).  A PICS container decodes as avg
+whatever ``kind`` says, as in ``mic_tpu``'s host tiers.  The re-encode is
 the port's ``micw_compress_device`` on ``device``: with
 ``device_encode=True`` the zzd predictor, standard entropy (what
 ``mic_tpu``'s ``pallas_enc.micw_compress_device`` writes), otherwise the
@@ -32,6 +36,8 @@ import time
 import numpy as np
 
 from ..models.single_frame import decompress_single_frame, decompress_single_frame_grad
+from ..ops.deltarle import med_delta_rle_decompress, zz_delta_rle_decompress
+from ..ops.fse_codec import fse_decompress_auto
 from ..parallel.strips import PICS_MAGIC, decompress_parallel_strips
 from .rans_encode import micw_compress_device, micw_compress_device_many
 from .strips import MicwDecodePlan
@@ -43,16 +49,22 @@ __all__ = [
     "ingest_plan",
 ]
 
-_HOST_FRAME = {0: decompress_single_frame, 1: decompress_single_frame_grad}
+_HOST_FRAME = {
+    0: decompress_single_frame,
+    1: decompress_single_frame_grad,
+    2: lambda blob, w, h: med_delta_rle_decompress(fse_decompress_auto(blob), w, h),
+    3: lambda blob, w, h: zz_delta_rle_decompress(fse_decompress_auto(blob), w, h),
+}
 
 
 def _decode_reference(blob: bytes, width: int, height: int, kind: int, device,
                       entropy: str = "native"):
     """Decode a reference-format blob to (pixels, width, height)."""
-    if kind not in (0, 1):
-        raise NotImplementedError(
-            f"reference decode of predictor kind {kind} (med / zz) needs mic_tpu's C++ tier")
-    if entropy == "device":
+    if kind not in _HOST_FRAME:
+        raise ValueError(f"ingest: invalid predictor kind {kind!r} (0 avg, 1 grad, 2 med, 3 zz)")
+    if entropy not in ("native", "device"):
+        raise ValueError(f"ingest: unknown entropy tier {entropy!r}")
+    if entropy == "device" and kind in (0, 1):
         from .ref_decode import decompress_frames_device, decompress_pics_device
 
         kname = "avg" if kind == 0 else "grad"
@@ -60,8 +72,6 @@ def _decode_reference(blob: bytes, width: int, height: int, kind: int, device,
             return decompress_pics_device(blob, device, kind=kname)
         (px,) = decompress_frames_device([blob], [(width, height)], device, kind=kname)
         return px, width, height
-    if entropy != "native":
-        raise ValueError(f"ingest: unknown entropy tier {entropy!r}")
     if blob[:4] == PICS_MAGIC:
         px, w, h = decompress_parallel_strips(blob)
         return np.asarray(px), w, h
@@ -74,7 +84,8 @@ def transcode_frame(
     target_entropy: str = "standard",
 ) -> bytes:
     """Reference single-frame blob (or PICS container) -> MICW.  ``kind``
-    is the predictor the frame was encoded with (0 = avg, 1 = grad);
+    is the predictor the frame was encoded with (0 = avg, 1 = grad, 2 =
+    med, 3 = zz);
     ``entropy`` selects the reference decode ("native" or "device");
     ``target_entropy`` the MICW strip stream family ("standard" FF 57,
     "alias" FF 41 or "best"; ignored with ``device_encode``)."""

@@ -613,7 +613,9 @@ class MicwDecodePlan:
     Host work (parsing, table building, the copy of operands to the
     device) runs once here; :meth:`run` executes only the bucket
     launches and returns device-resident outputs; :meth:`assemble`
-    copies a run's outputs back to per-image host arrays.
+    copies a run's outputs back to per-image host arrays, and
+    :meth:`assemble_device` gathers them into per-image tensors that stay
+    on ``device``.
     """
 
     def __init__(self, blobs, device):
@@ -652,6 +654,7 @@ class MicwDecodePlan:
                 bucket.append((p, width, st))
             self.keys_per_blob.append(keys)
         self.buckets = {k: _Bucket(k, e, self.device) for k, e in entries.items()}
+        self._gather = None  # assemble_device's copy lists, built at its first call
 
     def run(self) -> dict:
         """Launch every bucket; returns {bucket key: int16 [S, cols]
@@ -728,6 +731,74 @@ class MicwDecodePlan:
                 seg = out[y0 * width : (y0 + sh) * width]
                 seg[:] = self._raw_pixels(idx, seg.size) if k == "raw" else host[k][idx][: seg.size]
             results.append(_unband(out, width, height, blob))
+        return results
+
+    def _gather_plan(self, decoded: dict):
+        """The copies :meth:`assemble_device` makes, built at its first
+        call: the raw and constant strips' pixels as one tensor on the
+        device, the pixel count of the whole batch, and per source (a
+        bucket key, or "raw") a pair of index tensors that map blocks of
+        ``g`` pixels of the flattened source to blocks of the flat output,
+        ``g`` the largest block that divides every segment and offset of
+        that source (a strip of 128 rows of 256 pixels is one block)."""
+        raw_parts, raw_at = [], 0
+        segs: dict = {}  # source -> [(source offset, output offset, pixels)]
+        base = 0
+        for bi, (width, height, _ns, _sh) in enumerate(self.metas):
+            for y0, sh, k, idx in self._strip_rows(bi):
+                n = sh * width
+                if k == "raw":
+                    raw_parts.append(self._raw_pixels(idx, n))
+                    segs.setdefault(k, []).append((raw_at, base + y0 * width, n))
+                    raw_at += n
+                    continue
+                cols = decoded[k].shape[1]
+                if n > cols:
+                    raise ValueError(f"bucket {k}: a strip of {n} pixels in rows of {cols}")
+                segs.setdefault(k, []).append((idx * cols, base + y0 * width, n))
+            base += width * height
+        raw = np.concatenate(raw_parts) if raw_parts else np.zeros(0, np.uint16)
+        raw_dev = torch.from_numpy(raw.astype(np.uint16).view(np.int16)).to(self.device)
+
+        def block_index(offs, counts):  # concatenated arange(offs[i], offs[i] + counts[i])
+            first = np.cumsum(counts) - counts
+            return torch.from_numpy(np.repeat(offs - first, counts)
+                                    + np.arange(int(counts.sum()))).to(self.device)
+
+        copies = []
+        for k, items in segs.items():
+            src_off, dst_off, n = np.array(items, dtype=np.int64).T
+            g = int(np.gcd.reduce(np.concatenate([src_off, dst_off, n])))
+            copies.append((k, g, block_index(src_off // g, n // g),
+                           block_index(dst_off // g, n // g)))
+        return raw_dev, base, copies
+
+    def assemble_device(self, decoded: dict):
+        """One run's outputs as per-image tensors on the plan's device,
+        blob order: [(pixels int16 [width * height] (bit-view of u16),
+        width, height)], the same pixels as :meth:`assemble`.  Rows are
+        gathered from each bucket's output with one indexed copy, raw and
+        constant strips are uploaded once per plan, and banded containers
+        are un-banded with torch reshapes."""
+        if self._gather is None:
+            self._gather = self._gather_plan(decoded)
+        raw_dev, total, copies = self._gather
+        flat = torch.empty(total, dtype=torch.int16, device=self.device)
+        for k, g, src_index, dst_index in copies:
+            src = raw_dev if k == "raw" else decoded[k].reshape(-1)
+            blocks = src[: src.numel() // g * g].view(-1, g).index_select(0, src_index)
+            flat[: total // g * g].view(-1, g).index_copy_(0, dst_index, blocks)
+        results, base = [], 0
+        for bi, blob in enumerate(self.blobs):
+            width, height = self.metas[bi][:2]
+            px = flat[base : base + width * height]
+            base += width * height
+            info = micw_band_info(blob)
+            if info is not None:
+                ow, oh = info
+                px = px.view(ow // width, oh, width).permute(1, 0, 2).reshape(-1)
+                width, height = ow, oh
+            results.append((px, width, height))
         return results
 
 

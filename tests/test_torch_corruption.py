@@ -8,7 +8,10 @@ either; the ``cuda`` test checks kernel == plain on the same streams.
 A corrupted stream may decode to garbage (the format has no checksum)
 or raise ValueError / NotImplementedError at parse or table build.  The
 post path's torch ops clamp every gather, and the ``cuda`` test holds the
-whole plan on the card against the same plan on the CPU.  Needs no jax.
+whole plan on the card against the same plan on the CPU.  The MWR3 and
+W3D1 containers add their own headers: truncated or damaged ones raise
+ValueError, and a damaged plane stream decodes to garbage of the right
+shape or raises, as above.  Needs no jax.
 """
 
 import struct
@@ -18,7 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from mic_tpu_torch import MicwDecodePlan, micw_parse
+from mic_tpu_torch import (
+    MicwDecodePlan,
+    micw_parse,
+    micwr_decode_many,
+    w3d_compress,
+    w3d_decompress_level,
+    w3d_decompress_region,
+)
 from mic_tpu_torch.tpu import device_rans as dr
 from mic_tpu_torch.tpu import rans_decode as rd
 
@@ -79,6 +89,70 @@ def test_corrupt_stream_stays_in_bounds(name, kind):
         return  # rejected at parse or table build
     (out, w, h), = plan.assemble(plan.run())
     assert (w, h) == micw_parse(blob)[:2] and out.dtype == np.uint16 and out.size == w * h
+
+
+CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("cut", [0, 3, 4, 12, 23])
+def test_truncated_mwr3_header_raises(cut):
+    blob = (TESTDATA / "tissue_dev.mwr3").read_bytes()
+    with pytest.raises(ValueError):
+        micwr_decode_many([blob[:cut]], CPU)
+
+
+@pytest.mark.parametrize("kind", ["magic", "plane_cut", "plane_len_up", "plane_magic",
+                                  "width_up", "height_up"])
+def test_damaged_mwr3_raises_or_keeps_its_shape(kind):
+    blob = bytearray((TESTDATA / "tissue_dev.mwr3").read_bytes())
+    if kind == "magic":
+        blob[:4] = b"MWR2"
+    elif kind == "plane_cut":  # the last plane loses its tail
+        blob = blob[: len(blob) - 4000]
+    elif kind == "plane_len_up":  # the first plane claims the second one's bytes too
+        struct.pack_into("<I", blob, 12, struct.unpack_from("<I", blob, 12)[0] + 999)
+    elif kind == "plane_magic":
+        blob[24:28] = b"MICX"
+    elif kind == "width_up":  # wider than its planes
+        struct.pack_into("<I", blob, 4, 640)
+    else:  # taller than its planes
+        struct.pack_into("<I", blob, 8, 385)
+    try:
+        (rgb, w, h), = micwr_decode_many([bytes(blob)], CPU)
+    except ValueError:
+        return
+    assert kind == "plane_len_up"  # trailing bytes after a plane's last strip are not read
+    assert (w, h) == (512, 384) and rgb.dtype == np.uint8 and rgb.size == w * h * 3
+
+
+def _w3d():
+    rgb = np.fromfile(TESTDATA / "tissue_dev.raw", np.uint8).reshape(384, 512, 3)
+    tile = np.ascontiguousarray(rgb[64:320, 128:384])
+    return w3d_compress(tile.reshape(-1), 256, 256, CPU, tile_w=128, tile_h=128,
+                        num_levels=1, device_encode=True)
+
+
+@pytest.mark.parametrize("cut", [0, 4, 27, 28, 60, 123])
+def test_truncated_w3d_header_raises(cut):
+    blob = _w3d()
+    assert len(blob) > 28 + 4 * 24
+    with pytest.raises(ValueError):
+        w3d_decompress_level(blob[:cut], CPU)
+    with pytest.raises(ValueError):
+        w3d_decompress_region(blob[:cut], 0, 0, 10, 10, CPU)
+
+
+@pytest.mark.parametrize("kind", ["magic", "payload_cut", "tile_off_up"])
+def test_damaged_w3d_raises(kind):
+    blob = bytearray(_w3d())
+    if kind == "magic":
+        blob[:4] = b"W3D2"
+    elif kind == "payload_cut":  # the last tile's MWR3 blob loses its planes
+        blob = blob[: 28 + 4 * 24 + struct.unpack_from("<I", blob, 28 + 3 * 24 + 16)[0] + 10]
+    else:  # the first tile's payload starts past the end
+        struct.pack_into("<I", blob, 28 + 16, len(blob))
+    with pytest.raises(ValueError):
+        w3d_decompress_level(bytes(blob), CPU)
 
 
 @pytest.mark.cuda

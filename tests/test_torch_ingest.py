@@ -7,8 +7,9 @@ against ``mic_tpu.tpu.ingest``: the MICW bytes must be equal.
   (``device_encode`` False: ``auto-fast`` with each target entropy, True:
   zzd standard), byte for byte against ``mic_tpu``'s (whose kernels run
   in interpret mode);
-* the grad pipeline (kind 1) on the device tier, and the kinds the port
-  does not take raising;
+* the grad pipeline (kind 1) on the device tier; kinds 2 and 3 (med, zz)
+  on the Python tier, against the pixels and, where ``libmicfse`` is
+  built, against ``mic_tpu``'s C++ decode of the same frames;
 * ``ingest_plan``: the staged containers equal ``mic_tpu``'s and decode
   to the source pixels;
 * the Python tier's decoders copied from ``mic_tpu`` (single frames and
@@ -85,12 +86,65 @@ def test_grad_and_unsupported_kinds(ref, images):
     got = ingest.transcode_frame(blob, w, h, CPU, kind=1, entropy="device")
     assert got == ref.ingest.transcode_frame(blob, w, h, kind=1, entropy="device")
     assert ingest.transcode_auto(blob, w, h, CPU, kind=1, entropy="native") == got
-    for kind in (2, 3):
-        for entropy in ("native", "device"):
-            with pytest.raises(NotImplementedError):
-                ingest.transcode_frame(blob, w, h, CPU, kind=kind, entropy=entropy)
+    with pytest.raises(ValueError):
+        ingest.transcode_frame(blob, w, h, CPU, kind=4)
     with pytest.raises(ValueError):
         ingest.transcode_frame(blob, w, h, CPU, entropy="gpu")
+
+
+def _frame_of_kind(ref, px, w, h, kind):
+    """A single-frame blob of predictor kind 2 (med) or 3 (zz), written by
+    mic_tpu's Python encoder parts: the fused Delta+RLE stream through the
+    2-state FSE chain."""
+    from mic_tpu.ops import deltarle
+
+    stream = deltarle._fused_compress(px, w, h, int(px.max()), {2: "med", 3: "zz"}[kind])
+    return ref.sf._fse_chain(np.asarray(stream, np.uint16), 2)
+
+
+@pytest.mark.parametrize("kind", [2, 3])
+@pytest.mark.parametrize("entropy", ["native", "device"])
+def test_med_and_zz_kinds_decode_on_the_python_tier(ref, images, kind, entropy):
+    """Kinds 2 and 3 decode through the fused Delta+RLE decode with the
+    med / zz predictor under either tier, back to the pixels."""
+    from mic_tpu_torch.ops import deltarle as port_deltarle
+
+    px, w, h = images["grad"]
+    blob = _frame_of_kind(ref, px, w, h, kind)
+    got, gw, gh = ingest._decode_reference(blob, w, h, kind, CPU, entropy=entropy)
+    assert (gw, gh) == (w, h) and np.array_equal(got, px)
+    other = ingest._decode_reference(blob, w, h, 5 - kind, CPU, entropy=entropy)[0]
+    assert not np.array_equal(other, px)  # the kind matters
+    micw = ingest.transcode_frame(blob, w, h, CPU, kind=kind, entropy=entropy)
+    assert micw == ingest.micw_compress_device(px, w, h, int(px.max()), CPU,
+                                               predictor="auto-fast")
+    from mic_tpu.ops import deltarle as ref_deltarle
+    from mic_tpu.ops.fse_codec import fse_decompress_auto
+
+    syms = fse_decompress_auto(blob)
+    if kind == 3:
+        assert np.array_equal(port_deltarle.zz_delta_rle_decompress(syms, w, h),
+                              ref_deltarle.zz_delta_rle_decompress(syms, w, h))
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+def test_python_tier_equals_native_tier_where_built(images, kind):
+    """mic_tpu's C++ tier (libmicfse) writes a frame of each predictor
+    kind; the port's Python tier decodes it to the same pixels as
+    ``decompress_frame_native``.  Skips where the library is not built
+    (``make -C mic_tpu/native``)."""
+    pytest.importorskip("jax")
+    from mic_tpu import native
+
+    if not native.available():
+        pytest.skip("libmicfse is not built")
+    px, w, h = images["grad"]
+    for n_states in (2, 4):
+        blob = native.compress_frame_native(px, w, h, int(px.max()), kind=kind,
+                                            n_states=n_states)
+        want = native.decompress_frame_native(blob, w, h, kind)
+        got, _w, _h = ingest._decode_reference(blob, w, h, kind, CPU)
+        assert np.array_equal(got, want) and np.array_equal(got, px)
 
 
 @pytest.mark.parametrize("device_encode", [False, True])
