@@ -21,9 +21,11 @@ Phases (any failure exits non-zero; nothing is caught):
    Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
-   steps, one image's operands replicated.  tANS decode: on each launch
-   group of phase 7's archive batch (N = 2, 4 and 8, FF 84 and FF 08
-   tables, tableLogs 10-13 and counts mixed in a launch).  Transforms:
+   steps, one image's operands replicated.  tANS decode: on phase 7's
+   archive batch, all four groups in one launch (N = 2, 4 and 8, FF 84
+   and FF 08 tables, tableLogs and counts mixed in a group, each stream
+   with its own table and alphabet sizes) and each group alone, with and
+   without the sizes.  Transforms:
    the YCoCg-R pair on full-range random u16 planes and on the planes of
    phase 8's slide (16.5 M pixels each), the 5/3 lifting pair on random
    int32 rows in the u16 range at even, odd and non-multiple-of-4 widths.
@@ -83,9 +85,12 @@ Phases (any failure exits non-zero; nothing is caught):
    CT_{2s,4s,8s,rans8} at tableLog 16 and CT_pics4's strips 1-3 at 14).
    Every stream is verified against the port's host decoder of its
    distinct blob, the host-routed set must be exactly the headers', and
-   the kernel must have launched.  Prints staging seconds, ms per
-   ``run()`` and GB/s of symbols over the kernel streams (CUDA events,
-   staging excluded), and a profiler line.  Then each entry point of
+   the call, like every ``TansDecodePlan.run()``, must be exactly one
+   kernel launch.  Prints staging seconds, ms per ``run()`` and GB/s of
+   symbols over the kernel streams (CUDA events, staging excluded), the
+   launch's blocks, pool, occupancy and tableLog histogram, each group
+   alone (ms, and ns per step of its longest chain) beside the one
+   launch, and a profiler line.  Then each entry point of
    ``tpu.ref_decode`` once on fewer replicas against the ``.raw`` pixels
    (MIC3 level 1 against the same call on the CPU), with the host seconds
    of the entropy and post stages, and ``ingest_plan(entropy="device",
@@ -774,40 +779,65 @@ def _ref_batch():
     return batch, host, work
 
 
+def _tans_alone(plan):
+    """Each group of a TansDecodePlan as a launch of its own: (packing of
+    the one group, steps of its longest chain)."""
+    from mic_tpu_torch.tpu import tans_decode as td
+
+    return [(td.TansPacking([group]), max(-(-c // kw["n_states"]) for c in counts))
+            for group, (_idx, counts, _ops, kw) in zip(plan._launch_groups, plan.groups)]
+
+
 def _tans_kernels_vs_plain(dev, report) -> None:
-    """Phase 2, tANS half: the kernel against its plain version on every
-    launch group of phase 7's batch.  The bound counts what the groups'
-    streams need (their bits, tables and symbols), not the padded
-    operands."""
+    """Phase 2, tANS half: the kernel against its plain version on phase
+    7's batch: all groups in one launch (``tans_decode_groups``, what the
+    plan runs, timed for the report) and every group alone through
+    ``tans_decode``, with each stream's own sizes and with the launch's
+    widths.  The bound counts what the groups' streams need (their bits,
+    tables and symbols), not the padded operands."""
     import torch
 
     from mic_tpu_torch.tpu import tans_decode as td
 
     batch, _host, work = _ref_batch()
     plan = td.TansDecodePlan(batch, dev)
+    groups = plan._launch_groups
     r = report["tans_decode"]
-    for idx, counts, ops, kw in plan.groups:
-        got = td.tans_decode(*ops, **kw)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = td.tans_decode_plain(*ops, **kw)
-        end.record()
+    got = td.tans_decode_groups(groups, plan.packing)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = td.tans_decode_groups_plain(groups)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    mixed = 0
+    for (idx, counts, ops, kw), sizes, g, w in zip(plan.groups, plan.sizes, got, want):
+        own = td.tans_decode(*ops, sizes=sizes, **kw)
+        wide = td.tans_decode(*ops, **kw)
         torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"tans_decode {kw}: kernel != plain (max abs err {err})")
-        ms = _cuda_ms(lambda: td.tans_decode(*ops, **kw), 10)
+        err = max(int((k.to(torch.int32) - w.to(torch.int32)).abs().max()) for k in (g, own, wide))
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        n_sym = sum(counts)
+        if not (torch.equal(g, w) and torch.equal(own, w) and torch.equal(wide, w)):
+            raise AssertionError(f"tans_decode {kw}: kernel != plain (max abs err {err}; merged "
+                                 f"{torch.equal(g, w)}, alone with sizes {torch.equal(own, w)}, "
+                                 f"alone without {torch.equal(wide, w)})")
+        tables = sorted(set(sizes[:, 0].tolist()))
+        mixed += len(tables) > 1
         r["bytes"] += sum(work[i] for i in idx)
-        r["ops"] += OPS_PER_ELEMENT["tans_decode"] * n_sym
+        r["ops"] += OPS_PER_ELEMENT["tans_decode"] * sum(counts)
         print(f"kernel-vs-plain tans_decode group N={kw['n_states']} streams={len(idx)} "
-              f"steps={kw['steps']} table_log={kw['table_log']} "
-              f"alphabet_width={ops[4].shape[1]} symbols={n_sym} equal=True "
-              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (one call)")
+              f"steps={kw['steps']} table_log={kw['table_log']} own_table_words={tables} "
+              f"alphabet_width={ops[4].shape[1]} symbols={sum(counts)} "
+              f"equal=True (merged, alone with sizes, alone without)")
+    if not mixed:
+        raise AssertionError("no group of the batch mixes tableLogs")
+    ms = _cuda_ms(lambda: td.tans_decode_groups(groups, plan.packing), 10)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    print(f"kernel-vs-plain tans_decode_groups {len(groups)} groups, {plan.stats['kernel']} "
+          f"streams in one launch: equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"(one call); blocks={len(plan.packing.blocks)} x {plan.packing.warps} warps, "
+          f"pool={plan.packing.pool_bytes} bytes")
     del plan
 
 
@@ -842,7 +872,7 @@ def _ref_entry_points(dev) -> None:
     from mic_tpu_torch.tpu import rans_decode as rd
     from mic_tpu_torch.tpu import rans_encode as renc
     from mic_tpu_torch.tpu.ref_decode import _invert
-    from mic_tpu_torch.tpu.tans_decode import tans_decode
+    from mic_tpu_torch.tpu.tans_decode import tans_decode_groups
     from mic_tpu_torch.utils.io import read_mic1
 
     def raw(name, dtype="<u2"):
@@ -853,7 +883,7 @@ def _ref_entry_points(dev) -> None:
         if not ok:
             raise AssertionError(f"{what} decoded wrong pixels")
 
-    def counted(what, fn, wrappers=(tans_decode,)):
+    def counted(what, fn, wrappers=(tans_decode_groups,)):
         return _counted(what, fn, wrappers)[0]
 
     # MIC1 frames, and the same batch split into its entropy and post stages.
@@ -954,7 +984,7 @@ def _ref_entry_points(dev) -> None:
     plan = counted("ingest_plan",
                    lambda: ingest_plan(ref_blobs, dims, dev, entropy="device",
                                        device_encode=True, timings=timings),
-                   (tans_decode, renc.rans_encode))
+                   (tans_decode_groups, renc.rans_encode))
     total_s = time.perf_counter() - t0
     decoded = counted("ingest_plan's MicwDecodePlan.run", plan.run, (rd.rans_decode_zzd,))
     mism = plan.verify_batch(decoded, [raw("MR_pics4")] * 16 + [raw("MR_4s")] * 16)
@@ -973,16 +1003,17 @@ def _ref_phase(dev):
     import torch
 
     from mic_tpu_torch import fse_decompress_device_batch
+    from mic_tpu_torch._build import kernel_library
     from mic_tpu_torch.ops.fse_codec import fse_decompress_auto
     from mic_tpu_torch.tpu import tans_decode as td
 
     batch, host, _work = _ref_batch()
-    td.tans_decode.launches = 0
+    td.tans_decode_groups.launches = 0
     stats = {}
     t0 = time.perf_counter()
     syms = fse_decompress_device_batch(batch, dev, stats=stats)
     call_s = time.perf_counter() - t0
-    launches = td.tans_decode.launches
+    launches = td.tans_decode_groups.launches
     t0 = time.perf_counter()
     refs = {}
     for blob in batch:
@@ -999,39 +1030,63 @@ def _ref_phase(dev):
         raise AssertionError(f"reference path decoded wrong symbols: streams {bad[:10]}")
     if stats["host"] != host or len(host) != REF_HOST_STREAMS:
         raise AssertionError(f"host route {stats['host']} != the headers' {host}")
-    if launches <= 0:
-        raise AssertionError("tans_decode was not launched by the reference path")
+    if launches != 1 or stats["launches"] != 1:
+        raise AssertionError(f"the reference path made {launches} launches for its one run "
+                             f"(stats: {stats['launches']}), expected 1")
     del syms
 
     t0 = time.perf_counter()
     plan = td.TansDecodePlan(batch, dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
+    before = td.tans_decode_groups.launches
+    plan.run()
+    if td.tans_decode_groups.launches != before + 1:
+        raise AssertionError("TansDecodePlan.run() is not one launch")
     run_ms = _cuda_ms(plan.run, 5)
     sym_bytes = 2 * plan.stats["symbols"]
     print(f"reference path: {run_ms:.3f} ms per plan.run(), "
           f"{sym_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of u16 symbols ({sym_bytes} bytes, "
-          f"{plan.stats['kernel']} kernel streams in {plan.stats['groups']} launches), "
-          f"stage_s={stage_s:.3f}")
-    # Device time of each launch from CUDA events (the run's own split).
-    for (idx, _counts, ops, kw) in plan.groups:
-        ms = _cuda_ms(lambda: td.tans_decode(*ops, **kw), 3)
-        print(f"reference path launch N={kw['n_states']} streams={len(idx)} "
-              f"steps={kw['steps']}: {ms:.3f} ms")
+          f"{plan.stats['kernel']} kernel streams of {plan.stats['groups']} groups in "
+          f"{plan.stats['launches']} launch), stage_s={stage_s:.3f}")
+    # The launch's shape, and each group alone (a launch of its own, the
+    # pool chosen for it): what the one launch saves over their sum.
+    packing = plan.packing
+    lib = kernel_library()
+    per_sm = lib.mic_tans_occupancy(packing.warps, packing.pool_bytes)
+    if per_sm < 1:
+        raise AssertionError(f"occupancy query failed or 0 blocks fit: {per_sm}")
+    held = [len(b[1]) for b in packing.blocks]
+    print(f"reference path launch: {len(held)} blocks of {packing.warps} warps, pool "
+          f"{packing.pool_bytes} bytes, {min(held)}-{max(held)} streams a block (mean "
+          f"{sum(held) / len(held):.2f}); cudaOccupancyMaxActiveBlocksPerMultiprocessor="
+          f"{per_sm}; tableLog histogram of the kernel streams {plan.stats['table_logs']}")
+    alone, alone_ms = _tans_alone(plan), 0.0
+    for (p1, chain), (idx, _counts, _ops, kw) in zip(alone, plan.groups):
+        ms = _cuda_ms(lambda: td.tans_decode_groups(p1.groups, p1), 3)
+        alone_ms += ms
+        print(f"reference path group alone N={kw['n_states']} streams={len(idx)} "
+              f"steps={kw['steps']}: {ms:.3f} ms, {ms * 1e6 / chain:.1f} ns per step of its "
+              f"longest chain ({chain} steps); pool {p1.pool_bytes} bytes, "
+              f"{len(p1.blocks)} blocks")
+    longest = max(chain for _p, chain in alone)
+    print(f"reference path: one launch {run_ms:.3f} ms against {alone_ms:.3f} ms for the "
+          f"groups alone, one after another; {run_ms * 1e6 / longest:.1f} ns per step of the "
+          f"longest chain ({longest} steps)")
     # torch.profiler's view of one run.  Its idle share counts only when
     # the trace holds one kernel record per launch; otherwise the records
     # it has are listed and the idle share is not measured.
     records = []
     _out, wall_ms, by_name, span = _profiled(plan.run, records)
-    n_tans = sum(1 for name, _t, _d in records if "tans_kernel" in name)
-    if n_tans == len(plan.groups):
+    n_tans = sum(1 for name, _t, _d in records if "tans_groups_kernel" in name)
+    if n_tans == plan.stats["launches"]:
         busy = sum(by_name.values())
         print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
               f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
-              f"tans_kernel_records={n_tans} of {len(plan.groups)} launches")
+              f"tans_groups_kernel_records={n_tans} of {plan.stats['launches']} launch")
     else:
         print(f"profile: one plan.run(): wall_ms={wall_ms:.3f}; the trace holds "
-              f"{n_tans} tans_kernel records for {len(plan.groups)} launches: "
+              f"{n_tans} tans_groups_kernel records for {plan.stats['launches']} launch: "
               "idle share not measured")
     for name, t_us, dur_us in records:
         print(f"profile record: {name[:60]} start_us={t_us:.3f} dur_us={dur_us:.3f}")

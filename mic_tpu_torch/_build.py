@@ -61,9 +61,11 @@ _SIGNATURES = {
     # n_strips, steps, alias, stream
     "mic_rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
-    # init, pos, cnt, tpk, ts, alpha, asz, words, wb, out, n_streams, steps,
-    # n_states, table_log, stream
-    "mic_tans_decode": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    # groups, wdesc, outs (host array of device pointers), n_groups, n_blocks,
+    # warps, smem_bytes, stream
+    "mic_tans_decode_groups": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # warps, smem_bytes
+    "mic_tans_occupancy": [_I, _I],
     # a0, a1, a2, o0, o1, o2, n, inverse, stream
     "mic_ycocgr": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
     # x, out, rows, n, inverse, stream
@@ -83,20 +85,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines: tuple = ()) -> Path:
+    """Where the library for the current sources, flags and ``defines``
+    lives."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmic_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(defines: tuple = ()) -> Path:
     """Compile the sources if their library is missing; returns its path.
-    nvcc's output (ptxas registers, shared memory and spills per kernel)
-    is kept beside the library with the suffix ``.log``."""
-    lib = library_path()
+    ``defines`` are extra ``-DNAME=value`` flags (a library of its own:
+    ``scripts/tans_design_points.py`` builds the tANS kernel's earlier
+    forms with them).  nvcc's output (ptxas registers, shared memory and
+    spills per kernel) is kept beside the library with the suffix
+    ``.log``."""
+    lib = library_path(defines)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -105,7 +111,7 @@ def build() -> Path:
         objs, procs = [], []
         for src in sorted(_CSRC.glob("*.cu")):
             objs.append(os.path.join(tmp, src.stem + ".o"))
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", objs[-1], str(src)]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
         outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
@@ -122,9 +128,9 @@ def build() -> Path:
 
 
 @functools.cache
-def kernel_library() -> ctypes.CDLL:
+def kernel_library(defines: tuple = ()) -> ctypes.CDLL:
     """The built kernel library with its C entry points declared."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(defines)))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args

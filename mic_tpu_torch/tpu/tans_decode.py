@@ -6,10 +6,16 @@ Counterpart of ``mic_tpu.tpu.pallas_tans``:
 * ``fse_parse_header``, ``_pack_dtable`` and ``build_tans_batch`` — the
   numpy header split and operand builder, carried over unchanged so their
   arrays are identical (pinned by ``tests/test_torch_tans_decode.py``);
-* ``tans_decode`` — the wrapper of the CUDA kernel in
-  ``csrc/tans_decode.cu`` (replacing ``pallas_tans.py:_kernel_tans``),
-  with a launch counter (``.launches``), and ``tans_decode_plain``, its
-  plain-PyTorch twin;
+* ``tans_decode`` and ``tans_decode_groups`` — the wrappers of the CUDA
+  kernel in ``csrc/tans_decode.cu`` (replacing
+  ``pallas_tans.py:_kernel_tans``): one group of same-N streams, and
+  several groups (any coders and N) in one launch; each with a launch
+  counter (``.launches``) and a plain-PyTorch twin
+  (``tans_decode_plain``, ``tans_decode_groups_plain``);
+* ``TansPacking`` (``pack_blocks``) — the host side of that launch:
+  streams packed into blocks by the shared memory of their own tables,
+  longest chains first, by default a stream per warp scheduler, and the
+  kernel's descriptors;
 * ``TansDecodePlan`` / ``fse_decompress_device_batch(blobs, device)`` —
   route, stage and decode a batch of blobs.
 
@@ -25,8 +31,9 @@ stream decodes on the host (``ops/fse_codec.fse_decompress_auto``) when
 it is 1-state (no count), has tableLog > 13, or sits in a group of
 ``mic_tpu``'s routing — same coder, N, tableLog and power-of-two step
 bucket — in which any stream has more than 4096 distinct symbols.  The
-rest decode in one launch per (coder, N).  ``TansDecodePlan.stats`` says
-how many streams, and which, went to the host.
+rest decode in one launch: the streams of every (coder, N) group share
+one grid.  ``TansDecodePlan.stats`` says how many streams, and which,
+went to the host.
 
 A wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches its kernel or raises.  Operands travel as int32
@@ -43,8 +50,10 @@ symbol, or an over-claimed count) stay in the array and give the Pallas
 kernel's bits, not the host reader's zeros; on honest streams no emitted
 symbol depends on them.  A state beyond its table or a rank beyond the
 alphabet reads 0 (the Pallas sweeps match no tile; built tables never
-reach it).  Shifts by 32 do not occur: the high word is joined only for
-a bit offset > 0, and ``nb`` < 32.
+reach it); with per-stream ``sizes`` the same holds at the stream's own
+table and alphabet lengths, and since the operands pad both with zeros
+the result does not change.  Shifts by 32 do not occur: the high word is
+joined only for a bit offset > 0, and ``nb`` < 32.
 """
 
 from __future__ import annotations
@@ -71,6 +80,10 @@ __all__ = [
     "build_tans_batch",
     "tans_decode",
     "tans_decode_plain",
+    "tans_decode_groups",
+    "tans_decode_groups_plain",
+    "TansPacking",
+    "pack_blocks",
     "TansDecodePlan",
     "fse_decompress_device_batch",
 ]
@@ -173,7 +186,7 @@ def build_tans_batch(parsed, n_states: int, min_steps: int = 0, coder: str = "ta
 
 
 # ---------------------------------------------------------------------------
-# The kernel's wrapper and its plain twin
+# The kernel's wrappers and their plain twins
 # ---------------------------------------------------------------------------
 
 
@@ -205,13 +218,29 @@ def _tans_operands(init, pos, cnt, tpk, alpha, words, steps, n_states, table_log
     return R, ts, asz, wb
 
 
+def _check_sizes(sizes, R: int, ts: int, asz: int, dev) -> np.ndarray:
+    """Checks a per-stream ``sizes`` operand (int32 [R, 2]: each stream's
+    own table and alphabet words, multiples of 128 from 128 up to the
+    operands' widths); returns it as a host array."""
+    _check("sizes", sizes, (R, 2), dev)
+    host = sizes.cpu().numpy()
+    if ((host < 128) | (host % 128 != 0) | (host > np.array([ts, asz]))).any():
+        raise ValueError(f"sizes: expected multiples of 128 in [128, {ts}] (table) and "
+                         f"[128, {asz}] (alphabet)")
+    return host
+
+
 def tans_decode_plain(init, pos, cnt, tpk, alpha, words, *, steps: int, n_states: int,
-                      table_log: int) -> torch.Tensor:
+                      table_log: int, sizes=None) -> torch.Tensor:
     """Plain-PyTorch twin of the tANS kernel (any device).  Same operands
     and output as :func:`tans_decode`."""
     R, ts, asz, wb = _tans_operands(init, pos, cnt, tpk, alpha, words, steps, n_states,
                                     table_log)
     N, spr, dev = n_states, 128 // n_states, init.device
+    own_ts, own_asz = ts, asz
+    if sizes is not None:
+        _check_sizes(sizes, R, ts, asz, dev)
+        own_ts, own_asz = sizes[:, :1].to(torch.int64), sizes[:, 1:].to(torch.int64)
     x = _u(init[:, :N])
     p = pos[:, :1].to(torch.int64)
     c = cnt[:, :1].to(torch.int64)  # the int32 view: the Pallas kernel compares as int32
@@ -224,9 +253,10 @@ def tans_decode_plain(init, pos, cnt, tpk, alpha, words, *, steps: int, n_states
     for row in range(rows):
         base = (((p - 128 * table_log - 64).clamp(min=0) >> 12) << 7).clamp(max=(wb - 2) * 128)
         for t in range(row * spr, (row + 1) * spr):
-            pk = torch.where(x < ts, torch.gather(tpk, 1, x.clamp(max=ts - 1)), 0)
+            pk = torch.where(x < own_ts, torch.gather(tpk, 1, x.clamp(max=ts - 1)), 0)
             rank = pk >> 19
-            sym = torch.where(rank < asz, torch.gather(alpha, 1, rank.clamp(max=asz - 1)), 0)
+            sym = torch.where(rank < own_asz,
+                              torch.gather(alpha, 1, rank.clamp(max=asz - 1)), 0)
             active = (t * N + lane) < c
             nb = torch.where(active, pk & 31, 0)
             cum = torch.cumsum(nb, dim=1)
@@ -242,8 +272,161 @@ def tans_decode_plain(init, pos, cnt, tpk, alpha, words, *, steps: int, n_states
     return out.reshape(R, steps * N // 128, 128)
 
 
+def tans_decode_groups_plain(groups) -> list[torch.Tensor]:
+    """Plain-PyTorch twin of :func:`tans_decode_groups` (any device): each
+    group through :func:`tans_decode_plain` with its ``sizes``."""
+    return [tans_decode_plain(*ops, sizes=sizes, **kw) for ops, sizes, kw in groups]
+
+
+# Shared memory of the merged launch.  A stream takes its own table and
+# alphabet plus a fixed part (csrc/tans_decode.cu: kFixedWords): a ring of
+# four 128-word blocks of its bitstream with 8 words of wrap-around pad,
+# and one output row.
+STREAM_FIXED_BYTES = 4 * (512 + 8 + 64)
+MAX_WARPS = 8             # streams (one warp each) a block holds at most
+MAX_GROUPS = 8            # groups one launch takes (the kernel's Outs)
+MAX_POOL_BYTES = 232448   # dynamic shared memory one block may take on sm_90
+# The launch's default shape: 4 streams a block and a pool of the whole SM,
+# so one block per SM and a stream per warp scheduler.  A stream's step is
+# a short chain of dependent instructions that every lane of its warp
+# issues, and more streams on an SM slow the longest chains, which a batch
+# lasts, by more than they add (NVIDIA H100, scripts/tans_design_points.py,
+# PERF.md: 1.202 ms against 1.478 ms with the most streams an SM holds).
+DEFAULT_WARPS = 4
+# Nanoseconds of one step by N on that card (the same script): they weigh
+# chains of different N against each other when blocks are ordered.
+STEP_NS = {2: 35, 4: 60, 8: 120}
+_GROUP_DESC = np.dtype([("ptr", "<u8", (7,)), ("i", "<i4", (6,))])  # the kernel's GroupDesc
+
+
+def stream_bytes(sizes: np.ndarray) -> np.ndarray:
+    """Shared-memory bytes of each stream of a host ``sizes`` array."""
+    return 4 * sizes.astype(np.int64).sum(axis=1) + STREAM_FIXED_BYTES
+
+
+def pack_blocks(needs, chains, pool_bytes: int, warps: int):
+    """Pack the streams of some groups into blocks of at most ``warps``
+    streams and ``pool_bytes`` of shared memory.
+
+    ``needs[g]`` and ``chains[g]`` are group g's per-stream shared-memory
+    bytes (multiples of 16) and chain lengths (the time until the stream's
+    count is decoded, in any one unit).  Within a group the streams are
+    taken longest chain first and a block is filled with consecutive ones,
+    so that they end together and the block frees its SM; a block holds
+    one group.  Blocks are ordered longest chain first over all groups.
+    Returns a list of (group, stream indices, byte offsets into the
+    block's pool).
+    """
+    blocks = []
+    for g, (need, chain) in enumerate(zip(needs, chains)):
+        if len(need) and int(max(need)) > pool_bytes:
+            raise ValueError(f"a stream needs {int(max(need))} bytes of shared memory, "
+                             f"the pool has {pool_bytes}")
+        streams, offs, used = [], [], 0
+        for s in np.argsort(-np.asarray(chain, np.int64), kind="stable").tolist():
+            if streams and (len(streams) == warps or used + int(need[s]) > pool_bytes):
+                blocks.append((g, streams, offs))
+                streams, offs, used = [], [], 0
+            streams.append(s)
+            offs.append(used)
+            used += int(need[s])
+        if streams:
+            blocks.append((g, streams, offs))
+    blocks.sort(key=lambda b: -int(chains[b[0]][b[1][0]]))  # stable: ties keep group order
+    return blocks
+
+
+class TansPacking:
+    """The streams of some groups packed into the blocks of one launch,
+    with the kernel's descriptors on the device.
+
+    ``groups`` is a list of ``(operands, sizes, kwargs)``: the six operand
+    tensors of :func:`tans_decode`, the per-stream int32 [R, 2] ``sizes``
+    (None: the operands' widths) and ``steps`` / ``n_states`` /
+    ``table_log``.  Every tensor is checked, ``sizes`` and the counts are
+    read back once, and the packing (:func:`pack_blocks` with ``warps``
+    streams a block and ``pool_bytes`` of shared memory, chains weighed by
+    ``STEP_NS``) and the descriptors are built.  The packing holds the
+    groups' tensors: it is valid for them only.
+    """
+
+    def __init__(self, groups, *, warps: int = DEFAULT_WARPS, pool_bytes: int = MAX_POOL_BYTES):
+        if not 1 <= warps <= MAX_WARPS:
+            raise ValueError(f"warps must be in [1, {MAX_WARPS}], got {warps}")
+        if not 0 < pool_bytes <= MAX_POOL_BYTES or pool_bytes % 16:
+            raise ValueError(f"pool_bytes must be a multiple of 16 up to {MAX_POOL_BYTES}, "
+                             f"got {pool_bytes}")
+        if not 1 <= len(groups) <= MAX_GROUPS:
+            raise ValueError(f"expected 1 to {MAX_GROUPS} groups, got {len(groups)}")
+        self.groups = []
+        self.out_shapes, needs, chains = [], [], []
+        desc = np.zeros(len(groups), _GROUP_DESC)
+        dev = groups[0][0][0].device if isinstance(groups[0][0][0], torch.Tensor) else None
+        for g, (ops, sizes, kw) in enumerate(groups):
+            R, ts, asz, wb = _tans_operands(*ops, **kw)
+            if ops[0].device != dev:
+                raise ValueError(f"group {g} on {ops[0].device}, group 0 on {dev}")
+            if sizes is None:
+                sizes = torch.tensor([[ts, asz]], dtype=torch.int32, device=dev).repeat(R, 1)
+            host = _check_sizes(sizes, R, ts, asz, dev)
+            tensors = (*ops, sizes)
+            if any(t.data_ptr() % 16 for t in tensors):
+                raise ValueError(f"group {g}: operands must be 16-byte aligned")
+            n = kw["n_states"]
+            count = ops[2][:, 0].cpu().numpy().astype(np.int64)  # the int32 view, as compared
+            needs.append(stream_bytes(host))
+            chains.append(-(-np.clip(count, 0, kw["steps"] * n) // n) * STEP_NS[n])
+            desc[g] = ([t.data_ptr() for t in tensors],
+                       [ts, asz, wb, kw["steps"], kw["table_log"], n])
+            self.groups.append((tuple(ops), sizes, dict(kw)))
+            self.out_shapes.append((R, kw["steps"] * n // 128, 128))
+        self.blocks = pack_blocks(needs, chains, pool_bytes, warps)
+        self.warps, self.pool_bytes = warps, pool_bytes
+        wdesc = np.full((len(self.blocks), warps, 4), -1, np.int32)
+        for b, (g, streams, offs) in enumerate(self.blocks):
+            k = len(streams)
+            wdesc[b, :k, 0], wdesc[b, :k, 1] = g, streams
+            wdesc[b, :k, 2] = np.asarray(offs) // 4
+        self.device = dev
+        if dev is not None and dev.type == "cuda":
+            self.gdesc = torch.from_numpy(desc.view(np.uint8).reshape(-1)).to(dev)
+            self.wdesc = torch.from_numpy(wdesc.reshape(-1)).to(dev)
+
+    def holds(self, groups) -> bool:
+        """Whether ``groups`` are the tensors this packing was built for."""
+        return len(groups) == len(self.groups) and all(
+            all(a is b for a, b in zip(ops, mine[0])) and (sizes is None or sizes is mine[1])
+            and dict(kw) == mine[2] for (ops, sizes, kw), mine in zip(groups, self.groups))
+
+
+def _launch(packing: TansPacking, lib=None) -> list[torch.Tensor]:
+    """The merged kernel over a packing's groups: one launch, or none when
+    no group has a stream."""
+    dev = packing.device
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    outs = [torch.empty(shape, dtype=torch.int16, device=dev) for shape in packing.out_shapes]
+    if not packing.blocks:
+        return outs
+    import ctypes
+
+    if lib is None:
+        from .._build import kernel_library
+
+        lib = kernel_library()
+    ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_tans_decode_groups(packing.gdesc.data_ptr(), packing.wdesc.data_ptr(), ptrs,
+                                        len(outs), len(packing.blocks), packing.warps,
+                                        packing.pool_bytes, stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_tans_decode_groups launch failed: CUDA error {rc}")
+    return outs
+
+
 def tans_decode(init, pos, cnt, tpk, alpha, words, *, steps: int, n_states: int,
-                table_log: int) -> torch.Tensor:
+                table_log: int, sizes=None) -> torch.Tensor:
     """Decode R interleaved-tANS streams of N states each.
 
     Operands are int32 bit-views (``rans_decode.to_device``) of
@@ -251,37 +434,60 @@ def tans_decode(init, pos, cnt, tpk, alpha, words, *, steps: int, n_states: int,
     states in lanes 0..N-1), pos [R, 128] (the bit cursor after the init
     reads), cnt [R, 128] (symbol counts), tpk [R, max(128, 2^table_log)],
     alpha [R, asweep * 128], words [R, WB, 128].  ``table_log`` is the
-    largest of the streams' tableLogs (<= 13).  Returns int16 [R, steps *
-    N / 128, 128]: flattened, row s is stream s's u16 symbols in order
-    (bit-view), 0 wherever ``t * N + lane >= count``.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel of
-    ``csrc/tans_decode.cu``.
+    largest of the streams' tableLogs (<= 13).  ``sizes``, when given, is
+    int32 [R, 2]: the words of each stream's own table and alphabet
+    (multiples of 128 up to the operands' widths), beyond which its rows
+    of ``tpk`` and ``alpha`` are not read (they count as 0, which is what
+    the operands' padding holds).  Returns int16 [R, steps * N / 128,
+    128]: flattened, row s is stream s's u16 symbols in order (bit-view),
+    0 wherever ``t * N + lane >= count``.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel of ``csrc/tans_decode.cu``.
     """
-    R, ts, asz, wb = _tans_operands(init, pos, cnt, tpk, alpha, words, steps, n_states,
-                                    table_log)
+    ops = (init, pos, cnt, tpk, alpha, words)
+    kw = dict(steps=steps, n_states=n_states, table_log=table_log)
+    _tans_operands(*ops, **kw)
     if init.device.type == "cpu":
-        return tans_decode_plain(init, pos, cnt, tpk, alpha, words, steps=steps,
-                                 n_states=n_states, table_log=table_log)
+        return tans_decode_plain(*ops, sizes=sizes, **kw)
     if init.device.type != "cuda":
         raise ValueError(f"unsupported device {init.device}")
-    out = torch.empty((R, steps * n_states // 128, 128), dtype=torch.int16, device=init.device)
-    if R == 0:
-        return out
-    from .._build import kernel_library
-
-    lib = kernel_library()
-    with torch.cuda.device(init.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_tans_decode(init.data_ptr(), pos.data_ptr(), cnt.data_ptr(),
-                                 tpk.data_ptr(), ts, alpha.data_ptr(), asz, words.data_ptr(),
-                                 wb, out.data_ptr(), R, steps, n_states, table_log, stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_tans_decode launch failed: CUDA error {rc}")
-    tans_decode.launches += 1
+    packing = TansPacking([(ops, sizes, kw)])
+    (out,) = _launch(packing)
+    if packing.blocks:
+        tans_decode.launches += 1
     return out
 
 
 tans_decode.launches = 0
+
+
+def tans_decode_groups(groups, packing: TansPacking | None = None) -> list[torch.Tensor]:
+    """Decode the streams of several groups in one launch.
+
+    ``groups`` is a list of ``(operands, sizes, kwargs)`` as
+    :class:`TansPacking` takes them (coders and state counts may differ
+    between groups); returns one output per group, each as
+    :func:`tans_decode` returns it.  ``packing`` is a packing built
+    earlier for these very tensors (a plan builds it once); without it
+    one is built here, which reads the counts back.  CPU tensors take the
+    plain version group by group; CUDA tensors launch the kernel of
+    ``csrc/tans_decode.cu`` once.
+    """
+    if not groups:
+        return []
+    dev = groups[0][0][0].device
+    if dev.type == "cpu":
+        return tans_decode_groups_plain(groups)
+    if packing is None:
+        packing = TansPacking(groups)
+    elif not packing.holds(groups):
+        raise ValueError("packing was built for other groups")
+    outs = _launch(packing)
+    if packing.blocks:
+        tans_decode_groups.launches += 1
+    return outs
+
+
+tans_decode_groups.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -311,22 +517,37 @@ def _stack_padded(arrays) -> np.ndarray:
     return out
 
 
+def _own_sizes(table_logs, alpha: np.ndarray) -> np.ndarray:
+    """The ``sizes`` operand of staged streams: each stream's own table
+    words (``max(128, 2^tableLog)``) and alphabet words (its symbols,
+    rounded up to 128) from its tableLog and its row of ``alpha`` (sorted
+    distinct symbols, zero-padded: only the first can be 0)."""
+    filled = alpha != 0
+    n_alpha = np.where(filled.any(axis=1),
+                       alpha.shape[1] - np.argmax(filled[:, ::-1], axis=1), 1)
+    own_ts = np.maximum(128, 1 << np.asarray(table_logs, np.int64))
+    return np.stack([own_ts, -(-n_alpha // 128) * 128], axis=1).astype(np.int32)
+
+
 class TansDecodePlan:
     """A batch of reference entropy blobs, routed and staged on ``device``.
 
     ``__init__`` parses every header, routes each stream (kernel or host,
     as the module docstring says), builds each routing group's operands
     once (``build_tans_batch``, as ``mic_tpu`` does), merges the groups of
-    one coder and N into one launch, longest streams first (a block that
-    ends early frees its SM for the next), and copies them to the device;
-    ``run()`` launches the kernel once per launch group and returns the
-    outputs; ``results(outs)`` decodes the host-routed streams and returns
-    every stream's symbols (numpy uint16) in blob order.
+    one coder and N into one group of operands, longest streams first,
+    copies them to the device with each stream's own table and alphabet
+    sizes, and packs the streams of all groups into the blocks of one
+    launch (:class:`TansPacking`); ``run()`` launches the kernel once and
+    returns one output per group; ``results(outs)`` decodes the
+    host-routed streams and returns every stream's symbols (numpy uint16)
+    in blob order.
 
     ``stats``: ``streams`` (blobs), ``kernel`` (streams routed to the
     kernel), ``host`` (the blob indices routed to the host, in order),
-    ``symbols`` (the kernel streams' symbol count), ``groups`` (launches
-    per ``run()``).
+    ``symbols`` (the kernel streams' symbol count), ``groups`` (groups of
+    one coder and N), ``launches`` (kernel launches per ``run()``: 1, or 0
+    with no kernel stream), ``table_logs`` (kernel streams per tableLog).
     """
 
     def __init__(self, blobs, device):
@@ -354,6 +575,8 @@ class TansDecodePlan:
                 launch.setdefault((coder, n), []).append((items, built))
         self.host = sorted(host)
         self.groups = []  # (blob indices, counts, device operands, kwargs)
+        self.sizes = []   # per group: int32 [R, 2] on the device
+        table_logs = {}
         for (coder, n), parts in launch.items():
             items = [it for its, _b in parts for it in its]
             ops = [_stack_padded([b[0][k] for _its, b in parts]) for k in range(6)]
@@ -364,14 +587,24 @@ class TansDecodePlan:
                       table_log=max(b[2] for _its, b in parts))
             self.groups.append(([bi for bi, _e in items], [e[0] for _bi, e in items],
                                 to_device(ops, self.device), kw))
+            sizes = _own_sizes([e[3] for _bi, e in items], ops[4])
+            self.sizes.append(torch.from_numpy(sizes).to(self.device))
+            for _bi, e in items:
+                table_logs[e[3]] = table_logs.get(e[3], 0) + 1
+        self._launch_groups = [(ops, sizes, kw)
+                               for (_i, _c, ops, kw), sizes in zip(self.groups, self.sizes)]
+        self.packing = (TansPacking(self._launch_groups)
+                        if self.groups and self.device.type == "cuda" else None)
         n_kernel = sum(len(g[0]) for g in self.groups)
         self.stats = {"streams": len(self.blobs), "kernel": n_kernel, "host": list(self.host),
                       "symbols": sum(sum(g[1]) for g in self.groups),
-                      "groups": len(self.groups)}
+                      "groups": len(self.groups), "launches": 1 if self.groups else 0,
+                      "table_logs": dict(sorted(table_logs.items()))}
 
     def run(self) -> list[torch.Tensor]:
-        """One kernel launch per group; the outputs stay on the device."""
-        return [tans_decode(*ops, **kw) for _idx, _cnt, ops, kw in self.groups]
+        """One kernel launch for all groups; the outputs, one per group,
+        stay on the device."""
+        return tans_decode_groups(self._launch_groups, self.packing)
 
     def results(self, outs) -> list[np.ndarray]:
         """Every stream's symbols in blob order: the kernel outputs, and the
