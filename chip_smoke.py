@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the main path's buckets (CT_dev x256 = 1024 strips of 512 steps,
    CT_dev_alias x256, MR_dev_alias x512, plus the alias kernel with
    fused=False).  r-mode decode: on every bucket of phase 5's batch, each
-   with its own ``dense`` and with the other one.  Post path: the
+   with its own ``dense`` and with the other one, then all 14 buckets in
+   the plan's one launch (``rans_decode_rle_groups``).  Post path: the
    symbols-out kernels on every post bucket of phase 6's batch (packed
    tables; two tables at tl 13, whose tables fit in shared memory; the
    alias kernel with fused=False) and the two-table kernel on
@@ -56,10 +57,11 @@ Phases (any failure exits non-zero; nothing is caught):
    pdr / zzr-alias of the green plane) x64, plus pdr and zzr-alias with
    FLAG_RDENSE cleared x32: 576 images of 512x384, 1728 r-mode strips, a
    WSI tile server decoding a batch of one slide's tiles.  Every strip of
-   every replica is verified against the plane's pixels and both r-mode
-   wrappers must have launched during the run.  Prints staging seconds,
-   decode GB/s over ``plan.run()``, the launch counts and a profiler
-   breakdown.  Then the six auto-r settings are encoded on the card by
+   every replica is verified against the plane's pixels, in the first run
+   and in the last timed one; one ``plan.run()`` must be exactly
+   ``RLE_LAUNCHES_PER_RUN`` (1) launch of the r-kernel, holding both front
+   ends.  Prints staging seconds, decode GB/s over ``plan.run()``, the
+   launch counts and a profiler breakdown.  Then the six auto-r settings are encoded on the card by
    ``micw_compress_device_many`` and must equal their fixtures byte for
    byte.
 6. Post-path decode: ``MicwDecodePlan`` over the images whose strips the
@@ -194,6 +196,9 @@ KERNELS = {
     "rans_decode_rle": ("mic_tpu_torch/csrc/rans_rle.cu", "mic_tpu/tpu/pallas_rans.py:1078"),
     "rans_decode_rle_alias": ("mic_tpu_torch/csrc/rans_rle.cu",
                               "mic_tpu/tpu/pallas_rans.py:1095"),
+    # the same kernel over every r-bucket of a plan, both front ends
+    "rans_decode_rle_groups": ("mic_tpu_torch/csrc/rans_rle.cu",
+                               "mic_tpu/tpu/pallas_rans.py:1078"),
     "rans_decode_packed": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:233"),
     "rans_decode": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:52"),
     "tans_decode": ("mic_tpu_torch/csrc/tans_decode.cu", "mic_tpu/tpu/pallas_tans.py:79"),
@@ -226,6 +231,7 @@ OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18, "rans_decode_
                    "ycocgr_forward": 5, "ycocgr_inverse": 5,
                    "wt53_rows_forward": 8, "wt53_rows_inverse": 8}
 TILE = 256  # phase 8's tile edge and the slide's margin
+RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-buckets at once
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -363,9 +369,11 @@ def _r_batch():
 
 
 def _rle_kernels_vs_plain(dev, report) -> None:
-    """Phase 2, r-mode half: both r-kernels against their plain versions on
-    every bucket of phase 5's batch, with the bucket's own ``dense`` (timed)
-    and with the other one."""
+    """Phase 2, r-mode half: the r-kernel against its plain versions on
+    every bucket of phase 5's batch, each bucket alone through its wrapper
+    with its own ``dense`` (timed: the wrapper call, its descriptor packing
+    included) and with the other one, then all buckets in the plan's one
+    launch (``rans_decode_rle_groups`` with the plan's packing, timed)."""
     import torch
 
     from mic_tpu_torch import MicwDecodePlan
@@ -374,7 +382,9 @@ def _rle_kernels_vs_plain(dev, report) -> None:
     plain = {rd.rans_decode_rle: rd.rans_decode_rle_plain,
              rd.rans_decode_rle_alias: rd.rans_decode_rle_alias_plain}
     plan = MicwDecodePlan(_r_batch()[0], dev)
-    for key, b in plan.buckets.items():
+    wants, plain_total = [], 0.0
+    for key in plan._rle_keys:
+        b = plan.buckets[key]
         for own in (True, False):
             kw = dict(b.kwargs, dense=b.kwargs["dense"] == own)
             name = b.fn.__name__
@@ -392,9 +402,29 @@ def _rle_kernels_vs_plain(dev, report) -> None:
             if own:
                 ms = _cuda_ms(lambda: b.fn(*b.ops, **kw), 10)
                 plain_ms = _cuda_ms(lambda: plain[b.fn](*b.ops, **kw), 1)
+                plain_total += plain_ms
+                wants.append(want)
                 _account(r, name, b.ops, (got,), ms, plain_ms)
                 line += f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}"
             print(line)
+    name = "rans_decode_rle_groups"
+    groups, packing = plan._rle_groups, plan.rle_packing
+    got = rd.rans_decode_rle_groups(groups, packing)
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max()) for g, w in zip(got, wants))
+    if not all(torch.equal(g, w) for g, w in zip(got, wants)):
+        raise AssertionError(f"{name}: merged kernel != plain (max abs err {err})")
+    ms = _cuda_ms(lambda: rd.rans_decode_rle_groups(groups, packing), 10)
+    r = report[name]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    for (fn, ops, _kw), g in zip(groups, got):  # bytes and operations of each bucket's front end
+        _account(r, fn.__name__, ops, (g,), 0.0, 0.0)
+    r["ms"] += ms
+    r["plain_ms"] += plain_total
+    print(f"kernel-vs-plain {name} {len(groups)} r-buckets, {len(packing.blocks)} strips in one "
+          f"launch: equal=True kernel_ms={ms:.3f} plain_ms={plain_total:.3f} (the buckets' plain "
+          f"calls above); descriptors {packing.desc.nbytes} bytes, shared memory "
+          f"{4 * (packing.tab_words + packing.st_words + 512)} bytes a block")
     del plan
 
 
@@ -409,18 +439,25 @@ def _rle_phase(dev):
 
     batch, expected = _r_batch()
     timed_bytes = 2 * sum(e.size for e in expected)  # every strip is an r-mode strip
-    rd.rans_decode_rle.launches = 0
-    rd.rans_decode_rle_alias.launches = 0
     t0 = time.perf_counter()
     plan = MicwDecodePlan(batch, dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
+    merged = rd.rans_decode_rle_groups
+    merged.launches = 0
+    merged.family_launches = dict.fromkeys(merged.family_launches, 0)
     t0 = time.perf_counter()
     decoded = plan.run()
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
-    launches = {"rans_decode_rle": rd.rans_decode_rle.launches,
-                "rans_decode_rle_alias": rd.rans_decode_rle_alias.launches}
+    # rows 4 and 5 count the merged launches that held their front end
+    launches = {"rans_decode_rle_groups": merged.launches, **merged.family_launches}
+    print(f"r-mode path: {merged.launches} r-kernel launch(es) per plan.run() for "
+          f"{len(plan._rle_keys)} r-buckets (design: {RLE_LAUNCHES_PER_RUN}); per front end "
+          f"{merged.family_launches}")
+    if merged.launches != RLE_LAUNCHES_PER_RUN:
+        raise AssertionError(f"the r-mode path made {merged.launches} r-kernel launches in one "
+                             f"plan.run(), the design makes {RLE_LAUNCHES_PER_RUN}")
     n_strips = sum(b.n for b in plan.buckets.values())
     mism = plan.verify_batch(decoded, expected)
     outs = plan.assemble(decoded)
@@ -436,10 +473,17 @@ def _rle_phase(dev):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched by the r-mode path")
-    run_ms = _cuda_ms(plan.run, 5)
+    last = {}
+    run_ms = _cuda_ms(lambda: last.update(out=plan.run()), 5)
+    timed_mism = plan.verify_batch(last["out"], expected)
     print(f"r-mode path: {run_ms:.3f} ms per plan.run(), "
           f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
-          f"({timed_bytes} bytes)")
+          f"({timed_bytes} bytes); the last timed run: mismatches={timed_mism}, "
+          f"{merged.launches} r-kernel launches in {1 + 6} runs")
+    if timed_mism or merged.launches != 7 * RLE_LAUNCHES_PER_RUN:
+        raise AssertionError(f"timed r-mode runs: {timed_mism} mismatches, "
+                             f"{merged.launches} launches")
+    del last
     _profile(plan)
     del plan, decoded, outs
 
@@ -1329,7 +1373,7 @@ def _rgb_wsi_phase(dev, slide):
     batch = [fixture] * 64 + [auto_r] * 64
     t0 = time.perf_counter()
     outs, counts = _counted("micwr_decode_many", lambda: micwr_decode_many(batch, dev),
-                            (K.ycocgr_inverse, rd.rans_decode_packed, rd.rans_decode_rle))
+                            (K.ycocgr_inverse, rd.rans_decode_packed, rd.rans_decode_rle_groups))
     call_s = time.perf_counter() - t0
     add(counts)
     check(f"micwr_decode_many tissue_dev.mwr3 x64 + auto-r x64 ({call_s:.3f} s, staging included)",

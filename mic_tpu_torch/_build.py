@@ -46,17 +46,9 @@ _SIGNATURES = {
     # out, n_strips, steps, vdd_ws, fused, esc, stream
     "mic_rans_decode_alias": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                               _P, _I, _I, _I, _I, _I, _P],
-    # init, tpk, ts, alpha, asz, words, rows, mask, shift, ws, nrun, nsame,
-    # out, syms, st1, st2, n_strips, steps, out_rows, maxr, vdd_ws, dense,
+    # groups, blocks, n_blocks, out, syms, st, tab_words, st_words, form,
     # stream
-    "mic_rans_decode_rle": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # init, w0, w1, w2, words, rows, mask, shift, escv, esides, erows, ws,
-    # nrun, nsame, out, syms, st1, st2, n_strips, steps, out_rows, maxr,
-    # vdd_ws, dense, esc, stream
-    "mic_rans_decode_rle_alias": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                                  _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _P],
+    "mic_rle_decode_groups": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     # ranks, te1, te2, aw, ar1, ar2, count, tls, out_w, out_f, out_x,
     # n_strips, steps, alias, stream
     "mic_rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -98,8 +90,8 @@ def library_path(defines: tuple = ()) -> Path:
 def build(defines: tuple = ()) -> Path:
     """Compile the sources if their library is missing; returns its path.
     ``defines`` are extra ``-DNAME=value`` flags (a library of its own:
-    ``scripts/tans_design_points.py`` builds the tANS kernel's earlier
-    forms with them).  nvcc's output (ptxas registers, shared memory and
+    ``scripts/tans_design_points.py`` and ``scripts/rle_design_points.py``
+    build the kernels' other forms with them).  nvcc's output (ptxas registers, shared memory and
     spills per kernel) is kept beside the library with the suffix
     ``.log``."""
     lib = library_path(defines)

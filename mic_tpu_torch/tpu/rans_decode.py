@@ -15,9 +15,11 @@ Counterpart of the decode half of ``mic_tpu.tpu.pallas_rans``:
 * ``rans_decode_packed`` / ``rans_decode`` — the symbols-out FF 57 kernels
   of ``csrc/rans_decode.cu``: packed tables (tableLog <= 12, alphabets
   <= 4096) and two tables (tableLog up to 16, any alphabet);
-* ``rans_decode_rle`` / ``rans_decode_rle_alias`` — the wrappers of the
-  fused r-mode kernels in ``csrc/rans_rle.cu`` (either entropy front end,
-  then the SoA-RLE expand and the direct inverse);
+* ``rans_decode_rle`` / ``rans_decode_rle_alias`` — one bucket of the
+  fused r-mode kernel in ``csrc/rans_rle.cu`` (either entropy front end,
+  then the SoA-RLE expand and the direct inverse), and
+  ``rans_decode_rle_groups`` — many buckets, both front ends, in one
+  launch (:class:`RlePacking` lays them out);
 
 each with a plain-PyTorch twin (``*_plain``) and a launch counter
 (``.launches``).
@@ -49,7 +51,11 @@ binary search over a window of 32 (``dense``) or 256 runs from the run
 holding the row's first pixel, where the Pallas kernel counts starts in
 a 32-candidate or a 384-entry window: on every honest stream both find
 the run holding each pixel, and on a dishonest one (a FLAG_RDENSE that
-lies, zero-length runs) they may decode different garbage.
+lies, zero-length runs) they may decode different garbage.  The CUDA
+r-kernel expands a strip in parallel only where :func:`rle_honest` shows
+that the parallel walk finds the runs this windowed search finds; every
+other strip takes the serial search, so the kernel equals the plain twin
+on every input.
 """
 
 from __future__ import annotations
@@ -76,6 +82,10 @@ __all__ = [
     "rans_decode_rle_plain",
     "rans_decode_rle_alias",
     "rans_decode_rle_alias_plain",
+    "rans_decode_rle_groups",
+    "rans_decode_rle_groups_plain",
+    "RlePacking",
+    "rle_honest",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -683,6 +693,8 @@ rans_decode_alias.launches = 0
 MID_DIRECT = 16383  # RLE midCount of the r-modes (a format constant)
 _HUGE = 1 << 30  # run-table entry past nrun (start 2^29 > any position)
 _CAP = 1 << 29  # saturation of the run-length and literal-length carries
+RLE_ST_SMEM_MAX = 4096  # run-table entries a strip keeps in shared memory (8 bytes each)
+RLE_FORMS = {"auto": 0, "serial": 1, "parallel": 2}  # the kernel's expand: form argument
 
 
 def _rle_operands(S, dev, ws, nrun, nsame, steps, out_rows, maxr):
@@ -708,11 +720,10 @@ def _find_run(st1, rb, pos, maxr: int, w: int):
     return r
 
 
-def _rle_expand_plain(syms, ws, nrun, nsame, *, steps, out_rows, maxr, vdd_ws,
-                      dense) -> torch.Tensor:
-    """Phases 1.5 and 2 of the r-kernels on the decoded symbols ``syms``
-    (int64 [S, steps * 128], stream order): the run tables, then one
-    128-px row per step through the inverse of :class:`_Inverse`."""
+def _rle_tables_plain(syms, nrun, nsame, *, steps, maxr):
+    """Phase 1.5 of the r-kernels on the decoded symbols ``syms`` (int64
+    [S, steps * 128], stream order): the run tables st1 and st2 (int64 [S,
+    maxr]) and the clamped nrun and nsame (int64 [S, 1])."""
     S, dev = syms.shape[0], syms.device
     lane = torch.arange(128, device=dev)[None, :]
     nrun = nrun[:, :1].to(torch.int64).clamp(0, maxr)
@@ -742,7 +753,17 @@ def _rle_expand_plain(syms, ws, nrun, nsame, *, steps, out_rows, maxr, vdd_ws,
         len_c = (len_c + ln.sum(1, keepdim=True)).clamp(max=_CAP)
         same_c = same_c + si.sum(1, keepdim=True)
         lit_c = (lit_c + litl.sum(1, keepdim=True)).clamp(max=_CAP)
+    return st1, st2, nrun, nsame
 
+
+def _rle_expand_plain(syms, ws, nrun, nsame, *, steps, out_rows, maxr, vdd_ws,
+                      dense) -> torch.Tensor:
+    """Phases 1.5 and 2 of the r-kernels on the decoded symbols ``syms``
+    (int64 [S, steps * 128], stream order): the run tables, then one
+    128-px row per step through the inverse of :class:`_Inverse`."""
+    S, dev = syms.shape[0], syms.device
+    lane = torch.arange(128, device=dev)[None, :]
+    st1, st2, nrun, nsame = _rle_tables_plain(syms, nrun, nsame, steps=steps, maxr=maxr)
     w = 32 if dense else 256
     inverse = _Inverse(S, vdd_ws, ws, dev)
     out = torch.empty((S, out_rows, 128), dtype=torch.int16, device=dev)
@@ -763,11 +784,24 @@ def _rle_expand_plain(syms, ws, nrun, nsame, *, steps, out_rows, maxr, vdd_ws,
     return out
 
 
-def _rle_scratch(S, steps, maxr, dev):
-    """Device scratch of the r-kernels: u16 symbols and the two run tables."""
-    return (torch.empty((S, steps * 128), dtype=torch.int16, device=dev),
-            torch.empty((S, maxr), dtype=torch.int32, device=dev),
-            torch.empty((S, maxr), dtype=torch.int32, device=dev))
+def rle_honest(syms, nrun, nsame, *, steps: int, maxr: int, dense: bool) -> torch.Tensor:
+    """The r-kernel's per-strip honesty test on the host (bool [S]): the
+    counts ``nrun`` / ``nsame`` lie in [0, maxr] / [0, steps * 128] as
+    given, the run starts of phase 1.5 strictly increase over the first
+    nrun runs, and with ``dense`` no 32 runs start inside one interval
+    (128 t, 128 t + 128].  A strip that passes takes the kernel's parallel
+    expand, which then finds the runs the windowed serial search finds;
+    one that fails takes the serial expand.  ``syms`` as for
+    :func:`_rle_expand_plain` (int64 [S, steps * 128])."""
+    st1, _st2, nr, ns = _rle_tables_plain(syms, nrun, nsame, steps=steps, maxr=maxr)
+    ok = ((nrun[:, :1].to(torch.int64) == nr) & (nsame[:, :1].to(torch.int64) == ns))[:, 0]
+    start = st1 >> 1
+    c = torch.arange(maxr, device=syms.device)[None, :]
+    ok &= ~((start[:, 1:] <= start[:, :-1]) & (c[:, 1:] < nr)).any(dim=1)
+    if dense:
+        q = (start - 1) >> 7
+        ok &= ~((q[:, 31:] == q[:, :-31]) & (c[:, 31:] < nr)).any(dim=1)
+    return ok
 
 
 def rans_decode_rle_plain(init, tpk, alpha, words, mask, shift, ws, nrun, nsame, *,
@@ -796,32 +830,16 @@ def rans_decode_rle(init, tpk, alpha, words, mask, shift, ws, nrun, nsame, *,
     128, at most ``steps * 128``); ``dense`` selects the 32-run search
     window of FLAG_RDENSE streams over the 256-run one.  Returns int16
     [S, out_rows, 128] (bit-view of u16 pixels).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel of ``csrc/rans_rle.cu``.
+    plain version; CUDA tensors launch the kernel of ``csrc/rans_rle.cu``
+    for this one bucket (:func:`rans_decode_rle_groups` launches it for
+    many), reusing the descriptors of the last call while the operands are
+    the same tensors (see :func:`_bucket_packing`).
     """
-    S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift, ws,
-                                     steps, vdd_ws)
-    _rle_operands(S, init.device, ws, nrun, nsame, steps, out_rows, maxr)
+    ops = (init, tpk, alpha, words, mask, shift, ws, nrun, nsame)
+    kw = dict(steps=steps, out_rows=out_rows, maxr=maxr, vdd_ws=vdd_ws, dense=dense)
     if init.device.type == "cpu":
-        return rans_decode_rle_plain(init, tpk, alpha, words, mask, shift, ws, nrun,
-                                     nsame, steps=steps, out_rows=out_rows, maxr=maxr,
-                                     vdd_ws=vdd_ws, dense=dense)
-    if init.device.type != "cuda":
-        raise ValueError(f"unsupported device {init.device}")
-    from .._build import kernel_library
-
-    lib = kernel_library()
-    out = torch.empty((S, out_rows, 128), dtype=torch.int16, device=init.device)
-    syms, st1, st2 = _rle_scratch(S, steps, maxr, init.device)
-    with torch.cuda.device(init.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_rans_decode_rle(
-            init.data_ptr(), tpk.data_ptr(), ts, alpha.data_ptr(), asz,
-            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(), ws.data_ptr(),
-            nrun.data_ptr(), nsame.data_ptr(), out.data_ptr(), syms.data_ptr(),
-            st1.data_ptr(), st2.data_ptr(), S, steps, out_rows, maxr, vdd_ws,
-            int(dense), stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_rans_decode_rle launch failed: CUDA error {rc}")
+        return rans_decode_rle_plain(*ops, **kw)
+    (out,) = _rle_launch(_bucket_packing(rans_decode_rle, ops, kw))
     rans_decode_rle.launches += 1
     return out
 
@@ -852,35 +870,211 @@ def rans_decode_rle_alias(init, w0, w1, w2, words, mask, shift, escv, esides, ws
     the expand and inverse of :func:`rans_decode_rle`, whose ``nrun``,
     ``nsame``, ``out_rows``, ``maxr`` and ``dense`` it takes.  Returns
     int16 [S, out_rows, 128].  CPU tensors take the plain version; CUDA
-    tensors launch the kernel of ``csrc/rans_rle.cu``.
+    tensors launch the kernel of ``csrc/rans_rle.cu`` for this one bucket,
+    as :func:`rans_decode_rle` does.
     """
-    S, rows, erows = _alias_operands(init, w0, w1, w2, words, mask, shift, escv,
-                                     esides, ws, steps, vdd_ws)
-    _rle_operands(S, init.device, ws, nrun, nsame, steps, out_rows, maxr)
+    ops = (init, w0, w1, w2, words, mask, shift, escv, esides, ws, nrun, nsame)
+    kw = dict(steps=steps, out_rows=out_rows, maxr=maxr, esc=esc, vdd_ws=vdd_ws, dense=dense)
     if init.device.type == "cpu":
-        return rans_decode_rle_alias_plain(
-            init, w0, w1, w2, words, mask, shift, escv, esides, ws, nrun, nsame,
-            steps=steps, out_rows=out_rows, maxr=maxr, esc=esc, vdd_ws=vdd_ws,
-            dense=dense)
-    if init.device.type != "cuda":
-        raise ValueError(f"unsupported device {init.device}")
-    from .._build import kernel_library
-
-    lib = kernel_library()
-    out = torch.empty((S, out_rows, 128), dtype=torch.int16, device=init.device)
-    syms, st1, st2 = _rle_scratch(S, steps, maxr, init.device)
-    with torch.cuda.device(init.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_rans_decode_rle_alias(
-            init.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(), escv.data_ptr(),
-            esides.data_ptr(), erows, ws.data_ptr(), nrun.data_ptr(), nsame.data_ptr(),
-            out.data_ptr(), syms.data_ptr(), st1.data_ptr(), st2.data_ptr(), S, steps,
-            out_rows, maxr, vdd_ws, int(dense), int(esc), stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_rans_decode_rle_alias launch failed: CUDA error {rc}")
+        return rans_decode_rle_alias_plain(*ops, **kw)
+    (out,) = _rle_launch(_bucket_packing(rans_decode_rle_alias, ops, kw))
     rans_decode_rle_alias.launches += 1
     return out
 
 
 rans_decode_rle_alias.launches = 0
+
+_RLE_PLAIN = {rans_decode_rle: rans_decode_rle_plain,
+              rans_decode_rle_alias: rans_decode_rle_alias_plain}
+
+# One r-mode bucket's descriptor (csrc/rans_rle.cu:RleGroup): the operand
+# pointers (init, tpk | w0, alpha | w1, w2, words, mask, shift, escv,
+# esides, ws, nrun, nsame; 0 where the front end has none), the element
+# offsets of its output, symbol scratch and run-table scratch (-1: shared
+# memory) in the launch's flat buffers, and (alias, ts, asz, rows, erows,
+# steps, out_rows, maxr, vdd_ws, dense, esc, 0).
+_RLE_GROUP_DESC = np.dtype([("ptr", "<u8", (12,)), ("off", "<i8", (3,)), ("arg", "<i4", (12,))])
+
+
+def _rle_group(fn, ops, kw):
+    """Checks one group ``(fn, operands, kwargs)`` as ``fn`` checks its
+    operands; returns (S, the 12 descriptor tensors, the 12 arguments)."""
+    steps, out_rows, maxr = kw["steps"], kw["out_rows"], kw["maxr"]
+    vdd_ws, dense = kw.get("vdd_ws", 0), bool(kw.get("dense", False))
+    if fn is rans_decode_rle:
+        init, tpk, alpha, words, mask, shift, ws, nrun, nsame = ops
+        S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps,
+                                         vdd_ws)
+        tensors = (init, tpk, alpha, None, words, mask, shift, None, None, ws, nrun, nsame)
+        args = (0, ts, asz, rows, 0)
+        esc = 0
+    elif fn is rans_decode_rle_alias:
+        init, w0, w1, w2, words, mask, shift, escv, esides, ws, nrun, nsame = ops
+        S, rows, erows = _alias_operands(init, w0, w1, w2, words, mask, shift, escv, esides,
+                                         ws, steps, vdd_ws)
+        tensors = tuple(ops)
+        args = (1, 0, 0, rows, erows)
+        esc = int(bool(kw["esc"]))
+    else:
+        raise ValueError(f"not an r-kernel wrapper: {fn}")
+    _rle_operands(S, init.device, ws, nrun, nsame, steps, out_rows, maxr)
+    return S, tensors, (*args, steps, out_rows, maxr, vdd_ws, int(dense), esc, 0)
+
+
+class RlePacking:
+    """The strips of some r-mode buckets as the blocks of one launch, with
+    the kernel's descriptors on the device.
+
+    ``groups`` is a list of ``(fn, operands, kwargs)``: ``fn`` is
+    :func:`rans_decode_rle` or :func:`rans_decode_rle_alias`, whose
+    operands and keyword arguments the group holds (the front ends mix in
+    one launch).  Every group is checked as its wrapper checks it; outputs
+    and scratch are laid out group after group in flat buffers
+    (``out_offs``, ``out_shapes``; run tables of more than
+    ``RLE_ST_SMEM_MAX`` entries get device scratch, the others shared
+    memory); ``blocks`` (int32 [n, 2]: group, strip) runs longest chain
+    first: most entropy steps, then most output rows, then group and strip
+    order.  The packing holds the groups' tensors: it is valid for them
+    only.
+    """
+
+    def __init__(self, groups):
+        if not groups:
+            raise ValueError("expected at least one group")
+        dev = groups[0][1][0].device
+        desc = np.zeros(len(groups), _RLE_GROUP_DESC)
+        self.groups, self.out_shapes, self.out_offs = [], [], []
+        out_at = syms_at = st_at = tab = st_words = 0
+        chain = []  # (steps, out_rows, S) of each group
+        for g, (fn, ops, kw) in enumerate(groups):
+            S, tensors, args = _rle_group(fn, ops, kw)
+            if tensors[0].device != dev:
+                raise ValueError(f"group {g} on {tensors[0].device}, group 0 on {dev}")
+            steps, out_rows, maxr = args[5:8]
+            st_off = -1
+            if maxr > RLE_ST_SMEM_MAX:
+                st_off, st_at = st_at, st_at + S * 2 * maxr
+            else:
+                st_words = max(st_words, 2 * maxr)
+            desc[g] = ([0 if t is None else t.data_ptr() for t in tensors],
+                       [out_at, syms_at, st_off], args)
+            self.groups.append((fn, tuple(ops), dict(kw)))
+            self.out_shapes.append((S, out_rows, 128))
+            self.out_offs.append(out_at)
+            out_at += S * out_rows * 128
+            syms_at += S * steps * 128
+            tab = max(tab, 3 * 128 if args[0] else args[1] + args[2])
+            chain.append((steps, out_rows, S))
+        steps, rows, n = np.array(chain, np.int64).T
+        grp = np.repeat(np.arange(len(chain)), n)
+        strip = np.arange(grp.size) - np.repeat(np.cumsum(n) - n, n)
+        order = np.lexsort((strip, grp, -rows[grp], -steps[grp]))
+        self.blocks = np.stack([grp[order], strip[order]], axis=1).astype(np.int32)
+        self.desc = desc
+        self.tab_words, self.st_words = tab, st_words
+        self.out_total, self.syms_total, self.st_total = out_at, syms_at, st_at
+        self.families = sorted({fn.__name__ for fn, _o, _k in self.groups})
+        self.device = dev
+        if dev.type == "cuda":
+            # One copy from pinned memory, queued on the stream: no host sync.
+            raw = np.concatenate([desc.view(np.uint8).reshape(-1),
+                                  self.blocks.view(np.uint8).reshape(-1)])
+            host = torch.empty(raw.size, dtype=torch.uint8, pin_memory=True)
+            host.numpy()[:] = raw
+            buf = host.to(dev, non_blocking=True)
+            self.gdesc, self.bdesc = buf[:desc.nbytes], buf[desc.nbytes:]
+
+    def holds(self, groups) -> bool:
+        """Whether ``groups`` are the tensors this packing was built for."""
+        return len(groups) == len(self.groups) and all(
+            fn is mine[0] and len(ops) == len(mine[1])
+            and all(a is b for a, b in zip(ops, mine[1])) and dict(kw) == mine[2]
+            for (fn, ops, kw), mine in zip(groups, self.groups))
+
+
+_BUCKET_PACKING = {}  # one-bucket wrapper -> the packing of its last call
+
+
+def _bucket_packing(fn, ops, kw) -> RlePacking:
+    """The one-bucket packing of ``fn``'s call: the last call's while it
+    holds the same tensors and arguments (a plan calls a bucket with the
+    same tensors every run), else a new one: building a packing on the
+    host and copying it to the card takes about as long as a bucket's
+    kernel (PERF.md rows 4 and 5).  The kept packing holds its tensors:
+    they live until the wrapper is called on others."""
+    last = _BUCKET_PACKING.get(fn)
+    if last is None or not last.holds([(fn, ops, kw)]):
+        last = _BUCKET_PACKING[fn] = RlePacking([(fn, ops, kw)])
+    return last
+
+
+def _rle_launch(packing: RlePacking, form: str = "auto", lib=None) -> list[torch.Tensor]:
+    """The r-kernel over a packing's groups, one launch; one output per
+    group, views into one flat buffer.  ``form`` forces the kernel's expand
+    (``"serial"`` or ``"parallel"``; the parallel form equals the plain twin
+    only on strips that pass the honesty test) where ``"auto"`` lets the
+    per-strip test pick it; the tests and ``scripts/rle_design_points.py``
+    force each.  ``lib`` is another build of the kernel library."""
+    if form not in RLE_FORMS:
+        raise ValueError(f"form must be one of {sorted(RLE_FORMS)}, got {form!r}")
+    dev = packing.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty(packing.out_total, dtype=torch.int16, device=dev)
+    syms = torch.empty(packing.syms_total, dtype=torch.int16, device=dev)
+    st = torch.empty(max(packing.st_total, 1), dtype=torch.int32, device=dev)
+    if lib is None:
+        from .._build import kernel_library
+
+        lib = kernel_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_rle_decode_groups(
+            packing.gdesc.data_ptr(), packing.bdesc.data_ptr(), len(packing.blocks),
+            out.data_ptr(), syms.data_ptr(), st.data_ptr(), packing.tab_words,
+            packing.st_words, RLE_FORMS[form], stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_rle_decode_groups launch failed: CUDA error {rc}")
+    return [out[o:o + S * R * 128].view(S, R, 128)
+            for o, (S, R, _l) in zip(packing.out_offs, packing.out_shapes)]
+
+
+def rans_decode_rle_groups_plain(groups) -> list[torch.Tensor]:
+    """Plain-PyTorch twin of :func:`rans_decode_rle_groups`: each group's
+    plain r-kernel twin in turn."""
+    return [_RLE_PLAIN[fn](*ops, **kw) for fn, ops, kw in groups]
+
+
+def rans_decode_rle_groups(groups, packing: RlePacking | None = None) -> list[torch.Tensor]:
+    """Decode the strips of several r-mode buckets in one launch.
+
+    ``groups`` is a list of ``(fn, operands, kwargs)`` as
+    :class:`RlePacking` takes them, all on one device; returns one output
+    per group, each as ``fn`` returns it.  ``packing`` is a packing built
+    earlier for these very tensors (a plan builds it once); without it one
+    is built here.  CPU tensors take the plain twin group by group; CUDA
+    tensors launch the kernel of ``csrc/rans_rle.cu`` once, whose per-strip
+    honesty test picks each strip's expand.  ``.launches`` counts the
+    launches, ``.family_launches`` per wrapper name the launches that held
+    that front end's strips.
+    """
+    if not groups:
+        return []
+    devs = {ops[0].device for _fn, ops, _kw in groups}
+    if len(devs) > 1:
+        raise ValueError(f"groups on several devices: {sorted(map(str, devs))}")
+    if groups[0][1][0].device.type == "cpu":
+        return rans_decode_rle_groups_plain(groups)
+    if packing is None:
+        packing = RlePacking(groups)
+    elif not packing.holds(groups):
+        raise ValueError("packing was built for other groups")
+    outs = _rle_launch(packing)
+    rans_decode_rle_groups.launches += 1
+    for name in packing.families:
+        rans_decode_rle_groups.family_launches[name] += 1
+    return outs
+
+
+rans_decode_rle_groups.launches = 0
+rans_decode_rle_groups.family_launches = {"rans_decode_rle": 0, "rans_decode_rle_alias": 0}

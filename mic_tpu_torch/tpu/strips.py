@@ -16,8 +16,10 @@ Port of ``mic_tpu.tpu.strips``, in three parts:
   FF 41 alias).
 
 The plan pools the strips of every image of a batch into buckets and
-runs each bucket as one launch of a kernel of ``rans_decode``.  A strip
-takes a fused kernel where ``mic_tpu``'s plan does: zzd, pdd and vdd
+runs each bucket as one launch of a kernel of ``rans_decode``; the r-mode
+buckets run together as one launch of the r-kernel
+(``rans_decode_rle_groups``).  A strip takes a fused kernel where
+``mic_tpu``'s plan does: zzd, pdd and vdd
 (width/128 in {1, 2, 4, 8}) and the r-modes (vdr likewise) at widths that
 are a multiple of 128, FF 41 or FF 57 with packed tables (tableLog <= 12,
 alphabet <= 4096).  Those buckets are keyed on (entropy family,
@@ -60,6 +62,7 @@ from .device_rans import ALIAS_MAX_KEPT, mict_parse
 from .post import post_batch
 from .rans_decode import (
     MID_DIRECT,
+    RlePacking,
     _as_i16,
     build_alias_bucket_tables,
     build_packed_tables,
@@ -69,6 +72,7 @@ from .rans_decode import (
     rans_decode_packed,
     rans_decode_rle,
     rans_decode_rle_alias,
+    rans_decode_rle_groups,
     rans_decode_zzd,
     to_device,
 )
@@ -123,6 +127,7 @@ _MODE_PRED = {
 }
 _DIRECT_PREDS = ("zzd", "vdd", "pdd")  # no RLE, no escapes
 _RLE_DIRECT_PREDS = ("zzr", "vdr", "pdr")  # SoA-RLE, no escapes
+_RLE_FNS = (rans_decode_rle, rans_decode_rle_alias)  # the r-kernel's one-bucket wrappers
 AUTO_FAST_TRIALS = ("zzd", "vdd", "pdd")  # scan-parallel decode modes only
 _PRED_MODE = {v: k for k, v in _MODE_PRED.items()}
 
@@ -592,8 +597,18 @@ class _Bucket:
         self.post = dict(width=width, strip_h=strip_h, max_runs=max_runs,
                          max_tokens=max_tokens, mid_count=mid, delim=delim, predictor=pred)
 
+    @property
+    def launch(self):
+        """(wrapper, operands, keyword arguments) of the bucket's launch."""
+        return self.fn, self.ops, self.kwargs
+
     def __call__(self) -> torch.Tensor:
-        out = self.fn(*self.ops, **self.kwargs).reshape(self.n, -1)
+        return self.finish(self.fn(*self.ops, **self.kwargs))
+
+    def finish(self, out: torch.Tensor) -> torch.Tensor:
+        """The bucket's result from its kernel output: the post path, or
+        pdd / pdr's column prefix sum, or the output as it is."""
+        out = out.reshape(self.n, -1)
         if self.post is not None:
             m = self.meta
             return post_batch(out, m[:, 0], m[:, 1], m[:, 2], **self.post)
@@ -654,12 +669,20 @@ class MicwDecodePlan:
                 bucket.append((p, width, st))
             self.keys_per_blob.append(keys)
         self.buckets = {k: _Bucket(k, e, self.device) for k, e in entries.items()}
+        # The r-mode buckets run as one launch of the r-kernel.
+        self._rle_keys = [k for k, b in self.buckets.items() if b.fn in _RLE_FNS]
+        self._rle_groups = [self.buckets[k].launch for k in self._rle_keys]
+        self.rle_packing = (RlePacking(self._rle_groups)
+                            if self._rle_groups and self.device.type == "cuda" else None)
         self._gather = None  # assemble_device's copy lists, built at its first call
 
     def run(self) -> dict:
-        """Launch every bucket; returns {bucket key: int16 [S, cols]
-        device tensor} (bit-views of the u16 pixels)."""
-        return {k: b() for k, b in self.buckets.items()}
+        """Launch every bucket (the r-mode buckets together, one launch);
+        returns {bucket key: int16 [S, cols] device tensor} (bit-views of
+        the u16 pixels)."""
+        outs = dict(zip(self._rle_keys, rans_decode_rle_groups(self._rle_groups,
+                                                               self.rle_packing)))
+        return {k: b.finish(outs[k]) if k in outs else b() for k, b in self.buckets.items()}
 
     def _strip_rows(self, bi: int):
         """(y0, rows, key, index) of every strip of blob ``bi``."""

@@ -54,7 +54,8 @@ def test_import_loads_no_mic_tpu(module):
 
 def test_sources_import_no_mic_tpu():
     pat = re.compile(r"^\s*(from|import)\s+mic_tpu(\.|\s|$)", re.M)
-    files = sorted((ROOT / "mic_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "mic_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("*.py")))
     assert len(files) >= 10
     bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
     assert not bad, bad

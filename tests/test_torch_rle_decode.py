@@ -538,11 +538,11 @@ def test_cuda_kernels_match_plain():
 def test_cuda_fixture_batch_decodes():
     dev = _need_cuda()
     batch = _batch()
-    rd.rans_decode_rle.launches = rd.rans_decode_rle_alias.launches = 0
+    rd.rans_decode_rle_groups.launches = 0
     plan = MicwDecodePlan([b for b, _px in batch], dev)
     decoded = plan.run()
     assert plan.verify_batch(decoded, [px for _b, px in batch]) == 0
-    assert rd.rans_decode_rle.launches > 0 and rd.rans_decode_rle_alias.launches > 0
+    assert rd.rans_decode_rle_groups.launches == 1  # every r-bucket, both front ends
     for (out, _w, _h), (_b, px) in zip(plan.assemble(decoded), batch):
         assert np.array_equal(out, px)
 
@@ -569,3 +569,289 @@ def test_cuda_dishonest_streams_match_plain():
         assert torch.equal(got, PLAIN[fn](*ops, **kw)), kw
         checked += 1
     assert checked >= 12
+
+
+# ---------------------------------------------------------------------------
+# The merged launch: plain twin, packing, honesty test, parallel expand
+# ---------------------------------------------------------------------------
+
+
+def _mixed_batch(ref_st):
+    """An auto-r container of r-mode and direct strips beside direct-mode
+    fixtures and two r-mode fixtures: (blob, pixels) pairs."""
+    rng = np.random.default_rng(11)
+    img = np.empty((128, 256), np.uint16)
+    img[:64] = _plane("g").reshape(384, 512)[160:224, :256]
+    img[64:] = (rng.standard_normal((64, 256)).cumsum(axis=1) * 9 + 700).clip(0, 4095)
+    px = img.ravel()
+    blob = ref_st.micw_compress(px, 256, 128, int(px.max()), num_strips=2,
+                                predictor="auto-r", entropy="best")
+    mr = (TESTDATA / "MR_dev.micw").read_bytes(), np.fromfile(TESTDATA / "MR_dev.raw", "<u2")
+    return [(blob, px), mr, _fixture("tissue_g_pdr"), _fixture("tissue_b_rbest")]
+
+
+def _groups_of(plan):
+    return [plan.buckets[k].launch for k in plan._rle_keys]
+
+
+@pytest.mark.parametrize("batch", ["fixtures", "mixed"])
+def test_groups_plain_equals_per_bucket(ref, batch):
+    """The merged launch's plain twin (what the plan runs on the CPU)
+    equals each bucket's own plain r-kernel, and the plan's run equals
+    the bucket calls one by one."""
+    pairs = _batch() if batch == "fixtures" else _mixed_batch(ref[2])
+    plan = MicwDecodePlan([b for b, _px in pairs], CPU)
+    groups = _groups_of(plan)
+    assert groups and len(groups) == sum(b.fn in PLAIN for b in plan.buckets.values())
+    merged = rd.rans_decode_rle_groups(groups)
+    for (fn, ops, kw), got in zip(groups, merged):
+        assert torch.equal(got, PLAIN[fn](*ops, **kw)), kw
+    run = plan.run()
+    for k, b in plan.buckets.items():
+        assert torch.equal(run[k], b()), k
+    assert plan.verify_batch(run, [px for _b, px in pairs]) == 0
+
+
+def test_rle_packing_layout():
+    """Descriptors of the fixture batch: one launch for both front ends,
+    outputs laid out group after group, every strip once, longest chain
+    first, each group's arguments and operand pointers."""
+    plan = MicwDecodePlan([b for b, _px in _batch()], CPU)
+    groups = _groups_of(plan)
+    pk = rd.RlePacking(groups)
+    assert pk.families == ["rans_decode_rle", "rans_decode_rle_alias"]
+    at = 0
+    for (fn, ops, kw), off, shape, d in zip(groups, pk.out_offs, pk.out_shapes, pk.desc):
+        S = ops[0].shape[0]
+        assert off == at and shape == (S, kw["out_rows"], 128)
+        at += S * kw["out_rows"] * 128
+        alias = fn is rd.rans_decode_rle_alias
+        assert d["arg"].tolist() == [
+            int(alias), 0 if alias else ops[1].shape[1], 0 if alias else ops[2].shape[1],
+            ops[4 if alias else 3].shape[1], ops[8].shape[1] if alias else 0, kw["steps"],
+            kw["out_rows"], kw["maxr"], kw["vdd_ws"], int(kw["dense"]), int(kw.get("esc", 0)), 0]
+        ptrs = [t.data_ptr() for t in ops]
+        if not alias:
+            ptrs = ptrs[:3] + [0] + ptrs[3:6] + [0, 0] + ptrs[6:]
+        assert d["ptr"].tolist() == ptrs
+        assert d["off"][2] == -1  # maxr 1024: run tables in shared memory
+    assert pk.out_total == at
+    assert pk.tab_words == max(384, max(ops[1].shape[1] + ops[2].shape[1]
+                                        for fn, ops, _kw in groups if fn is rd.rans_decode_rle))
+    assert pk.st_words == 2 * max(kw["maxr"] for _fn, _ops, kw in groups)
+    pairs = pk.blocks.tolist()
+    assert sorted(pairs) == [[g, s] for g, (_f, ops, _k) in enumerate(groups)
+                             for s in range(ops[0].shape[0])]
+    chain = [(groups[g][2]["steps"], groups[g][2]["out_rows"]) for g, _s in pairs]
+    assert chain == sorted(chain, reverse=True)
+    assert pk.holds(groups) and not pk.holds(groups[::-1])
+    # a run table past RLE_ST_SMEM_MAX entries takes device scratch
+    fn, ops, kw = groups[0]
+    big = dict(kw, maxr=kw["steps"] * 128)
+    assert big["maxr"] > rd.RLE_ST_SMEM_MAX
+    pk2 = rd.RlePacking([(fn, ops, big), groups[1]])
+    assert pk2.desc["off"][:, 2].tolist() == [0, -1]
+    assert pk2.st_total == ops[0].shape[0] * 2 * big["maxr"]
+
+
+def test_groups_reject_bad_arguments():
+    plan = MicwDecodePlan([_fixture("tissue_g_zzr_alias")[0]], CPU)
+    groups = _groups_of(plan)
+    with pytest.raises(ValueError):
+        rd._rle_launch(rd.RlePacking(groups), "fastest")
+    fn, ops, kw = groups[0]
+    with pytest.raises(ValueError):  # the route is not picked from the first group alone
+        rd.rans_decode_rle_groups([groups[0], (fn, tuple(o.to("meta") for o in ops), kw)])
+    with pytest.raises(ValueError):
+        rd.RlePacking([(rd.rans_decode_zzd, groups[0][1], groups[0][2])])
+    with pytest.raises(ValueError):
+        rd.RlePacking([])
+    with pytest.raises(ValueError):
+        rd.RlePacking([(fn, ops, dict(kw, vdd_ws=3))])
+
+
+def test_bucket_packing_kept_for_the_same_tensors():
+    """A one-bucket wrapper reuses its last packing only for the very
+    tensors and arguments it was built for."""
+    plan = MicwDecodePlan([_fixture("tissue_g_pdr")[0], _fixture("tissue_g_zzr_alias")[0]], CPU)
+    (fn, ops, kw), other = _groups_of(plan)[:2]
+    first = rd._bucket_packing(fn, ops, kw)
+    assert rd._bucket_packing(fn, ops, dict(kw)) is first
+    assert first.holds([(fn, ops, kw)]) and first.blocks.tolist() == [
+        [0, s] for s in range(ops[0].shape[0])]
+    flipped = rd._bucket_packing(fn, ops, dict(kw, dense=not kw["dense"]))
+    assert flipped is not first and flipped.desc["arg"][0, 9] == int(not kw["dense"])
+    copies = tuple(o.clone() for o in ops)
+    assert rd._bucket_packing(fn, copies, kw) is not flipped
+    assert rd._bucket_packing(*other) is not rd._bucket_packing(fn, copies, kw)
+
+
+def _group_symbols(fn, ops, kw):
+    """The decoded symbols of one group (int64 [S, steps * 128])."""
+    if fn is rd.rans_decode_rle:
+        return torch.cat(list(rd._packed_symbols(*ops[:6], kw["steps"])), dim=1)
+    return torch.cat(list(rd._alias_symbols(*ops[:9], kw["steps"], kw["esc"])), dim=1) & 0xFFFF
+
+
+def _honest(fn, ops, kw):
+    return rd.rle_honest(_group_symbols(fn, ops, kw), ops[-2], ops[-1], steps=kw["steps"],
+                         maxr=kw["maxr"], dense=kw["dense"])
+
+
+def _parallel_mirror(fn, ops, kw):
+    """The kernel's parallel expand in torch: each pixel's run is the last
+    run whose start <= its position over the whole table, the literal
+    cursor the serial recursion over each row's literal count, then the
+    inverse as its scans (vdr: per column over the image rows; zzr / pdr:
+    the row prefix with its carry over ws lane-rows)."""
+    steps, out_rows, maxr, vws = kw["steps"], kw["out_rows"], kw["maxr"], kw["vdd_ws"]
+    syms = _group_symbols(fn, ops, kw)
+    st1, st2, nrun, nsame = rd._rle_tables_plain(syms, ops[-2], ops[-1], steps=steps,
+                                                 maxr=maxr)
+    S = syms.shape[0]
+    c = torch.arange(maxr)[None, :]
+    starts = torch.where(c < nrun, st1 >> 1, 1 << 40).contiguous()
+    pos = torch.arange(out_rows * 128)[None, :].expand(S, -1).contiguous()
+    r = (torch.searchsorted(starts, pos, right=True) - 1).clamp(min=0)
+    g1, g2 = torch.gather(st1, 1, r), torch.gather(st2, 1, r)
+    lit = (g1 & 1) == 0
+    count = lit.view(S, out_rows, 128).sum(-1)
+    lc = [nrun + nsame]
+    for t in range(out_rows - 1):
+        lc.append((lc[-1] + count[:, t:t + 1]).clamp(max=steps * 128 - 1))
+    lrow = (torch.cat(lc, dim=1) >> 7).clamp(max=steps - 2).repeat_interleave(128, dim=1)
+    li = (g2 + pos - (lrow << 7)).clamp(0, 255)
+    tok = torch.where(lit, torch.gather(syms, 1, (lrow << 7) + li), g2)
+    si = ((tok & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    dz = ((si >> 1) ^ (-(si & 1))).view(S, out_rows, 128)
+    if vws:
+        img = dz.view(S, out_rows // vws, vws * 128).cumsum(dim=1)
+        return rd._as_i16(img.reshape(S, out_rows, 128))
+    ws = ops[-3][:, :1].to(torch.int64)
+    tot = dz.sum(-1)
+    pix = torch.empty_like(dz)
+    rowc = torch.zeros((S, 1), dtype=torch.int64)
+    for t in range(out_rows):
+        rowc = torch.where((t % ws) == 0, 0, rowc)
+        pix[:, t] = rowc + dz[:, t].cumsum(dim=1)
+        rowc = rowc + tot[:, t:t + 1]
+    return rd._as_i16(pix)
+
+
+def test_honesty_mirror_accepts_fixture_strips():
+    """Every strip of the fixture batch passes the honesty test, and the
+    parallel expand decodes each bit for bit as the serial plain twin."""
+    plan = MicwDecodePlan([b for b, _px in _batch()], CPU)
+    for fn, ops, kw in _groups_of(plan):
+        assert bool(_honest(fn, ops, kw).all()), kw
+        assert torch.equal(_parallel_mirror(fn, ops, kw), PLAIN[fn](*ops, **kw)), kw
+
+
+def _lying_dense_blob(monkeypatch):
+    """The legacy-grammar stream of ``minimal_runs_legacy`` (same-runs of
+    >= 3 px) under FLAG_RDENSE, written by the port's encoder (which
+    writes mic_tpu's bytes; jax-free, so the card's tests can build it)."""
+    px = _minimal_runs()
+    monkeypatch.setattr(st, "RDENSE_MIN_SAME", 3)
+    (blob,) = micw_compress_device_many([(px, 128, 16, int(px.max()), 1)], CPU,
+                                        entropy="alias", predictor="zzr")
+    monkeypatch.undo()
+    assert blob[22] & st.FLAG_RDENSE
+    return blob, px
+
+
+def _dishonest_cases(monkeypatch):
+    """name -> (fn, operands, kwargs) of every dishonest r-group: the
+    operand variants, the damaged blobs' buckets and the lying-dense blob's."""
+    cases = {}
+    plan = MicwDecodePlan([_fixture("tissue_g_pdr")[0], _fixture("tissue_g_zzr_alias")[0]], CPU)
+    for i, (fn, ops, kw) in enumerate(_dishonest_operands(plan)):
+        kind = ("nrun_past_maxr", "nrun_negative", "nsame_past_steps", "dense_flipped")[i % 4]
+        cases[f"operands_{i // 4}_{kind}"] = (fn, ops, kw)
+    for name, blob in _dishonest_blobs().items():
+        try:
+            plan = MicwDecodePlan([blob], CPU)
+        except ValueError:
+            continue
+        for j, g in enumerate(_groups_of(plan)):
+            cases[f"blob_{name}_{j}"] = g
+    (cases["lying_dense"],) = _groups_of(MicwDecodePlan([_lying_dense_blob(monkeypatch)[0]],
+                                                        CPU))
+    return cases
+
+
+def test_honesty_mirror_on_dishonest_cases(monkeypatch):
+    """Counts out of range and the lying-dense blob fail the test (the
+    32-run window misses runs there); a case that passes (damaged counts
+    whose runs stay strictly increasing, FLAG_RDENSE cleared on a dense
+    stream) decodes bit for bit as the serial plain twin in the parallel
+    form, so passing it is safe."""
+    cases = _dishonest_cases(monkeypatch)
+    assert len(cases) >= 20
+    for name, (fn, ops, kw) in cases.items():
+        honest = _honest(fn, ops, kw)
+        if name.endswith(("past_maxr", "negative", "past_steps")) or name == "lying_dense":
+            assert not bool(honest.any()), name
+        keep = honest.nonzero()[:, 0]
+        if len(keep):
+            sub = tuple(o[keep].contiguous() for o in ops)
+            assert torch.equal(_parallel_mirror(fn, sub, kw), PLAIN[fn](*sub, **kw)), name
+    # where the test rejects, the parallel walk would decode other pixels
+    fn, ops, kw = cases["lying_dense"]
+    assert not torch.equal(_parallel_mirror(fn, ops, kw), PLAIN[fn](*ops, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_merged_kernel_matches_plain(monkeypatch):
+    """The merged launch (both front ends, every r-bucket of the fixture
+    batch) and each dishonest case, alone and all in one launch, kernel ==
+    plain on whole arrays."""
+    dev = _need_cuda()
+    plan = MicwDecodePlan([b for b, _px in _batch()], dev)
+    groups = _groups_of(plan)
+    before = rd.rans_decode_rle_groups.launches
+    got = rd.rans_decode_rle_groups(groups, plan.rle_packing)
+    torch.cuda.synchronize()
+    assert rd.rans_decode_rle_groups.launches == before + 1
+    for g, (fn, ops, kw) in zip(got, groups):
+        assert torch.equal(g, PLAIN[fn](*ops, **kw)), kw
+    cases = [(fn, tuple(o.to(dev) for o in ops), kw)
+             for fn, ops, kw in _dishonest_cases(monkeypatch).values()]
+    for fn, ops, kw in cases:
+        (g,) = rd.rans_decode_rle_groups([(fn, ops, kw)])
+        torch.cuda.synchronize()
+        assert torch.equal(g, PLAIN[fn](*ops, **kw)), kw
+    for g, (fn, ops, kw) in zip(rd.rans_decode_rle_groups(cases), cases):
+        assert torch.equal(g, PLAIN[fn](*ops, **kw)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["serial", "parallel", "auto"])
+def test_cuda_forced_forms_match_plain(form):
+    """Each expand forced on the honest fixture strips, kernel == plain."""
+    dev = _need_cuda()
+    plan = MicwDecodePlan([b for b, _px in _batch()], dev)
+    groups = _groups_of(plan)
+    for g, (fn, ops, kw) in zip(rd._rle_launch(plan.rle_packing, form), groups):
+        torch.cuda.synchronize()
+        assert torch.equal(g, PLAIN[fn](*ops, **kw)), (form, kw)
+
+
+@pytest.mark.cuda
+def test_cuda_run_tables_in_device_memory():
+    """Run tables past RLE_ST_SMEM_MAX entries take device scratch: a
+    bucket at maxr = steps * 128 (16384 or 32768 entries) beside one in
+    shared memory, in one launch, kernel == plain."""
+    dev = _need_cuda()
+    plan = MicwDecodePlan([_fixture("tissue_g_pdr")[0], _fixture("tissue_g_zzr_alias")[0]], dev)
+    groups = _groups_of(plan)
+    fn, ops, kw = groups[0]
+    big = dict(kw, maxr=kw["steps"] * 128)
+    assert big["maxr"] > rd.RLE_ST_SMEM_MAX
+    cases = [(fn, ops, big), groups[-1]]
+    packing = rd.RlePacking(cases)
+    assert packing.desc["off"][:, 2].tolist() == [0, -1]
+    for form in ("auto", "serial"):
+        for g, (f, o, k) in zip(rd._rle_launch(packing, form), cases):
+            torch.cuda.synchronize()
+            assert torch.equal(g, PLAIN[f](*o, **k)), (form, k)
