@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
    prints the build seconds and nvcc's per-kernel resource report.
 2. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, whole output arrays, tolerance 0.  Decode: on the operands of
-   the main path's buckets (CT_dev x256 = 1024 strips of 512 steps,
-   CT_dev_alias x256, MR_dev_alias x512, plus the alias kernel with
-   fused=False).  r-mode decode: on every bucket of phase 5's batch, each
+   the main path's buckets through the one-bucket wrappers (CT_dev x256
+   = 1024 strips of 512 steps, CT_dev_alias x256, MR_dev_alias x512, plus
+   the alias wrapper with fused=False), then every direct bucket of phase
+   3's batch in the plan's one launch (``rans_decode_direct_groups``, pdd's
+   column sum fused).  r-mode decode: on every bucket of phase 5's batch, each
    with its own ``dense`` and with the other one, then all 14 buckets in
    the plan's one launch (``rans_decode_rle_groups``).  Post path: the
    symbols-out kernels on every post bucket of phase 6's batch (packed
@@ -35,10 +37,12 @@ Phases (any failure exits non-zero; nothing is caught):
 3. Decode path: ``MicwDecodePlan`` over a mixed batch (CT_dev x256, the
    batch size the reference bench targets, plus MR_dev, MR_dev_alias,
    wide_banded and CT_dev_alias replicated); every strip of every
-   replica is verified against the ``.raw`` pixels, and each decode
-   wrapper must have launched during the run.  Prints staging seconds,
-   decode GB/s over ``plan.run()``, the launch counts and a torch.profiler
-   breakdown of one ``plan.run()`` by device kernel.
+   replica is verified against the ``.raw`` pixels, in the first run and
+   in the last timed one; one ``plan.run()`` must be exactly
+   ``DIRECT_LAUNCHES_PER_RUN`` (1) launch of the direct kernel, holding
+   both front ends.  Prints staging seconds, decode GB/s over
+   ``plan.run()``, the launch alone (CUDA events), the launch counts and a
+   torch.profiler breakdown of one ``plan.run()`` by device kernel.
 4. Encode path: ``MicwEncodePlan`` (what ``micw_compress_device_many``
    runs) over each fixture setting, replicated (CT_dev x64 is a 64-slice
    CT series, 32 MiB of pixels); every container must equal its fixture
@@ -189,8 +193,12 @@ POST_BATCH = [
 CT_TL15 = PORT_DATA / "CT_dev_1strip_tl15.micw"
 # name -> (CUDA source, file:line of the Pallas kernel body it replaces)
 KERNELS = {
-    "rans_decode_zzd": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:415"),
-    "rans_decode_alias": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:567"),
+    "rans_decode_zzd": ("mic_tpu_torch/csrc/rans_direct.cu", "mic_tpu/tpu/pallas_rans.py:415"),
+    "rans_decode_alias": ("mic_tpu_torch/csrc/rans_direct.cu", "mic_tpu/tpu/pallas_rans.py:567"),
+    # the same kernel over every direct bucket of a plan, both front ends,
+    # pdd's column sum fused
+    "rans_decode_direct_groups": ("mic_tpu_torch/csrc/rans_direct.cu",
+                                  "mic_tpu/tpu/pallas_rans.py:415"),
     "rans_encode": ("mic_tpu_torch/csrc/rans_encode.cu", "mic_tpu/tpu/pallas_enc.py:115"),
     "rans_encode_alias": ("mic_tpu_torch/csrc/rans_encode.cu", "mic_tpu/tpu/pallas_enc.py:115"),
     "rans_decode_rle": ("mic_tpu_torch/csrc/rans_rle.cu", "mic_tpu/tpu/pallas_rans.py:1078"),
@@ -214,7 +222,9 @@ KERNELS = {
 # output element, counted from each kernel's step in csrc/: the entropy
 # step (slot mask, table reads, bound checks, shift, multiply-add, renorm
 # test and word merge: 9; the alias front end 14), plus the fused
-# inverse's unzigzag and sum (4), plus the r-kernels' run search and
+# inverse's unzigzag and sum (4), plus pdd's column sum in the merged
+# direct launch (2: the add and the mask; each group of that launch counts
+# at its wrapper's rate plus this), plus the r-kernels' run search and
 # literal read per pixel (16); the encoder's division by magic multiply,
 # state update and renorm test (12; the alias slot search 8 more); the
 # tANS step per symbol (table and alphabet reads with their bound checks,
@@ -225,13 +235,16 @@ KERNELS = {
 # (two or three neighbour predicts, the update, the index arithmetic: 16
 # for two outputs, 8 each).
 MEM_BPS, CORE_OPS = 3.35e12, 67e12
-OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18, "rans_decode_packed": 9,
+OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18,
+                   "rans_decode_direct_groups": 2, "rans_decode_packed": 9,
                    "rans_decode": 9, "rans_decode_rle": 29, "rans_decode_rle_alias": 34,
                    "rans_encode": 12, "rans_encode_alias": 20, "tans_decode": 24,
                    "ycocgr_forward": 5, "ycocgr_inverse": 5,
                    "wt53_rows_forward": 8, "wt53_rows_inverse": 8}
 TILE = 256  # phase 8's tile edge and the slide's margin
 RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-buckets at once
+DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): all direct buckets
+ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -701,7 +714,7 @@ def _post_phase(dev, blobs, expected, names):
     plan = MicwDecodePlan(blobs, dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
-    fns = {n: getattr(rd, n) for n in (*_POST_FNS, "rans_decode_zzd")}
+    fns = {n: getattr(rd, n) for n in (*_POST_FNS, "rans_decode_direct_groups")}
     for fn in fns.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -737,7 +750,7 @@ def _post_phase(dev, blobs, expected, names):
               "(device breakdown not measured)")
     else:
         busy = sum(by_name.values())
-        ent = sum(v for k, v in by_name.items() if "rans_" in k)
+        ent = sum(v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS))
         print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
               f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
               f"entropy_kernels_ms={ent:.3f} ({100 * ent / busy:.1f}% of busy) "
@@ -1030,7 +1043,8 @@ def _ref_entry_points(dev) -> None:
                                        device_encode=True, timings=timings),
                    (tans_decode_groups, renc.rans_encode))
     total_s = time.perf_counter() - t0
-    decoded = counted("ingest_plan's MicwDecodePlan.run", plan.run, (rd.rans_decode_zzd,))
+    decoded = counted("ingest_plan's MicwDecodePlan.run", plan.run,
+                      (rd.rans_decode_direct_groups,))
     mism = plan.verify_batch(decoded, [raw("MR_pics4")] * 16 + [raw("MR_4s")] * 16)
     print(f"ingest_plan MR_pics4 x16 + MR_4s x16 (entropy=device, device_encode=True): "
           f"{total_s:.3f} s, " + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
@@ -1247,7 +1261,7 @@ def _timed_rgb_decode(what, blobs, dev, n_bytes) -> None:
               "(device breakdown not measured)")
         return
     busy = sum(by_name.values())
-    ent = sum(v for k, v in by_name.items() if "rans_" in k)
+    ent = sum(v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS))
     ycc = sum(v for k, v in by_name.items() if "ycocgr" in k)
     if not ent:
         # Seen inside this long run, not in a process of its own
@@ -1334,7 +1348,7 @@ def _rgb_wsi_phase(dev, slide):
     del planes, rgbs, tiles
 
     # --- the slide: tile server --------------------------------------------
-    decode_fns = (K.ycocgr_inverse, rd.rans_decode_zzd)
+    decode_fns = (K.ycocgr_inverse, rd.rans_decode_direct_groups)
     (got, gw, gh), counts = _counted("w3d_decompress_level 0",
                                      lambda: w3d_decompress_level(blob, dev, 0), decode_fns)
     add(counts)
@@ -1391,7 +1405,8 @@ def _rgb_wsi_phase(dev, slide):
             if i == 0:
                 (frames, hdr), _c = _counted(
                     f"decompress_multi_frame_device series_dev_{name}",
-                    lambda: decompress_multi_frame_device(fx, dev), (rd.rans_decode_zzd,))
+                    lambda: decompress_multi_frame_device(fx, dev),
+                    (rd.rans_decode_direct_groups,))
             else:
                 frames, hdr = decompress_multi_frame_device(fx, dev)
             ok = ok and len(frames) == 3 and all(np.array_equal(f, r) for f, r in zip(frames, raw))
@@ -1452,6 +1467,68 @@ def _wavelet_phase(dev, slide):
     return total
 
 
+def _main_batch():
+    """Phase 3's batch: the containers and their expected pixels, batch
+    order, and the decoded u16 bytes of its entropy strips."""
+    import numpy as np
+
+    from mic_tpu_torch.tpu.strips import STRIP_MODE_CONST, STRIP_MODE_RAW, micw_parse
+
+    names = [k for k, v in BATCH.items() for _ in range(v[2])]
+    blobs = {k: v[0].read_bytes() for k, v in BATCH.items()}
+    raws = {k: np.fromfile(v[1], dtype="<u2") for k, v in BATCH.items()}
+    timed_bytes = 0
+    for k in names:
+        bw, bh, _ns, strip_h, _mv, _gp, _lanes, strips = micw_parse(blobs[k])
+        timed_bytes += 2 * sum(min(strip_h, bh - i * strip_h) * bw
+                               for i, st in enumerate(strips)
+                               if st[5] not in (STRIP_MODE_RAW, STRIP_MODE_CONST))
+    return [blobs[k] for k in names], [raws[k] for k in names], timed_bytes
+
+
+def _direct_groups_vs_plain(dev, report) -> None:
+    """Phase 2, the merged direct launch: every direct bucket of phase 3's
+    batch (9 buckets, 1408 strips, both front ends, pdd's column sum fused)
+    in the plan's one launch against its plain twin, whole arrays; timed
+    with the plan's packing (CUDA events), the plain twin once."""
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import rans_decode as rd
+
+    name = "rans_decode_direct_groups"
+    plan = MicwDecodePlan(_main_batch()[0], dev)
+    groups, packing = plan._direct_groups, plan.direct_packing
+    got = rd.rans_decode_direct_groups(groups, packing)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = rd.rans_decode_direct_groups_plain(groups)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = _max_abs_err(got, want)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: merged kernel != plain (max abs err {err})")
+    ms = _cuda_ms(lambda: rd.rans_decode_direct_groups(groups, packing), 10)
+    r = report[name]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    for (fn, ops, kw), g in zip(groups, got):  # each bucket's front end, pdd's column sum
+        _account(r, fn.__name__, ops, (g,), 0.0, 0.0)
+        if kw.get("pdd_ws"):
+            r["ops"] += OPS_PER_ELEMENT[name] * g.numel()
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    from mic_tpu_torch._build import kernel_library
+
+    blocks_sm = kernel_library().mic_direct_occupancy(packing.smem_bytes)
+    print(f"kernel-vs-plain {name} {len(groups)} direct buckets, "
+          f"{sum(ops[0].shape[0] for _f, ops, _k in groups)} strips in one launch "
+          f"({len(packing.blocks)} blocks of up to {rd.DIRECT_STRIPS_PER_BLOCK} strips, "
+          f"{packing.smem_bytes} bytes of shared memory a block, {blocks_sm} blocks an SM): "
+          f"equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+    del plan, got, want
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1464,7 +1541,6 @@ def main() -> int:
     from mic_tpu_torch import MicwDecodePlan
     from mic_tpu_torch._build import build, kernel_library
     from mic_tpu_torch.tpu import rans_decode as rd
-    from mic_tpu_torch.tpu.strips import STRIP_MODE_CONST, STRIP_MODE_RAW, micw_parse
 
     dev = torch.device("cuda", 0)
     # --- 1. setup -----------------------------------------------------------
@@ -1485,7 +1561,6 @@ def main() -> int:
               f"{spills} bytes of spill stores")
 
     blobs = {k: v[0].read_bytes() for k, v in BATCH.items()}
-    raws = {k: np.fromfile(v[1], dtype="<u2") for k, v in BATCH.items()}
     wrappers = {"rans_decode_zzd": (rd.rans_decode_zzd, rd.rans_decode_zzd_plain),
                 "rans_decode_alias": (rd.rans_decode_alias, rd.rans_decode_alias_plain)}
 
@@ -1526,19 +1601,13 @@ def main() -> int:
                       f"{'' if kw.get('fused', True) else 'fused=False '}"
                       f"equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
         del plan
+    _direct_groups_vs_plain(dev, report)
 
     # --- 3. decode path -------------------------------------------------------
-    names = [k for k, v in BATCH.items() for _ in range(v[2])]
-    batch = [blobs[k] for k in names]
-    expected = [raws[k] for k in names]
-    timed_bytes = 0
-    for k in names:
-        bw, bh, _ns, strip_h, _mv, _gp, _lanes, strips = micw_parse(blobs[k])
-        timed_bytes += 2 * sum(min(strip_h, bh - i * strip_h) * bw
-                               for i, st in enumerate(strips)
-                               if st[5] not in (STRIP_MODE_RAW, STRIP_MODE_CONST))
-    rd.rans_decode_zzd.launches = 0
-    rd.rans_decode_alias.launches = 0
+    batch, expected, timed_bytes = _main_batch()
+    merged = rd.rans_decode_direct_groups
+    merged.launches = 0
+    merged.family_launches = dict.fromkeys(merged.family_launches, 0)
     t0 = time.perf_counter()
     plan = MicwDecodePlan(batch, dev)
     torch.cuda.synchronize()
@@ -1547,7 +1616,14 @@ def main() -> int:
     decoded = plan.run()
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, (fn, _p) in wrappers.items()}
+    # rows 1 and 2 count the merged launches that held their front end
+    launches = {"rans_decode_direct_groups": merged.launches, **merged.family_launches}
+    print(f"decode path: {merged.launches} direct-kernel launch(es) per plan.run() for "
+          f"{len(plan._direct_keys)} direct buckets (design: {DIRECT_LAUNCHES_PER_RUN}); per "
+          f"front end {merged.family_launches}")
+    if merged.launches != DIRECT_LAUNCHES_PER_RUN:
+        raise AssertionError(f"the decode path made {merged.launches} direct-kernel launches in "
+                             f"one plan.run(), the design makes {DIRECT_LAUNCHES_PER_RUN}")
     n_strips = sum(b.n for b in plan.buckets.values())
     mism = plan.verify_batch(decoded, expected)
     outs = plan.assemble(decoded)
@@ -1562,10 +1638,20 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched by the decode path")
-    run_ms = _cuda_ms(plan.run, 5)
+    last = {}
+    run_ms = _cuda_ms(lambda: last.update(out=plan.run()), 5)
+    timed_mism = plan.verify_batch(last["out"], expected)
+    # The launch alone, from the plan's packing (not counted: no wrapper).
+    launch_ms = _cuda_ms(lambda: rd._direct_launch(plan.direct_packing), 10)
     print(f"decode path: {run_ms:.3f} ms per plan.run(), "
           f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
-          f"({timed_bytes} bytes)")
+          f"({timed_bytes} bytes); the direct launch alone {launch_ms:.3f} ms (CUDA events); "
+          f"the last timed run: mismatches={timed_mism}, {merged.launches} direct-kernel "
+          f"launches in {1 + 6} runs")
+    if timed_mism or merged.launches != 7 * DIRECT_LAUNCHES_PER_RUN:
+        raise AssertionError(f"timed decode runs: {timed_mism} mismatches, "
+                             f"{merged.launches} launches")
+    del last
 
     _profile(plan)
     del plan, decoded

@@ -32,20 +32,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # init, tpk, ts, alpha, asz, words, rows, mask, shift, ws, out,
-    # n_strips, steps, vdd_ws, stream
-    "mic_rans_decode_zzd": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P,
-                            _I, _I, _I, _P],
+    # groups, blocks, n_blocks, out, smem_bytes, stream
+    "mic_direct_decode_groups": [_P, _P, _I, _P, _I, _P],
+    # smem_bytes
+    "mic_direct_occupancy": [_I],
     # init, tpk, ts, alpha, asz, words, rows, mask, shift, out, n_strips,
     # steps, stream
     "mic_rans_decode_packed": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     # init, tsym, tfb, ts, words, rows, mask, shift, out, n_strips, steps,
     # stream
     "mic_rans_decode_two_table": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
-    # init, w0, w1, w2, words, rows, mask, shift, escv, esides, erows, ws,
-    # out, n_strips, steps, vdd_ws, fused, esc, stream
-    "mic_rans_decode_alias": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                              _P, _I, _I, _I, _I, _I, _P],
     # groups, blocks, n_blocks, out, syms, st, tab_words, st_words, form,
     # stream
     "mic_rle_decode_groups": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
@@ -90,8 +86,9 @@ def library_path(defines: tuple = ()) -> Path:
 def build(defines: tuple = ()) -> Path:
     """Compile the sources if their library is missing; returns its path.
     ``defines`` are extra ``-DNAME=value`` flags (a library of its own:
-    ``scripts/tans_design_points.py`` and ``scripts/rle_design_points.py``
-    build the kernels' other forms with them).  nvcc's output (ptxas registers, shared memory and
+    ``scripts/tans_design_points.py``, ``scripts/rle_design_points.py`` and
+    ``scripts/direct_design_points.py`` build the kernels' other forms with
+    them).  nvcc's output (ptxas registers, shared memory and
     spills per kernel) is kept beside the library with the suffix
     ``.log``."""
     lib = library_path(defines)

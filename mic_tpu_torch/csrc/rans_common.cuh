@@ -1,7 +1,6 @@
 // Device code shared by the rANS decode kernels (rans_decode.cu, rans_rle.cu):
-// the block scan, the renorm word pull, one decode step of each entropy
-// front end (FF 57 packed tables, FF 57 two tables, FF 41 alias buckets)
-// and the direct predictors' inverse.  One block of 128 threads decodes one strip; thread
+// the block scan, the renorm word pull, one decode step of each FF 57 front
+// end (packed tables, two tables) and the direct predictors' inverse.  One block of 128 threads decodes one strip; thread
 // = lane.  The out-of-range guards are listed in rans_decode.cu.
 
 #pragma once
@@ -125,41 +124,6 @@ struct TwoTableFront {
     const bool need = xn < (1u << 16);
     uint32_t k = need, zero = 0, total, tot0;
     block_scan2(k, zero, total, tot0, buf, phase);
-    l.x = renorm(xn, need, k - need, total, l.cur, l.words, l.rows);
-    return sym;
-  }
-};
-
-// One FF 41 step: three lookups in the 128-entry bucket tables (shared
-// memory), then, with ESC, the escape substitution from the side stream.
-template <bool ESC>
-struct AliasFront {
-  const uint32_t *w0, *w1, *w2;
-  uint32_t ecmp;
-  const uint32_t* esides;
-  int emax;
-  int ecur;
-
-  __device__ __forceinline__ uint32_t step(Lane& l, uint32_t* buf, int& phase) {
-    const uint32_t slot = l.x & l.m;
-    const uint32_t bi = min(shr(slot, l.sft - 7u), 127u);
-    const uint32_t off = slot & (l.m >> 7);
-    const uint32_t g0 = w0[bi], g1 = w1[bi], g2 = w2[bi];
-    const uint32_t t = g1 >> 24;
-    const bool is_p = off < t;
-    const uint32_t fm1 = (is_p ? (g1 >> 12) : (g2 >> 12)) & 0xFFFu;
-    const uint32_t sb = (is_p ? g1 : g2) & 0xFFFu;
-    const uint32_t j = sb + off - (is_p ? 0u : t);
-    uint32_t sym = is_p ? (g0 >> 16) : (g0 & 0xFFFFu);
-    const uint32_t xn = (fm1 + 1u) * shr(l.x, l.sft) + j;
-    const bool need = xn < (1u << 16);
-    const bool is_esc = ESC && sym == ecmp;
-    uint32_t k = need, ke = is_esc, total, etot;
-    block_scan2(k, ke, total, etot, buf, phase);
-    if (ESC) {
-      if (is_esc) sym = esides[min(ecur, emax) + (int)(ke - 1u)];
-      ecur += (int)etot;
-    }
     l.x = renorm(xn, need, k - need, total, l.cur, l.words, l.rows);
     return sym;
   }

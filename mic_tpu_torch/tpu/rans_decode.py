@@ -9,9 +9,12 @@ Counterpart of the decode half of ``mic_tpu.tpu.pallas_rans``:
   over unchanged so their arrays are identical (pinned by
   ``tests/test_torch_host_format.py`` and ``tests/test_torch_post_decode.py``);
 * ``to_device`` — numpy ``uint32`` operands to int32 bit-view tensors;
-* ``rans_decode_zzd`` / ``rans_decode_alias`` — the wrappers of the two
-  direct-mode CUDA kernels in ``csrc/rans_decode.cu`` (``fused=False``
-  gives the alias symbols);
+* ``rans_decode_zzd`` / ``rans_decode_alias`` — one bucket of the
+  direct-mode kernel in ``csrc/rans_direct.cu`` (either entropy front
+  end, then the zzd / vdd inverse; ``fused=False`` gives the alias
+  symbols), and ``rans_decode_direct_groups`` — many buckets, both front
+  ends, pdd's column sum fused, in one launch (:class:`DirectPacking` lays
+  them out);
 * ``rans_decode_packed`` / ``rans_decode`` — the symbols-out FF 57 kernels
   of ``csrc/rans_decode.cu``: packed tables (tableLog <= 12, alphabets
   <= 4096) and two tables (tableLog up to 16, any alphabet);
@@ -78,6 +81,9 @@ __all__ = [
     "rans_decode_plain",
     "rans_decode_alias",
     "rans_decode_alias_plain",
+    "rans_decode_direct_groups",
+    "rans_decode_direct_groups_plain",
+    "DirectPacking",
     "rans_decode_rle",
     "rans_decode_rle_plain",
     "rans_decode_rle_alias",
@@ -411,28 +417,18 @@ def rans_decode_zzd(init, tpk, alpha, words, mask, shift, ws, *,
     Operands are int32 bit-views (:func:`to_device`) of
     :func:`build_packed_tables`' arrays plus ``ws`` [S, 128], each
     strip's row width in 128-lane steps.  Returns int16 [S, steps, 128]
-    (bit-view of u16 pixels).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel of ``csrc/rans_decode.cu``.
+    (bit-view of u16 pixels; for pdd the row prefix, pdd's first pass).
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``csrc/rans_direct.cu`` for this one bucket
+    (:func:`rans_decode_direct_groups` launches it for many), reusing the
+    descriptors of the last call while the operands are the same tensors
+    (see :func:`_bucket_packing`).
     """
-    S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift,
-                                     ws, steps, vdd_ws)
+    ops = (init, tpk, alpha, words, mask, shift, ws)
+    kw = dict(steps=steps, vdd_ws=vdd_ws)
     if init.device.type == "cpu":
-        return rans_decode_zzd_plain(init, tpk, alpha, words, mask, shift, ws,
-                                     steps=steps, vdd_ws=vdd_ws)
-    if init.device.type != "cuda":
-        raise ValueError(f"unsupported device {init.device}")
-    from .._build import kernel_library
-
-    lib = kernel_library()
-    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
-    with torch.cuda.device(init.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_rans_decode_zzd(
-            init.data_ptr(), tpk.data_ptr(), ts, alpha.data_ptr(), asz,
-            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(),
-            ws.data_ptr(), out.data_ptr(), S, steps, vdd_ws, stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_rans_decode_zzd launch failed: CUDA error {rc}")
+        return rans_decode_zzd_plain(*ops, **kw)
+    (out,) = _direct_launch(_bucket_packing(rans_decode_zzd, ops, kw))
     rans_decode_zzd.launches += 1
     return out
 
@@ -655,35 +651,249 @@ def rans_decode_alias(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
     :func:`build_alias_bucket_tables`' arrays plus ``ws`` [S, 128].
     Returns int16 [S, steps, 128] (bit-view of u16).  CPU tensors take
     the plain version; CUDA tensors launch the kernel of
-    ``csrc/rans_decode.cu``.
+    ``csrc/rans_direct.cu`` for this one bucket, as :func:`rans_decode_zzd`
+    does.
     """
-    S, rows, erows = _alias_operands(init, w0, w1, w2, words, mask, shift,
-                                     escv, esides, ws, steps, vdd_ws)
+    ops = (init, w0, w1, w2, words, mask, shift, escv, esides, ws)
+    kw = dict(steps=steps, vdd_ws=vdd_ws, fused=fused, esc=esc)
     if init.device.type == "cpu":
-        return rans_decode_alias_plain(init, w0, w1, w2, words, mask, shift,
-                                       escv, esides, ws, steps=steps,
-                                       vdd_ws=vdd_ws, fused=fused, esc=esc)
-    if init.device.type != "cuda":
-        raise ValueError(f"unsupported device {init.device}")
-    from .._build import kernel_library
-
-    lib = kernel_library()
-    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
-    with torch.cuda.device(init.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_rans_decode_alias(
-            init.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(),
-            escv.data_ptr(), esides.data_ptr(), erows, ws.data_ptr(),
-            out.data_ptr(), S, steps, vdd_ws if fused else 0, int(fused),
-            int(esc), stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_rans_decode_alias launch failed: CUDA error {rc}")
+        return rans_decode_alias_plain(*ops, **kw)
+    (out,) = _direct_launch(_bucket_packing(rans_decode_alias, ops, kw))
     rans_decode_alias.launches += 1
     return out
 
 
 rans_decode_alias.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Every direct bucket of a plan in one launch: both front ends, pdd fused
+# ---------------------------------------------------------------------------
+
+_DIRECT_PLAIN = {rans_decode_zzd: rans_decode_zzd_plain,
+                 rans_decode_alias: rans_decode_alias_plain}
+_DIRECT_KW = {rans_decode_zzd: {"steps", "vdd_ws", "pdd_ws"},
+              rans_decode_alias: {"steps", "vdd_ws", "fused", "esc", "pdd_ws"}}
+DIRECT_STRIPS_PER_BLOCK = 4  # csrc/rans_direct.cu:kStrips, teams a block
+_RING_WORDS = 8 * 128  # a strip's word ring
+_ESC_RING_WORDS = 16 * 128  # an FF 41 strip's escape ring, when it has escapes
+_MAX_BLOCK_WORDS = (232448 - 512) // 4  # the H100's opt-in shared memory less the static
+
+# One direct bucket's descriptor (csrc/rans_direct.cu:DirectGroup): the
+# operand pointers (init, tpk | w0, alpha | w1, w2, words, mask, shift,
+# escv, esides, ws; 0 where the front end has none), the element offset of
+# its output in the launch's flat buffer, and (alias, ts, asz, rows,
+# erows, steps, inv, cw, esc, 0); inv 0 symbols, 1 zzd, 2 vdd, 3 pdd.
+_DIRECT_GROUP_DESC = np.dtype([("ptr", "<u8", (10,)), ("off", "<i8"), ("arg", "<i4", (10,))])
+
+
+def _direct_group(fn, ops, kw):
+    """Checks one direct group ``(fn, operands, kwargs)`` as ``fn`` checks
+    its operands, plus ``pdd_ws``; returns (S, the 10 descriptor tensors,
+    the 10 arguments, the strip's shared-memory words)."""
+    if fn not in _DIRECT_KW:
+        raise ValueError(f"not a direct-kernel wrapper: {fn}")
+    extra = set(kw) - _DIRECT_KW[fn]
+    if extra:
+        raise ValueError(f"{fn.__name__}: unexpected arguments {sorted(extra)}")
+    steps, vdd_ws, pdd_ws = kw["steps"], kw.get("vdd_ws", 0), kw.get("pdd_ws", 0)
+    if fn is rans_decode_zzd:
+        init, tpk, alpha, words, mask, shift, ws = ops
+        S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps,
+                                         vdd_ws)
+        tensors = (init, tpk, alpha, None, words, mask, shift, None, None, ws)
+        args, fused, esc = (0, ts, asz, rows, 0), True, 0
+        tab = (ts + 4) // 4 * 4 + (asz + 4) // 4 * 4  # each table and a zero word
+    else:
+        S, rows, erows = _alias_operands(*ops, steps, vdd_ws)
+        tensors = tuple(ops)
+        args, fused = (1, 0, 0, rows, erows), bool(kw.get("fused", True))
+        esc = int(bool(kw.get("esc", True)))
+        tab = 3 * 128 + esc * _ESC_RING_WORDS  # the bucket tables, the escapes' ring
+    if not isinstance(pdd_ws, int) or pdd_ws < 0:
+        raise ValueError(f"pdd_ws must be an int >= 0, got {pdd_ws!r}")
+    if pdd_ws and (vdd_ws or not fused):
+        raise ValueError("pdd_ws needs the zzd inverse (vdd_ws 0, fused)")
+    inv, cw = ((0, 0) if not fused else (3, pdd_ws) if pdd_ws
+               else (2, vdd_ws) if vdd_ws else (1, 0))
+    carry = cw * 64 if inv >= 2 else 0  # vdd's and pdd's column carry, u16
+    return S, tensors, (*args, steps, inv, cw, esc, 0), _RING_WORDS + tab + carry
+
+
+def _pdd_columns_plain(out: torch.Tensor, cw: int) -> torch.Tensor:
+    """pdd's second pass on a row-prefix output (int16 [S, steps, 128]):
+    the column sum over rows of ``cw`` 128-lane chunks, mod 2^16 (as
+    ``_Bucket.finish`` and ``mic_tpu``'s ``_stacked_zzd_fused`` take it)."""
+    S, steps, _l = out.shape
+    R = -(-steps // cw)
+    u = torch.nn.functional.pad(out.to(torch.int64) & 0xFFFF, (0, 0, 0, R * cw - steps))
+    u = u.reshape(S, R, cw * 128).cumsum(dim=1).reshape(S, R * cw, 128)[:, :steps]
+    return _as_i16(u)
+
+
+class _Packing:
+    """What both group packings share: the groups they hold and the one
+    copy of their descriptors to the card."""
+
+    def holds(self, groups) -> bool:
+        """Whether ``groups`` are the tensors this packing was built for."""
+        return len(groups) == len(self.groups) and all(
+            fn is mine[0] and len(ops) == len(mine[1])
+            and all(a is b for a, b in zip(ops, mine[1])) and dict(kw) == mine[2]
+            for (fn, ops, kw), mine in zip(groups, self.groups))
+
+    def _upload(self, *arrays) -> list[torch.Tensor]:
+        """The arrays' bytes on the packing's device, one view each: one
+        copy from pinned memory, queued on the stream (no host sync)."""
+        raw = np.concatenate([a.view(np.uint8).reshape(-1) for a in arrays])
+        host = torch.empty(raw.size, dtype=torch.uint8, pin_memory=True)
+        host.numpy()[:] = raw
+        buf = host.to(self.device, non_blocking=True)
+        ends = np.cumsum([a.nbytes for a in arrays])
+        return [buf[e - a.nbytes:e] for a, e in zip(arrays, ends)]
+
+
+class DirectPacking(_Packing):
+    """The strips of some direct buckets as the teams of one launch, with
+    the kernel's descriptors on the device.
+
+    ``groups`` is a list of ``(fn, operands, kwargs)``: ``fn`` is
+    :func:`rans_decode_zzd` or :func:`rans_decode_alias`, whose operands and
+    keyword arguments the group holds, plus an optional ``pdd_ws`` (the
+    chunks of 128 lanes in a pdd row: the kernel then adds pdd's column
+    sum to the row prefix; 0, the default, leaves the wrapper's output).
+    The front ends mix in one launch.  Every group is checked as its
+    wrapper checks it; outputs are laid out group after group in one flat
+    buffer (``out_offs``, ``out_shapes``).  Each strip takes shared memory
+    for its ring, its group's tables, for FF 41 with escapes a ring for
+    them, and for vdd and pdd its column carry (``strip_words``).
+    ``blocks`` (int32 [n, 4, 4]: group or -1, strip, word offset, 0 per
+    team) holds ``per_block`` consecutive strips a block, longest chain
+    first (most steps, then group and strip order), so a block's strips
+    are mostly of one group and end together; ``smem_bytes`` is a block's
+    largest need.  ``per_block`` below 4 leaves teams idle (the design
+    script's "alone" shape).  The packing holds the groups' tensors: it is
+    valid for them only.
+    """
+
+    def __init__(self, groups, *, per_block: int = DIRECT_STRIPS_PER_BLOCK):
+        if not groups:
+            raise ValueError("expected at least one group")
+        if not 1 <= per_block <= DIRECT_STRIPS_PER_BLOCK:
+            raise ValueError(f"per_block must be in [1, {DIRECT_STRIPS_PER_BLOCK}], "
+                             f"got {per_block}")
+        dev = groups[0][1][0].device
+        desc = np.zeros(len(groups), _DIRECT_GROUP_DESC)
+        self.groups, self.out_shapes, self.out_offs, self.strip_words = [], [], [], []
+        out_at, chain = 0, []
+        for g, (fn, ops, kw) in enumerate(groups):
+            S, tensors, args, words = _direct_group(fn, ops, kw)
+            if tensors[0].device != dev:
+                raise ValueError(f"group {g} on {tensors[0].device}, group 0 on {dev}")
+            if dev.type == "cuda" and tensors[4].data_ptr() % 16:
+                raise ValueError(f"group {g}: words must be 16-byte aligned")
+            steps = args[5]
+            desc[g] = ([0 if t is None else t.data_ptr() for t in tensors], out_at, args)
+            self.groups.append((fn, tuple(ops), dict(kw)))
+            self.out_shapes.append((S, steps, 128))
+            self.out_offs.append(out_at)
+            self.strip_words.append(words)
+            out_at += S * steps * 128
+            chain.append((steps, S))
+        per = min(per_block, _MAX_BLOCK_WORDS // max(self.strip_words))
+        if per == 0:
+            raise ValueError(f"a strip needs {4 * max(self.strip_words)} bytes of shared "
+                             f"memory, a block has {4 * _MAX_BLOCK_WORDS}")
+        steps, n = np.array(chain, np.int64).T
+        grp = np.repeat(np.arange(len(chain)), n)
+        strip = np.arange(grp.size) - np.repeat(np.cumsum(n) - n, n)
+        order = np.lexsort((strip, grp, -steps[grp]))
+        grp, strip = grp[order], strip[order]
+        n_blocks = -(-grp.size // per)
+        team = np.arange(grp.size) // per * DIRECT_STRIPS_PER_BLOCK + np.arange(grp.size) % per
+        need = np.asarray(self.strip_words, np.int64)[grp]
+        at = np.cumsum(need) - need
+        blocks = np.full((n_blocks * DIRECT_STRIPS_PER_BLOCK, 4), -1, np.int32)
+        blocks[team, 0], blocks[team, 1] = grp, strip
+        blocks[team, 2], blocks[team, 3] = at - at[np.arange(grp.size) // per * per], 0
+        self.blocks = blocks.reshape(n_blocks, DIRECT_STRIPS_PER_BLOCK, 4)
+        self.smem_bytes = int(4 * np.add.reduceat(need, np.arange(0, grp.size, per)).max())
+        self.desc, self.out_total, self.device = desc, out_at, dev
+        self.families = sorted({fn.__name__ for fn, _o, _k in self.groups})
+        if dev.type == "cuda":
+            self.gdesc, self.bdesc = self._upload(desc, self.blocks)
+
+
+def _direct_launch(packing: DirectPacking, lib=None) -> list[torch.Tensor]:
+    """The direct kernel over a packing's groups, one launch; one output
+    per group, views into one flat buffer.  ``lib`` is another build of the
+    kernel library (``scripts/direct_design_points.py``)."""
+    dev = packing.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty(packing.out_total, dtype=torch.int16, device=dev)
+    if lib is None:
+        from .._build import kernel_library
+
+        lib = kernel_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mic_direct_decode_groups(packing.gdesc.data_ptr(), packing.bdesc.data_ptr(),
+                                          len(packing.blocks), out.data_ptr(),
+                                          packing.smem_bytes, stream)
+    if rc != 0:
+        raise RuntimeError(f"mic_direct_decode_groups launch failed: CUDA error {rc}")
+    return [out[o:o + S * T * 128].view(S, T, 128)
+            for o, (S, T, _l) in zip(packing.out_offs, packing.out_shapes)]
+
+
+def rans_decode_direct_groups_plain(groups) -> list[torch.Tensor]:
+    """Plain-PyTorch twin of :func:`rans_decode_direct_groups`: each
+    group's plain wrapper twin in turn, then pdd's column sum where the
+    group asks for it."""
+    outs = []
+    for fn, ops, kw in groups:
+        _direct_group(fn, ops, kw)
+        kw = dict(kw)
+        pdd_ws = kw.pop("pdd_ws", 0)
+        out = _DIRECT_PLAIN[fn](*ops, **kw)
+        outs.append(_pdd_columns_plain(out, pdd_ws) if pdd_ws else out)
+    return outs
+
+
+def rans_decode_direct_groups(groups, packing: DirectPacking | None = None) -> list[torch.Tensor]:
+    """Decode the strips of several direct buckets in one launch.
+
+    ``groups`` is a list of ``(fn, operands, kwargs)`` as
+    :class:`DirectPacking` takes them, all on one device; returns one
+    output per group, int16 [S, steps, 128], each as ``fn`` returns it or,
+    with ``pdd_ws``, with pdd's column sum added.  ``packing`` is a packing
+    built earlier for these very tensors (a plan builds it once); without
+    it one is built here.  CPU tensors take the plain twin group by group;
+    CUDA tensors launch the kernel of ``csrc/rans_direct.cu`` once.
+    ``.launches`` counts the launches, ``.family_launches`` per wrapper
+    name the launches that held that front end's strips.
+    """
+    if not groups:
+        return []
+    devs = {ops[0].device for _fn, ops, _kw in groups}
+    if len(devs) > 1:
+        raise ValueError(f"groups on several devices: {sorted(map(str, devs))}")
+    if groups[0][1][0].device.type == "cpu":
+        return rans_decode_direct_groups_plain(groups)
+    if packing is None:
+        packing = DirectPacking(groups)
+    elif not packing.holds(groups):
+        raise ValueError("packing was built for other groups")
+    outs = _direct_launch(packing)
+    rans_decode_direct_groups.launches += 1
+    for name in packing.families:
+        rans_decode_direct_groups.family_launches[name] += 1
+    return outs
+
+
+rans_decode_direct_groups.launches = 0
+rans_decode_direct_groups.family_launches = {"rans_decode_zzd": 0, "rans_decode_alias": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -921,7 +1131,7 @@ def _rle_group(fn, ops, kw):
     return S, tensors, (*args, steps, out_rows, maxr, vdd_ws, int(dense), esc, 0)
 
 
-class RlePacking:
+class RlePacking(_Packing):
     """The strips of some r-mode buckets as the blocks of one launch, with
     the kernel's descriptors on the device.
 
@@ -976,35 +1186,24 @@ class RlePacking:
         self.families = sorted({fn.__name__ for fn, _o, _k in self.groups})
         self.device = dev
         if dev.type == "cuda":
-            # One copy from pinned memory, queued on the stream: no host sync.
-            raw = np.concatenate([desc.view(np.uint8).reshape(-1),
-                                  self.blocks.view(np.uint8).reshape(-1)])
-            host = torch.empty(raw.size, dtype=torch.uint8, pin_memory=True)
-            host.numpy()[:] = raw
-            buf = host.to(dev, non_blocking=True)
-            self.gdesc, self.bdesc = buf[:desc.nbytes], buf[desc.nbytes:]
-
-    def holds(self, groups) -> bool:
-        """Whether ``groups`` are the tensors this packing was built for."""
-        return len(groups) == len(self.groups) and all(
-            fn is mine[0] and len(ops) == len(mine[1])
-            and all(a is b for a, b in zip(ops, mine[1])) and dict(kw) == mine[2]
-            for (fn, ops, kw), mine in zip(groups, self.groups))
+            self.gdesc, self.bdesc = self._upload(desc, self.blocks)
 
 
 _BUCKET_PACKING = {}  # one-bucket wrapper -> the packing of its last call
 
 
-def _bucket_packing(fn, ops, kw) -> RlePacking:
-    """The one-bucket packing of ``fn``'s call: the last call's while it
-    holds the same tensors and arguments (a plan calls a bucket with the
-    same tensors every run), else a new one: building a packing on the
-    host and copying it to the card takes about as long as a bucket's
-    kernel (PERF.md rows 4 and 5).  The kept packing holds its tensors:
-    they live until the wrapper is called on others."""
+def _bucket_packing(fn, ops, kw):
+    """The one-bucket packing of ``fn``'s call (an :class:`RlePacking` or a
+    :class:`DirectPacking`): the last call's while it holds the same
+    tensors and arguments (a plan calls a bucket with the same tensors
+    every run), else a new one: building a packing on the host and copying
+    it to the card takes about as long as a bucket's kernel (PERF.md rows
+    4 and 5).  The kept packing holds its tensors: they live until the
+    wrapper is called on others."""
     last = _BUCKET_PACKING.get(fn)
     if last is None or not last.holds([(fn, ops, kw)]):
-        last = _BUCKET_PACKING[fn] = RlePacking([(fn, ops, kw)])
+        cls = DirectPacking if fn in _DIRECT_PLAIN else RlePacking
+        last = _BUCKET_PACKING[fn] = cls([(fn, ops, kw)])
     return last
 
 

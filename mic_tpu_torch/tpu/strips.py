@@ -16,9 +16,10 @@ Port of ``mic_tpu.tpu.strips``, in three parts:
   FF 41 alias).
 
 The plan pools the strips of every image of a batch into buckets and
-runs each bucket as one launch of a kernel of ``rans_decode``; the r-mode
-buckets run together as one launch of the r-kernel
-(``rans_decode_rle_groups``).  A strip takes a fused kernel where
+runs each bucket as one launch of a kernel of ``rans_decode``; the direct
+buckets run together as one launch of the direct kernel
+(``rans_decode_direct_groups``), the r-mode buckets as one launch of the
+r-kernel (``rans_decode_rle_groups``).  A strip takes a fused kernel where
 ``mic_tpu``'s plan does: zzd, pdd and vdd
 (width/128 in {1, 2, 4, 8}) and the r-modes (vdr likewise) at widths that
 are a multiple of 128, FF 41 or FF 57 with packed tables (tableLog <= 12,
@@ -29,9 +30,10 @@ symbols-out entropy launch (packed tables, two tables, or the alias
 kernel with ``fused=False``) and then ``post.post_batch``, keyed on
 (entropy form, predictor, padded step count, width, strip height and the
 post constants mid / delim), as ``mic_tpu`` keys its post groups.  The
-second (column) prefix sum of pdd and pdr is a plain ``torch.cumsum`` on
-the kernel's output, as ``mic_tpu`` leaves it to XLA.  Raw and constant
-strips are copied on the host.
+second (column) prefix sum of pdd runs in the direct kernel (``pdd_ws``);
+pdr's is a plain ``torch.cumsum`` on the r-kernel's output, as
+``mic_tpu`` leaves both to XLA.  Raw and constant strips are copied on the
+host.
 
 Strips with lanes != 128 and FF 41 strips with tableLog > 12 raise
 ``NotImplementedError`` at plan construction (in ``mic_tpu`` only the
@@ -62,6 +64,7 @@ from .device_rans import ALIAS_MAX_KEPT, mict_parse
 from .post import post_batch
 from .rans_decode import (
     MID_DIRECT,
+    DirectPacking,
     RlePacking,
     _as_i16,
     build_alias_bucket_tables,
@@ -69,6 +72,7 @@ from .rans_decode import (
     build_pallas_tables,
     rans_decode,
     rans_decode_alias,
+    rans_decode_direct_groups,
     rans_decode_packed,
     rans_decode_rle,
     rans_decode_rle_alias,
@@ -128,6 +132,7 @@ _MODE_PRED = {
 _DIRECT_PREDS = ("zzd", "vdd", "pdd")  # no RLE, no escapes
 _RLE_DIRECT_PREDS = ("zzr", "vdr", "pdr")  # SoA-RLE, no escapes
 _RLE_FNS = (rans_decode_rle, rans_decode_rle_alias)  # the r-kernel's one-bucket wrappers
+_DIRECT_FNS = (rans_decode_zzd, rans_decode_alias)  # the direct kernel's one-bucket wrappers
 AUTO_FAST_TRIALS = ("zzd", "vdd", "pdd")  # scan-parallel decode modes only
 _PRED_MODE = {v: k for k, v in _MODE_PRED.items()}
 
@@ -531,12 +536,14 @@ def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool,
 
 class _Bucket:
     """One kernel launch: device operands, kernel arguments and, for pdd
-    and pdr, the (width, strip_h) of the column prefix sum; for a post
-    bucket, the symbols-out launch and the post function's arguments."""
+    and pdr, the (width, strip_h) of the column prefix sum (pdd's in the
+    kernel: ``pdd_ws`` chunks a row); for a post bucket, the symbols-out
+    launch and the post function's arguments."""
 
     def __init__(self, key, entries, device):
         self.n = len(entries)
         self.geom = self.post = None
+        self.pdd_ws = 0
         if key[0] == "post":
             self._init_post(key, entries, device)
             return
@@ -547,6 +554,7 @@ class _Bucket:
         ws[:] = np.array([e[1] for e in entries], np.uint32)[:, None] // 128
         pred = kind.lstrip("a")
         self.geom = (key[2], key[3]) if pred in ("pdd", "pdr") else None
+        self.pdd_ws = key[2] // 128 if pred == "pdd" else 0
         vdd_ws = key[2] // 128 if pred in ("vdd", "vdr") else 0
         rle = {}
         if pred in _RLE_DIRECT_PREDS:
@@ -599,15 +607,22 @@ class _Bucket:
 
     @property
     def launch(self):
-        """(wrapper, operands, keyword arguments) of the bucket's launch."""
-        return self.fn, self.ops, self.kwargs
+        """(wrapper, operands, keyword arguments) of the bucket's launch;
+        a pdd bucket's arguments add ``pdd_ws``, for the groups launch."""
+        kw = dict(self.kwargs, pdd_ws=self.pdd_ws) if self.pdd_ws else self.kwargs
+        return self.fn, self.ops, kw
 
     def __call__(self) -> torch.Tensor:
-        return self.finish(self.fn(*self.ops, **self.kwargs))
+        if self.post is None and self.fn in _DIRECT_FNS:
+            (out,) = rans_decode_direct_groups([self.launch])
+        else:
+            out = self.fn(*self.ops, **self.kwargs)
+        return self.finish(out)
 
     def finish(self, out: torch.Tensor) -> torch.Tensor:
-        """The bucket's result from its kernel output: the post path, or
-        pdd / pdr's column prefix sum, or the output as it is."""
+        """The bucket's result from its launch's output: the post path, or
+        pdd's rows (the kernel summed the columns) or pdr's column prefix
+        sum, or the output as it is."""
         out = out.reshape(self.n, -1)
         if self.post is not None:
             m = self.meta
@@ -616,10 +631,27 @@ class _Bucket:
             return out
         w, sh = self.geom
         need = w * sh
+        if self.pdd_ws:
+            return _fit_columns(out, w, need)
         if out.shape[1] < need:  # a short last strip of a taller bucket
             out = torch.nn.functional.pad(out, (0, need - out.shape[1]))
         img = (out[:, :need].to(torch.int32) & 0xFFFF).reshape(self.n, sh, w)
         return _as_i16(torch.cumsum(img, dim=1, dtype=torch.int32)).reshape(self.n, -1)
+
+
+def _fit_columns(out: torch.Tensor, w: int, need: int) -> torch.Tensor:
+    """A pdd bucket's column-summed output (int16 [n, cols]) cut or grown
+    to ``need`` = w * strip_h pixels a strip.  A short strip of a taller
+    bucket (cols < need) grows as its column sums would over zero rows:
+    each column keeps its last value, and a column with none is 0."""
+    cols = out.shape[1]
+    if cols >= need:
+        return out[:, :need]
+    p = torch.arange(cols, need, device=out.device)
+    c = p % w
+    last = c + w * ((cols - 1 - c) // w)  # the column's last position < cols
+    grown = torch.where(last >= 0, out[:, last.clamp(min=0)], torch.zeros_like(out[:, :1]))
+    return torch.cat([out, grown], dim=1)
 
 
 class MicwDecodePlan:
@@ -669,18 +701,26 @@ class MicwDecodePlan:
                 bucket.append((p, width, st))
             self.keys_per_blob.append(keys)
         self.buckets = {k: _Bucket(k, e, self.device) for k, e in entries.items()}
-        # The r-mode buckets run as one launch of the r-kernel.
+        cuda = self.device.type == "cuda"
+        # The direct buckets run as one launch of the direct kernel, the
+        # r-mode buckets as one of the r-kernel.
+        self._direct_keys = [k for k, b in self.buckets.items()
+                             if b.post is None and b.fn in _DIRECT_FNS]
+        self._direct_groups = [self.buckets[k].launch for k in self._direct_keys]
+        self.direct_packing = (DirectPacking(self._direct_groups)
+                               if self._direct_groups and cuda else None)
         self._rle_keys = [k for k, b in self.buckets.items() if b.fn in _RLE_FNS]
         self._rle_groups = [self.buckets[k].launch for k in self._rle_keys]
-        self.rle_packing = (RlePacking(self._rle_groups)
-                            if self._rle_groups and self.device.type == "cuda" else None)
+        self.rle_packing = RlePacking(self._rle_groups) if self._rle_groups and cuda else None
         self._gather = None  # assemble_device's copy lists, built at its first call
 
     def run(self) -> dict:
-        """Launch every bucket (the r-mode buckets together, one launch);
-        returns {bucket key: int16 [S, cols] device tensor} (bit-views of
-        the u16 pixels)."""
-        outs = dict(zip(self._rle_keys, rans_decode_rle_groups(self._rle_groups,
+        """Launch every bucket (the direct buckets together, one launch,
+        and the r-mode buckets together, one launch); returns {bucket key:
+        int16 [S, cols] device tensor} (bit-views of the u16 pixels)."""
+        outs = dict(zip(self._direct_keys, rans_decode_direct_groups(self._direct_groups,
+                                                                     self.direct_packing)))
+        outs.update(zip(self._rle_keys, rans_decode_rle_groups(self._rle_groups,
                                                                self.rle_packing)))
         return {k: b.finish(outs[k]) if k in outs else b() for k, b in self.buckets.items()}
 

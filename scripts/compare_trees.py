@@ -3,7 +3,7 @@
 on one card, each run in a process of its own, in the order other, this,
 this, other.
 
-    python3 scripts/compare_trees.py DIR [--phases 2r,5,6,8] [--reps N]
+    python3 scripts/compare_trees.py DIR [--phases 2r,2d,3,5,6,8] [--reps N]
 
 ``DIR`` is an unpacked copy of another commit (for example the parent:
 ``git archive HEAD | tar -x -C build/parent``).  Each run imports the
@@ -15,6 +15,11 @@ sides are measured by the same code as far as the trees share it:
   wrapper (``b.fn(*b.ops, **b.kwargs)``, the call phase 2 times for PERF.md
   rows 4 and 5), CUDA events, mean of ``--reps`` after a warm-up, summed
   per wrapper;
+* ``2d``: the same for each direct bucket of CT_dev x256 and CT_dev_alias
+  x256 (PERF.md rows 1 and 2);
+* ``3``: phase 3's plan (``MicwDecodePlan`` over ``chip_smoke.BATCH``):
+  verified, then ms and GB/s per ``plan.run()`` (CUDA events, mean of
+  ``--reps``) and the device busy time of one run (torch.profiler);
 * ``5``, ``6``, ``8``: the tree's own phase function (r-mode plan, post
   path, RGB / WSI containers), which verifies its outputs and prints its
   times.
@@ -33,7 +38,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper")
+KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper")
 
 RUN = """
 import sys, torch
@@ -52,6 +57,38 @@ if "2r" in phases:
         per[name] = per.get(name, 0.0) + cs._cuda_ms(lambda: b.fn(*b.ops, **b.kwargs), {reps})
     for name, ms in per.items():
         print(f"r-wrapper {{name}}: {{ms:.3f}} ms per its buckets' calls, each bucket alone")
+    del plan
+if "2d" in phases:
+    from mic_tpu_torch import MicwDecodePlan
+    per = {{}}
+    for name in ("CT_dev", "CT_dev_alias"):
+        plan = MicwDecodePlan([cs.BATCH[name][0].read_bytes()] * 256, dev)
+        for b in plan.buckets.values():
+            fn = b.fn.__name__
+            per[fn] = per.get(fn, 0.0) + cs._cuda_ms(lambda: b.fn(*b.ops, **b.kwargs), {reps})
+        del plan
+    for name, ms in per.items():
+        print(f"d-wrapper {{name}}: {{ms:.3f}} ms per its buckets' calls, each bucket alone")
+if "3" in phases:
+    import numpy as np
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu.strips import micw_parse
+    names = [k for k, v in cs.BATCH.items() for _ in range(v[2])]
+    blobs = {{k: v[0].read_bytes() for k, v in cs.BATCH.items()}}
+    raws = {{k: np.fromfile(v[1], dtype="<u2") for k, v in cs.BATCH.items()}}
+    nbytes = 0
+    for k in names:
+        bw, bh, _n, sh, _m, _g, _l, strips = micw_parse(blobs[k])
+        nbytes += 2 * sum(min(sh, bh - i * sh) * bw for i, st in enumerate(strips)
+                          if st[5] not in (1, 5))  # raw and constant strips: the host's
+    plan = MicwDecodePlan([blobs[k] for k in names], dev)
+    mism = plan.verify_batch(plan.run(), [raws[k] for k in names])
+    ms = cs._cuda_ms(plan.run, {reps})
+    _o, wall, by_name, span = cs._profiled(plan.run)
+    busy = sum(by_name.values())
+    print(f"phase 3: {{ms:.3f}} ms per plan.run(), {{nbytes / ms / 1e6:.3f}} GB/s, "
+          f"mismatches={{mism}}; profile: device_busy_ms={{busy:.3f}} "
+          f"idle_share_of_span={{1 - busy / span if span else float('nan'):.3f}}")
     del plan
 if "5" in phases:
     cs._rle_phase(dev)
