@@ -17,10 +17,15 @@ Phases (any failure exits non-zero; nothing is caught):
    column sum fused).  r-mode decode: on every bucket of phase 5's batch, each
    with its own ``dense`` and with the other one, then all 14 buckets in
    the plan's one launch (``rans_decode_rle_groups``).  Post path: the
-   symbols-out kernels on every post bucket of phase 6's batch (packed
-   tables; two tables at tl 13, whose tables fit in shared memory; the
-   alias kernel with fused=False) and the two-table kernel on
-   CT_dev_1strip_tl15 x32 (tl 15, tables read from device memory).
+   symbols-out front ends of the direct kernel through their one-bucket
+   wrappers on every post bucket of phase 6's batch (packed tables; two
+   tables at tl 13, staged; FF 41 with fused=False) and on
+   CT_dev_1strip_tl15 x32 (tl 15: 196 KB of tables a strip, staged, a
+   block each), then each of the two plans' merged launch
+   (``rans_decode_direct_groups`` with the plan's packing, one launch),
+   with its blocks, shared memory a block and blocks an SM, and the tl 15
+   plan's launch once more with its tables read from device memory (the
+   form tl 16 takes).
    Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
@@ -40,9 +45,11 @@ Phases (any failure exits non-zero; nothing is caught):
    replica is verified against the ``.raw`` pixels, in the first run and
    in the last timed one; one ``plan.run()`` must be exactly
    ``DIRECT_LAUNCHES_PER_RUN`` (1) launch of the direct kernel, holding
-   both front ends.  Prints staging seconds, decode GB/s over
-   ``plan.run()``, the launch alone (CUDA events), the launch counts and a
-   torch.profiler breakdown of one ``plan.run()`` by device kernel.
+   both front ends, and the packing must be the direct-only layout
+   (``PHASE3_PACKING``: 352 blocks of 69,760 bytes).  Prints staging
+   seconds, decode GB/s over ``plan.run()``, the launch alone (CUDA
+   events), the launch counts and a torch.profiler breakdown of one
+   ``plan.run()`` by device kernel.
 4. Encode path: ``MicwEncodePlan`` (what ``micw_compress_device_many``
    runs) over each fixture setting, replicated (CT_dev x64 is a 64-slice
    CT series, 32 MiB of pixels); every container must equal its fixture
@@ -77,11 +84,13 @@ Phases (any failure exits non-zero; nothing is caught):
    384 x32 (auto-r: r-modes through the torch expand) and CT_dev_tl13 x32
    (FF 57 at tl 13, a foreign writer's larger tables).  All but the
    fixtures are encoded at the start of the phase by the port's own
-   encoder on the card.  Every strip of every replica is verified, and
-   both symbols-out wrappers and the alias wrapper must have launched
-   during the run.  Prints staging seconds, decode GB/s over
-   ``plan.run()``, the launch counts and a profiler breakdown that splits
-   the entropy kernels from the post path's torch ops.
+   encoder on the card.  Every strip of every replica is verified; one
+   ``plan.run()`` must be exactly ``DIRECT_LAUNCHES_PER_RUN`` (1) launch of
+   the direct kernel, and it must hold every post bucket's entropy stage:
+   the packed, two-table and FF 41 symbols-out front ends each counted
+   once.  Prints staging seconds, decode GB/s over ``plan.run()``, the
+   launch counts, the launch's blocks, and a profiler breakdown that
+   splits the entropy kernels from the post path's torch ops.
 7. Reference-format decode: ``fse_decompress_device_batch`` over an
    archive batch of the in-repo reference fixtures' entropy streams
    (MR MIC1 payloads at 2, 4 and 8 states and FF 08 x64, CT_pics8 strips
@@ -207,8 +216,9 @@ KERNELS = {
     # the same kernel over every r-bucket of a plan, both front ends
     "rans_decode_rle_groups": ("mic_tpu_torch/csrc/rans_rle.cu",
                                "mic_tpu/tpu/pallas_rans.py:1078"),
-    "rans_decode_packed": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:233"),
-    "rans_decode": ("mic_tpu_torch/csrc/rans_decode.cu", "mic_tpu/tpu/pallas_rans.py:52"),
+    # the same kernel's symbols-out front ends (the post path)
+    "rans_decode_packed": ("mic_tpu_torch/csrc/rans_direct.cu", "mic_tpu/tpu/pallas_rans.py:233"),
+    "rans_decode": ("mic_tpu_torch/csrc/rans_direct.cu", "mic_tpu/tpu/pallas_rans.py:52"),
     "tans_decode": ("mic_tpu_torch/csrc/tans_decode.cu", "mic_tpu/tpu/pallas_tans.py:79"),
     "ycocgr_forward": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:44"),
     "ycocgr_inverse": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:75"),
@@ -244,6 +254,8 @@ OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18,
 TILE = 256  # phase 8's tile edge and the slide's margin
 RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-buckets at once
 DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): all direct buckets
+PHASE3_PACKING = (352, 69760)  # phase 3's blocks and bytes a block (4 strips a block, kept)
+POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
 ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
 
 
@@ -302,6 +314,16 @@ def _profile(plan) -> None:
           f"device_kernel_names={len(by_name)}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
+
+
+def _launches(packing) -> str:
+    """A direct-kernel packing's launch: blocks, shared memory a block and
+    blocks resident an SM (the CUDA occupancy query)."""
+    from mic_tpu_torch._build import kernel_library
+
+    smem = packing.smem_bytes
+    return (f"launch: {len(packing.blocks)} blocks, {smem} bytes of shared memory a block, "
+            f"{kernel_library().mic_direct_occupancy(smem)} blocks an SM")
 
 
 def _max_abs_err(got, want) -> int:
@@ -646,13 +668,11 @@ def _post_batch(dev):
     return blobs, expected, names
 
 
-_POST_FNS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")
-
-
 def _post_kernels_vs_plain(dev, report, blobs) -> None:
-    """Phase 2, post half: the symbols-out kernels against their plain
-    versions on every post bucket of phase 6's batch, and the two-table
-    kernel at tl 15 (tables past the shared-memory limit)."""
+    """Phase 2, post half: the symbols-out front ends through their
+    one-bucket wrappers against their plain versions on every post bucket
+    of phase 6's batch and of CT_dev_1strip_tl15 x32, then each plan's
+    merged launch against its plain twin."""
     import torch
 
     from mic_tpu_torch import MicwDecodePlan
@@ -684,14 +704,42 @@ def _post_kernels_vs_plain(dev, report, blobs) -> None:
                 _account(r, name, b.ops, (got,), ms, plain_ms)
             if name == "rans_decode":
                 tl = b.ops[1].shape[1].bit_length() - 1
-                smem = 8 * b.ops[1].shape[1]
-                line += f" tl={tl} tables_bytes_per_strip={smem}"
+                line += f" tl={tl} " + _launches(rd._bucket_packing(b.fn, b.ops, b.kwargs))
                 by_tl.setdefault(tl, [0, 0.0])
                 by_tl[tl][0] += b.n
                 by_tl[tl][1] += ms
             print(line)
+        # The plan's merged launch (not counted: the packing is the plan's);
+        # the tl 15 plan's once more with its tables read from device
+        # memory, as tl 16 reads them.
+        groups = plan._direct_groups
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = rd.rans_decode_direct_groups_plain(groups)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        packings = [("", plan.direct_packing)]
+        if tag.startswith("CT_dev_1strip_tl15"):
+            packings.append((" tables from device memory",
+                             rd._tables_from_memory(rd.DirectPacking(groups))))
+        for form, packing in packings:
+            got = rd._direct_launch(packing)
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"merged launch {tag}{form}: kernel != plain "
+                                     f"(max abs err {err})")
+            ms = _cuda_ms(lambda: rd._direct_launch(packing), 10)
+            print(f"kernel-vs-plain merged launch {tag}{form}: {len(groups)} groups "
+                  f"({sum(ops[0].shape[0] for _f, ops, _k in groups)} strips; front ends "
+                  f"{packing.families}) equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}; "
+                  f"{_launches(packing)}")
+            del got
+        del want
     for tl, (n, ms) in sorted(by_tl.items()):
-        print(f"two-table kernel at tl {tl}: {n} strips, {ms:.3f} ms over its buckets")
+        print(f"two-table front end at tl {tl}: {n} strips, {ms:.3f} ms over its buckets' "
+              f"wrapper calls")
     del plans
 
 
@@ -714,14 +762,15 @@ def _post_phase(dev, blobs, expected, names):
     plan = MicwDecodePlan(blobs, dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
-    fns = {n: getattr(rd, n) for n in (*_POST_FNS, "rans_decode_direct_groups")}
-    for fn in fns.values():
-        fn.launches = 0
+    merged = rd.rans_decode_direct_groups
+    merged.launches = 0
+    merged.family_launches = dict.fromkeys(merged.family_launches, 0)
     t0 = time.perf_counter()
     decoded = plan.run()
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
-    launches = {n: fn.launches for n, fn in fns.items()}
+    # rows 6 and 7 count the merged launches that held their front end
+    launches = {"rans_decode_direct_groups": merged.launches, **merged.family_launches}
     kinds = {}
     for key, b in plan.buckets.items():
         kind = f"{key[1]}:{key[2]}" if key[0] == "post" else f"fused:{key[0]}"
@@ -737,9 +786,15 @@ def _post_phase(dev, blobs, expected, names):
     if mism or bad:
         raise AssertionError(f"post path decoded wrong pixels: {mism} mismatches, "
                              f"images {[names[i] for i in bad[:10]]}")
-    for name in _POST_FNS:
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the post path")
+    post_keys = [k for k in plan.buckets if k[0] == "post"]
+    print(f"post path: {launches['rans_decode_direct_groups']} direct-kernel launch(es) per "
+          f"plan.run() for {len(plan._direct_keys)} groups ({len(post_keys)} post buckets; "
+          f"design: {DIRECT_LAUNCHES_PER_RUN}); {_launches(plan.direct_packing)}")
+    if (launches["rans_decode_direct_groups"] != DIRECT_LAUNCHES_PER_RUN
+            or any(launches[n] != DIRECT_LAUNCHES_PER_RUN for n in POST_FRONT_ENDS)
+            or not set(post_keys) <= set(plan._direct_keys)):
+        raise AssertionError(f"the post path's entropy stage is not the plan's one launch: "
+                             f"{launches}")
     run_ms = _cuda_ms(plan.run, 3)
     print(f"post path: {run_ms:.3f} ms per plan.run(), "
           f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
@@ -750,11 +805,16 @@ def _post_phase(dev, blobs, expected, names):
               "(device breakdown not measured)")
     else:
         busy = sum(by_name.values())
-        ent = sum(v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS))
+        ents = [v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS)]
+        ent = sum(ents)
+        # torch.profiler may drop a long process's records (PERF.md section 7)
+        split = (f"entropy_kernels_ms={ent:.3f} ({100 * ent / busy:.1f}% of busy) "
+                 f"post_torch_ops_ms={busy - ent:.3f}" if ents else
+                 "entropy_kernels_ms not measured (the trace holds no record of the direct "
+                 "kernel's launch; device_busy_ms lacks it)")
         print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
               f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
-              f"entropy_kernels_ms={ent:.3f} ({100 * ent / busy:.1f}% of busy) "
-              f"post_torch_ops_ms={busy - ent:.3f} device_kernel_names={len(by_name)}")
+              f"{split} device_kernel_names={len(by_name)}")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
             print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
     # Wall time of each post bucket alone (host clock around a synchronised
@@ -1387,7 +1447,8 @@ def _rgb_wsi_phase(dev, slide):
     batch = [fixture] * 64 + [auto_r] * 64
     t0 = time.perf_counter()
     outs, counts = _counted("micwr_decode_many", lambda: micwr_decode_many(batch, dev),
-                            (K.ycocgr_inverse, rd.rans_decode_packed, rd.rans_decode_rle_groups))
+                            (K.ycocgr_inverse, rd.rans_decode_direct_groups,
+                             rd.rans_decode_rle_groups))
     call_s = time.perf_counter() - t0
     add(counts)
     check(f"micwr_decode_many tissue_dev.mwr3 x64 + auto-r x64 ({call_s:.3f} s, staging included)",
@@ -1617,13 +1678,20 @@ def main() -> int:
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
     # rows 1 and 2 count the merged launches that held their front end
-    launches = {"rans_decode_direct_groups": merged.launches, **merged.family_launches}
+    launches = {"rans_decode_direct_groups": merged.launches,
+                **{n: merged.family_launches[n] for n in ("rans_decode_zzd", "rans_decode_alias")}}
     print(f"decode path: {merged.launches} direct-kernel launch(es) per plan.run() for "
           f"{len(plan._direct_keys)} direct buckets (design: {DIRECT_LAUNCHES_PER_RUN}); per "
           f"front end {merged.family_launches}")
     if merged.launches != DIRECT_LAUNCHES_PER_RUN:
         raise AssertionError(f"the decode path made {merged.launches} direct-kernel launches in "
                              f"one plan.run(), the design makes {DIRECT_LAUNCHES_PER_RUN}")
+    pk = plan.direct_packing
+    print(f"decode path: {_launches(pk)} (expected: {PHASE3_PACKING[0]} blocks of "
+          f"{PHASE3_PACKING[1]} bytes)")
+    if (len(pk.blocks), pk.smem_bytes) != PHASE3_PACKING:
+        raise AssertionError(f"phase 3's packing changed: {len(pk.blocks)} blocks of "
+                             f"{pk.smem_bytes} bytes")
     n_strips = sum(b.n for b in plan.buckets.values())
     mism = plan.verify_batch(decoded, expected)
     outs = plan.assemble(decoded)

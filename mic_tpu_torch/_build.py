@@ -36,12 +36,6 @@ _SIGNATURES = {
     "mic_direct_decode_groups": [_P, _P, _I, _P, _I, _P],
     # smem_bytes
     "mic_direct_occupancy": [_I],
-    # init, tpk, ts, alpha, asz, words, rows, mask, shift, out, n_strips,
-    # steps, stream
-    "mic_rans_decode_packed": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
-    # init, tsym, tfb, ts, words, rows, mask, shift, out, n_strips, steps,
-    # stream
-    "mic_rans_decode_two_table": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     # groups, blocks, n_blocks, out, syms, st, tab_words, st_words, form,
     # stream
     "mic_rle_decode_groups": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],

@@ -1,7 +1,7 @@
-// Device code shared by the rANS decode kernels (rans_decode.cu, rans_rle.cu):
-// the block scan, the renorm word pull, one decode step of each FF 57 front
-// end (packed tables, two tables) and the direct predictors' inverse.  One block of 128 threads decodes one strip; thread
-// = lane.  The out-of-range guards are listed in rans_decode.cu.
+// Device code of the r-mode kernel (rans_rle.cu), where one block of 128
+// threads decodes one strip (thread = lane): the block scan, the logical
+// shift, unzigzag and the direct predictors' inverse.  The out-of-range
+// guards are listed in rans_rle.cu.
 
 #pragma once
 
@@ -59,75 +59,10 @@ __device__ __forceinline__ void block_scan2(uint32_t& a, uint32_t& b,
   phase ^= 1;
 }
 
-// Renorm of one lane: k is the lane's exclusive rank among the lanes
-// that need a word, total the strip's count of them this step.
-__device__ __forceinline__ uint32_t renorm(uint32_t xn, bool need, uint32_t k,
-                                           uint32_t total, int& cur,
-                                           const uint32_t* words, int rows) {
-  if (need) {
-    const int row = min(cur >> 7, rows - 2);
-    xn = (xn << 16) | words[row * kLanes + (cur & 127) + (int)k];
-  }
-  cur += (int)total;
-  return xn;
-}
-
 __device__ __forceinline__ int unzigzag(uint32_t sym) {
   const int si = (int)sym;
   return (si >> 1) ^ (-(si & 1));
 }
-
-// The rANS state of one lane and the word stream of its strip.
-struct Lane {
-  uint32_t x, m, sft;
-  int cur;
-  const uint32_t* words;
-  int rows;
-};
-
-// One FF 57 step: tpk[slot] = bias<<12 | rank, alpha[rank] = (freq-1)<<16 |
-// sym, both in shared memory.  Returns the symbol.
-struct PackedFront {
-  const uint32_t* tpk;
-  int ts;
-  const uint32_t* alpha;
-  int asz;
-
-  __device__ __forceinline__ uint32_t step(Lane& l, uint32_t* buf, int& phase) const {
-    const uint32_t slot = l.x & l.m;
-    const uint32_t pk = slot < (uint32_t)ts ? tpk[slot] : 0u;
-    const uint32_t rank = pk & 0xFFFu;
-    const uint32_t av = rank < (uint32_t)asz ? alpha[rank] : 0u;
-    const uint32_t xn = ((av >> 16) + 1u) * shr(l.x, l.sft) + (pk >> 12);
-    const bool need = xn < (1u << 16);
-    uint32_t k = need, zero = 0, total, tot0;
-    block_scan2(k, zero, total, tot0, buf, phase);
-    l.x = renorm(xn, need, k - need, total, l.cur, l.words, l.rows);
-    return av & 0xFFFFu;
-  }
-};
-
-// One FF 57 step of the two-table form (tableLog up to 16, any alphabet):
-// tsym[slot] = sym, tfb[slot] = freq<<16 | bias, in shared memory where
-// they fit, else read from device memory.  Returns the symbol.
-struct TwoTableFront {
-  const uint32_t* tsym;
-  const uint32_t* tfb;
-  int ts;
-
-  __device__ __forceinline__ uint32_t step(Lane& l, uint32_t* buf, int& phase) const {
-    const uint32_t slot = l.x & l.m;
-    const bool in = slot < (uint32_t)ts;
-    const uint32_t sym = in ? tsym[slot] : 0u;
-    const uint32_t fb = in ? tfb[slot] : 0u;
-    const uint32_t xn = (fb >> 16) * shr(l.x, l.sft) + (fb & 0xFFFFu);
-    const bool need = xn < (1u << 16);
-    uint32_t k = need, zero = 0, total, tot0;
-    block_scan2(k, zero, total, tot0, buf, phase);
-    l.x = renorm(xn, need, k - need, total, l.cur, l.words, l.rows);
-    return sym;
-  }
-};
 
 // Predictor inverse state of one lane.  VWS == 0: zzd row prefix sum;
 // VWS in {1,2,4,8}: vdd previous row, chunk c of VWS (c = step % VWS is

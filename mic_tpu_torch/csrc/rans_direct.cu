@@ -1,17 +1,25 @@
 // Fused direct-mode decode of MICW (zzd / vdd / pdd) for Hopper: rANS, the
-// predictor inverse and pdd's column sum in one kernel, and every direct
-// bucket of a decode plan in one launch.
+// predictor inverse and pdd's column sum in one kernel; and the symbols-out
+// decode of the post path's strips.  Every direct and post bucket of a
+// decode plan runs in one launch (two where a plan holds strips whose
+// tables fit no block of the first).
 //
-// direct_groups_kernel replaces both Pallas direct kernels, the front end
-// chosen per strip:
+// direct_groups_kernel replaces four Pallas kernels, the front end chosen
+// per strip:
 //
-// * mic_tpu/tpu/pallas_rans.py:_kernel_zzd (wrapper rans_decode_pallas_zzd):
+// * mic_tpu/tpu/pallas_rans.py:_kernel_zzd (wrapper rans_decode_pallas_zzd)
+//   and _kernel_packed (wrapper rans_decode_pallas_packed, the symbols):
 //   the FF 57 packed-table front end, tpk[slot] = bias<<12 | rank and
 //   alpha[rank] = (freq-1)<<16 | sym;
 // * pallas_rans.py:_kernel_alias (wrapper rans_decode_pallas_alias, its
 //   fused form and its fused=False form): the FF 41 front end, three
 //   lookups in the 128-entry bucket tables plus the escape substitution
 //   from the side stream;
+// * pallas_rans.py:_kernel (wrapper rans_decode_pallas, the symbols): the
+//   FF 57 two-table front end for tableLog up to 16 or alphabets over
+//   4096, tsym[slot] = sym and tfb[slot] = freq<<16 | bias, two
+//   independent reads of one level (not re-ranked into the packed layout,
+//   which would put a second dependent read on the chain);
 //
 // each followed by one inverse: none (the symbols), zzd (unzigzag, then the
 // row prefix with its reset every ws steps), vdd (unzigzag, then the
@@ -58,10 +66,15 @@
 //    code path per front end.
 // 5. Tables in shared memory, sized per strip: tpk + alpha of its group
 //    (up to 32 KB at tl 12 with a 4096 alphabet; each ends in a zero word,
-//    so the guard is a min), the alias bucket tables 1.5 KB.  A block runs
-//    up to 4 strips (teams), each at the word offset its descriptor gives;
-//    the host (tpu/rans_decode.py:DirectPacking) fills blocks with 4
-//    consecutive strips, longest chain first.
+//    so the guard is a min), the alias bucket tables 1.5 KB, the two
+//    tables 6 bytes a slot (tfb as u32, tsym narrowed to u16 by the host:
+//    48 KB at tl 13, 192 KB at tl 15; a slot past them reads 0 by a
+//    predicated read).  At tl 16 (384 KB) they do not fit a block and the
+//    step reads them from device memory (tdev).  A block runs up to 4
+//    strips (teams), each at the word offset its descriptor gives; the host
+//    (tpu/rans_decode.py:DirectPacking) fills blocks with consecutive
+//    strips, longest chain first: 4 a block, or fewer where the launch's
+//    largest strip leaves no room for them (one at tl 15).
 // 6. One launch per plan: a team reads its (group, strip, offset)
 //    descriptor; the group (one bucket) names its operands, sizes, front
 //    end, inverse, chunk count, esc and output offset in one flat buffer.
@@ -80,8 +93,10 @@
 // scripts/direct_design_points.py; the defaults are the design above.
 // MIC_DIRECT_RING=0 reads the words from device memory after the count.
 //
-// Build: see rans_decode.cu.  The C entry point returns cudaGetLastError()
-// after its launch (or the error of the shared-memory opt-in).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+// -fPIC (mic_tpu_torch/_build.py).  The C entry point returns
+// cudaGetLastError() after its launch (or the error of the shared-memory
+// opt-in).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,13 +123,16 @@ constexpr int kLead = 6;              // rows loaded ahead of the window's first
 constexpr int kRingWords = kRingRows * kLanes;
 constexpr int kMaxU = 4;              // steps a batch
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kPacked = 0, kAlias = 1, kTwoTable = 2;  // DirectGroup::front
 static_assert(kTeam == 32 || kTeam == 128, "a team is a warp or four");
 
 // The block's dynamic shared memory, addressed by word offsets.
 extern __shared__ __align__(16) uint32_t smem_w[];
 
-// One direct bucket's operands and sizes (tpu/rans_decode.py:_DIRECT_GROUP_DESC,
-// 128 bytes).  Packed front end: t0 = tpk, t1 = alpha; alias: t0..t2 = w0..w2.
+// One bucket's operands and sizes (tpu/rans_decode.py:_DIRECT_GROUP_DESC,
+// 128 bytes).  front: kPacked (t0 = tpk, t1 = alpha), kAlias (t0..t2 =
+// w0..w2) or kTwoTable (t0 = tfb [S][ts], t1 = the u16 symbols [S][asz],
+// asz = ts rounded up to 8; tdev: read from device memory, not staged).
 // inv: 0 symbols, 1 zzd, 2 vdd (cw = vdd_ws), 3 pdd (cw = chunks a row).
 struct DirectGroup {
   const uint32_t* init;
@@ -128,7 +146,7 @@ struct DirectGroup {
   const uint32_t* esides;
   const int32_t* ws;
   long long out_off;  // elements of the flat output
-  int32_t alias, ts, asz, rows, erows, steps, inv, cw, esc, unused;
+  int32_t front, ts, asz, rows, erows, steps, inv, cw, esc, tdev;
 };
 
 __device__ __forceinline__ uint32_t shr(uint32_t x, uint32_t s) {
@@ -450,20 +468,31 @@ struct Inverse {
 // the word ring before them and, for an alias strip with escapes, the
 // escapes' ring and then the column carry after them): a packed table and
 // its alphabet each end in a zero word (what a slot or rank past them
-// reads), the alias bucket tables are (w1, w2) pairs then w0.
+// reads), the alias bucket tables are (w1, w2) pairs then w0, the two
+// tables are tfb (ts words, rounded up to 4) then the u16 symbols (asz / 2
+// words), or nothing when the step reads them from device memory.
 __device__ __forceinline__ int ts_words(int ts) { return (ts + 4) & ~3; }
 __device__ __forceinline__ int tab_words(const DirectGroup& g) {
-  return g.alias ? 3 * kLanes : ts_words(g.ts) + ts_words(g.asz);
+  if (g.front == kAlias) return 3 * kLanes;
+  if (g.front == kPacked) return ts_words(g.ts) + ts_words(g.asz);
+  return g.tdev ? 0 : ((g.ts + 3) & ~3) + g.asz / 2;
 }
 
-template <bool ALIAS>
+// TDEV (kTwoTable only): the two tables are read from device memory.  It
+// is a template argument, not a run-time choice inside the step: with the
+// choice there (both reads in the unrolled step, one predicated off), a
+// staged tl 13 step took 338 ns alone; as a template argument, 190 (the
+// packed step: 167).  Only tl 16 strips run the TDEV instance.
+template <int FRONT, bool TDEV = false>
 __device__ __forceinline__ void decode_strip(const DirectGroup& g, int s, int sm,
                                              uint16_t* __restrict__ out, Team& tm) {
   const int tid = tm.tid;
   const size_t s0 = (size_t)s * kLanes;
   const int steps = g.steps, rows = g.rows;
+  constexpr bool ALIAS = FRONT == kAlias;
   const uint32_t ts = (uint32_t)g.ts, asz = (uint32_t)g.asz;
   const bool esc = ALIAS && g.esc;
+  constexpr bool tdev = FRONT == kTwoTable && TDEV;
   uint32_t x[kLpt], m[kLpt], sft[kLpt], ecmp[kLpt];
 #pragma unroll
   for (int k = 0; k < kLpt; ++k) {
@@ -474,23 +503,31 @@ __device__ __forceinline__ void decode_strip(const DirectGroup& g, int s, int sm
     ecmp[k] = ALIAS ? g.escv[li] : 0u;
   }
 
-  const int tab = sm + kRingWords;   // tpk | w12
-  const int tab2 = tab + (ALIAS ? 2 * kLanes : ts_words(ts));  // alpha | w0
-  const int ering = tab + tab_words(g);
+  const int tab = sm + kRingWords;  // tpk | w12 | tfb
+  const int tab2 = tab + (ALIAS ? 2 * kLanes : FRONT == kPacked ? ts_words(ts)
+                                                                 : (int)((ts + 3) & ~3u));
+  const int ering = tab + tab_words(g);  // (alpha | w0 | the u16 symbols at tab2)
   const int carry = ering + (esc ? kEscRows * kLanes : 0);
+  // The two tables of this strip in device memory (read there when tdev).
+  const uint32_t* gfb = g.t0 + (size_t)s * ts;
+  const uint16_t* gsym = reinterpret_cast<const uint16_t*>(g.t1) + (size_t)s * asz;
+  const uint16_t* ssym = reinterpret_cast<const uint16_t*>(smem_w) + 2 * tab2;
   if (ALIAS) {
     for (int i = tid; i < kLanes; i += kTeam) {
       smem_w[tab + 2 * i] = g.t1[s0 + i];
       smem_w[tab + 2 * i + 1] = g.t2[s0 + i];
       smem_w[tab2 + i] = g.t0[s0 + i];
     }
-  } else {
+  } else if (FRONT == kPacked) {
     copy_words(tab, g.t0 + (size_t)s * ts, ts, tid);
     copy_words(tab2, g.t1 + (size_t)s * asz, asz, tid);
     if (tid == 0) {
       smem_w[tab + ts] = 0u;
       smem_w[tab2 + asz] = 0u;
     }
+  } else if (!tdev) {
+    copy_words(tab, gfb, ts, tid);
+    copy_words(tab2, reinterpret_cast<const uint32_t*>(gsym), asz / 2, tid);
   }
   if (g.inv >= 2)
     for (int i = tid; i < g.cw * (kLanes / 2); i += kTeam) smem_w[carry + i] = 0u;
@@ -504,7 +541,7 @@ __device__ __forceinline__ void decode_strip(const DirectGroup& g, int s, int sm
 
   const int emax = g.erows * kLanes - 256;
   int cur = 0, ecur = 0;
-  Inverse inverse(g.inv, g.ws[s0], g.cw, carry);
+  Inverse inverse(g.inv, (g.inv & 1) ? g.ws[s0] : 0, g.cw, carry);  // ws: zzd, pdd
   uint16_t* o = out + g.out_off + (size_t)s * steps * kLanes;
   constexpr int U = kMaxU;  // steps is a multiple of 8
   for (int t0 = 0; t0 < steps; t0 += U) {
@@ -528,11 +565,23 @@ __device__ __forceinline__ void decode_strip(const DirectGroup& g, int s, int sm
           v[u][k] = is_p ? (g0 >> 16) : (g0 & 0xFFFFu);
           xn[k] = (((gg >> 12) & 0xFFFu) + 1u) * shr(x[k], sft[k]) + (gg & 0xFFFu) + off -
                   (is_p ? 0u : t);
-        } else {
+        } else if (FRONT == kPacked) {
           const uint32_t pk = smem_w[tab + min(slot, ts)];
           const uint32_t av = smem_w[tab2 + min(pk & 0xFFFu, asz)];
           v[u][k] = av & 0xFFFFu;
           xn[k] = ((av >> 16) + 1u) * shr(x[k], sft[k]) + (pk >> 12);
+        } else {  // two tables: two independent reads, one level
+          const bool in = slot < ts;
+          uint32_t fb, sy;
+          if constexpr (tdev) {
+            fb = in ? __ldg(gfb + slot) : 0u;
+            sy = in ? (uint32_t)__ldg(gsym + slot) : 0u;
+          } else {
+            fb = in ? smem_w[tab + slot] : 0u;
+            sy = in ? (uint32_t)ssym[slot] : 0u;
+          }
+          v[u][k] = sy;
+          xn[k] = (fb >> 16) * shr(x[k], sft[k]) + (fb & 0xFFFFu);
         }
         need[k] = xn[k] < (1u << 16);
       }
@@ -597,10 +646,14 @@ direct_groups_kernel(const DirectGroup* __restrict__ groups, const int4* __restr
   if (d.x < 0) return;  // an idle team: the block holds fewer strips
   const DirectGroup& g = groups[d.x];
   Team tm{(int)threadIdx.x % kTeam, id, xbuf[id], 0};
-  if (g.alias)
-    decode_strip<true>(g, d.y, d.z, out, tm);
+  if (g.front == kAlias)
+    decode_strip<kAlias>(g, d.y, d.z, out, tm);
+  else if (g.front == kPacked)
+    decode_strip<kPacked>(g, d.y, d.z, out, tm);
+  else if (!g.tdev)
+    decode_strip<kTwoTable>(g, d.y, d.z, out, tm);
   else
-    decode_strip<false>(g, d.y, d.z, out, tm);
+    decode_strip<kTwoTable, true>(g, d.y, d.z, out, tm);
 }
 
 }  // namespace

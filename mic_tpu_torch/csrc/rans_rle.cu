@@ -100,7 +100,7 @@
 // between the phases.  The forms that lost (the shuffle ladder of point 3,
 // the symbols in shared memory) are gone; PERF.md keeps their times.
 //
-// Build: see rans_decode.cu.  The C entry point returns cudaGetLastError()
+// Build: see rans_direct.cu.  The C entry point returns cudaGetLastError()
 // after its launch (or the error of the shared-memory opt-in).
 
 #include "rans_common.cuh"

@@ -12,12 +12,15 @@ Counterpart of the decode half of ``mic_tpu.tpu.pallas_rans``:
 * ``rans_decode_zzd`` / ``rans_decode_alias`` — one bucket of the
   direct-mode kernel in ``csrc/rans_direct.cu`` (either entropy front
   end, then the zzd / vdd inverse; ``fused=False`` gives the alias
-  symbols), and ``rans_decode_direct_groups`` — many buckets, both front
-  ends, pdd's column sum fused, in one launch (:class:`DirectPacking` lays
-  them out);
-* ``rans_decode_packed`` / ``rans_decode`` — the symbols-out FF 57 kernels
-  of ``csrc/rans_decode.cu``: packed tables (tableLog <= 12, alphabets
-  <= 4096) and two tables (tableLog up to 16, any alphabet);
+  symbols);
+* ``rans_decode_packed`` / ``rans_decode`` — one bucket of the same
+  kernel, FF 57 symbols out for the post path: the packed-table front end
+  with no inverse (tableLog <= 12, alphabets <= 4096) and the two-table
+  front end (tableLog up to 16, any alphabet);
+* ``rans_decode_direct_groups`` — many buckets of those four wrappers,
+  the front ends mixed, pdd's column sum fused, in one launch (two where
+  some strips' tables fit no block of the first; :class:`DirectPacking`
+  lays them out);
 * ``rans_decode_rle`` / ``rans_decode_rle_alias`` — one bucket of the
   fused r-mode kernel in ``csrc/rans_rle.cu`` (either entropy front end,
   then the SoA-RLE expand and the direct inverse), and
@@ -84,6 +87,7 @@ __all__ = [
     "rans_decode_direct_groups",
     "rans_decode_direct_groups_plain",
     "DirectPacking",
+    "two_table_symbols",
     "rans_decode_rle",
     "rans_decode_rle_plain",
     "rans_decode_rle_alias",
@@ -380,7 +384,8 @@ def _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps, vdd_ws):
 
 def _packed_symbols(init, tpk, alpha, words, mask, shift, steps):
     """The packed-table decode's symbols, one [S, 128] int64 tensor per
-    step (the plain version of ``PackedFront`` in ``csrc/rans_common.cuh``)."""
+    step (the plain version of the packed front end of
+    ``csrc/rans_direct.cu``)."""
     S, ts, asz, rows = init.shape[0], tpk.shape[-1], alpha.shape[-1], words.shape[1]
     x = _u(init)
     tpk, alpha, m, sft = _u(tpk), _u(alpha), _u(mask), _u(shift)
@@ -428,9 +433,7 @@ def rans_decode_zzd(init, tpk, alpha, words, mask, shift, ws, *,
     kw = dict(steps=steps, vdd_ws=vdd_ws)
     if init.device.type == "cpu":
         return rans_decode_zzd_plain(*ops, **kw)
-    (out,) = _direct_launch(_bucket_packing(rans_decode_zzd, ops, kw))
-    rans_decode_zzd.launches += 1
-    return out
+    return _direct_bucket(rans_decode_zzd, ops, kw)
 
 
 rans_decode_zzd.launches = 0
@@ -456,27 +459,13 @@ def rans_decode_packed(init, tpk, alpha, words, mask, shift, *, steps: int) -> t
     steps, 128] (bit-view of the u16 symbols, in stream order per strip;
     steps past a short strip's end decode the zero padding).  CPU tensors
     take the plain version; CUDA tensors launch the kernel of
-    ``csrc/rans_decode.cu``.
+    ``csrc/rans_direct.cu`` for this one bucket (its packed front end with
+    no inverse), as :func:`rans_decode_zzd` does.
     """
-    S, ts, asz, rows = _packed_operands(init, tpk, alpha, words, mask, shift, steps)
+    ops = (init, tpk, alpha, words, mask, shift)
     if init.device.type == "cpu":
-        return rans_decode_packed_plain(init, tpk, alpha, words, mask, shift, steps=steps)
-    if init.device.type != "cuda":
-        raise ValueError(f"unsupported device {init.device}")
-    from .._build import kernel_library
-
-    lib = kernel_library()
-    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
-    with torch.cuda.device(init.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_rans_decode_packed(
-            init.data_ptr(), tpk.data_ptr(), ts, alpha.data_ptr(), asz,
-            words.data_ptr(), rows, mask.data_ptr(), shift.data_ptr(), out.data_ptr(),
-            S, steps, stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_rans_decode_packed launch failed: CUDA error {rc}")
-    rans_decode_packed.launches += 1
-    return out
+        return rans_decode_packed_plain(*ops, steps=steps)
+    return _direct_bucket(rans_decode_packed, ops, dict(steps=steps))
 
 
 rans_decode_packed.launches = 0
@@ -499,7 +488,8 @@ def _two_table_operands(init, tsym, tfb, words, mask, shift, steps):
 
 def _two_table_symbols(init, tsym, tfb, words, mask, shift, steps):
     """The two-table decode's symbols, one [S, 128] int64 tensor per step
-    (the plain version of ``TwoTableFront`` in ``csrc/rans_common.cuh``)."""
+    (the plain version of the two-table front end of
+    ``csrc/rans_direct.cu``)."""
     S, ts, rows = init.shape[0], tsym.shape[-1], words.shape[1]
     x = _u(init)
     tsym, tfb, m, sft = _u(tsym), _u(tfb), _u(mask), _u(shift)
@@ -535,28 +525,15 @@ def rans_decode(init, tsym, tfb, words, mask, shift, *, steps: int) -> torch.Ten
     :func:`build_pallas_tables`' first six arrays (tables up to 2^16
     wide).  Returns int16 [S, steps, 128] (bit-view of the u16 symbols).
     CPU tensors take the plain version; CUDA tensors launch the kernel of
-    ``csrc/rans_decode.cu``, which stages the tables in shared memory when
-    they fit a block (tableLog <= 14 on an H100) and reads them from
-    device memory otherwise.
+    ``csrc/rans_direct.cu`` for this one bucket (its two-table front end),
+    which stages the tables in shared memory, 6 bytes a slot
+    (:func:`two_table_symbols`), where they fit a block (tableLog <= 15 on
+    an H100) and reads them from device memory otherwise.
     """
-    S, ts, rows = _two_table_operands(init, tsym, tfb, words, mask, shift, steps)
+    ops = (init, tsym, tfb, words, mask, shift)
     if init.device.type == "cpu":
-        return rans_decode_plain(init, tsym, tfb, words, mask, shift, steps=steps)
-    if init.device.type != "cuda":
-        raise ValueError(f"unsupported device {init.device}")
-    from .._build import kernel_library
-
-    lib = kernel_library()
-    out = torch.empty((S, steps, 128), dtype=torch.int16, device=init.device)
-    with torch.cuda.device(init.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_rans_decode_two_table(
-            init.data_ptr(), tsym.data_ptr(), tfb.data_ptr(), ts, words.data_ptr(), rows,
-            mask.data_ptr(), shift.data_ptr(), out.data_ptr(), S, steps, stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_rans_decode_two_table launch failed: CUDA error {rc}")
-    rans_decode.launches += 1
-    return out
+        return rans_decode_plain(*ops, steps=steps)
+    return _direct_bucket(rans_decode, ops, dict(steps=steps))
 
 
 rans_decode.launches = 0
@@ -658,52 +635,88 @@ def rans_decode_alias(init, w0, w1, w2, words, mask, shift, escv, esides, ws,
     kw = dict(steps=steps, vdd_ws=vdd_ws, fused=fused, esc=esc)
     if init.device.type == "cpu":
         return rans_decode_alias_plain(*ops, **kw)
-    (out,) = _direct_launch(_bucket_packing(rans_decode_alias, ops, kw))
-    rans_decode_alias.launches += 1
-    return out
+    return _direct_bucket(rans_decode_alias, ops, kw)
 
 
 rans_decode_alias.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Every direct bucket of a plan in one launch: both front ends, pdd fused
+# Every direct and post bucket of a plan in one launch: three front ends,
+# pdd fused
 # ---------------------------------------------------------------------------
 
 _DIRECT_PLAIN = {rans_decode_zzd: rans_decode_zzd_plain,
-                 rans_decode_alias: rans_decode_alias_plain}
+                 rans_decode_alias: rans_decode_alias_plain,
+                 rans_decode_packed: rans_decode_packed_plain,
+                 rans_decode: rans_decode_plain}
 _DIRECT_KW = {rans_decode_zzd: {"steps", "vdd_ws", "pdd_ws"},
-              rans_decode_alias: {"steps", "vdd_ws", "fused", "esc", "pdd_ws"}}
+              rans_decode_alias: {"steps", "vdd_ws", "fused", "esc", "pdd_ws"},
+              rans_decode_packed: {"steps"},
+              rans_decode: {"steps"}}
 DIRECT_STRIPS_PER_BLOCK = 4  # csrc/rans_direct.cu:kStrips, teams a block
 _RING_WORDS = 8 * 128  # a strip's word ring
 _ESC_RING_WORDS = 16 * 128  # an FF 41 strip's escape ring, when it has escapes
 _MAX_BLOCK_WORDS = (232448 - 512) // 4  # the H100's opt-in shared memory less the static
 
-# One direct bucket's descriptor (csrc/rans_direct.cu:DirectGroup): the
-# operand pointers (init, tpk | w0, alpha | w1, w2, words, mask, shift,
-# escv, esides, ws; 0 where the front end has none), the element offset of
-# its output in the launch's flat buffer, and (alias, ts, asz, rows,
-# erows, steps, inv, cw, esc, 0); inv 0 symbols, 1 zzd, 2 vdd, 3 pdd.
+# One bucket's descriptor (csrc/rans_direct.cu:DirectGroup): the operand
+# pointers (init, tpk | w0 | tfb, alpha | w1 | the u16 symbols, w2, words,
+# mask, shift, escv, esides, ws; 0 where the front end has none), the
+# element offset of its output in the launch's flat buffer, and (front, ts,
+# asz, rows, erows, steps, inv, cw, esc, tdev); front 0 packed, 1 alias, 2
+# two tables; inv 0 symbols, 1 zzd, 2 vdd, 3 pdd; tdev 1: the two tables
+# read from device memory.
 _DIRECT_GROUP_DESC = np.dtype([("ptr", "<u8", (10,)), ("off", "<i8"), ("arg", "<i4", (10,))])
 
 
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def two_table_symbols(tsym: torch.Tensor) -> torch.Tensor:
+    """tsym (int32 [S, ts]) as the kernel's two-table front end reads it:
+    narrowed to u16, which is exact (a symbol is < 2^16; the kernel keeps a
+    symbol's low 16 bits, as the plain twin does), as int16 [S, ts rounded
+    up to 8] bit-views whose padding is never read.  Beside tfb, which the
+    kernel reads as :func:`build_pallas_tables` builds it: 6 bytes a slot."""
+    S, ts = tsym.shape
+    sym = torch.zeros((S, _round8(ts)), dtype=torch.int16, device=tsym.device)
+    sym[:, :ts] = _as_i16(tsym)
+    return sym
+
+
 def _direct_group(fn, ops, kw):
-    """Checks one direct group ``(fn, operands, kwargs)`` as ``fn`` checks
-    its operands, plus ``pdd_ws``; returns (S, the 10 descriptor tensors,
-    the 10 arguments, the strip's shared-memory words)."""
+    """Checks one group ``(fn, operands, kwargs)`` as ``fn`` checks its
+    operands, plus ``pdd_ws``; returns (S, the 10 descriptor tensors, the
+    10 arguments, the strip's shared-memory words).  A two-table group's
+    tensors hold tsym where the descriptor takes its u16 copy
+    (:func:`two_table_symbols`, which the packing makes), and its words
+    are those of its tables staged."""
     if fn not in _DIRECT_KW:
         raise ValueError(f"not a direct-kernel wrapper: {fn}")
     extra = set(kw) - _DIRECT_KW[fn]
     if extra:
         raise ValueError(f"{fn.__name__}: unexpected arguments {sorted(extra)}")
     steps, vdd_ws, pdd_ws = kw["steps"], kw.get("vdd_ws", 0), kw.get("pdd_ws", 0)
-    if fn is rans_decode_zzd:
-        init, tpk, alpha, words, mask, shift, ws = ops
-        S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps,
-                                         vdd_ws)
+    fused, esc = fn is not rans_decode_packed, 0
+    if fn is rans_decode_zzd or fn is rans_decode_packed:
+        init, tpk, alpha, words, mask, shift = ops[:6]
+        if fn is rans_decode_zzd:
+            ws = ops[6]
+            S, ts, asz, rows = _zzd_operands(init, tpk, alpha, words, mask, shift, ws, steps,
+                                             vdd_ws)
+        else:
+            ws = None
+            S, ts, asz, rows = _packed_operands(*ops, steps)
         tensors = (init, tpk, alpha, None, words, mask, shift, None, None, ws)
-        args, fused, esc = (0, ts, asz, rows, 0), True, 0
+        args = (0, ts, asz, rows, 0)
         tab = (ts + 4) // 4 * 4 + (asz + 4) // 4 * 4  # each table and a zero word
+    elif fn is rans_decode:
+        init, tsym, tfb, words, mask, shift = ops
+        S, ts, rows = _two_table_operands(*ops, steps)
+        tensors = (init, tfb, tsym, None, words, mask, shift, None, None, None)
+        args, fused = (2, ts, _round8(ts), rows, 0), False
+        tab = (ts + 3) // 4 * 4 + _round8(ts) // 2  # tfb, then the u16 symbols
     else:
         S, rows, erows = _alias_operands(*ops, steps, vdd_ws)
         tensors = tuple(ops)
@@ -754,26 +767,30 @@ class _Packing:
 
 
 class DirectPacking(_Packing):
-    """The strips of some direct buckets as the teams of one launch, with
-    the kernel's descriptors on the device.
+    """The strips of some buckets as the teams of one launch of the direct
+    kernel, with the kernel's descriptors on the device.
 
     ``groups`` is a list of ``(fn, operands, kwargs)``: ``fn`` is
-    :func:`rans_decode_zzd` or :func:`rans_decode_alias`, whose operands and
-    keyword arguments the group holds, plus an optional ``pdd_ws`` (the
-    chunks of 128 lanes in a pdd row: the kernel then adds pdd's column
-    sum to the row prefix; 0, the default, leaves the wrapper's output).
-    The front ends mix in one launch.  Every group is checked as its
-    wrapper checks it; outputs are laid out group after group in one flat
-    buffer (``out_offs``, ``out_shapes``).  Each strip takes shared memory
-    for its ring, its group's tables, for FF 41 with escapes a ring for
-    them, and for vdd and pdd its column carry (``strip_words``).
-    ``blocks`` (int32 [n, 4, 4]: group or -1, strip, word offset, 0 per
-    team) holds ``per_block`` consecutive strips a block, longest chain
-    first (most steps, then group and strip order), so a block's strips
-    are mostly of one group and end together; ``smem_bytes`` is a block's
-    largest need.  ``per_block`` below 4 leaves teams idle (the design
-    script's "alone" shape).  The packing holds the groups' tensors: it is
-    valid for them only.
+    :func:`rans_decode_zzd`, :func:`rans_decode_alias`,
+    :func:`rans_decode_packed` or :func:`rans_decode`, whose operands and
+    keyword arguments the group holds, plus for the first two an optional
+    ``pdd_ws`` (the chunks of 128 lanes in a pdd row: the kernel then adds
+    pdd's column sum to the row prefix; 0, the default, leaves the
+    wrapper's output).  The front ends mix in one launch.  Every group is
+    checked as its wrapper checks it; outputs are laid out group after
+    group in one flat buffer (``out_offs``, ``out_shapes``).  Each strip
+    takes shared memory for its ring, its group's tables (a two-table
+    strip 6 bytes a slot), for FF 41 with escapes a ring for them, and for
+    vdd and pdd its column carry (``strip_words``).  Two tables past a
+    block's shared memory (tl 16) are read from device memory, and such a
+    strip takes only its ring.  ``blocks`` (int32 [n, 4, 4]: group or -1,
+    strip, word offset, 0 per team) holds ``per_block`` consecutive strips
+    a block, or fewer where the largest strip leaves no room for them
+    (one at tl 15), longest chain first (most steps, then group and strip
+    order), so a block's strips are mostly of one group and end together;
+    ``smem_bytes`` is a block's largest need.  ``per_block`` below 4 leaves
+    teams idle (the design script's "alone" shape).  The packing holds the
+    groups' tensors: it is valid for them only.
     """
 
     def __init__(self, groups, *, per_block: int = DIRECT_STRIPS_PER_BLOCK):
@@ -785,27 +802,37 @@ class DirectPacking(_Packing):
         dev = groups[0][1][0].device
         desc = np.zeros(len(groups), _DIRECT_GROUP_DESC)
         self.groups, self.out_shapes, self.out_offs, self.strip_words = [], [], [], []
-        out_at, chain = 0, []
+        self._narrowed = []  # the two-table groups' u16 symbols, which the descriptors name
+        out_at = 0
         for g, (fn, ops, kw) in enumerate(groups):
             S, tensors, args, words = _direct_group(fn, ops, kw)
             if tensors[0].device != dev:
                 raise ValueError(f"group {g} on {tensors[0].device}, group 0 on {dev}")
             if dev.type == "cuda" and tensors[4].data_ptr() % 16:
                 raise ValueError(f"group {g}: words must be 16-byte aligned")
-            steps = args[5]
+            if fn is rans_decode:
+                tensors = (*tensors[:2], two_table_symbols(ops[1]), *tensors[3:])
+                self._narrowed.append(tensors[2])
+                if words > _MAX_BLOCK_WORDS:
+                    args, words = (*args[:9], 1), _RING_WORDS
             desc[g] = ([0 if t is None else t.data_ptr() for t in tensors], out_at, args)
             self.groups.append((fn, tuple(ops), dict(kw)))
-            self.out_shapes.append((S, steps, 128))
+            self.out_shapes.append((S, args[5], 128))
             self.out_offs.append(out_at)
             self.strip_words.append(words)
-            out_at += S * steps * 128
-            chain.append((steps, S))
-        per = min(per_block, _MAX_BLOCK_WORDS // max(self.strip_words))
+            out_at += S * args[5] * 128
+        self.desc, self.out_total, self.device, self.per_block = desc, out_at, dev, per_block
+        self.families = sorted({fn.__name__ for fn, _o, _k in self.groups})
+        self._lay_out()
+
+    def _lay_out(self):
+        """``blocks`` and ``smem_bytes`` from ``strip_words``; the upload."""
+        per = min(self.per_block, _MAX_BLOCK_WORDS // max(self.strip_words))
         if per == 0:
             raise ValueError(f"a strip needs {4 * max(self.strip_words)} bytes of shared "
                              f"memory, a block has {4 * _MAX_BLOCK_WORDS}")
-        steps, n = np.array(chain, np.int64).T
-        grp = np.repeat(np.arange(len(chain)), n)
+        steps, n = np.array([shape[1::-1] for shape in self.out_shapes], np.int64).T
+        grp = np.repeat(np.arange(len(n)), n)
         strip = np.arange(grp.size) - np.repeat(np.cumsum(n) - n, n)
         order = np.lexsort((strip, grp, -steps[grp]))
         grp, strip = grp[order], strip[order]
@@ -818,10 +845,21 @@ class DirectPacking(_Packing):
         blocks[team, 2], blocks[team, 3] = at - at[np.arange(grp.size) // per * per], 0
         self.blocks = blocks.reshape(n_blocks, DIRECT_STRIPS_PER_BLOCK, 4)
         self.smem_bytes = int(4 * np.add.reduceat(need, np.arange(0, grp.size, per)).max())
-        self.desc, self.out_total, self.device = desc, out_at, dev
-        self.families = sorted({fn.__name__ for fn, _o, _k in self.groups})
-        if dev.type == "cuda":
-            self.gdesc, self.bdesc = self._upload(desc, self.blocks)
+        if self.device.type == "cuda":
+            self.gdesc, self.bdesc = self._upload(self.desc, self.blocks)
+
+
+def _tables_from_memory(packing: DirectPacking) -> DirectPacking:
+    """``packing`` with every two-table group's tables read from device
+    memory, as at tl 16 (such a strip then takes only its ring): the
+    comparison with staged tables of ``scripts/direct_design_points.py``
+    and the CUDA tests.  Edits the packing and returns it."""
+    for g, (fn, _o, _k) in enumerate(packing.groups):
+        if fn is rans_decode:
+            packing.desc["arg"][g, 9] = 1
+            packing.strip_words[g] = _RING_WORDS
+    packing._lay_out()
+    return packing
 
 
 def _direct_launch(packing: DirectPacking, lib=None) -> list[torch.Tensor]:
@@ -847,6 +885,14 @@ def _direct_launch(packing: DirectPacking, lib=None) -> list[torch.Tensor]:
             for o, (S, T, _l) in zip(packing.out_offs, packing.out_shapes)]
 
 
+def _direct_bucket(fn, ops, kw) -> torch.Tensor:
+    """One bucket of a direct-kernel wrapper on the card, with the
+    wrapper's kept packing (:func:`_bucket_packing`); counts its launch."""
+    (out,) = _direct_launch(_bucket_packing(fn, ops, kw))
+    fn.launches += 1
+    return out
+
+
 def rans_decode_direct_groups_plain(groups) -> list[torch.Tensor]:
     """Plain-PyTorch twin of :func:`rans_decode_direct_groups`: each
     group's plain wrapper twin in turn, then pdd's column sum where the
@@ -862,7 +908,8 @@ def rans_decode_direct_groups_plain(groups) -> list[torch.Tensor]:
 
 
 def rans_decode_direct_groups(groups, packing: DirectPacking | None = None) -> list[torch.Tensor]:
-    """Decode the strips of several direct buckets in one launch.
+    """Decode the strips of several buckets of the direct kernel's four
+    wrappers in one launch.
 
     ``groups`` is a list of ``(fn, operands, kwargs)`` as
     :class:`DirectPacking` takes them, all on one device; returns one
@@ -870,7 +917,7 @@ def rans_decode_direct_groups(groups, packing: DirectPacking | None = None) -> l
     with ``pdd_ws``, with pdd's column sum added.  ``packing`` is a packing
     built earlier for these very tensors (a plan builds it once); without
     it one is built here.  CPU tensors take the plain twin group by group;
-    CUDA tensors launch the kernel of ``csrc/rans_direct.cu`` once.
+    CUDA tensors launch the kernel of ``csrc/rans_direct.cu``.
     ``.launches`` counts the launches, ``.family_launches`` per wrapper
     name the launches that held that front end's strips.
     """
@@ -893,7 +940,8 @@ def rans_decode_direct_groups(groups, packing: DirectPacking | None = None) -> l
 
 
 rans_decode_direct_groups.launches = 0
-rans_decode_direct_groups.family_launches = {"rans_decode_zzd": 0, "rans_decode_alias": 0}
+rans_decode_direct_groups.family_launches = dict.fromkeys(
+    ("rans_decode_zzd", "rans_decode_alias", "rans_decode_packed", "rans_decode"), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -15,19 +15,20 @@ Port of ``mic_tpu.tpu.strips``, in three parts:
   width, on both entropy families (FF 57 standard at tableLog up to 16,
   FF 41 alias).
 
-The plan pools the strips of every image of a batch into buckets and
-runs each bucket as one launch of a kernel of ``rans_decode``; the direct
-buckets run together as one launch of the direct kernel
-(``rans_decode_direct_groups``), the r-mode buckets as one launch of the
-r-kernel (``rans_decode_rle_groups``).  A strip takes a fused kernel where
+The plan pools the strips of every image of a batch into buckets; the
+direct buckets and the post buckets' entropy stages run together as one
+launch of the direct kernel (``rans_decode_direct_groups``), the r-mode
+buckets as one launch of the r-kernel
+(``rans_decode_rle_groups``).  A strip takes a fused kernel where
 ``mic_tpu``'s plan does: zzd, pdd and vdd
 (width/128 in {1, 2, 4, 8}) and the r-modes (vdr likewise) at widths that
 are a multiple of 128, FF 41 or FF 57 with packed tables (tableLog <= 12,
 alphabet <= 4096).  Those buckets are keyed on (entropy family,
 predictor, padded step count, geometry and, for the r-modes, the
 container's FLAG_RDENSE).  Every other strip takes the post path: a
-symbols-out entropy launch (packed tables, two tables, or the alias
-kernel with ``fused=False``) and then ``post.post_batch``, keyed on
+symbols-out entropy stage in the direct kernel's launch (packed tables,
+two tables, or the alias front end with ``fused=False``) and then
+``post.post_batch``, keyed on
 (entropy form, predictor, padded step count, width, strip height and the
 post constants mid / delim), as ``mic_tpu`` keys its post groups.  The
 second (column) prefix sum of pdd runs in the direct kernel (``pdd_ws``);
@@ -132,7 +133,9 @@ _MODE_PRED = {
 _DIRECT_PREDS = ("zzd", "vdd", "pdd")  # no RLE, no escapes
 _RLE_DIRECT_PREDS = ("zzr", "vdr", "pdr")  # SoA-RLE, no escapes
 _RLE_FNS = (rans_decode_rle, rans_decode_rle_alias)  # the r-kernel's one-bucket wrappers
-_DIRECT_FNS = (rans_decode_zzd, rans_decode_alias)  # the direct kernel's one-bucket wrappers
+# the direct kernel's one-bucket wrappers: the direct modes, and the post
+# path's symbols-out forms
+_DIRECT_FNS = (rans_decode_zzd, rans_decode_alias, rans_decode_packed, rans_decode)
 AUTO_FAST_TRIALS = ("zzd", "vdd", "pdd")  # scan-parallel decode modes only
 _PRED_MODE = {v: k for k, v in _MODE_PRED.items()}
 
@@ -535,10 +538,10 @@ def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool,
 
 
 class _Bucket:
-    """One kernel launch: device operands, kernel arguments and, for pdd
-    and pdr, the (width, strip_h) of the column prefix sum (pdd's in the
-    kernel: ``pdd_ws`` chunks a row); for a post bucket, the symbols-out
-    launch and the post function's arguments."""
+    """One bucket: device operands, a kernel wrapper and its arguments
+    and, for pdd and pdr, the (width, strip_h) of the column prefix sum
+    (pdd's in the kernel: ``pdd_ws`` chunks a row); for a post bucket, the
+    symbols-out wrapper and the post function's arguments."""
 
     def __init__(self, key, entries, device):
         self.n = len(entries)
@@ -702,10 +705,10 @@ class MicwDecodePlan:
             self.keys_per_blob.append(keys)
         self.buckets = {k: _Bucket(k, e, self.device) for k, e in entries.items()}
         cuda = self.device.type == "cuda"
-        # The direct buckets run as one launch of the direct kernel, the
-        # r-mode buckets as one of the r-kernel.
-        self._direct_keys = [k for k, b in self.buckets.items()
-                             if b.post is None and b.fn in _DIRECT_FNS]
+        # The direct buckets and the post buckets' entropy stages run as
+        # one launch of the direct kernel, the r-mode buckets as one of the
+        # r-kernel.
+        self._direct_keys = [k for k, b in self.buckets.items() if b.fn in _DIRECT_FNS]
         self._direct_groups = [self.buckets[k].launch for k in self._direct_keys]
         self.direct_packing = (DirectPacking(self._direct_groups)
                                if self._direct_groups and cuda else None)
@@ -715,14 +718,16 @@ class MicwDecodePlan:
         self._gather = None  # assemble_device's copy lists, built at its first call
 
     def run(self) -> dict:
-        """Launch every bucket (the direct buckets together, one launch,
-        and the r-mode buckets together, one launch); returns {bucket key:
-        int16 [S, cols] device tensor} (bit-views of the u16 pixels)."""
+        """Launch every bucket (the direct buckets and the post buckets'
+        entropy stages together, one launch, and the r-mode buckets
+        together, one launch), then the post buckets' torch ops; returns
+        {bucket key: int16 [S, cols] device tensor} (bit-views of the u16
+        pixels)."""
         outs = dict(zip(self._direct_keys, rans_decode_direct_groups(self._direct_groups,
                                                                      self.direct_packing)))
         outs.update(zip(self._rle_keys, rans_decode_rle_groups(self._rle_groups,
                                                                self.rle_packing)))
-        return {k: b.finish(outs[k]) if k in outs else b() for k, b in self.buckets.items()}
+        return {k: b.finish(outs[k]) for k, b in self.buckets.items()}
 
     def _strip_rows(self, bi: int):
         """(y0, rows, key, index) of every strip of blob ``bi``."""
@@ -866,9 +871,10 @@ class MicwDecodePlan:
 
 
 def micw_decode_many(blobs, device):
-    """Decode a batch of MICW images on ``device`` in one launch per
-    bucket.  Images may differ in size and statistics.  Returns a list
-    of (pixels u16, width, height), blob order."""
+    """Decode a batch of MICW images on ``device`` (one plan: a launch of
+    the direct kernel, one of the r-kernel, the post buckets' torch ops).
+    Images may differ in size and statistics.  Returns a list of (pixels
+    u16, width, height), blob order."""
     plan = MicwDecodePlan(blobs, device)
     return plan.assemble(plan.run())
 

@@ -3,7 +3,7 @@
 on one card, each run in a process of its own, in the order other, this,
 this, other.
 
-    python3 scripts/compare_trees.py DIR [--phases 2r,2d,3,5,6,8] [--reps N]
+    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,3,5,6,8] [--reps N]
 
 ``DIR`` is an unpacked copy of another commit (for example the parent:
 ``git archive HEAD | tar -x -C build/parent``).  Each run imports the
@@ -17,6 +17,9 @@ sides are measured by the same code as far as the trees share it:
   per wrapper;
 * ``2d``: the same for each direct bucket of CT_dev x256 and CT_dev_alias
   x256 (PERF.md rows 1 and 2);
+* ``2p``: the same for each post bucket of phase 6's batch and of
+  CT_dev_1strip_tl15 x32 (PERF.md rows 6 and 7, the two-table wrapper
+  split by tableLog);
 * ``3``: phase 3's plan (``MicwDecodePlan`` over ``chip_smoke.BATCH``):
   verified, then ms and GB/s per ``plan.run()`` (CUDA events, mean of
   ``--reps``) and the device busy time of one run (torch.profiler);
@@ -38,7 +41,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper")
+KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper", "p-wrapper")
 
 RUN = """
 import sys, torch
@@ -69,6 +72,21 @@ if "2d" in phases:
         del plan
     for name, ms in per.items():
         print(f"d-wrapper {{name}}: {{ms:.3f}} ms per its buckets' calls, each bucket alone")
+if "2p" in phases:
+    from mic_tpu_torch import MicwDecodePlan
+    per = {{}}
+    for blobs in (cs._post_batch(dev)[0], [cs.CT_TL15.read_bytes()] * 32):
+        plan = MicwDecodePlan(blobs, dev)
+        for k, b in plan.buckets.items():
+            if k[0] != "post":
+                continue
+            fn = b.fn.__name__
+            if fn == "rans_decode":
+                fn += f" tl {{b.ops[1].shape[1].bit_length() - 1}}"
+            per[fn] = per.get(fn, 0.0) + cs._cuda_ms(lambda: b.fn(*b.ops, **b.kwargs), {reps})
+        del plan
+    for name, ms in per.items():
+        print(f"p-wrapper {{name}}: {{ms:.3f}} ms per its buckets' calls, each bucket alone")
 if "3" in phases:
     import numpy as np
     from mic_tpu_torch import MicwDecodePlan

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the direct-mode decode kernel's design points on the card, one by one.
 
-    python3 scripts/direct_design_points.py [--reps N]
+    python3 scripts/direct_design_points.py [--reps N] [--parts direct,post]
 
 Stages ``chip_smoke.py``'s decode batch (phase 3: 1408 strips in 9
 buckets, zzd / vdd / pdd on both entropy families) and times
@@ -29,7 +29,21 @@ first, into the block with the least work, not 4 consecutive ones a
 block), ``one_a_block`` (one strip a block) and ``pdd_cumsum`` (the plan's
 launch without pdd's column sum, then ``torch.cumsum`` on each pdd bucket
 as the plan did before).  Every output must equal the plan's
-(``pdd_cumsum``: the plan's pdd pixels).  Then ``plan.run()`` and a JSON summary.  Milliseconds from
+(``pdd_cumsum``: the plan's pdd pixels).  Then ``plan.run()``.
+
+Post part (``--parts post``): the post path's symbols-out groups of
+``chip_smoke.py``'s phase 6 batch (1248 strips, 15 groups: packed symbols,
+two tables at tl 13, FF 41 symbols, two direct buckets) with the default
+build: ``one`` (the plan's launch: 4 consecutive strips a block for
+every group, one budget for the launch, so the tl 13 blocks take 213 KB
+and every block has an SM to itself) against ``buckets`` (one launch per
+group), ``per_group`` (strips a block per group within the packed and FF
+41 strips' largest block: the tl 13 strips one a block, 3 blocks an SM)
+and ``one_device_tables`` (the two-table groups read from device memory,
+``rans_decode._tables_from_memory``); alone (each post group's first 132 strips, one a block):
+the packed front end with no inverse, FF 41 symbols, and the two tables
+staged and from device memory at tl 13, and CT_dev_1strip_tl15 x32 (tl
+15, 2048 steps) staged and from device memory.  Then a JSON summary.  Milliseconds from
 CUDA events, mean of ``--reps`` after a warm-up.  Needs an NVIDIA GPU and
 nvcc.  Imports neither jax nor anything of mic_tpu.
 """
@@ -83,6 +97,109 @@ def _least_load(rd, groups):
     return pk
 
 
+def _per_group(rd, groups):
+    """The plan's packing with strips a block chosen per group: the budget
+    is the largest block of 4 consecutive packed or FF 41 strips, and a
+    two-table strip joins a block only while it stays within it (at tl
+    13, one strip a block), so no block outgrows the others; against the
+    plan's one rule for the launch.  For groups whose strips all fit that
+    budget (phase 6's)."""
+    import numpy as np
+
+    pk = rd.DirectPacking(groups)
+    sw = np.asarray(pk.strip_words, np.int64)
+    teams = pk.blocks.reshape(-1, 4)
+    live = teams[teams[:, 0] >= 0]  # longest chain first
+    two = np.array([fn is rd.rans_decode for fn, _o, _k in groups])
+    usual = live[~two[live[:, 0]], 0]
+    budget = int(np.add.reduceat(sw[usual], np.arange(0, usual.size, 4)).max())
+    cap = np.where(two, np.minimum(4, budget // sw), 4)
+    if (cap == 0).any():
+        raise ValueError("a two-table strip fits no block of the budget")
+    members, mine, used, room = [], [], 0, 4
+    for g, st in live[:, :2]:
+        if mine and (len(mine) >= min(room, cap[g]) or used + sw[g] > budget):
+            members.append(mine)
+            mine, used, room = [], 0, 4
+        mine.append((g, st, used))
+        used, room = used + int(sw[g]), min(room, int(cap[g]))
+    members.append(mine)
+    blocks = np.full((len(members), 4, 4), -1, np.int32)
+    for b, m in enumerate(members):
+        blocks[b, :len(m), :3] = m
+        blocks[b, :len(m), 3] = 0
+    pk.blocks = blocks
+    pk.smem_bytes = 4 * max(sum(int(sw[g]) for g, _s, _o in m) for m in members)
+    pk.gdesc, pk.bdesc = pk._upload(pk.desc, pk.blocks)
+    return pk
+
+
+def _post_points(cs, rd, dev, reps, summary) -> None:
+    """The post part: phase 6's symbols-out groups in one launch and in
+    other shapes, each front end alone, two tables staged and not."""
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch._build import kernel_library
+
+    lib = kernel_library()
+    plan = MicwDecodePlan(cs._post_batch(dev)[0], dev)
+    groups, packing = plan._direct_groups, plan.direct_packing
+    want = rd._direct_launch(packing)
+    torch.cuda.synchronize()
+    longest = max(kw["steps"] for _fn, _ops, kw in groups)
+
+    def measure(label, launches, chain):
+        for pk, expect in launches:
+            got = rd._direct_launch(pk, lib)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, expect)):
+                raise AssertionError(f"post {label}: outputs differ from the plan's")
+        ms = cs._cuda_ms(lambda: [rd._direct_launch(pk, lib) for pk, _w in launches], reps)
+        occ = lib.mic_direct_occupancy(max(pk.smem_bytes for pk, _w in launches))
+        summary["design_points"].append({"form": "post", "launch": label,
+                                         "launches": len(launches), "ms": ms,
+                                         "ns_per_step": ms * 1e6 / chain,
+                                         "blocks_per_sm": occ})
+        print(f"post {label:44s} {len(launches)} launch(es): "
+              f"{ms:7.3f} ms, {ms * 1e6 / chain:7.1f} ns per step of the longest chain "
+              f"({chain}), {occ} blocks an SM at the largest block", flush=True)
+
+    print(f"post: {len(groups)} groups, {sum(o[0].shape[0] for _f, o, _k in groups)} strips; "
+          f"{cs._launches(packing)}")
+    measure("one", [(packing, want)], longest)
+    measure("buckets", [(rd.DirectPacking([g]), [w]) for g, w in zip(groups, want)], longest)
+    per_group = _per_group(rd, groups)
+    print(f"post per_group: {cs._launches(per_group)}")
+    measure("per_group", [(per_group, want)], longest)
+    measure("one_device_tables", [(rd._tables_from_memory(rd.DirectPacking(groups)), want)],
+            longest)
+    for (fn, ops, kw), w in zip(groups, want):
+        if fn not in (rd.rans_decode_packed, rd.rans_decode, rd.rans_decode_alias):
+            continue
+        n = min(SMS, ops[0].shape[0])
+        sub = (fn, tuple(o[:n] for o in ops), kw)
+        label = f"alone {fn.__name__[12:] or 'two_table'} steps {kw['steps']} x{n}"
+        stages = (True, False) if fn is rd.rans_decode else (True,)
+        for stage in stages:
+            pk = rd.DirectPacking([sub], per_block=1)
+            if not stage:
+                rd._tables_from_memory(pk)
+            measure(label + ("" if stage else " device tables"), [(pk, [w[:n]])], kw["steps"])
+    tl15 = MicwDecodePlan([cs.CT_TL15.read_bytes()] * 32, dev)
+    (g15,) = tl15._direct_groups
+    w15 = rd._direct_launch(tl15.direct_packing)
+    for stage in (True, False):
+        pk = rd.DirectPacking([g15])
+        if not stage:
+            rd._tables_from_memory(pk)
+        print(f"post tl 15 x32: {cs._launches(pk)}")
+        measure(f"alone two_table tl 15 x32{'' if stage else ' device tables'}", [(pk, w15)],
+                g15[2]["steps"])
+    summary["post_plan_run_ms"] = cs._cuda_ms(plan.run, reps)
+    print(f"post plan.run(): {summary['post_plan_run_ms']:.3f} ms (launch and torch post ops)")
+
+
 def main() -> int:
     import torch
 
@@ -93,7 +210,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--parts", default="direct,post")
     args = ap.parse_args()
+    parts = args.parts.split(",")
     if not torch.cuda.is_available():
         print("direct_design_points: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -101,6 +220,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "-i", "0"], capture_output=True, text=True, check=True).stdout.strip())
     summary = {"design_points": []}
+    if "post" in parts:
+        _post_points(cs, rd, dev, args.reps, summary)
+    if "direct" not in parts:
+        print(json.dumps(summary))
+        return 0
     names = [k for k, v in cs.BATCH.items() for _ in range(v[2])]
     blobs = {k: v[0].read_bytes() for k, v in cs.BATCH.items()}
     plan = MicwDecodePlan([blobs[k] for k in names], dev)

@@ -473,7 +473,9 @@ def test_cuda_plan_and_wrappers_count_their_launches():
     run = plan.run()
     torch.cuda.synchronize()
     assert rd.rans_decode_direct_groups.launches == before + 1
-    assert all(rd.rans_decode_direct_groups.family_launches[n] == fam[n] + 1 for n in fam)
+    held = {"rans_decode_zzd", "rans_decode_alias"}  # the direct front ends; no post strips
+    assert all(rd.rans_decode_direct_groups.family_launches[n] == fam[n] + (n in held)
+               for n in fam)
     assert plan.verify_batch(run, raws) == 0
     for b in plan.buckets.values():
         n = b.fn.launches

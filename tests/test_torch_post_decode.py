@@ -428,8 +428,11 @@ def test_alphabet_over_4096(ref):
 
 def test_mixed_batch_matches_mic_tpu_plan(ref):
     """A small batch of post-path containers (zz alias at 192, avg at 136,
-    zzr at 192, vdd at 384) next to a fused one, against mic_tpu's own
-    MicwDecodePlan in interpret mode, image for image."""
+    zzr at 192, vdd at 384, zzd re-encoded at tl 13) next to a fused one,
+    against mic_tpu's own MicwDecodePlan in interpret mode, image for
+    image; the port's plan runs every bucket's entropy stage, the packed,
+    two-table and FF 41 post buckets' too, as groups of the direct
+    kernel's launch."""
     rng = np.random.default_rng(21)
     blobs, pxs = [], []
     for pred, w, ent in (("zz", 192, "alias"), ("avg", 136, "standard"), ("zzr", 192, "standard"),
@@ -440,9 +443,18 @@ def test_mixed_batch_matches_mic_tpu_plan(ref):
         blobs.append(ref.st.micw_compress(px, w, 8, int(px.max()), num_strips=1,
                                           predictor=pred, entropy=ent))
         pxs.append(px)
+    px = _smooth(rng, 160, 256).ravel()  # 40960 symbols: enough for tl 13
+    blobs.append(reencode(ref, ref.st.micw_compress(px, 256, 160, int(px.max()), num_strips=1,
+                                                    predictor="zzd"), 13))
+    pxs.append(px)
+    plan = MicwDecodePlan(blobs, CPU)
+    forms = {k[1]: plan.buckets[k].fn for k in plan.buckets if k[0] == "post"}
+    assert forms == {"alias": rd.rans_decode_alias, "packed": rd.rans_decode_packed,
+                     "two_table": rd.rans_decode}
+    assert plan._direct_keys == list(plan.buckets)
     want = ref.st.MicwDecodePlan(blobs)
     want = want.assemble(want.run())
-    got = micw_decode_many(blobs, CPU)
+    got = plan.assemble(plan.run())
     for (g, gw, gh), (r, rw, rh), px in zip(got, want, pxs):
         assert (gw, gh) == (rw, rh) and np.array_equal(g, np.asarray(r)) and np.array_equal(g, px)
 
