@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
    Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
-   steps, one image's operands replicated.  tANS decode: on phase 7's
+   steps, one image's operands replicated, with each stream's own table
+   width as the main path passes it; prints ns a step of the launch, the
+   shared memory a block, blocks an SM and waves.  tANS decode: on phase 7's
    archive batch, all four groups in one launch (N = 2, 4 and 8, FF 84
    and FF 08 tables, tableLogs and counts mixed in a group, each stream
    with its own table and alphabet sizes) and each group alone, with and
@@ -49,7 +51,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (``PHASE3_PACKING``: 352 blocks of 69,760 bytes).  Prints staging
    seconds, decode GB/s over ``plan.run()``, the launch alone (CUDA
    events), the launch counts and a torch.profiler breakdown of one
-   ``plan.run()`` by device kernel.
+   ``plan.run()`` by device kernel.  Then a 110,208 x 8 pdd image, encoded
+   on the card, whose row leaves no room for the kernel's column carry:
+   its plan must run the bucket unfused, in one launch, and decode it.
 4. Encode path: ``MicwEncodePlan`` (what ``micw_compress_device_many``
    runs) over each fixture setting, replicated (CT_dev x64 is a 64-slice
    CT series, 32 MiB of pixels); every container must equal its fixture
@@ -255,6 +259,7 @@ TILE = 256  # phase 8's tile edge and the slide's margin
 RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-buckets at once
 DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): all direct buckets
 PHASE3_PACKING = (352, 69760)  # phase 3's blocks and bytes a block (4 strips a block, kept)
+WIDE_PDD = (110208, 8)  # phase 3's pdd image whose column carry leaves a block no room
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
 ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
 
@@ -343,9 +348,12 @@ def _account(r, name, inputs, outputs, ms, plain_ms) -> None:
     r["ops"] += OPS_PER_ELEMENT[name] * sum(t.numel() for t in outputs)
 
 
-def _encode_kernels_vs_plain(dev, report) -> None:
-    """Phase 2, encode half: both forms of the encode kernel against their
-    plain versions on CT_dev x128's candidate operands."""
+def _encode_operands(dev, alias: bool, reps: int = 128):
+    """Phase 2's encode operands: CT_dev's candidate streams under
+    ``micw_compress_device_many`` (auto-fast; standard, or alias for the FF
+    41 form), one image's operands replicated ``reps`` times.  Returns the
+    staged batch, its operands on ``dev`` and its per-stream table widths
+    (the main path's ``widths``)."""
     import numpy as np
     import torch
 
@@ -355,31 +363,50 @@ def _encode_kernels_vs_plain(dev, report) -> None:
     blob = (TESTDATA / "CT_dev.micw").read_bytes()
     w, h, _ns, _sh, mv = micw_parse(blob)[:5]
     px = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")
+    plan = renc.MicwEncodePlan([(px, w, h, mv)], "alias" if alias else "standard", "auto-fast")
+    staged = renc.stage_encode_batch(
+        [j[0] for j in plan.jobs[alias]], on_error="none", alias=alias,
+        max_table_log=ALIAS_TABLE_LOG if alias else MAX_TABLE_LOG)
+    staged.ops = tuple(np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1)))
+                       for a in staged.ops)
+    staged.widths = np.tile(staged.widths, reps)
+    return (staged, renc.staged_to_device(staged, dev),
+            torch.from_numpy(staged.widths).to(dev))
+
+
+def _encode_kernels_vs_plain(dev, report) -> None:
+    """Phase 2, encode half: both forms of the encode kernel against their
+    plain versions on CT_dev x128's candidate operands, with the per-stream
+    table widths the main path passes; ns a step of the launch, shared
+    memory a block, blocks an SM and waves of the card's SMs."""
+    import torch
+
+    from mic_tpu_torch.tpu import rans_encode as renc
+
     reps = 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for alias, name in ((False, "rans_encode"), (True, "rans_encode_alias")):
-        plan = renc.MicwEncodePlan([(px, w, h, mv)], "alias" if alias else "standard",
-                                   "auto-fast")
-        staged = renc.stage_encode_batch(
-            [j[0] for j in plan.jobs[alias]], on_error="none", alias=alias,
-            max_table_log=ALIAS_TABLE_LOG if alias else MAX_TABLE_LOG)
-        staged.ops = tuple(np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1)))
-                           for a in staged.ops)
-        ops = renc.staged_to_device(staged, dev)
+        staged, ops, widths = _encode_operands(dev, alias, reps)
         kernel = getattr(renc, name)
         plain = getattr(renc, name + "_plain")
-        got = kernel(*ops, steps=staged.steps)
-        want = plain(*ops, steps=staged.steps)
+        got = kernel(*ops, steps=staged.steps, widths=widths)
+        want = plain(*ops, steps=staged.steps, widths=widths)
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
         if not all(torch.equal(g, x) for g, x in zip(got, want)):
             raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
-        ms = _cuda_ms(lambda: kernel(*ops, steps=staged.steps), 10)
-        plain_ms = _cuda_ms(lambda: plain(*ops, steps=staged.steps), 1)
+        ms = _cuda_ms(lambda: kernel(*ops, steps=staged.steps, widths=widths), 10)
+        plain_ms = _cuda_ms(lambda: plain(*ops, steps=staged.steps, widths=widths), 1)
         report[name]["max_abs_err"] = err
         _account(report[name], name, ops, got, ms, plain_ms)
+        S, aw = ops[1].shape
+        smem, per_sm, threads = renc._launch_shape(aw, alias)
         print(f"kernel-vs-plain {name} CT_dev{'_alias' if alias else ''}x{reps} "
-              f"streams={ops[0].shape[0]} steps={staged.steps} table_width={ops[1].shape[1]} "
-              f"equal=True kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+              f"streams={S} steps={staged.steps} table_width={aw} "
+              f"(own widths {int(widths.min())}-{int(widths.max())}) equal=True "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}; {ms * 1e6 / staged.steps:.1f} ns a "
+              f"step of the launch, {smem} bytes of shared memory a block of {threads} "
+              f"threads, {per_sm} blocks an SM, {S / (per_sm * sms):.2f} waves of {sms} SMs")
 
 
 def _tissue_plane(c):
@@ -1547,6 +1574,40 @@ def _main_batch():
     return [blobs[k] for k in names], [raws[k] for k in names], timed_bytes
 
 
+def _wide_pdd(dev) -> None:
+    """Phase 3, a pdd strip too wide for the direct kernel's column carry:
+    a ``WIDE_PDD`` image (smooth, with noise from a numpy seed) encoded on
+    the card with predictor pdd, then decoded by a plan of its own in one
+    direct launch and verified; prints whether its bucket runs fused."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan, micw_compress_device
+    from mic_tpu_torch.tpu import rans_decode as rd
+
+    w, h = WIDE_PDD
+    rng = np.random.default_rng(11)
+    y, x = np.mgrid[:h, :w]
+    px = 2000 + 900 * np.sin(x / 700.0) + 40 * y + rng.integers(0, 24, (h, w))
+    px = px.astype(np.uint16).ravel()
+    blob = micw_compress_device(px, w, h, int(px.max()), dev, predictor="pdd")
+    plan = MicwDecodePlan([blob], dev)
+    ((key, b),) = plan.buckets.items()
+    before = rd.rans_decode_direct_groups.launches
+    run = plan.run()
+    torch.cuda.synchronize()
+    launched = rd.rans_decode_direct_groups.launches - before
+    mism = plan.verify_batch(run, [px])
+    form = ("fused" if b.pdd_ws else
+            "unfused (pdd_ws 0: the row prefix in the kernel, the column sum in torch ops)")
+    print(f"decode path, wide pdd: {w}x{h} encoded on the card ({len(blob)} bytes), bucket "
+          f"{key[:2]} runs {form}, {launched} direct launch, "
+          f"{plan.direct_packing.smem_bytes} bytes of shared memory a block, mismatches={mism}")
+    if key[0] != "pdd" or b.pdd_ws or launched != DIRECT_LAUNCHES_PER_RUN or mism:
+        raise AssertionError(f"wide pdd: bucket {key}, pdd_ws {b.pdd_ws}, {launched} launches, "
+                             f"{mism} mismatches")
+
+
 def _direct_groups_vs_plain(dev, report) -> None:
     """Phase 2, the merged direct launch: every direct bucket of phase 3's
     batch (9 buckets, 1408 strips, both front ends, pdd's column sum fused)
@@ -1723,6 +1784,7 @@ def main() -> int:
 
     _profile(plan)
     del plan, decoded
+    _wide_pdd(dev)
 
     # --- 4. encode path -------------------------------------------------------
     enc_launches, enc_blobs, enc_expected = _encode_phase(dev)

@@ -39,10 +39,12 @@ _SIGNATURES = {
     # groups, blocks, n_blocks, out, syms, st, tab_words, st_words, form,
     # stream
     "mic_rle_decode_groups": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-    # ranks, te1, te2, aw, ar1, ar2, count, tls, out_w, out_f, out_x,
-    # n_strips, steps, alias, stream
-    "mic_rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+    # ranks, te1, te2, aw, widths, ar1, ar2, count, tls, out_w, out_f,
+    # out_x, n_strips, steps, alias, stream
+    "mic_rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
+    # aw, alias, out (int[3]: shared bytes a block, blocks an SM, threads)
+    "mic_rans_encode_shape": [_I, _I, _P],
     # groups, wdesc, outs (host array of device pointers), n_groups, n_blocks,
     # warps, smem_bytes, stream
     "mic_tans_decode_groups": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -80,11 +82,11 @@ def library_path(defines: tuple = ()) -> Path:
 def build(defines: tuple = ()) -> Path:
     """Compile the sources if their library is missing; returns its path.
     ``defines`` are extra ``-DNAME=value`` flags (a library of its own:
-    ``scripts/tans_design_points.py``, ``scripts/rle_design_points.py`` and
-    ``scripts/direct_design_points.py`` build the kernels' other forms with
-    them).  nvcc's output (ptxas registers, shared memory and
-    spills per kernel) is kept beside the library with the suffix
-    ``.log``."""
+    ``scripts/tans_design_points.py``, ``scripts/rle_design_points.py``,
+    ``scripts/direct_design_points.py`` and ``scripts/enc_design_points.py``
+    build the kernels' other forms with them).  nvcc's output (ptxas
+    registers, shared memory and spills per kernel) is kept beside the
+    library with the suffix ``.log``."""
     lib = library_path(defines)
     if lib.exists():
         return lib

@@ -733,6 +733,17 @@ def _direct_group(fn, ops, kw):
     return S, tensors, (*args, steps, inv, cw, esc, 0), _RING_WORDS + tab + carry
 
 
+def direct_strip_fits(fn, ops, kw) -> bool:
+    """Whether one strip of the group ``(fn, operands, kwargs)`` fits a
+    block of the direct kernel: its shared-memory words as
+    :func:`_direct_group` counts them (ring, tables, column carry) within
+    the card's opt-in shared memory.  A plan asks this of a pdd bucket
+    with its ``pdd_ws`` and, where the carry leaves no room, runs the
+    bucket without it (the row prefix, then the column sum in torch ops),
+    on every device alike."""
+    return _direct_group(fn, ops, kw)[3] <= _MAX_BLOCK_WORDS
+
+
 def _pdd_columns_plain(out: torch.Tensor, cw: int) -> torch.Tensor:
     """pdd's second pass on a row-prefix output (int16 [S, steps, 128]):
     the column sum over rows of ``cw`` 128-lane chunks, mod 2^16 (as

@@ -182,7 +182,7 @@ def build_enc_tables(parsed_norms, table_log: int):
 # ---------------------------------------------------------------------------
 
 
-def _operands(ranks, te1, te2, ar1, ar2, count, tls, steps):
+def _operands(ranks, te1, te2, ar1, ar2, count, tls, steps, widths=None):
     S = ranks.shape[0] if isinstance(ranks, torch.Tensor) and ranks.dim() else 0
     if S == 0 or steps <= 0:
         raise ValueError("ranks must be [S>0, steps>0, 128]")
@@ -195,6 +195,8 @@ def _operands(ranks, te1, te2, ar1, ar2, count, tls, steps):
              ("count", count, (S, 128)), ("tls", tls, (S, 128))]
     if ar1 is not None:
         named += [("ar1", ar1, (S, 2, 128)), ("ar2", ar2, (S, 2, 128))]
+    if widths is not None:
+        named.append(("widths", widths, (S,)))
     for name, t, shape in named:
         _check(name, t, shape, dev)
     return S, aw
@@ -210,15 +212,17 @@ def _as_i32(v: torch.Tensor) -> torch.Tensor:
     return (((v & _U32) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
-def _encode_plain(ranks, te1, te2, ar1, ar2, count, tls, steps):
+def _encode_plain(ranks, te1, te2, ar1, ar2, count, tls, steps, widths=None):
     """Reverse-order rANS encode of every (strip, lane), one step of all
     lanes per iteration, from the last step to the first."""
-    S, aw = _operands(ranks, te1, te2, ar1, ar2, count, tls, steps)
+    S, aw = _operands(ranks, te1, te2, ar1, ar2, count, tls, steps, widths)
     dev = ranks.device
     rk_all = ranks.to(torch.int64) & 0xFFFF
     te1, te2, tl = _u(te1), _u(te2), _u(tls)
     cnt = count.to(torch.int64)  # signed reading, as the kernel compares
     shift_rn = (32 - tl) & _U32
+    # Each strip's table width: its own (at most aw), or aw.
+    width = aw if widths is None else _u(widths).clamp(max=aw)[:, None]
     if ar1 is not None:
         starts, bases = _u(ar1).reshape(S, 256), _u(ar2).reshape(S, 256)
     lane = torch.arange(128, device=dev)
@@ -228,7 +232,7 @@ def _encode_plain(ranks, te1, te2, ar1, ar2, count, tls, steps):
     for t in range(steps - 1, -1, -1):
         active = (t * 128 + lane) < cnt
         rk = rk_all[:, t]
-        ok = rk < aw
+        ok = rk < width
         idx = rk.clamp(max=aw - 1)
         e1 = torch.where(ok, torch.gather(te1, 1, idx), 0)
         e2 = torch.where(ok, torch.gather(te2, 1, idx), 0)
@@ -270,13 +274,17 @@ def _encode_plain(ranks, te1, te2, ar1, ar2, count, tls, steps):
     return words, flags, _as_i32(x)
 
 
-def _encode_launch(wrapper, ranks, te1, te2, ar1, ar2, count, tls, steps):
-    S, aw = _operands(ranks, te1, te2, ar1, ar2, count, tls, steps)
+def _encode_launch(wrapper, ranks, te1, te2, ar1, ar2, count, tls, steps, widths=None,
+                   lib=None):
+    """One launch of the encode kernel; counts it on ``wrapper``.  ``lib``
+    is another build of the kernel library (``scripts/enc_design_points.py``)."""
+    S, aw = _operands(ranks, te1, te2, ar1, ar2, count, tls, steps, widths)
     if ranks.device.type != "cuda":
         raise ValueError(f"unsupported device {ranks.device}")
-    from .._build import kernel_library
+    if lib is None:
+        from .._build import kernel_library
 
-    lib = kernel_library()
+        lib = kernel_library()
     words = torch.empty((S, steps, 128), dtype=torch.int16, device=ranks.device)
     flags = torch.empty_like(words)
     states = torch.empty((S, 128), dtype=torch.int32, device=ranks.device)
@@ -285,6 +293,7 @@ def _encode_launch(wrapper, ranks, te1, te2, ar1, ar2, count, tls, steps):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mic_rans_encode(
             ranks.data_ptr(), te1.data_ptr(), te2.data_ptr(), aw,
+            None if widths is None else widths.data_ptr(),
             ar1.data_ptr() if alias else None, ar2.data_ptr() if alias else None,
             count.data_ptr(), tls.data_ptr(), words.data_ptr(), flags.data_ptr(),
             states.data_ptr(), S, steps, int(alias), stream)
@@ -294,20 +303,41 @@ def _encode_launch(wrapper, ranks, te1, te2, ar1, ar2, count, tls, steps):
     return words, flags, states
 
 
-def rans_encode_plain(ranks, te1, te2, count, tls, *, steps: int):
+def _launch_shape(aw: int, alias: bool, lib=None) -> tuple[int, int, int]:
+    """The encode kernel's launch at table width ``aw``: (shared-memory
+    bytes a block, blocks resident an SM, threads a block), from the CUDA
+    occupancy query (``chip_smoke.py`` and ``scripts/enc_design_points.py``
+    print it)."""
+    import ctypes
+
+    if lib is None:
+        from .._build import kernel_library
+
+        lib = kernel_library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.mic_rans_encode_shape(aw, int(alias), out)
+    if rc != 0:
+        raise RuntimeError(f"mic_rans_encode_shape failed: CUDA error {rc}")
+    return tuple(out)
+
+
+def rans_encode_plain(ranks, te1, te2, count, tls, *, steps: int, widths=None):
     """Plain-PyTorch twin of the FF 57 encode kernel (any device).  Same
     operands and outputs as :func:`rans_encode`."""
-    return _encode_plain(ranks, te1, te2, None, None, count, tls, steps)
+    return _encode_plain(ranks, te1, te2, None, None, count, tls, steps, widths)
 
 
-def rans_encode(ranks, te1, te2, count, tls, *, steps: int):
+def rans_encode(ranks, te1, te2, count, tls, *, steps: int, widths=None):
     """Encode rank streams into wide-lane rANS states and dense word
     planes (FF 57).
 
     ranks: int16 [S, steps, 128] (u16 rank of symbol ``t*128 + lane``,
     0 on pad lanes); te1/te2: int32 [S, w] (:func:`build_enc_tables`);
     count/tls: int32 [S, 128], each strip's symbol count and tableLog on
-    every lane (mixed tableLogs share a launch).  Returns (words int16
+    every lane (mixed tableLogs share a launch); widths: None or int32
+    [S], each strip's own table width (its alphabet; the kernel stages
+    that many entries, and a rank at or past it, or past w, reads zero
+    entries, as every rank past w does without it).  Returns (words int16
     [S, steps, 128], flags int16 [S, steps, 128], states int32
     [S, 128]): a stream's renorm words are ``words[flags != 0]`` in
     (step asc, lane asc) order and the final states are the decoder's
@@ -315,29 +345,36 @@ def rans_encode(ranks, te1, te2, count, tls, *, steps: int):
     launch the kernel of ``csrc/rans_encode.cu``.
     """
     if ranks.device.type == "cpu":
-        return rans_encode_plain(ranks, te1, te2, count, tls, steps=steps)
-    return _encode_launch(rans_encode, ranks, te1, te2, None, None, count, tls, steps)
+        return rans_encode_plain(ranks, te1, te2, count, tls, steps=steps, widths=widths)
+    return _encode_launch(rans_encode, ranks, te1, te2, None, None, count, tls, steps, widths)
 
 
 rans_encode.launches = 0
 
 
-def rans_encode_alias_plain(ranks, te1, te2, ar1, ar2, count, tls, *, steps: int):
+def rans_encode_alias_plain(ranks, te1, te2, ar1, ar2, count, tls, *, steps: int,
+                            widths=None):
     """Plain-PyTorch twin of the FF 41 encode kernel (any device).  Same
     operands and outputs as :func:`rans_encode_alias`."""
-    return _encode_plain(ranks, te1, te2, ar1, ar2, count, tls, steps)
+    return _encode_plain(ranks, te1, te2, ar1, ar2, count, tls, steps, widths)
 
 
-def rans_encode_alias(ranks, te1, te2, ar1, ar2, count, tls, *, steps: int):
+def rans_encode_alias(ranks, te1, te2, ar1, ar2, count, tls, *, steps: int, widths=None):
     """FF 41 form of :func:`rans_encode`: the same state machine, but the
     slot written is the alias permutation of cum + rem, resolved from
     the 256-entry run tables ar1 (standard-layout run starts, sorted,
     pad 0xFFFFFFFF) and ar2 (alias slot of each run's start), both int32
-    [S, 2, 128].  CPU tensors take the plain version; CUDA tensors
-    launch the kernel of ``csrc/rans_encode.cu``."""
+    [S, 2, 128].  The kernel reads the slot of cum + rem from a map it
+    builds per strip from the run tables, and takes the tables' search
+    where the map cannot answer (a slot past 2^min(tl, 12), starts not
+    sorted, a map value past 16 bits), so both equal the search on any
+    operands.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel of ``csrc/rans_encode.cu``."""
     if ranks.device.type == "cpu":
-        return rans_encode_alias_plain(ranks, te1, te2, ar1, ar2, count, tls, steps=steps)
-    return _encode_launch(rans_encode_alias, ranks, te1, te2, ar1, ar2, count, tls, steps)
+        return rans_encode_alias_plain(ranks, te1, te2, ar1, ar2, count, tls, steps=steps,
+                                       widths=widths)
+    return _encode_launch(rans_encode_alias, ranks, te1, te2, ar1, ar2, count, tls, steps,
+                          widths)
 
 
 rans_encode_alias.launches = 0
@@ -352,13 +389,14 @@ rans_encode_alias.launches = 0
 class StagedEncode:
     """Host half of a batch encode: the kernel's numpy operands (``ops``,
     in the wrapper's argument order), its step count, and per encodable
-    stream (n, tl, header, ranks, esc_info) plus its position in the
-    input."""
+    stream (n, tl, header, ranks, esc_info), its position in the input
+    and its table width (the wrappers' ``widths``)."""
 
     ops: tuple
     steps: int
     metas: list
     slot_of: list
+    widths: np.ndarray  # each stream's alphabet: the entries its strip stages
 
 
 def stage_encode_batch(streams, *, max_table_log: int = 12, on_error: str = "raise",
@@ -437,7 +475,8 @@ def stage_encode_batch(streams, *, max_table_log: int = 12, on_error: str = "rai
         ops = (rk, te1, te2, ar1.reshape(S, 2, 128), ar2.reshape(S, 2, 128), cnt, tls)
     else:
         ops = (rk, te1, te2, cnt, tls)
-    return StagedEncode(ops, steps, metas, slot_of)
+    widths = np.array([len(f) for f, _c in specs], np.int32)
+    return StagedEncode(ops, steps, metas, slot_of, widths)
 
 
 def staged_to_device(staged: StagedEncode, device) -> tuple[torch.Tensor, ...]:
@@ -474,7 +513,8 @@ def mict_encode_device_batch(streams, device, max_table_log: int = 12,
         return failed
     ops = staged_to_device(staged, device)
     fn = rans_encode_alias if alias else rans_encode
-    w, f, x = fn(*ops, steps=staged.steps)
+    widths = torch.from_numpy(staged.widths).to(device)
+    w, f, x = fn(*ops, steps=staged.steps, widths=widths)
     nz = f != 0
     sel = torch.masked_select(w, nz).cpu().numpy().view(np.uint16)
     ends = np.cumsum(nz.sum((1, 2)).cpu().numpy())

@@ -31,8 +31,9 @@ two tables, or the alias front end with ``fused=False``) and then
 ``post.post_batch``, keyed on
 (entropy form, predictor, padded step count, width, strip height and the
 post constants mid / delim), as ``mic_tpu`` keys its post groups.  The
-second (column) prefix sum of pdd runs in the direct kernel (``pdd_ws``);
-pdr's is a plain ``torch.cumsum`` on the r-kernel's output, as
+second (column) prefix sum of pdd runs in the direct kernel (``pdd_ws``),
+except on a row too wide for the kernel's column carry, where it is a
+plain ``torch.cumsum`` as pdr's is on the r-kernel's output, as
 ``mic_tpu`` leaves both to XLA.  Raw and constant strips are copied on the
 host.
 
@@ -71,6 +72,7 @@ from .rans_decode import (
     build_alias_bucket_tables,
     build_packed_tables,
     build_pallas_tables,
+    direct_strip_fits,
     rans_decode,
     rans_decode_alias,
     rans_decode_direct_groups,
@@ -540,8 +542,9 @@ def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool,
 class _Bucket:
     """One bucket: device operands, a kernel wrapper and its arguments
     and, for pdd and pdr, the (width, strip_h) of the column prefix sum
-    (pdd's in the kernel: ``pdd_ws`` chunks a row); for a post bucket, the
-    symbols-out wrapper and the post function's arguments."""
+    (pdd's in the kernel: ``pdd_ws`` chunks a row, or 0 where the row
+    leaves the kernel no room for its column carry); for a post bucket,
+    the symbols-out wrapper and the post function's arguments."""
 
     def __init__(self, key, entries, device):
         self.n = len(entries)
@@ -580,6 +583,10 @@ class _Bucket:
             self.fn = rans_decode_rle if rle else rans_decode_zzd
             self.ops = to_device(built[:6] + (ws,) + (runs if rle else ()), device)
             self.kwargs = dict(steps=built[7], vdd_ws=vdd_ws, **rle)
+        if self.pdd_ws and not direct_strip_fits(*self.launch):
+            # A row too wide for the column carry beside the ring and
+            # tables: the kernel's row prefix, the column sum in finish.
+            self.pdd_ws = 0
 
     def _init_post(self, key, entries, device):
         form, pred, steps, width, strip_h, mid, delim = key[1:]
@@ -624,8 +631,8 @@ class _Bucket:
 
     def finish(self, out: torch.Tensor) -> torch.Tensor:
         """The bucket's result from its launch's output: the post path, or
-        pdd's rows (the kernel summed the columns) or pdr's column prefix
-        sum, or the output as it is."""
+        pdd's rows (the kernel summed the columns) or the column prefix sum
+        (pdr, and pdd with ``pdd_ws`` 0), or the output as it is."""
         out = out.reshape(self.n, -1)
         if self.post is not None:
             m = self.meta

@@ -3,7 +3,7 @@
 on one card, each run in a process of its own, in the order other, this,
 this, other.
 
-    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,3,5,6,8] [--reps N]
+    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,3,4,5,6,8] [--reps N]
 
 ``DIR`` is an unpacked copy of another commit (for example the parent:
 ``git archive HEAD | tar -x -C build/parent``).  Each run imports the
@@ -20,12 +20,17 @@ sides are measured by the same code as far as the trees share it:
 * ``2p``: the same for each post bucket of phase 6's batch and of
   CT_dev_1strip_tl15 x32 (PERF.md rows 6 and 7, the two-table wrapper
   split by tableLog);
+* ``2e``: both forms of the encode kernel on phase 2's operands (CT_dev
+  x128's 1536 candidate streams of 512 steps, PERF.md row 3) through
+  their wrappers, with the per-stream table widths where the tree's
+  staging has them (the main path's call), and ns a step of the launch;
 * ``3``: phase 3's plan (``MicwDecodePlan`` over ``chip_smoke.BATCH``):
   verified, then ms and GB/s per ``plan.run()`` (CUDA events, mean of
   ``--reps``) and the device busy time of one run (torch.profiler);
-* ``5``, ``6``, ``8``: the tree's own phase function (r-mode plan, post
-  path, RGB / WSI containers), which verifies its outputs and prints its
-  times.
+* ``4``, ``5``, ``6``, ``8``: the tree's own phase function (encode path,
+  r-mode plan, post path, RGB / WSI containers), which verifies its
+  outputs and prints its times (phase 4: its total line, with the
+  profiled ``kernel_ms``).
 
 Prints the card's name and power limit, then each run's timing lines
 (``ms per``, ``GB/s``, the profiler's idle share) under its tree's label.
@@ -41,7 +46,8 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper", "p-wrapper")
+KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper", "p-wrapper", "e-wrapper",
+        "encode path: ")
 
 RUN = """
 import sys, torch
@@ -87,6 +93,27 @@ if "2p" in phases:
         del plan
     for name, ms in per.items():
         print(f"p-wrapper {{name}}: {{ms:.3f}} ms per its buckets' calls, each bucket alone")
+if "2e" in phases:
+    import numpy as np
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu.strips import ALIAS_TABLE_LOG, MAX_TABLE_LOG, micw_parse
+    blob = (cs.TESTDATA / "CT_dev.micw").read_bytes()
+    w, h, _n, _s, mv = micw_parse(blob)[:5]
+    px = np.fromfile(cs.TESTDATA / "CT_dev.raw", dtype="<u2")
+    for alias, fn in ((False, renc.rans_encode), (True, renc.rans_encode_alias)):
+        plan = renc.MicwEncodePlan([(px, w, h, mv)], "alias" if alias else "standard",
+                                   "auto-fast")
+        staged = renc.stage_encode_batch(
+            [j[0] for j in plan.jobs[alias]], on_error="none", alias=alias,
+            max_table_log=ALIAS_TABLE_LOG if alias else MAX_TABLE_LOG)
+        ops = renc.staged_to_device(staged, dev)
+        ops = tuple(t.repeat((128,) + (1,) * (t.dim() - 1)) for t in ops)
+        kw = {{"steps": staged.steps}}
+        if hasattr(staged, "widths"):
+            kw["widths"] = torch.from_numpy(staged.widths).to(dev).repeat(128)
+        ms = cs._cuda_ms(lambda: fn(*ops, **kw), {reps})
+        print(f"e-wrapper {{fn.__name__}}: {{ms:.3f}} ms per call, {{ms * 1e6 / staged.steps:.1f}} "
+              f"ns a step of the launch, {{ops[0].shape[0]}} streams x {{staged.steps}} steps")
 if "3" in phases:
     import numpy as np
     from mic_tpu_torch import MicwDecodePlan
@@ -108,6 +135,8 @@ if "3" in phases:
           f"mismatches={{mism}}; profile: device_busy_ms={{busy:.3f}} "
           f"idle_share_of_span={{1 - busy / span if span else float('nan'):.3f}}")
     del plan
+if "4" in phases:
+    cs._encode_phase(dev)
 if "5" in phases:
     cs._rle_phase(dev)
 if "6" in phases:

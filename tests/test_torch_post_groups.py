@@ -16,13 +16,17 @@ two-table front end (``rans_decode``) and the FF 41 front end with
 * ``DirectPacking``'s layout: a direct-only plan packs as before, one
   launch takes every group, its largest strip sets the strips a block
   (a wide pdd strip's column carry, a tl 15 two-table strip's tables),
-  and tl 16 reads its tables from device memory.
+  and tl 16 reads its tables from device memory;
+* a pdd strip too wide for its column carry (110,208 x 8, written by
+  ``mic_tpu``) runs unfused, decoded against ``micw_decompress_host``;
+  98,176 x 8 keeps the carry.
 
 Tolerance 0 on whole arrays: a lossless codec.  The ``cuda`` tests hold
 the merged launch against its plain twin on the card for every group
-kind (tl 16 from device memory, the tables staged and not), and the
-corrupted streams of ``test_torch_corruption.py`` through it; they need
-no jax: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+kind (tl 16 from device memory, the tables staged and not), the wide pdd
+strips encoded on the card, and the corrupted streams of
+``test_torch_corruption.py`` through it; they need no jax: ``python -m
+pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_post_groups.py``.
 """
 
@@ -32,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from mic_tpu_torch import MicwDecodePlan
+from mic_tpu_torch import MicwDecodePlan, micw_compress_device
 from mic_tpu_torch.tpu import rans_decode as rd
 from mic_tpu_torch.tpu import strips as st
 from mic_tpu_torch.tpu.device_rans import mict_parse
@@ -387,6 +391,45 @@ def test_wide_pdd_strips_fit_a_block(width, per):
     assert np.array_equal(pk.blocks, blocks) and pk.smem_bytes == smem
 
 
+# width -> whether a pdd strip of that width, 8 rows, keeps its column carry
+# in the kernel (98,176: 767 chunks, 49,088 words of carry beside ring and
+# tables; 110,208: 55,104 words, past a block's 57,984); both unbanded
+WIDE_PDD = {98176: True, 110208: False}
+
+
+def _wide_pdd_image(width, height=8, seed=11):
+    """A smooth ``width`` x ``height`` image with noise (a numpy seed)
+    whose pdd strip compresses."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:height, :width]
+    px = 2000 + 900 * np.sin(x / 700.0) + 40 * y + rng.integers(0, 24, (height, width))
+    return px.astype(np.uint16).ravel()
+
+
+@pytest.mark.parametrize("width", sorted(WIDE_PDD))
+def test_wide_pdd_strip_without_room_runs_unfused(ref, width):
+    """A pdd container written by ``mic_tpu`` whose one strip is a row of
+    ``width`` pixels: where ring, tables and column carry pass a block's
+    shared memory the plan gives the bucket ``pdd_ws`` 0 (the kernel's
+    row prefix, the column sum in ``finish``), else the kernel's column
+    sum; the packing fits a block either way, on the CPU as on the card,
+    and the unfused plan decodes bit-exact to ``micw_decompress_host``."""
+    strips = ref[3]
+    px = _wide_pdd_image(width)
+    blob = strips.micw_compress(px, width, 8, int(px.max()), predictor="pdd")
+    plan = MicwDecodePlan([blob], CPU)
+    ((key, b),) = plan.buckets.items()
+    fused = WIDE_PDD[width]
+    assert key[0] == "pdd" and b.pdd_ws == (width // 128 if fused else 0)
+    fn, ops, kw = b.launch
+    assert rd.direct_strip_fits(fn, ops, dict(kw, pdd_ws=width // 128)) == fused
+    assert rd.DirectPacking(plan._direct_groups).smem_bytes <= 4 * rd._MAX_BLOCK_WORDS
+    if not fused:
+        out = plan.assemble(plan.run())[0][0]
+        assert np.array_equal(out, strips.micw_decompress_host(blob)[0])
+        assert np.array_equal(out, px)
+
+
 def test_plan_puts_post_buckets_in_the_direct_launch():
     """A plan of post-path containers (avg: packed symbols; CT at tl 13
     and 15: two tables; an MR_dev_alias copy whose buckets are direct) on
@@ -489,6 +532,23 @@ def test_cuda_wrappers_and_plan_count_their_launches():
             torch.cuda.synchronize()
             assert b.fn.launches == n + 1
             assert torch.equal(got, rd._DIRECT_PLAIN[b.fn](*b.ops, **b.kwargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", sorted(WIDE_PDD))
+def test_cuda_wide_pdd_strip_decodes(width):
+    """The wide pdd strips encoded on the card by the port: the plan keeps
+    the CPU's choice of ``pdd_ws`` and decodes every pixel in one launch."""
+    dev = _need_cuda()
+    px = _wide_pdd_image(width)
+    blob = micw_compress_device(px, width, 8, int(px.max()), dev, predictor="pdd")
+    plan = MicwDecodePlan([blob], dev)
+    assert [b.pdd_ws for b in plan.buckets.values()] == [width // 128 * WIDE_PDD[width]]
+    before = rd.rans_decode_direct_groups.launches
+    run = plan.run()
+    torch.cuda.synchronize()
+    assert rd.rans_decode_direct_groups.launches == before + 1
+    assert plan.verify_batch(run, [px]) == 0
 
 
 @pytest.mark.cuda

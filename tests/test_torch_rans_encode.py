@@ -9,11 +9,15 @@
   device batch encoder;
 * ``micw_compress_device_many`` against ``micw_compress`` on small images
   and on the in-repo fixtures, and round trips through the port's
-  decode.
+  decode;
+* the FF 41 kernel's slot map (a numpy mirror of its build, a run at a
+  time) against the 9-round search and ``alias_construct``'s
+  ``slot_of``, and the per-stream ``widths`` operand.
 
 Tolerance 0 everywhere: this is a lossless codec and the containers must
 be byte-identical.  The ``cuda`` tests hold the kernel against its plain
-version on the card and the card's blobs against the fixtures; they need
+version on the card (fixtures, mixed tableLogs, per-stream widths and
+dishonest operands) and the card's blobs against the fixtures; they need
 no jax, so on a machine with a GPU and no jax they run with
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_rans_encode.py``.
 """
@@ -23,6 +27,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import assume, given, settings
+from hypothesis import strategies as hs
 
 from mic_tpu_torch import micw_compress_device, micw_compress_device_many, micw_decode_many
 from mic_tpu_torch.tpu import device_rans as dr
@@ -248,7 +254,8 @@ def test_kernel_wrapper_matches_pallas(ref, alias, dishonest):
     assert f.any() and set(np.unique(f)) <= {0, 1}
 
 
-@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity", "device", "width", "steps"])
+@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity", "device", "width", "steps",
+                                   "widths"])
 def test_wrapper_rejects_bad_operands(fault):
     staged = re_.stage_encode_batch([_zz_stream(np.random.default_rng(6), 8, 128, 9)],
                                     alias=True)
@@ -265,10 +272,172 @@ def test_wrapper_rejects_bad_operands(fault):
     elif fault == "width":
         ops[1] = torch.zeros((1, 4224), dtype=torch.int32)
         ops[2] = ops[1].clone()
+    elif fault == "widths":  # one per strip
+        with pytest.raises(ValueError):
+            re_.rans_encode_alias(*ops, steps=steps, widths=torch.zeros(2, dtype=torch.int32))
+        return
     else:
         steps += 1
     with pytest.raises((TypeError, ValueError)):
         re_.rans_encode_alias(*ops, steps=steps)
+
+
+@pytest.mark.parametrize("alias", [False, True], ids=["ff57", "ff41"])
+def test_widths_operand_reads_zero_past_each_strip(alias):
+    """``widths``: the staged alphabets give the batch width's result (the
+    tables are zero past them); cut widths (0, a few, past the table) give
+    what the tables zeroed past them give without the operand."""
+    staged = _kernel_streams(np.random.default_rng(12 + alias), alias)
+    ops = re_.staged_to_device(staged, CPU)
+    fn = re_.rans_encode_alias if alias else re_.rans_encode
+    want = fn(*ops, steps=staged.steps)
+    got = fn(*ops, steps=staged.steps, widths=torch.from_numpy(staged.widths))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    aw = ops[1].shape[1]
+    cut = torch.tensor([0, 9, aw + 5], dtype=torch.int32)
+    te1, te2 = ops[1].clone(), ops[2].clone()
+    past = torch.arange(aw)[None, :] >= cut.clamp(max=aw)[:, None]
+    te1[past], te2[past] = 0, 0
+    want = fn(ops[0], te1, te2, *ops[3:], steps=staged.steps)
+    got = fn(*ops, steps=staged.steps, widths=cut)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got[2], fn(*ops, steps=staged.steps)[2])
+
+
+# ---------------------------------------------------------------------------
+# The FF 41 kernel's slot map (csrc/rans_encode.cu), mirrored in numpy
+# ---------------------------------------------------------------------------
+
+
+def _search(starts, bases, s_idx):
+    """The plain twin's slot rule (``rans_encode._encode_plain``): r the
+    count of starts <= s_idx by a 9-round binary search, less one (at
+    least 0); base[r] + (s_idx - start[r]) mod 2^32."""
+    starts, bases = starts.astype(np.int64), bases.astype(np.int64)
+    n_le = np.zeros(s_idx.shape, np.int64)
+    step = 256
+    while step:
+        cand = n_le + step
+        v = starts[np.minimum(cand - 1, 255)]
+        n_le = np.where((cand <= 256) & (v <= s_idx), cand, n_le)
+        step >>= 1
+    r = np.maximum(n_le - 1, 0)
+    return (bases[r] + s_idx - starts[r]) & 0xFFFFFFFF
+
+
+def _slot_map(starts, bases, tl):
+    """The kernel's map build, a run at a time in its order: run r writes
+    base[r] + (s - start[r]) at slots [start[r], start[r+1]) (run 0 from
+    slot 0) below 2^min(tl, 12).  Returns (map, usable): not usable, the
+    kernel searches every step (starts not sorted, or a value past 16
+    bits)."""
+    msize = 1 << min(tl, 12)
+    smap = np.zeros(msize, np.uint16)
+    st = starts.astype(np.int64)
+    delta = (bases.astype(np.int64) - st) & 0xFFFFFFFF
+    usable = True
+    for r in range(256):
+        nx = st[r + 1] if r + 1 < 256 else 0xFFFFFFFF
+        usable &= bool(nx >= st[r])
+        i = np.arange(st[r] if r else 0, min(nx, msize))
+        v = (delta[r] + i) & 0xFFFFFFFF
+        usable &= bool((v <= 0xFFFF).all())
+        smap[i] = v
+    return smap, usable
+
+
+def _run_tables(al):
+    """``alias_construct``'s encoder runs as the kernel's 256-entry
+    operands (pad 0xFFFFFFFF and 0)."""
+    starts, bases = al["enc_runs"]
+    ar1 = np.full(256, 0xFFFFFFFF, np.uint32)
+    ar2 = np.zeros(256, np.uint32)
+    ar1[: len(starts)], ar2[: len(bases)] = starts, bases
+    return ar1, ar2
+
+
+def _assert_map_is_the_search(ar1, ar2, tl, slot_of=None):
+    smap, usable = _slot_map(ar1, ar2, tl)
+    assert usable
+    s = np.arange(1 << min(tl, 12))
+    assert np.array_equal(smap, _search(ar1, ar2, s))
+    if slot_of is not None:
+        assert np.array_equal(smap, slot_of)
+
+
+@pytest.mark.parametrize("name", ["CT_dev_alias", "MR_dev_alias"])
+def test_slot_map_of_fixture_streams(name):
+    """Every FF 41 candidate stream of a fixture: the map equals the
+    search and ``alias_construct``'s ``slot_of`` on every slot."""
+    from mic_tpu_torch.ops.fse import DEFAULT_TABLE_LOG, IncompressibleError, histogram
+
+    _blob, image = _fixture_image(name)
+    plan = re_.MicwEncodePlan([image], "alias", "auto-fast")
+    checked = 0
+    for syms, _budget in plan.jobs[True]:
+        counts, _mx, symbol_len = histogram(np.asarray(syms, np.uint16))
+        try:
+            plan_ = dr.alias_encode_plan(counts, symbol_len, len(syms), DEFAULT_TABLE_LOG,
+                                         st.ALIAS_TABLE_LOG)
+        except IncompressibleError:  # the stream is not encoded
+            continue
+        tl, al = plan_[2], plan_[6]
+        _assert_map_is_the_search(*_run_tables(al), tl, al["slot_of"])
+        checked += 1
+    assert checked >= 4
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(seed=hs.integers(0, 2**32 - 1), n_syms=hs.integers(2, 300),
+       skew=hs.floats(0.2, 3.0), tl=hs.integers(7, 12))
+def test_slot_map_of_made_streams(seed, n_syms, skew, tl):
+    """Histograms made from a seed (alphabets of 2-300 symbols, skewed or
+    flat, tableLogs 7-12): where the alias layout exists the map equals
+    the search and ``slot_of``."""
+    from mic_tpu_torch.ops.fse import IncompressibleError
+
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(n_syms + 5, np.int64)
+    counts[rng.choice(n_syms + 5, n_syms, replace=False)] = (
+        1 + (rng.pareto(skew, n_syms) * 50).astype(np.int64).clip(0, 10**6))
+    n = int(counts.sum())
+    assume(counts.max() < n)
+    try:
+        plan = dr.alias_encode_plan(counts, len(counts), n, tl, tl)
+    except IncompressibleError:  # no alias layout: no stream
+        assume(False)
+    _assert_map_is_the_search(*_run_tables(plan[6]), plan[2], plan[6]["slot_of"])
+
+
+@pytest.mark.parametrize("case", ["first_start_past_0", "equal_starts", "256_runs",
+                                  "unsorted", "bases_past_16_bits"])
+def test_slot_map_of_made_tables(case):
+    """Hand-made run tables: a first start past slot 0 (slots below it
+    take run 0, as the search's), runs of equal starts (the last of them),
+    exactly 256 runs (no pad); unsorted starts and a map value past 16 bits
+    leave the map unusable, and the kernel searches every step."""
+    rng = np.random.default_rng(13)
+    tl = 12
+    starts = np.sort(rng.choice(4096, 256, replace=False)).astype(np.uint32)
+    bases = rng.integers(0, 4096 - 16, 256).astype(np.uint32)
+    if case == "first_start_past_0":  # slots 0-36 take run 0: base[0] + s - 37
+        starts[:100] = np.sort(rng.choice(np.arange(38, 4096), 100, replace=False))
+        starts[0], starts[100:], bases[0] = 37, 0xFFFFFFFF, 100
+    elif case == "equal_starts":
+        starts[10:14] = starts[10]
+        starts[200:] = 0xFFFFFFFF
+    elif case == "256_runs":
+        starts[0] = 0
+    elif case == "unsorted":
+        starts[10:60] = starts[10:60][::-1]
+    else:
+        bases[7] = 0x10000 - 2
+    if case in ("unsorted", "bases_past_16_bits"):  # the map would be wrong: unusable
+        smap, usable = _slot_map(starts, bases, tl)
+        assert not usable and not np.array_equal(smap, _search(starts, bases, np.arange(4096)))
+        return
+    _assert_map_is_the_search(starts, bases, tl)
+    _assert_map_is_the_search(starts, bases, 9)  # a map of 512 slots: the same rule
 
 
 # ---------------------------------------------------------------------------
@@ -506,29 +675,73 @@ def _need_cuda():
     return torch.device("cuda", 0)
 
 
+def _card_case(staged, alias, dev, case):
+    """The staged operands on ``dev`` and the wrapper's keyword arguments
+    under ``case``: as staged (the batch width), with the per-stream
+    widths, or dishonest (ranks 0xFFFF with widths halved on every other
+    strip; every lane at tl 13 or 31, past the FF 41 map; FF 41 starts
+    unsorted, or bases that put map values past 16 bits, on every other
+    strip)."""
+    rng = np.random.default_rng(14)
+    ops = list(re_.staged_to_device(staged, dev))
+    kw = {"steps": staged.steps}
+    S = ops[0].shape[0]
+    if case == "widths":
+        kw["widths"] = torch.from_numpy(staged.widths).to(dev)
+    elif case == "ranks_beyond_table":
+        rk = ops[0].clone().view(-1)
+        rk[torch.from_numpy(rng.integers(0, rk.numel(), 200)).to(dev)] = -1
+        ops[0] = rk.view_as(ops[0])
+        half = staged.widths.copy()
+        half[::2] //= 2
+        kw["widths"] = torch.from_numpy(half).to(dev)
+    elif case in ("tls13", "tls31"):
+        ops[-1] = torch.full_like(ops[-1], int(case[3:]))
+    elif case == "unsorted_ar1" and alias:
+        ar1 = ops[3].clone().view(S, 256)
+        ar1[::2, 10:60] = ar1[::2, 10:60].flip(1)
+        ops[3] = ar1.view(S, 2, 128)
+    elif case == "bases_past_16_bits" and alias:
+        ar2 = ops[4].clone()
+        ar2[::2] += 0x10000
+        ops[4] = ar2
+    return ops, kw
+
+
+CARD_CASES = ["staged", "widths", "ranks_beyond_table", "tls13", "tls31", "unsorted_ar1",
+              "bases_past_16_bits"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["CT_dev", "CT_dev_alias", "MR_dev_rbest"])
-def test_cuda_kernel_matches_plain(name):
+@pytest.mark.parametrize("case", CARD_CASES)
+@pytest.mark.parametrize("name", ["CT_dev", "CT_dev_alias", "MR_dev_rbest", "mixed_tl"])
+def test_cuda_kernel_matches_plain(name, case):
+    """Both forms of the encode kernel against their plain twins on the
+    card, all three outputs: each fixture's candidate streams (one launch
+    a family) and three made streams of three tableLogs in one launch,
+    as staged, with per-stream widths and under dishonest operands."""
     dev = _need_cuda()
-    _blob, image = _fixture_image(name)
-    _b, _r, pred, ent = FIXTURES[name]
-    plan = re_.MicwEncodePlan([image], ent, pred)
-    for alias, jobs in plan.jobs.items():
-        if not jobs:
-            continue
-        staged = re_.stage_encode_batch(
+    if name == "mixed_tl":
+        batches = {a: _kernel_streams(np.random.default_rng(5 + a), a) for a in (False, True)}
+    else:
+        _blob, image = _fixture_image(name)
+        _b, _r, pred, ent = FIXTURES[name]
+        plan = re_.MicwEncodePlan([image], ent, pred)
+        batches = {alias: re_.stage_encode_batch(
             [j[0] for j in jobs], on_error="none", alias=alias,
             max_table_log=st.ALIAS_TABLE_LOG if alias else st.MAX_TABLE_LOG)
-        ops = re_.staged_to_device(staged, dev)
+            for alias, jobs in plan.jobs.items() if jobs}
+    for alias, staged in batches.items():
+        ops, kw = _card_case(staged, alias, dev, case)
         fn = re_.rans_encode_alias if alias else re_.rans_encode
         plain = re_.rans_encode_alias_plain if alias else re_.rans_encode_plain
         before = fn.launches
-        got = fn(*ops, steps=staged.steps)
+        got = fn(*ops, **kw)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
-        want = plain(*ops, steps=staged.steps)
+        want = plain(*ops, **kw)
         for g, w in zip(got, want):
-            assert torch.equal(g, w), (name, alias)
+            assert torch.equal(g, w), (name, case, alias)
 
 
 @pytest.mark.cuda
