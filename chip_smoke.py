@@ -39,6 +39,13 @@ Phases (any failure exits non-zero; nothing is caught):
    the YCoCg-R pair on full-range random u16 planes and on the planes of
    phase 8's slide (16.5 M pixels each), the 5/3 lifting pair on random
    int32 rows in the u16 range at even, odd and non-multiple-of-4 widths.
+   L-lane decode: the lanes kernel through its one-bucket wrapper on
+   every bucket of phase 10's batch (the tableLog 13-16 fixtures among
+   them; every table is read from device memory), each against its plain
+   twin run once, then the plan's one launch against them all, then
+   CT_dev's first 128 rows at 8, 512, 2048, 4096 and 16,384 lanes (1 to
+   16 lanes a thread), with the launch's blocks, threads, shared memory a
+   block and blocks an SM, and the half's wall seconds.
    Times from CUDA events after a warm-up (the plain tANS version: its
    one compared call).
 3. Decode path: ``MicwDecodePlan`` over a mixed batch (CT_dev x256, the
@@ -143,7 +150,26 @@ Phases (any failure exits non-zero; nothing is caught):
    must equal the same call on the CPU (the plain twins), the inverse
    must give back the input, and both row wrappers must have launched.
    Prints ms per transform (CUDA events).
-10. Prints the kernel report as one JSON line (with each kernel's bound:
+10. L-lane (scan-tier) decode: ``MicwDecodePlan`` over the strips
+   ``mic_tpu``'s plan sends to its scan tier, encoded at the start of phase
+   2 by the port's host encoder copy (seconds printed): CT_dev at 64 lanes
+   (auto-fast standard) x256, 1024 strips of 1024 steps, the batch size
+   the reference bench targets; MR_dev at 64 lanes (alias) x64; CT_dev at
+   256 and at 32 lanes x16; and the FF 41 fixtures at tableLog 13-16
+   (``tests/data/torch_port/CT_dev_alias_tl*.micw``) x32.  Every strip of
+   every replica is verified, in the first run and in the last timed one;
+   one ``plan.run()`` must be exactly ``LANES_LAUNCHES_PER_RUN`` (1) launch
+   of the lanes kernel, holding every bucket.  Prints staging seconds, ms
+   per ``plan.run()`` and GB/s (CUDA events), the launch alone, its blocks,
+   shared memory a block and blocks an SM, and a profiler split of the
+   lanes launch against ``post_batch``'s torch ops.  Then the graft
+   entry's tiny 64-lane batch through ``decode_strip_batch`` against its
+   pixels, ``mict_decode_device`` on one 64-lane stream against the host
+   decoder, and ``compress_multi_frame_device(lanes=64)`` on
+   ``series_dev_ind.raw`` (three 512x512 frames), decoded and verified;
+   each call's lanes launches counted from 0 and required > 0.  Prints
+   the phase's wall seconds.
+11. Prints the kernel report as one JSON line (with each kernel's bound:
    the larger of its bytes over 3.35 TB/s and its integer operations over
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -204,6 +230,17 @@ POST_BATCH = [
     ("CT_dev_tl13", PORT_DATA / "CT_dev_tl13.micw", None, None, 32),
 ]
 CT_TL15 = PORT_DATA / "CT_dev_1strip_tl15.micw"
+# Phase 10: (name, pixels, width, height, lanes, predictor, entropy,
+# replicas), encoded at the start of phase 2 by the port's host encoder;
+# then the FF 41 fixtures above tableLog 12 (tableLog -> file), x32 each.
+SCAN_ENCODE = [("CT_dev_l64", "CT_dev.raw", 512, 512, 64, "auto-fast", "standard", 256),
+               ("MR_dev_alias_l64", "MR_dev.raw", 256, 256, 64, "auto-fast", "alias", 64),
+               ("CT_dev_l256", "CT_dev.raw", 512, 512, 256, "auto-fast", "standard", 16),
+               ("CT_dev_l32", "CT_dev.raw", 512, 512, 32, "auto-fast", "standard", 16)]
+SCAN_FIXTURES = {13: "CT_dev_alias_tl13_l64.micw", 14: "CT_dev_alias_tl14.micw",
+                 15: "CT_dev_alias_tl15.micw", 16: "CT_dev_alias_tl16_l64.micw"}
+SCAN_FIXTURE_REPS = 32
+SCAN_EXTRA_LANES = (8, 512, 2048, 4096, 16384)  # phase 2's lanes kernel, CT_dev's first 128 rows
 # name -> (CUDA source, file:line of the Pallas kernel body it replaces)
 KERNELS = {
     "rans_decode_zzd": ("mic_tpu_torch/csrc/rans_direct.cu", "mic_tpu/tpu/pallas_rans.py:415"),
@@ -228,6 +265,9 @@ KERNELS = {
     "ycocgr_inverse": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:75"),
     "wt53_rows_forward": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:109"),
     "wt53_rows_inverse": ("mic_tpu_torch/csrc/transforms.cu", "mic_tpu/tpu/kernels.py:130"),
+    # no Pallas kernel: it replaces mic_tpu's scan tier, plain XLA (the
+    # lax.scan of decode_strip_batch_impl's rans_one and its subst_one)
+    "rans_decode_lanes": ("mic_tpu_torch/csrc/rans_lanes.cu", "mic_tpu/tpu/strips.py:762"),
 }
 # The bound of a kernel's work: the larger of its bytes (every input read
 # once, every output written once) over the H100 SXM's 3.35 TB/s and its
@@ -247,21 +287,31 @@ KERNELS = {
 # the YCoCg-R pixel (four adds, two shifts, two zigzags or unzigzags, the
 # masks and the packing: 15 for three outputs, 5 each); the lifting pair
 # (two or three neighbour predicts, the update, the index arithmetic: 16
-# for two outputs, 8 each).
+# for two outputs, 8 each); the lanes kernel's step per lane (slot mask,
+# two table reads and the freq / bias split, shift, multiply-add, the
+# active and renorm tests, the escape compare, two ballots and two masked
+# popcounts, the rank adds, the word clip and merge, the state select, the
+# escape select and the store: 24).
 MEM_BPS, CORE_OPS = 3.35e12, 67e12
 OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18,
                    "rans_decode_direct_groups": 2, "rans_decode_packed": 9,
                    "rans_decode": 9, "rans_decode_rle": 29, "rans_decode_rle_alias": 34,
                    "rans_encode": 12, "rans_encode_alias": 20, "tans_decode": 24,
                    "ycocgr_forward": 5, "ycocgr_inverse": 5,
-                   "wt53_rows_forward": 8, "wt53_rows_inverse": 8}
+                   "wt53_rows_forward": 8, "wt53_rows_inverse": 8, "rans_decode_lanes": 24}
 TILE = 256  # phase 8's tile edge and the slide's margin
 RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-buckets at once
 DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): all direct buckets
+LANES_LAUNCHES_PER_RUN = 1  # lanes-kernel launches per MicwDecodePlan.run(): all scan buckets
 PHASE3_PACKING = (352, 69760)  # phase 3's blocks and bytes a block (4 strips a block, kept)
 WIDE_PDD = (110208, 8)  # phase 3's pdd image whose column carry leaves a block no room
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
 ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
+
+
+def _clock(t_start: float, phase: int) -> None:
+    """Prints the run's wall seconds so far at the start of ``phase``."""
+    print(f"clock: {time.perf_counter() - t_start:.3f} s at the start of phase {phase}")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -777,14 +827,8 @@ def _post_phase(dev, blobs, expected, names):
 
     from mic_tpu_torch import MicwDecodePlan
     from mic_tpu_torch.tpu import rans_decode as rd
-    from mic_tpu_torch.tpu.strips import STRIP_MODE_CONST, STRIP_MODE_RAW, micw_parse
 
-    timed_bytes = 0
-    for blob in blobs:
-        bw, bh, _ns, strip_h, _mv, _gp, _lanes, strips = micw_parse(blob)
-        timed_bytes += 2 * sum(min(strip_h, bh - i * strip_h) * bw
-                               for i, st in enumerate(strips)
-                               if st[5] not in (STRIP_MODE_RAW, STRIP_MODE_CONST))
+    timed_bytes = _entropy_bytes(blobs)
     t0 = time.perf_counter()
     plan = MicwDecodePlan(blobs, dev)
     torch.cuda.synchronize()
@@ -1555,23 +1599,291 @@ def _wavelet_phase(dev, slide):
     return total
 
 
+def _entropy_bytes(blobs) -> int:
+    """Decoded u16 bytes of the entropy strips of ``blobs``."""
+    from mic_tpu_torch.tpu.strips import STRIP_MODE_CONST, STRIP_MODE_RAW, micw_parse
+
+    total = 0
+    for blob in blobs:
+        bw, bh, _ns, strip_h, _mv, _gp, _lanes, strips = micw_parse(blob)
+        total += 2 * sum(min(strip_h, bh - i * strip_h) * bw for i, st in enumerate(strips)
+                         if st[5] not in (STRIP_MODE_RAW, STRIP_MODE_CONST))
+    return total
+
+
+def _scan_batch():
+    """Phase 10's containers (SCAN_ENCODE encoded here by the port's host
+    encoder, and the FF 41 fixtures above tableLog 12), expected pixels and
+    names, in batch order."""
+    import numpy as np
+
+    from mic_tpu_torch import micw_compress
+
+    blobs, expected, names = [], [], []
+    t0 = time.perf_counter()
+    for name, raw, w, h, lanes, pred, ent, reps in SCAN_ENCODE:
+        px = np.fromfile(TESTDATA / raw, dtype="<u2")
+        blob = micw_compress(px, w, h, int(px.max()), lanes=lanes, predictor=pred, entropy=ent)
+        blobs += [blob] * reps
+        expected += [px] * reps
+        names += [name] * reps
+    enc_s = time.perf_counter() - t0
+    ct = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")
+    for tl, fname in SCAN_FIXTURES.items():
+        blobs += [(PORT_DATA / fname).read_bytes()] * SCAN_FIXTURE_REPS
+        expected += [ct] * SCAN_FIXTURE_REPS
+        names += [f"CT_dev_alias_tl{tl}"] * SCAN_FIXTURE_REPS
+    print(f"scan tier: {len(SCAN_ENCODE)} containers encoded by the host encoder in "
+          f"{enc_s:.3f} s, {len(SCAN_FIXTURES)} FF 41 fixtures above tableLog 12")
+    return blobs, expected, names
+
+
+def _lanes_shape(packing) -> str:
+    """A lanes-kernel packing's launch: blocks, threads, lanes a thread,
+    shared memory a block and blocks an SM."""
+    from mic_tpu_torch.tpu.scan_decode import _launch_shape
+
+    smem, occ = _launch_shape(packing)
+    return (f"launch: {len(packing.blocks)} blocks of {packing.threads} threads "
+            f"({packing.lpt} lanes a thread at most), {smem} bytes of shared memory a block, "
+            f"{occ} blocks an SM, every table read from device memory")
+
+
+def _lanes_kernels_vs_plain(dev, report, blobs) -> None:
+    """Phase 2, scan half: the plain twin once on every scan bucket of
+    phase 10's batch (timed), the lanes kernel through its one-bucket
+    wrapper on each bucket against it, then the plan's one launch against
+    them all (the tableLog 15-16 buckets among them); then CT_dev's first
+    128 rows at SCAN_EXTRA_LANES lanes.  Prints its wall seconds."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan, micw_compress
+    from mic_tpu_torch.tpu import scan_decode as sd
+
+    t_half = time.perf_counter()
+    r = report["rans_decode_lanes"]
+
+    def plain(b):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = sd.rans_decode_lanes_plain(*b.ops, **b.kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        return want, start.elapsed_time(end)
+
+    def compare(tag, key, b, timed):
+        want, plain_ms = plain(b)
+        got = b.fn(*b.ops, **b.kwargs)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"rans_decode_lanes {tag} {key}: kernel != plain "
+                                 f"(max abs err {err})")
+        pk = sd.LanesPacking([b.launch])
+        ms = _cuda_ms(lambda: sd._lanes_launch(pk), 10)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if timed:
+            _account(r, "rans_decode_lanes", b.ops, (got,), ms, plain_ms)
+        tls = sorted({int(t) for t in b.ops[6].cpu()})
+        steps = b.kwargs["steps"]
+        print(f"kernel-vs-plain rans_decode_lanes {tag} bucket={key} strips={b.n} "
+              f"lanes={b.ops[0].shape[1]} steps={steps} tls={tls} equal=True "
+              f"kernel_ms={ms:.3f} ({ms * 1e6 / steps:.1f} ns a step) plain_ms={plain_ms:.3f}; "
+              f"{_lanes_shape(pk)}")
+        return want, plain_ms
+
+    plan = MicwDecodePlan(blobs, dev)
+    compared = [compare("phase-10-batch", k, plan.buckets[k], True) for k in plan._scan_keys]
+    want = [w for w, _ms in compared]
+    plain_ms = sum(ms for _w, ms in compared)
+    groups, packing = plan._scan_groups, plan.scan_packing
+    got = sd._lanes_launch(packing)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"lanes launch: kernel != plain (max abs err {err})")
+    ms = _cuda_ms(lambda: sd._lanes_launch(packing), 10)
+    print(f"kernel-vs-plain lanes launch phase-10-batch: {len(groups)} groups "
+          f"({sum(ops[0].shape[0] for _f, ops, _k in groups)} strips) equal=True "
+          f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (the buckets' plain twins); "
+          f"{_lanes_shape(packing)}")
+    del plan, want, compared, got
+    ct = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")[: 128 * 512]
+    for lanes in SCAN_EXTRA_LANES:
+        blob = micw_compress(ct, 512, 128, int(ct.max()), num_strips=1, lanes=lanes)
+        plan = MicwDecodePlan([blob], dev)
+        for key in plan._scan_keys:
+            compare(f"CT_dev_rows128_l{lanes}", key, plan.buckets[key], False)
+        mism = plan.verify_batch(plan.run(), [ct])
+        if mism:
+            raise AssertionError(f"CT_dev's first 128 rows at {lanes} lanes: {mism} mismatches")
+        del plan
+    print(f"phase 2, lanes half: {time.perf_counter() - t_half:.3f} s wall")
+
+
+def _tiny_graft_batch():
+    """``__graft_entry__._tiny_micw_batch(4)`` made with the port: a 64 x
+    32 image as 4 zzd strips of 64 lanes, in ``build_strip_batch``'s
+    operands (init, words, slot tables, counts, table entries, escapes) and
+    static arguments; returns (operands, keyword arguments, pixels)."""
+    import numpy as np
+
+    from mic_tpu_torch import micw_compress, micw_parse
+    from mic_tpu_torch.ops.predictors import delta_params
+    from mic_tpu_torch.tpu.device_rans import mict_parse, slot_tables
+
+    h, w, L = 32, 64, 64
+    rng = np.random.default_rng(0)
+    img = (rng.standard_normal((h, w)).cumsum(axis=1) * 8 + 512).astype(np.int32)
+    img = (img >> 2 << 2).clip(0, 1023).astype(np.uint16)
+    blob = micw_compress(img.ravel(), w, h, int(img.max()), num_strips=4, lanes=L,
+                         predictor="zzd")
+    width, _h, _n, strip_h, max_value, _p, _l, strips = micw_parse(blob)
+    parsed = [mict_parse(b) for b, *_ in strips]
+    tl = parsed[0][1]
+    if any(p[1] != tl for p in parsed):
+        raise AssertionError("the tiny batch must share its tableLog")
+    S = len(parsed)
+    tables = [slot_tables(p[5], tl, p[7]) for p in parsed]
+    words = np.zeros((S, max(len(p[4]) for p in parsed) + 1), np.uint32)
+    for i, p in enumerate(parsed):
+        words[i, : len(p[4])] = p[4]
+    ents = np.array([s[2:5] for s in strips], np.int32)
+    ops = (np.stack([p[3] for p in parsed]).astype(np.uint32), words,
+           *(np.stack([t[k] for t in tables]) for k in range(3)),
+           np.array([p[2] for p in parsed], np.int32), ents[:, 0], ents[:, 1], ents[:, 2],
+           np.full(S, -1, np.int32), np.zeros((S, 1), np.uint16))
+    delim = int(delta_params(max_value)[1])
+    kw = dict(table_log=tl, n_steps=max(-(-p[2] // L) for p in parsed), width=width,
+              strip_h=strip_h, max_runs=int(-(-(ents[:, 1].max() + 1) // 128) * 128),
+              max_tokens=int(-(-(ents[:, 0].max() + 1) // 128) * 128),
+              mid_count=(1 << (delim.bit_length() - 1)) - 1, delim=delim, predictor="zzd")
+    return ops, kw, img.ravel()
+
+
+def _scan_phase(dev, blobs, expected, names):
+    """Phase 10: the scan-tier decode; returns the run's launch counts."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import (
+        MicwDecodePlan,
+        compress_multi_frame_device,
+        decompress_multi_frame_device,
+        micw_parse,
+    )
+    from mic_tpu_torch.tpu import scan_decode as sd
+    from mic_tpu_torch.tpu.decode import mict_decode_device
+    from mic_tpu_torch.tpu.device_rans import mict_decode_numpy
+
+    t_phase = time.perf_counter()
+    grp = sd.rans_decode_lanes_groups
+    timed_bytes = _entropy_bytes(blobs)
+    t0 = time.perf_counter()
+    plan = MicwDecodePlan(blobs, dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    grp.launches = 0
+    t0 = time.perf_counter()
+    decoded = plan.run()
+    torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
+    launches = {"rans_decode_lanes": grp.launches}
+    kinds = {}
+    for key, b in plan.buckets.items():
+        kind = f"{key[0]}:{key[1]}:{key[3]}" if key[0] == "scan" else key[0]
+        kinds[kind] = kinds.get(kind, 0) + b.n
+    n_strips = sum(b.n for b in plan.buckets.values())
+    mism = plan.verify_batch(decoded, expected)
+    outs = plan.assemble(decoded)
+    bad = [i for i, ((px, _w, _h), exp) in enumerate(zip(outs, expected))
+           if px.dtype != np.uint16 or not np.array_equal(px, exp)]
+    print(f"scan tier: {len(blobs)} images, {n_strips} entropy strips in {len(plan.buckets)} "
+          f"buckets {kinds}, stage_s={stage_s:.3f} first_run_s={first_run_s:.3f} "
+          f"mismatches={mism} bad_images={len(bad)} launches={launches}")
+    if mism or bad:
+        raise AssertionError(f"scan tier decoded wrong pixels: {mism} mismatches, "
+                             f"images {[names[i] for i in bad[:10]]}")
+    if (grp.launches != LANES_LAUNCHES_PER_RUN or len(plan._scan_keys) != len(plan.buckets)):
+        raise AssertionError(f"the scan tier made {grp.launches} lanes-kernel launches in one "
+                             f"plan.run() for {len(plan._scan_keys)} of {len(plan.buckets)} "
+                             f"buckets, the design makes {LANES_LAUNCHES_PER_RUN} for all")
+    print(f"scan tier: {grp.launches} lanes-kernel launch per plan.run() for "
+          f"{len(plan._scan_keys)} scan buckets (design: {LANES_LAUNCHES_PER_RUN}); "
+          f"{_lanes_shape(plan.scan_packing)}")
+    last = {}
+    run_ms = _cuda_ms(lambda: last.update(out=plan.run()), 5)
+    timed_mism = plan.verify_batch(last["out"], expected)
+    launch_ms = _cuda_ms(lambda: sd._lanes_launch(plan.scan_packing), 10)
+    print(f"scan tier: {run_ms:.3f} ms per plan.run(), "
+          f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
+          f"({timed_bytes} bytes); the lanes launch alone {launch_ms:.3f} ms (CUDA events); "
+          f"the last timed run: mismatches={timed_mism}, {grp.launches} launches in 7 runs")
+    if timed_mism or grp.launches != 7 * LANES_LAUNCHES_PER_RUN:
+        raise AssertionError(f"timed scan runs: {timed_mism} mismatches, {grp.launches} "
+                             f"launches")
+    del last
+    _out, wall_ms, by_name, span = _profiled(plan.run)
+    if not by_name:
+        print(f"profile: wall_ms={wall_ms:.3f}; no device events recorded "
+              "(device breakdown not measured)")
+    else:
+        busy = sum(by_name.values())
+        lanes_ms = sum(v for k, v in by_name.items() if "lanes_groups_kernel" in k)
+        split = (f"lanes_kernel_ms={lanes_ms:.3f} ({100 * lanes_ms / busy:.1f}% of busy) "
+                 f"post_torch_ops_ms={busy - lanes_ms:.3f}" if lanes_ms else
+                 "lanes_kernel_ms not measured (the trace holds no record of its launch)")
+        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+              f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
+              f"{split} device_kernel_names={len(by_name)}")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
+    del plan, decoded, outs
+
+    # The graft entry's step on its tiny 64-lane batch.
+    ops, kw, px = _tiny_graft_batch()
+    got, _c = _counted("decode_strip_batch (tiny 64-lane batch)",
+                       lambda: sd.decode_strip_batch(*ops, **kw, device=dev),
+                       (sd.rans_decode_lanes,))
+    ok = np.array_equal(got.cpu().numpy().view(np.uint16).reshape(-1)[: px.size], px)
+    print(f"scan tier: decode_strip_batch on the graft entry's 4 x 64-lane batch "
+          f"{tuple(got.shape)}: equal={ok}")
+    # One 64-lane MICT stream.
+    stream = micw_parse(blobs[0])[7][0][0]
+    syms, _c = _counted("mict_decode_device (one 64-lane stream)",
+                        lambda: mict_decode_device(stream, dev), (sd.rans_decode_lanes,))
+    ok_stream = np.array_equal(syms, mict_decode_numpy(stream))
+    print(f"scan tier: mict_decode_device on a {syms.size}-symbol 64-lane stream: "
+          f"equal={ok_stream}")
+    # A 64-lane series: the host encoder's copy, then the scan tier.
+    raw = np.fromfile(TESTDATA / "series_dev_ind.raw", "<u2").reshape(3, -1)
+    t0 = time.perf_counter()
+    series = compress_multi_frame_device(list(raw), 512, 512, int(raw.max()), dev, lanes=64)
+    enc_s = time.perf_counter() - t0
+    (frames, _hdr), _c = _counted("decompress_multi_frame_device (64-lane series)",
+                                  lambda: decompress_multi_frame_device(series, dev),
+                                  (grp,))
+    ok_series = len(frames) == 3 and all(np.array_equal(f, r) for f, r in zip(frames, raw))
+    print(f"scan tier: compress_multi_frame_device(lanes=64) on series_dev_ind.raw "
+          f"({len(series)} bytes, {enc_s:.3f} s on the host), decoded: equal={ok_series}")
+    if not (ok and ok_stream and ok_series):
+        raise AssertionError(f"scan tier entry points: decode_strip_batch {ok}, "
+                             f"mict_decode_device {ok_stream}, 64-lane series {ok_series}")
+    print(f"phase 10: {time.perf_counter() - t_phase:.3f} s wall")
+    return launches
+
+
 def _main_batch():
     """Phase 3's batch: the containers and their expected pixels, batch
     order, and the decoded u16 bytes of its entropy strips."""
     import numpy as np
 
-    from mic_tpu_torch.tpu.strips import STRIP_MODE_CONST, STRIP_MODE_RAW, micw_parse
-
     names = [k for k, v in BATCH.items() for _ in range(v[2])]
     blobs = {k: v[0].read_bytes() for k, v in BATCH.items()}
     raws = {k: np.fromfile(v[1], dtype="<u2") for k, v in BATCH.items()}
-    timed_bytes = 0
-    for k in names:
-        bw, bh, _ns, strip_h, _mv, _gp, _lanes, strips = micw_parse(blobs[k])
-        timed_bytes += 2 * sum(min(strip_h, bh - i * strip_h) * bw
-                               for i, st in enumerate(strips)
-                               if st[5] not in (STRIP_MODE_RAW, STRIP_MODE_CONST))
-    return [blobs[k] for k in names], [raws[k] for k in names], timed_bytes
+    batch = [blobs[k] for k in names]
+    return batch, [raws[k] for k in names], _entropy_bytes(batch)
 
 
 def _wide_pdd(dev) -> None:
@@ -1666,6 +1978,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     # --- 1. setup -----------------------------------------------------------
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -1687,12 +2000,15 @@ def main() -> int:
                 "rans_decode_alias": (rd.rans_decode_alias, rd.rans_decode_alias_plain)}
 
     # --- 2. each kernel against its plain version, main-path shapes --------
+    _clock(t_start, 2)
     report = {name: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
               for name in KERNELS}
     _encode_kernels_vs_plain(dev, report)
     _rle_kernels_vs_plain(dev, report)
     post_blobs, post_expected, post_names = _post_batch(dev)
     _post_kernels_vs_plain(dev, report, post_blobs)
+    scan_blobs, scan_expected, scan_names = _scan_batch()
+    _lanes_kernels_vs_plain(dev, report, scan_blobs)
     _tans_kernels_vs_plain(dev, report)
     slide = _slide()[0]
     _transform_kernels_vs_plain(dev, report, slide)
@@ -1726,6 +2042,7 @@ def main() -> int:
     _direct_groups_vs_plain(dev, report)
 
     # --- 3. decode path -------------------------------------------------------
+    _clock(t_start, 3)
     batch, expected, timed_bytes = _main_batch()
     merged = rd.rans_decode_direct_groups
     merged.launches = 0
@@ -1787,6 +2104,7 @@ def main() -> int:
     _wide_pdd(dev)
 
     # --- 4. encode path -------------------------------------------------------
+    _clock(t_start, 4)
     enc_launches, enc_blobs, enc_expected = _encode_phase(dev)
     launches.update(enc_launches)
     plan = MicwDecodePlan(enc_blobs, dev)
@@ -1798,22 +2116,32 @@ def main() -> int:
         raise AssertionError(f"encoded containers decode to wrong pixels: {mism} mismatches")
 
     # --- 5. r-mode decode path ---------------------------------------------------
+    _clock(t_start, 5)
     launches.update(_rle_phase(dev))
 
     # --- 6. post-path decode -----------------------------------------------------
+    _clock(t_start, 6)
     post_launches = _post_phase(dev, post_blobs, post_expected, post_names)
     launches.update({k: post_launches[k] for k in ("rans_decode_packed", "rans_decode")})
 
     # --- 7. reference-format decode ---------------------------------------------
+    _clock(t_start, 7)
     launches.update(_ref_phase(dev))
 
     # --- 8. RGB and WSI containers ---------------------------------------------
+    _clock(t_start, 8)
     launches.update(_rgb_wsi_phase(dev, slide))
 
     # --- 9. wavelet -------------------------------------------------------------
+    _clock(t_start, 9)
     launches.update(_wavelet_phase(dev, slide))
 
-    # --- 10. report -----------------------------------------------------------
+    # --- 10. L-lane (scan-tier) decode --------------------------------------------
+    _clock(t_start, 10)
+    launches.update(_scan_phase(dev, scan_blobs, scan_expected, scan_names))
+
+    # --- 11. report -----------------------------------------------------------
+    _clock(t_start, 11)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = report[name]

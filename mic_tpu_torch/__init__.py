@@ -8,7 +8,11 @@ container ``mic_tpu.tpu.strips.micw_compress`` writes.  The decode
 (``MicwDecodePlan`` / ``micw_decode_many`` / ``micw_decompress_device``)
 takes every strip mode at any width on both entropy families (FF 57
 standard at tableLog up to 16, FF 41 alias); strips with lanes != 128
-and FF 41 strips above tableLog 12 raise ``NotImplementedError``.
+and FF 41 strips above tableLog 12 take the scan tier, an L-lane rANS
+kernel (``tpu.scan_decode``) and the post stage, as do all strips of
+``micw_decompress_scan`` / ``micw_decode_batch``.  ``micw_compress`` is
+the host encoder at any lane count, and ``tpu.decode.mict_decode_device``
+decodes one MICT stream.
 
 The reference formats decode with their entropy stage on the GPU too:
 ``fse_decompress_device_batch`` decodes FF 02/04/84/08 streams through a
@@ -57,7 +61,15 @@ from .tpu.rgb_device import (
     micwr_decode_many,
     micwr_decompress_device,
 )
-from .tpu.strips import MicwDecodePlan, micw_decode_many, micw_decompress_device, micw_parse
+from .tpu.strips import (
+    MicwDecodePlan,
+    micw_compress,
+    micw_decode_batch,
+    micw_decode_many,
+    micw_decompress_device,
+    micw_decompress_scan,
+    micw_parse,
+)
 from .tpu.tans_decode import fse_decompress_device_batch
 from .tpu.wsi_device import w3d_compress, w3d_decompress_level, w3d_decompress_region, w3d_header
 
@@ -75,10 +87,13 @@ __all__ = [
     "decompress_wsi_tile_device",
     "fse_decompress_device_batch",
     "ingest_plan",
+    "micw_compress",
     "micw_compress_device",
     "micw_compress_device_many",
+    "micw_decode_batch",
     "micw_decode_many",
     "micw_decompress_device",
+    "micw_decompress_scan",
     "micw_parse",
     "micwr_compress",
     "micwr_compress_device",

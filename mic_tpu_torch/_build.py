@@ -50,6 +50,10 @@ _SIGNATURES = {
     "mic_tans_decode_groups": [_P, _P, _P, _I, _I, _I, _I, _P],
     # warps, smem_bytes
     "mic_tans_occupancy": [_I, _I],
+    # groups, blocks, n_blocks, out, threads, lanes a thread, stream
+    "mic_lanes_decode_groups": [_P, _P, _I, _P, _I, _I, _P],
+    # threads, lanes a thread, out (int[2]: shared bytes a block, blocks an SM)
+    "mic_lanes_shape": [_I, _I, _P],
     # a0, a1, a2, o0, o1, o2, n, inverse, stream
     "mic_ycocgr": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
     # x, out, rows, n, inverse, stream

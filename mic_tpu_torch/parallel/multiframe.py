@@ -108,16 +108,16 @@ def compress_multi_frame_device(frames, width, height, max_value, device, lanes:
     against frame i-1; the residual planes still decode in one batch and
     only the final add chains across frames.
 
-    Every frame's strips are encoded in one call on ``device``: with
-    ``device_encode=True`` the zzd pipeline (what ``mic_tpu``'s device
-    encoder writes; ``lanes`` is not read, as there), otherwise the
-    "auto-fast" trial set of ``mic_tpu``'s host ``micw_compress``.  The
-    port's encoder writes 128 lanes per strip only: any other ``lanes``
-    on that path raises ``NotImplementedError``."""
+    With ``device_encode=True`` every frame's strips are encoded in one
+    call on ``device``, the zzd pipeline (what ``mic_tpu``'s device encoder
+    writes; ``lanes`` is not read, as there).  Otherwise the frames take
+    the "auto-fast" trial set of ``mic_tpu``'s host ``micw_compress``: at
+    128 lanes through the device encoder in one call on ``device`` (the
+    same bytes), at any other ``lanes`` through the port's host copy of
+    ``micw_compress``, frame by frame, as ``mic_tpu`` writes them."""
     from ..tpu.rans_encode import micw_compress_device_many
+    from ..tpu.strips import micw_compress
 
-    if not device_encode and lanes != 128:
-        raise NotImplementedError(f"micw: {lanes} lanes per strip (the port encodes 128)")
     planes = []
     for i, f in enumerate(frames):
         f = np.asarray(f, dtype=np.uint16)
@@ -128,8 +128,12 @@ def compress_multi_frame_device(frames, width, height, max_value, device, lanes:
             plane = f
             mv = max_value
         planes.append((plane, width, height, mv))
-    blobs = micw_compress_device_many(planes, device, entropy=entropy,
-                                      predictor="zzd" if device_encode else "auto-fast")
+    if device_encode or lanes == 128:
+        blobs = micw_compress_device_many(planes, device, entropy=entropy,
+                                          predictor="zzd" if device_encode else "auto-fast")
+    else:
+        blobs = [micw_compress(p, w, h, mv, lanes=lanes, entropy=entropy)
+                 for p, w, h, mv in planes]
     return write_mic2(MIC2Header(width, height, len(frames), temporal=temporal), blobs)
 
 

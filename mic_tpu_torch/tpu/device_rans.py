@@ -1,15 +1,20 @@
 """Host side of the wide-lane rANS device format (MICT, FF 57 / FF 41).
 
-A jax-free copy of the parts of ``mic_tpu.tpu.device_rans`` the port's
-kernels need.  Decode: the stream parser and the slot / alias table
-builders the decode kernels' operands are made from.  Encode: the
-normalization + ncount header (``_norm_and_header``) and the alias
-escape-fold plan (``_alias_plan`` / ``_alias_apply`` /
-``alias_encode_plan``) that define an encoded blob's bytes; the rANS
-scan itself is the encode kernel's (``rans_encode``).  The ncount header
-is read and written by the port's numpy copies in ``..ops.fse``.  The
-copies here are pinned to the originals by
-``tests/test_torch_host_format.py`` and ``tests/test_torch_rans_encode.py``.
+A jax-free copy of the parts of ``mic_tpu.tpu.device_rans`` the port
+needs.  Decode: the stream parser and the slot / alias tables the decode
+kernels' operands are made from, and the host decoder
+(``mict_decode_numpy`` with ``alias_substitute_escapes``), the oracle of
+the single-stream path.  Encode: the normalization + ncount header
+(``_norm_and_header``) and the alias escape-fold plan (``_alias_plan`` /
+``_alias_apply`` / ``alias_encode_plan``) that define an encoded blob's
+bytes, which the device encoder shares; and the host encoder at any lane
+count (``mict_encode`` / ``mict_encode_alias`` over the numpy
+``_lane_encode``), which the host ``strips.micw_compress`` writes
+containers with.  ``mic_tpu``'s native C++ loops are not copied: its
+tests pin them to the numpy ones.  The ncount header is read and written
+by the port's numpy copies in ``..ops.fse``.  The copies here are pinned
+to the originals by ``tests/test_torch_host_format.py``,
+``tests/test_torch_rans_encode.py`` and ``tests/test_torch_scan_decode.py``.
 
 Stream layout (magic 0xFF 0x57 'W'; FF 41 adds the escape fields)::
 
@@ -28,7 +33,10 @@ import struct
 import numpy as np
 
 from ..ops.fse import (
+    DEFAULT_TABLE_LOG,
     IncompressibleError,
+    UseRLEError,
+    histogram,
     normalize_count,
     optimal_table_log,
     read_ncount,
@@ -47,6 +55,10 @@ __all__ = [
     "alias_slot_tables",
     "slot_tables",
     "mict_parse",
+    "mict_encode",
+    "mict_encode_alias",
+    "mict_decode_numpy",
+    "alias_substitute_escapes",
     "alias_encode_plan",
 ]
 
@@ -65,6 +77,19 @@ def _freqs_from_norm(norm: np.ndarray) -> np.ndarray:
     """Device frequencies: low-probability (-1) symbols get freq 1; plain
     symbol-order cumulation (the device format's own convention)."""
     return np.where(norm == -1, 1, np.maximum(norm, 0)).astype(np.int32)
+
+
+def _hist_or_counts(symbols: np.ndarray, counts: np.ndarray | None):
+    """histogram(), or (counts, max_count, symbol_len) from a
+    caller-supplied bincount (the trial-set encoders bincount every
+    candidate for the size estimate already)."""
+    if counts is None:
+        return histogram(symbols)
+    counts = np.ascontiguousarray(counts, dtype=np.uint32)
+    if symbols.size and int(symbols.max()) >= counts.size:
+        # A mismatched bincount would write a blob that decodes wrong.
+        raise ValueError("counts shorter than the symbol range")
+    return counts, int(counts.max()) if counts.size else 0, int(counts.size)
 
 
 def encode_tables(norm: np.ndarray, table_log: int):
@@ -260,6 +285,61 @@ def mict_parse(blob: bytes):
     return L, table_log, count, states, words, norm, symbol_len, alias
 
 
+def mict_encode(
+    symbols,
+    lanes: int | None = None,
+    table_log: int = DEFAULT_TABLE_LOG,
+    max_table_log: int | None = None,
+    max_bytes: int | None = None,
+    alias: bool = False,
+    counts: np.ndarray | None = None,
+) -> bytes:
+    """Encode a u16 symbol stream into the MICT wide-lane rANS format at
+    ``lanes`` lanes (default 512 for FF 57, 128 for FF 41);
+    ``alias=True`` writes the FF 41 variant (:func:`mict_encode_alias`).
+    ``max_table_log`` caps the adaptive tableLog; the blob must be
+    shorter than ``max_bytes`` (default: the stream's raw size), else
+    IncompressibleError."""
+    if lanes is None:
+        lanes = 128 if alias else 512
+    if alias:
+        return mict_encode_alias(
+            symbols, lanes=lanes, table_log=table_log,
+            max_table_log=max_table_log, max_bytes=max_bytes, counts=counts,
+        )
+    symbols = np.asarray(symbols, dtype=np.uint16)
+    n = len(symbols)
+    if n == 0:
+        raise IncompressibleError
+    counts, max_count, symbol_len = _hist_or_counts(symbols, counts)
+    if max_count == n:
+        raise UseRLEError
+    if max_count == 1 or max_count < (n >> 15):
+        raise IncompressibleError
+    tl = optimal_table_log(table_log, n, symbol_len)
+    if max_table_log is not None and tl > max_table_log:
+        tl = max_table_log
+    try:
+        norm, header = _norm_and_header(counts, n, tl, symbol_len)
+        freq, cumul = encode_tables(norm, tl)
+    except ValueError as e:
+        # Alphabet too wide for the clamped tableLog (tiny inputs).
+        raise IncompressibleError(str(e)) from e
+
+    states, words = _lane_encode(symbols.astype(np.int64), n, int(lanes), tl, freq, cumul)
+
+    out = bytearray()
+    out += MICT_MAGIC
+    out += struct.pack("<BB", int(np.log2(int(lanes))), tl)
+    out += struct.pack("<II", n, len(words))
+    out += header
+    out += states.astype("<u4").tobytes()
+    out += words.astype("<u2").tobytes()
+    if len(out) >= (n * 2 if max_bytes is None else max_bytes):
+        raise IncompressibleError
+    return bytes(out)
+
+
 def _norm_and_header(counts, n, tl, sl):
     """normalize_count + write_count: (norm, ncount header bytes), the
     same bytes as ``mic_tpu``'s native and numpy pairs."""
@@ -267,6 +347,57 @@ def _norm_and_header(counts, n, tl, sl):
     if int(np.abs(norm).sum()) != (1 << tl):  # reference validateNorm
         raise ValueError("normalize: table does not sum to 1<<tableLog")
     return norm, write_count(norm, sl, tl)
+
+
+def _lane_encode(sym_i64, n, L, tl, freq_of, cumul_of, slot_of=None):
+    """Reverse lane-interleaved rANS encode shared by the standard and
+    alias paths (the slot written is cumul + j, or slot_of[cumul + j]
+    with the alias permutation).  Returns (states u64[L], words u16) in
+    decoder order (step ascending, lane ascending)."""
+    n_steps = (n + L - 1) // L
+    states = np.full(L, RANS_L, dtype=np.uint64)
+    # Renorm bound: emit while x >= freq << (32 - tl)  (single-word renorm).
+    shift = 32 - tl
+
+    step_words: list[np.ndarray] = []
+    lane_idx = np.arange(L)
+
+    for t in range(n_steps - 1, -1, -1):
+        base = t * L
+        cnt = min(L, n - base)
+        s = sym_i64[base : base + cnt]
+        if cnt < L:
+            active = lane_idx < cnt
+            s_full = np.zeros(L, dtype=np.int64)
+            s_full[:cnt] = s
+        else:
+            active = None
+            s_full = s
+        f = freq_of[s_full].astype(np.uint64)
+        c = cumul_of[s_full].astype(np.uint64)
+        if active is not None:
+            f = np.where(active, f, np.uint64(1))  # avoid div-by-zero on pad lanes
+        x = states
+        x_max = f << np.uint64(shift)
+        need = x >= x_max
+        if active is not None:
+            need &= active
+        if need.any():
+            # Steps are emitted in reverse and the list reversed at the end.
+            step_words.append((x[need] & np.uint64(0xFFFF)).astype(np.uint16))
+            x = np.where(need, x >> np.uint64(16), x)
+        if slot_of is not None:
+            x_new = ((x // f) << np.uint64(tl)) + slot_of[(x % f) + c]
+        else:
+            x_new = ((x // f) << np.uint64(tl)) + (x % f) + c
+        if active is not None:
+            x_new = np.where(active, x_new, x)
+        states = x_new
+
+    words = (
+        np.concatenate(step_words[::-1]) if step_words else np.zeros(0, dtype=np.uint16)
+    )
+    return states, words
 
 
 def _alias_plan(counts, symbol_len, kept: int):
@@ -327,3 +458,107 @@ def alias_encode_plan(counts, symbol_len, n, table_log, max_table_log=None):
                 raise IncompressibleError("alias layout infeasible")
         except ValueError as e:
             raise IncompressibleError(str(e)) from e
+
+
+def mict_encode_alias(
+    symbols,
+    lanes: int = 128,
+    table_log: int = DEFAULT_TABLE_LOG,
+    max_table_log: int | None = None,
+    max_bytes: int | None = None,
+    counts: np.ndarray | None = None,
+) -> bytes:
+    """Encode into the alias-mapped MICT variant (magic FF 41): the
+    slots permuted per alias_construct, alphabets beyond 256 escape-folded
+    into one ESC symbol whose true values ride the uncoded side stream.
+
+    Layout:  FF 41 | log2_lanes u8 | table_log u8 | count u32 |
+    n_words u32 | n_esc u32 | esc_val u16 | ncount | init states |
+    renorm words | esc values u16[n_esc]."""
+    symbols = np.asarray(symbols, dtype=np.uint16)
+    n = len(symbols)
+    if n == 0:
+        raise IncompressibleError
+    counts, max_count, symbol_len = _hist_or_counts(symbols, counts)
+    if max_count == n:
+        raise UseRLEError
+    if max_count == 1 or max_count < (n >> 15):
+        raise IncompressibleError
+    kept_vals, esc_val, tl, header, freq, cumul, al = alias_encode_plan(
+        counts, symbol_len, n, table_log, max_table_log
+    )
+    recoded, esc_values = _alias_apply(symbols, kept_vals, esc_val)
+    states, words = _lane_encode(
+        recoded, n, int(lanes), tl, freq, cumul,
+        slot_of=al["slot_of"].astype(np.uint64),
+    )
+
+    out = bytearray()
+    out += MICT_ALIAS_MAGIC
+    out += struct.pack("<BB", int(np.log2(int(lanes))), tl)
+    out += struct.pack("<II", n, len(words))
+    out += struct.pack("<IH", len(esc_values), esc_val)
+    out += header
+    out += states.astype("<u4").tobytes()
+    out += words.astype("<u2").tobytes()
+    out += esc_values.astype("<u2").tobytes()
+    if len(out) >= (n * 2 if max_bytes is None else max_bytes):
+        raise IncompressibleError
+    return bytes(out)
+
+
+def mict_decode_numpy(blob: bytes) -> np.ndarray:
+    """Host (numpy) decoder of one MICT stream, any lane count: the
+    oracle of the lanes kernel and of ``decode.mict_decode_device``.
+    Raises ValueError on a stream whose final states, word count or
+    escape count are wrong."""
+    L, tl, count, states, words, norm, _symbol_len, alias = mict_parse(blob)
+    sym, freq_slot, bias_slot, _, _ = slot_tables(norm, tl, alias)
+    mask = (1 << tl) - 1
+
+    n_steps = (count + L - 1) // L
+    x = states.astype(np.uint64)
+    cursor = 0
+    out = np.empty(n_steps * L, dtype=np.uint16)
+    lane_idx = np.arange(L)
+    words_u64 = words.astype(np.uint64)
+    for t in range(n_steps):
+        base = t * L
+        active = lane_idx < (count - base)
+        slot = (x & mask).astype(np.int64)
+        out[base : base + L] = sym[slot]
+        f = freq_slot[slot].astype(np.uint64)
+        b = bias_slot[slot].astype(np.uint64)
+        x_new = f * (x >> np.uint64(tl)) + b
+        need = (x_new < RANS_L) & active
+        k = np.cumsum(need) - need  # exclusive prefix sum
+        idx = cursor + k
+        w = (words_u64[np.minimum(idx, len(words_u64) - 1)] if len(words_u64)
+             else np.zeros(L, np.uint64))
+        x_new = np.where(need, (x_new << np.uint64(16)) | w, x_new)
+        cursor += int(need.sum())
+        x = np.where(active, x_new, x)
+    if not np.all(x == RANS_L):
+        raise ValueError("MICT: final state mismatch (corrupt stream)")
+    if cursor != len(words):
+        raise ValueError("MICT: word count mismatch (corrupt stream)")
+    out = out[:count]
+    if alias is not None:
+        out = alias_substitute_escapes(out, alias)
+    return out
+
+
+def alias_substitute_escapes(syms: np.ndarray, alias) -> np.ndarray:
+    """Replace decoded ESC symbols with their true values from the alias
+    side stream, in stream order.  The count check runs even with an
+    empty side stream: a forged n_esc = 0 on a stream that decodes ESC
+    placeholders fails instead of leaving them in the output."""
+    esc_val, esc_values = alias
+    idx = np.nonzero(syms == esc_val)[0]
+    if len(idx) != len(esc_values):
+        raise ValueError("MICT: escape count mismatch (corrupt stream)")
+    if not len(idx):
+        return syms
+    syms = syms.copy()
+    syms[idx] = esc_values
+    return syms

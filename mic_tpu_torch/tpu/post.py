@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "rle_expand",
     "soa_rle_expand",
     "parse_escaped",
     "zz_delta_inverse",
@@ -40,6 +41,62 @@ def _col(v, S: int, device) -> torch.Tensor:
 
 def _exclusive(v: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(v, dim=1) - v
+
+
+def rle_expand(stream: torch.Tensor, n_stream: int, mid_count: int, max_out: int):
+    """``pipeline.rle_expand_device``: expand one RLE stream of the host
+    (interleaved) format, without its leading maxValue word.  ``stream``
+    is int [m_pad] (the RLE words, padded), ``n_stream`` the word count.
+    Returns (tokens int64 [max_out], n_tokens int64 scalar tensor).
+
+    The block headers are found by pointer doubling over the speculative
+    next-header map (p + 2 after a same-run header, p + 1 + literals after
+    a literal one), then each output slot takes its run's value or
+    literal.  The scatters are ``scatter_reduce`` (amax, the original's
+    ``.at[].max``) and ``index_add_`` into a slot past the end for every
+    out-of-range position, which the original drops."""
+    stream = stream.to(torch.int64)
+    m_pad, dev = stream.shape[0], stream.device
+    pos = torch.arange(m_pad, device=dev)
+    is_same = stream <= mid_count
+    nxt = torch.where(is_same, pos + 2, pos + 1 + (stream - mid_count))
+    nxt = torch.minimum(nxt, torch.tensor(m_pad, device=dev))
+    nxt = torch.where(pos >= n_stream, m_pad - 1, nxt)
+    nxt = nxt.clamp(max=m_pad - 1)
+
+    header = torch.zeros(m_pad, dtype=torch.int64, device=dev)
+    header[0] = 1
+    g = nxt
+    for _ in range(max(1, (max(m_pad, 2) - 1).bit_length())):
+        header = header.scatter_reduce(0, g, header, reduce="amax", include_self=True)
+        g = g[g]
+    header = (header > 0) & (pos < n_stream)
+
+    length = torch.where(is_same, stream, stream - mid_count)
+    length = torch.where(header, length, 0)
+    out_start = torch.cumsum(length, 0) - length
+    n_tokens = length.sum()
+
+    marks = torch.zeros(max_out + 2, dtype=torch.int64, device=dev)
+    hdr_idx = torch.where(header, out_start, max_out)
+    hdr_idx = torch.where((hdr_idx >= 0) & (hdr_idx <= max_out), hdr_idx, max_out + 1)
+    marks.index_add_(0, hdr_idx, torch.ones_like(hdr_idx))
+    run_id = torch.cumsum(marks[:max_out], 0) - 1
+
+    hdr_rank = torch.cumsum(header.to(torch.int64), 0) - 1
+    run_hdr_pos = torch.zeros(m_pad, dtype=torch.int64, device=dev).scatter_reduce(
+        0, torch.where(header, hdr_rank, m_pad - 1), pos, reduce="amax", include_self=True)
+    run_is_same = is_same[run_hdr_pos]
+    run_value = stream[(run_hdr_pos + 1).clamp(max=m_pad - 1)]
+    run_out_start = out_start[run_hdr_pos]
+
+    out_idx = torch.arange(max_out, device=dev)
+    rid = run_id.clamp(0, m_pad - 1)
+    lit_pos = run_hdr_pos[rid] + 1 + (out_idx - run_out_start[rid])
+    lit_v = stream[lit_pos.clamp(0, m_pad - 1)]
+    tokens = torch.where(run_is_same[rid], run_value[rid], lit_v)
+    tokens = torch.where(out_idx < n_tokens, tokens, 0)
+    return tokens, n_tokens
 
 
 def soa_rle_expand(syms: torch.Tensor, n_runs, n_same, mid_count: int, max_runs: int,

@@ -63,24 +63,16 @@ from .device_rans import (
 )
 from .rans_decode import _U32, _as_i16, _check, _u, to_device
 from .strips import (
-    _PRED_MODE,
-    _RLE_DIRECT_PREDS,
     ALIAS_TABLE_LOG,
-    FLAG_ADAPTIVE,
-    FLAG_AVG_PREDICTOR,
-    FLAG_BANDED,
-    FLAG_DIRECT,
-    FLAG_RDENSE,
     MAX_TABLE_LOG,
-    MICW_BAND_W,
-    MICW_MAGIC,
     STRIP_MODE_CONST,
+    _micw_container,
     _rle_mid,
     _strip_candidates,
+    _strip_layout,
     _strip_requests,
     _strip_select,
     _trials_for,
-    band_split,
 )
 
 __all__ = [
@@ -576,26 +568,12 @@ class MicwEncodePlan:
             raise ValueError(f"micw device encode: unknown entropy {entropy!r}")
         self.entropy, self.predictor = entropy, predictor
         self.trials = _trials_for(predictor)
-        self.images = []  # (width, height, max_value, actual, strip_h, entries, band)
+        self.images = []  # (width, height, max_value, strip_h, entries, band)
         self.jobs = {False: [], True: []}  # alias? -> [(syms, max_bytes)]
         for spec in images:
             pixels, width, height, max_value = spec[:4]
-            num_strips = spec[4] if len(spec) > 4 else 0
-            pixels = np.asarray(pixels, dtype=np.uint16)
-            if len(pixels) != width * height:
-                raise ValueError("micw: pixel count mismatch")
-            orig_w, orig_h = width, height
-            banded = width > MICW_BAND_W and width % MICW_BAND_W == 0
-            if banded:
-                pixels, width, height = band_split(pixels, width, height)
-            if num_strips <= 0:
-                # The host container's default: 128-row strips, scaled by
-                # the band count for banded images.
-                rows = 128 * (orig_w // width if banded else 1)
-                num_strips = max(1, height // rows)
-            num_strips = max(1, min(num_strips, height))
-            strip_h = (height + num_strips - 1) // num_strips
-            actual = (height + strip_h - 1) // strip_h
+            pixels, width, height, actual, strip_h, band = _strip_layout(
+                pixels, width, height, spec[4] if len(spec) > 4 else 0)
             mid = _rle_mid(max_value)
             entries = []
             for s in range(actual):
@@ -612,8 +590,7 @@ class MicwEncodePlan:
                     self.jobs[alias].append((candidates[i][1], strip_px.nbytes))
                     slots[(i, alias)] = len(self.jobs[alias]) - 1
                 entries.append(("enc", strip_px, candidates, slots))
-            self.images.append((width, height, max_value, actual, strip_h, entries,
-                                (orig_w, orig_h) if banded else None))
+            self.images.append((width, height, max_value, strip_h, entries, band))
 
     def encode(self, device) -> dict:
         """Device-encode every requested stream: {alias?: [blob or None]},
@@ -631,7 +608,7 @@ class MicwEncodePlan:
         """Select each strip's blob from ``results`` and write the
         containers, image order."""
         outs = []
-        for (width, height, max_value, actual, strip_h, entries, band) in self.images:
+        for (width, height, max_value, strip_h, entries, band) in self.images:
             blobs, metas = [], []
             for entry in entries:
                 if entry[0] == "const":
@@ -649,25 +626,8 @@ class MicwEncodePlan:
                                            self.entropy, enc)
                 blobs.append(blob)
                 metas.append(meta)
-            out = bytearray()
-            out += MICW_MAGIC
-            out += struct.pack("<IIII", width, height, actual, strip_h)
-            flags = FLAG_ADAPTIVE | {"avg": FLAG_AVG_PREDICTOR,
-                                     "zzd": FLAG_DIRECT}.get(self.predictor, 0)
-            if band is not None:
-                flags |= FLAG_BANDED
-            r_modes = {_PRED_MODE[pr] for pr in _RLE_DIRECT_PREDS}
-            if any(m[4] in r_modes for m in metas):
-                flags |= FLAG_RDENSE
-            out += struct.pack("<HBB", max_value, flags, 7)
-            if band is not None:
-                out += struct.pack("<II", *band)
-            offset = 0
-            for blob, (n_soa, n_tok, n_runs, n_same, mode) in zip(blobs, metas):
-                out += struct.pack("<IIIIIII", offset, len(blob), n_soa, n_tok,
-                                   n_runs, n_same, mode)
-                offset += len(blob)
-            outs.append(bytes(out) + b"".join(blobs))
+            outs.append(_micw_container(width, height, strip_h, max_value, self.predictor,
+                                        band, blobs, metas))
         return outs
 
 

@@ -1,6 +1,6 @@
 """MICW container parse, strip encode helpers and the batch decode plan.
 
-Port of ``mic_tpu.tpu.strips``, in three parts:
+Port of ``mic_tpu.tpu.strips``, in four parts:
 
 * the container parse (a jax-free copy, pinned to the original by the
   tests);
@@ -12,15 +12,19 @@ Port of ``mic_tpu.tpu.strips``, in three parts:
   itself is ``rans_encode.micw_compress_device_many``);
 * ``MicwDecodePlan`` / ``micw_decode_many`` / ``micw_decompress_device``
   for every strip mode (zzd, vdd, pdd, zzr, vdr, pdr, zz, avg) at any
-  width, on both entropy families (FF 57 standard at tableLog up to 16,
-  FF 41 alias).
+  width and any lane count, on both entropy families (FF 57 standard at
+  tableLog up to 16, FF 41 alias at any tableLog); ``micw_decompress_scan``
+  / ``micw_decode_batch``, the scan tier alone;
+* the host encoder ``micw_compress`` at any lane count (a jax-free copy,
+  pinned byte for byte).
 
 The plan pools the strips of every image of a batch into buckets; the
 direct buckets and the post buckets' entropy stages run together as one
 launch of the direct kernel (``rans_decode_direct_groups``), the r-mode
 buckets as one launch of the r-kernel
-(``rans_decode_rle_groups``).  A strip takes a fused kernel where
-``mic_tpu``'s plan does: zzd, pdd and vdd
+(``rans_decode_rle_groups``), the scan buckets as one launch of the
+lanes kernel (``scan_decode.rans_decode_lanes_groups``).  A strip takes
+a fused kernel where ``mic_tpu``'s plan does: zzd, pdd and vdd
 (width/128 in {1, 2, 4, 8}) and the r-modes (vdr likewise) at widths that
 are a multiple of 128, FF 41 or FF 57 with packed tables (tableLog <= 12,
 alphabet <= 4096).  Those buckets are keyed on (entropy family,
@@ -37,11 +41,13 @@ plain ``torch.cumsum`` as pdr's is on the r-kernel's output, as
 ``mic_tpu`` leaves both to XLA.  Raw and constant strips are copied on the
 host.
 
-Strips with lanes != 128 and FF 41 strips with tableLog > 12 raise
-``NotImplementedError`` at plan construction (in ``mic_tpu`` only the
-XLA scan tier decodes them).  A strip whose table entry claims more runs
-than symbols, or more pixels (zz, avg: tokens) than its strip can hold,
-raises ``ValueError``.
+Strips with lanes != 128 and FF 41 strips with tableLog > 12 take the
+scan tier, as in ``mic_tpu``: the L-lane entropy stage in the lanes
+kernel, then ``post.post_batch``, keyed on ("scan", lanes, padded step
+count, predictor, width, strip height, mid, delim); FF 57 and FF 41
+strips and tableLogs mix in such a bucket.  A strip whose table entry
+claims more runs than symbols, or more pixels (zz, avg: tokens) than its
+strip can hold, raises ``ValueError``.
 
 Container layout::
 
@@ -60,9 +66,10 @@ import struct
 import numpy as np
 import torch
 
+from ..ops.fse import IncompressibleError, UseRLEError
 from ..ops.predictors import _interleave_escapes, delta_params, predictor_encode, zigzag
 from ..ops.rle import soa_encode
-from .device_rans import ALIAS_MAX_KEPT, mict_parse
+from .device_rans import ALIAS_MAX_KEPT, mict_encode, mict_parse
 from .post import post_batch
 from .rans_decode import (
     MID_DIRECT,
@@ -83,6 +90,14 @@ from .rans_decode import (
     rans_decode_zzd,
     to_device,
 )
+from .scan_decode import (
+    LANES_MAX,
+    LanesPacking,
+    build_lane_tables,
+    lane_tensors,
+    rans_decode_lanes,
+    rans_decode_lanes_groups,
+)
 
 __all__ = [
     "micw_parse",
@@ -90,9 +105,12 @@ __all__ = [
     "band_split",
     "band_merge",
     "strip_predictor",
+    "micw_compress",
     "MicwDecodePlan",
     "micw_decode_many",
     "micw_decompress_device",
+    "micw_decompress_scan",
+    "micw_decode_batch",
     "MICW_MAGIC",
     "MICW_BAND_W",
 ]
@@ -377,6 +395,102 @@ def _strip_select(candidates, strip_px, n_trials, entropy, enc):
     return best[1], (*best[2], best[3])
 
 
+def _encode_candidate(syms: np.ndarray, lanes: int, max_bytes: int | None = None,
+                      alias: bool = False, counts: np.ndarray | None = None):
+    """The host encode of one candidate stream at ``lanes`` lanes, FF 57 at
+    tableLog <= 11 or FF 41 at <= 12; None where the strip falls through
+    to other candidates or raw."""
+    try:
+        return mict_encode(syms, lanes=lanes,
+                           max_table_log=ALIAS_TABLE_LOG if alias else MAX_TABLE_LOG,
+                           max_bytes=max_bytes, alias=alias, counts=counts)
+    except (IncompressibleError, UseRLEError, ValueError):
+        return None
+
+
+def _strip_layout(pixels, width: int, height: int, num_strips: int):
+    """The strip geometry of a MICW encode: (pixels, width, height,
+    strips, strip_h, band) in the stacked band space, ``band`` the
+    (orig_width, orig_height) of a FLAG_BANDED image, else None.  Images
+    wider than MICW_BAND_W whose width divides into bands are banded;
+    ``num_strips`` <= 0 picks 128-row strips, scaled by the band count."""
+    pixels = np.asarray(pixels, dtype=np.uint16)
+    if len(pixels) != width * height:
+        raise ValueError("micw: pixel count mismatch")
+    orig_w, orig_h = width, height
+    band = None
+    if width > MICW_BAND_W and width % MICW_BAND_W == 0:
+        pixels, width, height = band_split(pixels, width, height)
+        band = (orig_w, orig_h)
+    if num_strips <= 0:
+        rows = 128 * (orig_w // width if band else 1)
+        num_strips = max(1, height // rows)
+    num_strips = max(1, min(num_strips, height))
+    strip_h = (height + num_strips - 1) // num_strips
+    return pixels, width, height, (height + strip_h - 1) // strip_h, strip_h, band
+
+
+def _micw_container(width, height, strip_h, max_value, predictor, band, blobs, metas,
+                    lanes: int = 128) -> bytes:
+    """A MICW container from its strips' blobs and table entries (n_soa,
+    n_tok, n_runs, n_same, mode), as ``micw_compress`` writes it."""
+    out = bytearray()
+    out += MICW_MAGIC
+    out += struct.pack("<IIII", width, height, len(blobs), strip_h)
+    flags = FLAG_ADAPTIVE | {"avg": FLAG_AVG_PREDICTOR, "zzd": FLAG_DIRECT}.get(predictor, 0)
+    if band is not None:
+        flags |= FLAG_BANDED
+    r_modes = {_PRED_MODE[p] for p in _RLE_DIRECT_PREDS}
+    if any(m[4] in r_modes for m in metas):
+        flags |= FLAG_RDENSE
+    out += struct.pack("<HBB", max_value, flags, int(np.log2(lanes)))
+    if band is not None:
+        out += struct.pack("<II", *band)
+    offset = 0
+    for blob, (n_soa, n_tok, n_runs, n_same, mode) in zip(blobs, metas):
+        out += struct.pack("<IIIIIII", offset, len(blob), n_soa, n_tok, n_runs, n_same, mode)
+        offset += len(blob)
+    return bytes(out) + b"".join(blobs)
+
+
+def micw_compress(pixels, width: int, height: int, max_value: int, num_strips: int = 0,
+                  lanes: int = 128, predictor: str = "auto-fast",
+                  entropy: str = "standard") -> bytes:
+    """The host MICW encoder at any lane count, byte-identical to
+    ``mic_tpu.tpu.strips.micw_compress``: per strip the candidates of the
+    ``predictor`` trial set ("auto-fast", "auto-r", "auto" or one mode),
+    size-first selection over the top five encodes, constant and raw
+    strips.  ``entropy`` is "standard" (FF 57), "alias" (FF 41) or
+    "best" (each winning candidate both ways, the smaller kept).  The
+    device encoder (``rans_encode.micw_compress_device_many``) writes the
+    same bytes at 128 lanes."""
+    if entropy not in ("standard", "alias", "best"):
+        raise ValueError(f"micw: unknown entropy {entropy!r}")
+    pixels, width, height, actual, strip_h, band = _strip_layout(pixels, width, height,
+                                                                 num_strips)
+    mid = _rle_mid(max_value)
+    trials = _trials_for(predictor)
+
+    def encode_strip(s):
+        y0 = s * strip_h
+        y1 = min(y0 + strip_h, height)
+        strip_px = pixels[y0 * width : y1 * width]
+        if strip_px[0] == strip_px.max() and strip_px[0] == strip_px.min():
+            return strip_px[:1].astype("<u2").tobytes(), (0, 0, 0, 0, STRIP_MODE_CONST)
+        candidates = _strip_candidates(strip_px, width, y1 - y0, max_value, mid,
+                                       trials, entropy)
+
+        def enc(i, alias):
+            return _encode_candidate(candidates[i][1], lanes, max_bytes=strip_px.nbytes,
+                                     alias=alias, counts=candidates[i][2])
+
+        return _strip_select(candidates, strip_px, len(trials), entropy, enc)
+
+    results = [encode_strip(s) for s in range(actual)]
+    return _micw_container(width, height, strip_h, max_value, predictor, band,
+                           [r[0] for r in results], [r[1] for r in results], lanes)
+
+
 def band_split(pixels: np.ndarray, width: int, height: int,
                band_w: int = MICW_BAND_W):
     """Split a wide image into vertically-stacked column bands: a
@@ -499,16 +613,15 @@ def _post_sizing(strips, pred: str, width: int, strip_h: int):
 
 
 def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool,
-                  max_value: int = 0):
+                  max_value: int = 0, scan: bool = False):
     """Bucket key of one entropy strip (parsed MICT ``p``, table entry
     ``st``; ``dense`` is the container's FLAG_RDENSE, ``max_value`` its
-    maxValue, which sets the escaped modes' post constants).  Raises
-    NotImplementedError for FF 41 strips above tableLog 12, and
-    ValueError for a table entry whose counts would size the decode past
-    the strip."""
+    maxValue, which sets the escaped modes' post constants).  A strip
+    whose lanes are not 128, an FF 41 strip above tableLog 12, and with
+    ``scan`` every strip, keys a scan bucket.  Raises ValueError for a
+    table entry whose counts would size the decode past the strip, and
+    for a scan strip past the lanes kernel's LANES_MAX lanes."""
     is_alias = p[7] is not None
-    if is_alias and p[1] > ALIAS_TABLE_LOG:
-        raise NotImplementedError(f"micw: FF 41 {pred} strip with tableLog {p[1]} > 12")
     # The sizing reads the table entry: a dishonest one must not make the
     # run tables, tokens or output outgrow the strip.
     if pred in _RLE_DIRECT_PREDS and (st[3] > p[2] or st[2] > width * strip_h):
@@ -517,6 +630,15 @@ def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool,
     if pred in ("zz", "avg") and (st[3] > p[2] or st[2] > 2 * width * strip_h + 1):
         raise ValueError(f"micw: {pred} strip claims {st[3]} runs in {p[2]} "
                          f"symbols and {st[2]} tokens for its {width * strip_h} pixels")
+    mid = delim = 0
+    if pred in ("zz", "avg"):
+        mid, delim = _rle_mid(max_value), delta_params(max_value)[1]
+    if scan or p[0] != 128 or (is_alias and p[1] > ALIAS_TABLE_LOG):
+        if p[0] > LANES_MAX:
+            raise ValueError(f"micw: a strip of {p[0]} lanes (the lanes kernel takes "
+                             f"{LANES_MAX})")
+        b = _pow2_at_least(-(-p[2] // p[0]), 8)
+        return ("scan", p[0], b, pred, width, strip_h, *_post_params(pred, mid, delim))
     packed = is_alias or (p[1] <= 12 and np.count_nonzero(p[5]) <= MAX_ALPHABET)
     # Padded step count, a power of two >= 8: strips of similar size share
     # a launch, so short strips do not pad to the longest one.
@@ -533,9 +655,6 @@ def _strip_bucket(p, st, pred: str, width: int, strip_h: int, dense: bool,
             return (a + "vdd", b, width)
         return (a + "zzd", b)  # widths mix through the ws operand
     form = "alias" if is_alias else ("packed" if packed else "two_table")
-    mid = delim = 0
-    if pred in ("zz", "avg"):
-        mid, delim = _rle_mid(max_value), delta_params(max_value)[1]
     return ("post", form, pred, b, width, strip_h, *_post_params(pred, mid, delim))
 
 
@@ -544,7 +663,8 @@ class _Bucket:
     and, for pdd and pdr, the (width, strip_h) of the column prefix sum
     (pdd's in the kernel: ``pdd_ws`` chunks a row, or 0 where the row
     leaves the kernel no room for its column carry); for a post bucket,
-    the symbols-out wrapper and the post function's arguments."""
+    the symbols-out wrapper (a scan bucket: the lanes kernel's) and the post
+    function's arguments."""
 
     def __init__(self, key, entries, device):
         self.n = len(entries)
@@ -552,6 +672,13 @@ class _Bucket:
         self.pdd_ws = 0
         if key[0] == "post":
             self._init_post(key, entries, device)
+            return
+        if key[0] == "scan":
+            built = build_lane_tables([e[0] for e in entries], min_steps=key[2])
+            self.fn = rans_decode_lanes
+            self.ops = lane_tensors(built[:10], device)
+            self.kwargs = dict(steps=built[10])
+            self._set_post(entries, *key[3:], device)
             return
         kind, steps = key[0], key[1]
         S = len(entries)
@@ -608,6 +735,10 @@ class _Bucket:
                 self.fn = rans_decode
             self.ops = to_device(built[:6], device)
             self.kwargs = dict(steps=built[7])
+        self._set_post(entries, pred, width, strip_h, mid, delim, device)
+
+    def _set_post(self, entries, pred, width, strip_h, mid, delim, device):
+        """The post stage's arguments and the strips' table entries."""
         table = [e[2] for e in entries]
         max_runs, max_tokens = _post_sizing(table, pred, width, strip_h)
         meta = torch.tensor([[t[2], t[3], t[4]] for t in table], dtype=torch.int64)
@@ -673,9 +804,15 @@ class MicwDecodePlan:
     copies a run's outputs back to per-image host arrays, and
     :meth:`assemble_device` gathers them into per-image tensors that stay
     on ``device``.
+
+    ``scan=True`` routes every entropy strip through the scan tier (the
+    lanes kernel, then the post stage), as ``mic_tpu``'s
+    ``micw_decompress_device`` and ``micw_decode_batch`` do; by default a
+    strip takes the scan tier only where ``mic_tpu``'s plan does (lanes
+    != 128, FF 41 above tableLog 12).
     """
 
-    def __init__(self, blobs, device):
+    def __init__(self, blobs, device, scan: bool = False):
         self.device = torch.device(device)
         self.blobs = list(blobs)
         self.metas = []  # (width, height, num_strips, strip_h) per blob
@@ -690,10 +827,8 @@ class MicwDecodePlan:
             parsed_c = parse_memo.get(id(blob))
             if parsed_c is None:
                 parsed_c = parse_memo[id(blob)] = micw_parse(blob)
-            width, height, num_strips, strip_h, mv, gpred, lanes, strips = parsed_c
+            width, height, num_strips, strip_h, mv, gpred, _lanes, strips = parsed_c
             dense = bool(blob[22] & FLAG_RDENSE)
-            if lanes != 128:
-                raise NotImplementedError(f"micw: {lanes} lanes per strip (the port decodes 128)")
             self.metas.append((width, height, num_strips, strip_h))
             keys = []
             for st in strips:
@@ -705,7 +840,7 @@ class MicwDecodePlan:
                 p = mict_memo.get(id(st[0]))
                 if p is None:
                     p = mict_memo[id(st[0])] = mict_parse(st[0])
-                bk = _strip_bucket(p, st, pred, width, strip_h, dense, mv)
+                bk = _strip_bucket(p, st, pred, width, strip_h, dense, mv, scan)
                 bucket = entries.setdefault(bk, [])
                 keys.append((bk, len(bucket)))
                 bucket.append((p, width, st))
@@ -714,7 +849,8 @@ class MicwDecodePlan:
         cuda = self.device.type == "cuda"
         # The direct buckets and the post buckets' entropy stages run as
         # one launch of the direct kernel, the r-mode buckets as one of the
-        # r-kernel.
+        # r-kernel, the scan buckets' entropy stages as one of the lanes
+        # kernel.
         self._direct_keys = [k for k, b in self.buckets.items() if b.fn in _DIRECT_FNS]
         self._direct_groups = [self.buckets[k].launch for k in self._direct_keys]
         self.direct_packing = (DirectPacking(self._direct_groups)
@@ -722,18 +858,25 @@ class MicwDecodePlan:
         self._rle_keys = [k for k, b in self.buckets.items() if b.fn in _RLE_FNS]
         self._rle_groups = [self.buckets[k].launch for k in self._rle_keys]
         self.rle_packing = RlePacking(self._rle_groups) if self._rle_groups and cuda else None
+        self._scan_keys = [k for k, b in self.buckets.items() if b.fn is rans_decode_lanes]
+        self._scan_groups = [self.buckets[k].launch for k in self._scan_keys]
+        self.scan_packing = (LanesPacking(self._scan_groups)
+                             if self._scan_groups and cuda else None)
         self._gather = None  # assemble_device's copy lists, built at its first call
 
     def run(self) -> dict:
         """Launch every bucket (the direct buckets and the post buckets'
-        entropy stages together, one launch, and the r-mode buckets
-        together, one launch), then the post buckets' torch ops; returns
+        entropy stages together, one launch, the r-mode buckets together,
+        one launch, and the scan buckets' entropy stages together, one
+        launch), then the post and scan buckets' torch ops; returns
         {bucket key: int16 [S, cols] device tensor} (bit-views of the u16
         pixels)."""
         outs = dict(zip(self._direct_keys, rans_decode_direct_groups(self._direct_groups,
                                                                      self.direct_packing)))
         outs.update(zip(self._rle_keys, rans_decode_rle_groups(self._rle_groups,
                                                                self.rle_packing)))
+        outs.update(zip(self._scan_keys, rans_decode_lanes_groups(self._scan_groups,
+                                                                  self.scan_packing)))
         return {k: b.finish(outs[k]) for k, b in self.buckets.items()}
 
     def _strip_rows(self, bi: int):
@@ -879,7 +1022,8 @@ class MicwDecodePlan:
 
 def micw_decode_many(blobs, device):
     """Decode a batch of MICW images on ``device`` (one plan: a launch of
-    the direct kernel, one of the r-kernel, the post buckets' torch ops).
+    the direct kernel, one of the r-kernel, one of the lanes kernel, the
+    post and scan buckets' torch ops).
     Images may differ in size and statistics.  Returns a list of (pixels
     u16, width, height), blob order."""
     plan = MicwDecodePlan(blobs, device)
@@ -887,7 +1031,26 @@ def micw_decode_many(blobs, device):
 
 
 def micw_decompress_device(blob: bytes, device):
-    """Decode one MICW container on ``device`` (the counterpart of
-    ``mic_tpu``'s ``micw_decompress_device_pallas``): a one-blob plan.
-    Returns (pixels u16, width, height)."""
+    """Decode one MICW container on ``device``: a one-blob plan, the
+    counterpart of ``mic_tpu``'s ``micw_decompress_device_pallas`` (not of
+    its ``micw_decompress_device``, the scan tier: that is
+    :func:`micw_decompress_scan`).  Returns (pixels u16, width, height)."""
     return micw_decode_many([blob], device)[0]
+
+
+def micw_decompress_scan(blob: bytes, device):
+    """Decode one MICW container on ``device`` with every entropy strip in
+    the scan tier (the lanes kernel, then the post stage), the counterpart
+    of ``mic_tpu``'s ``micw_decompress_device``.  Returns (pixels u16,
+    width, height)."""
+    plan = MicwDecodePlan([blob], device, scan=True)
+    return plan.assemble(plan.run())[0]
+
+
+def micw_decode_batch(blobs, device) -> list[np.ndarray]:
+    """Decode many MICW containers on ``device`` with every entropy strip
+    in the scan tier, the strips of all images pooled into one launch of
+    the lanes kernel: the counterpart of ``mic_tpu``'s
+    ``micw_decode_batch``.  Returns each image's pixels (u16, un-banded)."""
+    plan = MicwDecodePlan(blobs, device, scan=True)
+    return [px for px, _w, _h in plan.assemble(plan.run())]

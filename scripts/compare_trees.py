@@ -3,7 +3,7 @@
 on one card, each run in a process of its own, in the order other, this,
 this, other.
 
-    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,3,4,5,6,8] [--reps N]
+    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,3,4,5,6,8,10] [--reps N]
 
 ``DIR`` is an unpacked copy of another commit (for example the parent:
 ``git archive HEAD | tar -x -C build/parent``).  Each run imports the
@@ -27,10 +27,11 @@ sides are measured by the same code as far as the trees share it:
 * ``3``: phase 3's plan (``MicwDecodePlan`` over ``chip_smoke.BATCH``):
   verified, then ms and GB/s per ``plan.run()`` (CUDA events, mean of
   ``--reps``) and the device busy time of one run (torch.profiler);
-* ``4``, ``5``, ``6``, ``8``: the tree's own phase function (encode path,
-  r-mode plan, post path, RGB / WSI containers), which verifies its
-  outputs and prints its times (phase 4: its total line, with the
-  profiled ``kernel_ms``).
+* ``4``, ``5``, ``6``, ``8``, ``10``: the tree's own phase function
+  (encode path, r-mode plan, post path, RGB / WSI containers, scan tier),
+  which verifies its outputs and prints its times (phase 4: its total
+  line, with the profiled ``kernel_ms``); a tree without the phase says
+  so.
 
 Prints the card's name and power limit, then each run's timing lines
 (``ms per``, ``GB/s``, the profiler's idle share) under its tree's label.
@@ -47,7 +48,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper", "p-wrapper", "e-wrapper",
-        "encode path: ")
+        "encode path: ", "scan tier: ", "profile: ")
 
 RUN = """
 import sys, torch
@@ -143,6 +144,11 @@ if "6" in phases:
     cs._post_phase(dev, *cs._post_batch(dev))
 if "8" in phases:
     cs._rgb_wsi_phase(dev, cs._slide()[0])
+if "10" in phases:
+    if hasattr(cs, "_scan_phase"):
+        cs._scan_phase(dev, *cs._scan_batch())
+    else:
+        print("scan tier: phase 10 is not in this tree")
 """
 
 

@@ -41,7 +41,9 @@ ROOT = Path(__file__).resolve().parent.parent
 @pytest.mark.parametrize("module", ["mic_tpu_torch", "chip_smoke",
                                     "mic_tpu_torch.tpu.ref_decode", "mic_tpu_torch.tpu.ingest",
                                     "mic_tpu_torch.cli", "mic_tpu_torch.tpu.kernels",
-                                    "mic_tpu_torch.tpu.wsi_device"])
+                                    "mic_tpu_torch.tpu.wsi_device",
+                                    "mic_tpu_torch.tpu.scan_decode",
+                                    "mic_tpu_torch.tpu.decode"])
 def test_import_loads_no_mic_tpu(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'mic_tpu' or m.startswith('mic_tpu.') "

@@ -7,7 +7,8 @@ and ``series_dev_tmp.mic2``: three 512x512 CT frames, independent and
 temporal, every frame a MICW blob) are decoded against their ``.raw`` and
 re-encoded byte for byte; a small series covers ``device_encode``, both
 entropy families and ``mic_tpu``'s own device decode (Pallas, interpret
-mode).  The port writes 128 lanes per strip only: ``lanes=64`` raises.
+mode).  A 64-lane series (the host encoder's copy) is written byte for
+byte and decodes through the scan tier.
 Also pins the port's copy of ``write_mic2``.
 """
 
@@ -104,9 +105,11 @@ def test_small_series_matches_reference(device_encode, temporal, entropy):
 
 
 def test_lanes_64_raises_and_writes_nothing():
+    """At 64 lanes the port writes mic_tpu's series byte for byte: the
+    host encoder's copy, frame by frame (as mic_tpu does)."""
     frames = _small_series()
-    with pytest.raises(NotImplementedError):
-        compress_multi_frame_device(frames, 128, 64, 4095, CPU, lanes=64)
+    got = compress_multi_frame_device(frames, 128, 64, 4095, CPU, lanes=64)
+    assert got == ref.compress_multi_frame_device(frames, 128, 64, 4095, lanes=64)
     # with device_encode the reference's device encoder does not read
     # ``lanes`` either: 128-lane containers, the same bytes
     got = compress_multi_frame_device(frames, 128, 64, 4095, CPU, lanes=64, device_encode=True)
@@ -115,11 +118,12 @@ def test_lanes_64_raises_and_writes_nothing():
 
 
 def test_64_lane_container_raises_on_decode():
-    """A 64-lane series, which only mic_tpu's encoder writes, is refused
-    at plan construction, not decoded wrong."""
-    blob = ref.compress_multi_frame_device(_small_series(), 128, 64, 4095, lanes=64)
-    with pytest.raises(NotImplementedError):
-        decompress_multi_frame_device(blob, CPU)
+    """A 64-lane series decodes through the scan tier, bit-exact."""
+    frames = _small_series()
+    blob = ref.compress_multi_frame_device(frames, 128, 64, 4095, lanes=64)
+    out, hdr = decompress_multi_frame_device(blob, CPU)
+    assert hdr.frame_count == len(frames)
+    assert all(np.array_equal(o, f) for o, f in zip(out, frames))
 
 
 def test_truncated_series_raises():

@@ -506,13 +506,17 @@ def test_dishonest_entries_raise():
 
 
 def test_still_out_of_slice():
-    """FF 41 strips above tableLog 12 (no encoder writes them) and lanes
-    != 128 still raise."""
+    """FF 41 strips above tableLog 12 (no encoder of mic_tpu writes them)
+    key a scan bucket with the post constants of their container, as
+    mic_tpu's plan sends them to its scan tier; real ones decode in
+    tests/test_torch_scan_decode.py."""
     blob = (TESTDATA / "MR_dev_alias.micw").read_bytes()
     p = mict_parse(st.micw_parse(blob)[7][0][0])
-    with pytest.raises(NotImplementedError, match="> 12"):
-        st._strip_bucket((128, 13, *p[2:]), (b"", 0, 0, 0, 0, st.STRIP_MODE_ZZ), "zz", 200,
-                         16, False, 4095)
+    key = st._strip_bucket((128, 13, *p[2:]), (b"", 0, 0, 0, 0, st.STRIP_MODE_ZZ), "zz", 200,
+                           16, False, 4095)
+    steps = st._pow2_at_least(-(-p[2] // 128), 8)
+    assert key == ("scan", 128, steps, "zz", 200, 16, st._rle_mid(4095),
+                   st.delta_params(4095)[1])
 
 
 # ---------------------------------------------------------------------------

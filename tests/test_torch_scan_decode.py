@@ -1,0 +1,619 @@
+"""The port's scan tier against mic_tpu's: the host L-lane encoder copies,
+the lanes kernel's plain twin, the plans that route strips there, the
+single-stream decode and the RLE expand.
+
+Tolerance 0 everywhere: a lossless codec, byte-identical containers.
+
+* The copies, byte for byte: ``mict_encode`` / ``mict_encode_alias`` /
+  ``_lane_encode`` / ``mict_decode_numpy`` and the host
+  ``micw_compress`` at 8, 64, 128 and 256 lanes, every entropy family and
+  the auto-fast, zzd, avg and auto-r trial sets.
+* ``decode_strip_batch`` against ``decode_strip_batch_impl`` on the
+  operands of the graft entry's tiny 64-lane batch, on whole arrays.
+* ``MicwDecodePlan``, ``micw_decompress_scan`` and ``micw_decode_batch``
+  against ``micw_decompress_host`` and ``mic_tpu``'s scan tier: the
+  format-freeze shapes at 64 lanes, 8-, 32- and 512-lane containers, and
+  one plan that mixes 128-lane, 64-lane and FF 41 tableLog 13-16 strips
+  (the fixtures ``tests/data/torch_port/CT_dev_alias_tl*.micw``, written
+  by :func:`alias_reencode`).
+* ``decode.mict_decode_device`` and ``post.rle_expand`` against their
+  ``mic_tpu`` counterparts; damaged streams through the scan tier.
+
+The ``cuda`` tests hold the lanes kernel to its plain twin on the card;
+they skip without a GPU.  ``mic_tpu`` is imported through the ``ref``
+fixture: the machine with the card has no jax.
+"""
+
+import struct
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from mic_tpu_torch import MicwDecodePlan, micw_decode_batch, micw_decompress_scan
+from mic_tpu_torch.tpu import decode as port_decode
+from mic_tpu_torch.tpu import device_rans as dr
+from mic_tpu_torch.tpu import post
+from mic_tpu_torch.tpu import scan_decode as sd
+from mic_tpu_torch.tpu import strips as st
+
+ROOT = Path(__file__).resolve().parent.parent
+TESTDATA = ROOT / "web" / "testdata"
+PORT_DATA = ROOT / "tests" / "data" / "torch_port"
+CPU = torch.device("cpu")
+# tableLog -> (fixture, lanes): CT_dev's strips as FF 41 above tableLog 12
+ALIAS_FIXTURES = {13: (PORT_DATA / "CT_dev_alias_tl13_l64.micw", 64),
+                  14: (PORT_DATA / "CT_dev_alias_tl14.micw", 128),
+                  15: (PORT_DATA / "CT_dev_alias_tl15.micw", 128),
+                  16: (PORT_DATA / "CT_dev_alias_tl16_l64.micw", 64)}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """mic_tpu's host format code and its scan tier (needs jax)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from mic_tpu.ops import fse
+    from mic_tpu.parallel import multiframe
+    from mic_tpu.tpu import decode, device_rans, pipeline, strips
+
+    return SimpleNamespace(jnp=jnp, fse=fse, dr=device_rans, dec=decode, pl=pipeline,
+                           st=strips, mf=multiframe)
+
+
+def _smooth(seed, h, w, scale=9, base=700, spikes=0.0):
+    rng = np.random.default_rng(seed)
+    img = (rng.standard_normal((h, w)).cumsum(axis=1) * scale + base).clip(0, 4095)
+    img = img.astype(np.uint16)
+    if spikes:
+        img[rng.random((h, w)) < spikes] = 4000
+    return img.ravel()
+
+
+def _ct():
+    return np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")
+
+
+def encode_at(d, syms, table_log, lanes, alias=True):
+    """One MICT stream of ``syms`` at exactly ``table_log`` and ``lanes``,
+    from the encode functions of ``d`` (``mic_tpu.tpu.device_rans`` or the
+    port's copy): FF 41 with ``_alias_plan`` keeping the 255 most frequent
+    values, lowered by 64 until ``alias_construct`` finds a layout, then
+    ``_alias_apply`` and ``_lane_encode`` with the alias slot map; or FF
+    57 through ``_norm_and_header`` and ``_lane_encode``.  Laid out as
+    ``mict_encode_alias`` / ``mict_encode`` lay out a stream; their
+    adaptive tableLog would pick another."""
+    n = len(syms)
+    counts, _mx, sl = d.histogram(syms)
+    counts = np.asarray(counts[:sl], np.int64)
+    if not alias:
+        norm, header = d._norm_and_header(counts, n, table_log, sl)
+        freq, cumul = d.encode_tables(norm, table_log)
+        states, words = d._lane_encode(syms.astype(np.int64), n, lanes, table_log, freq, cumul)
+        return (d.MICT_MAGIC + struct.pack("<BBII", int(np.log2(lanes)), table_log, n,
+                                           len(words))
+                + header + states.astype("<u4").tobytes() + words.astype("<u2").tobytes())
+    kept = min(int((counts > 0).sum()), d.ALIAS_MAX_KEPT)
+    while True:
+        kept_vals, counts2, sl2, esc_val = d._alias_plan(counts, sl, kept)
+        norm, header = d._norm_and_header(counts2, n, table_log, sl2)
+        freq, cumul = d.encode_tables(norm, table_log)
+        try:
+            al = d.alias_construct(norm, table_log)
+            break
+        except d.AliasInfeasible:
+            kept -= 64
+    recoded, esc = d._alias_apply(syms, kept_vals, esc_val)
+    states, words = d._lane_encode(recoded, n, lanes, table_log, freq, cumul,
+                                   slot_of=al["slot_of"].astype(np.uint64))
+    return (d.MICT_ALIAS_MAGIC + struct.pack("<BBII", int(np.log2(lanes)), table_log, n,
+                                             len(words))
+            + struct.pack("<IH", len(esc), esc_val) + header
+            + states.astype("<u4").tobytes() + words.astype("<u2").tobytes()
+            + esc.astype("<u2").tobytes())
+
+
+def alias_reencode(ref, blob, table_log, lanes):
+    """``blob`` with every entropy strip's symbols (``mict_decode_numpy``)
+    re-encoded as FF 41 at ``table_log`` and ``lanes`` by :func:`encode_at`
+    with ``mic_tpu``'s own functions.  ``mic_tpu``'s encoders cap FF 41 at
+    tableLog 12; its decoders take these streams.  The table entries and
+    the header stay, with the container's lane count set to ``lanes``.
+    This wrote the ``ALIAS_FIXTURES`` from ``web/testdata/CT_dev.micw``."""
+    _w, _h, _ns, _sh, _mv, gpred, _lanes, strips = ref.st.micw_parse(blob)
+    hdr = st.MICW_HEADER + (8 if blob[22] & st.FLAG_BANDED else 0)
+    out = [encode_at(ref.dr, ref.dr.mict_decode_numpy(s[0]), table_log, lanes)
+           if ref.st.strip_predictor(gpred, s[5]) is not None else s[0] for s in strips]
+    table = bytearray(blob[hdr:hdr + len(strips) * st.MICW_ENTRY])
+    off = 0
+    for i, b in enumerate(out):
+        struct.pack_into("<II", table, i * st.MICW_ENTRY, off, len(b))
+        off += len(b)
+    head = bytearray(blob[:hdr])
+    head[23] = int(np.log2(lanes))
+    return bytes(head) + bytes(table) + b"".join(out)
+
+
+# ---------------------------------------------------------------------------
+# (a) the host encoder copies, byte for byte
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lanes", [8, 64, 128, 256])
+def test_mict_encode_copies(ref, lanes):
+    rng = np.random.default_rng(lanes)
+    data = np.minimum(rng.geometric(0.02, 5000), 700).astype(np.uint16)
+    wide = (np.abs(rng.standard_normal(6000)) * 900).astype(np.uint16)  # escapes under FF 41
+    for syms in (data, wide):
+        for kw in ({}, {"table_log": 12, "max_table_log": 11}, {"alias": True},
+                   {"alias": True, "counts": np.bincount(syms)}):
+            want = _outcome(ref.dr.mict_encode, syms, lanes=lanes, **kw)
+            assert _outcome(dr.mict_encode, syms, lanes=lanes, **kw) == want, kw
+            if isinstance(want, bytes):
+                assert np.array_equal(dr.mict_decode_numpy(want), ref.dr.mict_decode_numpy(want))
+                assert np.array_equal(dr.mict_decode_numpy(want), syms)
+        assert _outcome(dr.mict_encode_alias, syms, lanes=lanes) == _outcome(
+            ref.dr.mict_encode_alias, syms, lanes=lanes)
+    assert len(dr.mict_parse(dr.mict_encode_alias(data, lanes=lanes))[7][1])  # escapes
+    freq, cumul = dr.encode_tables(*_norm(data))
+    s64 = data.astype(np.int64)
+    got = dr._lane_encode(s64, len(data), lanes, 11, freq, cumul)
+    want = ref.dr._lane_encode(s64, len(data), lanes, 11, freq, cumul)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(dr.UseRLEError):
+        dr.mict_encode(np.full(100, 7, np.uint16), lanes=lanes)
+    with pytest.raises(ValueError, match="counts shorter"):
+        dr.mict_encode(data, lanes=lanes, counts=np.ones(3, np.uint32))
+
+
+def _outcome(fn, *args, **kw):
+    """``fn``'s blob, or the name of the exception it raised."""
+    try:
+        return fn(*args, **kw)
+    except Exception as e:  # noqa: BLE001 - the two packages raise their own classes
+        return type(e).__name__
+
+
+def _norm(data):
+    counts, _mx, sl = dr.histogram(data)
+    norm, _hdr = dr._norm_and_header(counts, len(data), 11, sl)
+    return norm, 11
+
+
+@pytest.mark.parametrize("lanes", [8, 64, 128, 256])
+@pytest.mark.parametrize("entropy", ["standard", "alias", "best"])
+@pytest.mark.parametrize("predictor", ["auto-fast", "zzd", "avg", "auto-r"])
+def test_micw_compress_copy(ref, lanes, entropy, predictor):
+    px = _smooth(lanes + len(predictor), 40, 72, spikes=0.02)
+    mx = int(px.max())
+    want = ref.st.micw_compress(px, 72, 40, mx, num_strips=2, lanes=lanes,
+                                predictor=predictor, entropy=entropy)
+    assert st.micw_compress(px, 72, 40, mx, num_strips=2, lanes=lanes, predictor=predictor,
+                            entropy=entropy) == want
+    out, w, h = st.micw_decompress_device(want, CPU)
+    assert (w, h) == (72, 40) and np.array_equal(out, px)
+
+
+def test_alias_escape_substitution_copy(ref):
+    syms = np.array([3, 9, 3, 1, 9], np.uint16)
+    alias = (9, np.array([700, 800], np.uint16))
+    assert np.array_equal(dr.alias_substitute_escapes(syms, alias),
+                          ref.dr.alias_substitute_escapes(syms, alias))
+    with pytest.raises(ValueError, match="escape count"):
+        dr.alias_substitute_escapes(syms, (9, np.zeros(0, np.uint16)))
+
+
+# ---------------------------------------------------------------------------
+# (b) the lanes kernel's operands and plain twin
+# ---------------------------------------------------------------------------
+
+
+def _tiny_batch(ref, lanes=64, num_strips=4, h=32, w=64):
+    """The operands of ``__graft_entry__._tiny_micw_batch``, rebuilt."""
+    rng = np.random.default_rng(0)
+    img = (rng.standard_normal((h, w)).cumsum(axis=1) * 8 + 512).astype(np.int32)
+    img = (img >> 2 << 2).clip(0, 1023).astype(np.uint16)
+    blob = ref.st.micw_compress(img.ravel(), w, h, int(img.max()), num_strips=num_strips,
+                                lanes=lanes, predictor="zzd")
+    width, _h, _n, strip_h, max_value, _p, _l, strips = ref.st.micw_parse(blob)
+    parsed = [ref.dr.mict_parse(b) for b, *_ in strips]
+    tl = max(p[1] for p in parsed)
+    arrays, meta = ref.st.build_strip_batch(parsed, strips, tl, pad_strips_to=num_strips)
+    delim = int(ref.st.delta_params(max_value)[1])
+    kw = dict(table_log=tl, n_steps=meta["n_steps"], width=width, strip_h=strip_h,
+              max_runs=meta["max_runs"], max_tokens=meta["max_tokens"],
+              mid_count=(1 << (delim.bit_length() - 1)) - 1, delim=delim, predictor="zzd")
+    return arrays, kw, img.ravel()
+
+
+def test_decode_strip_batch_matches_graft_step(ref):
+    arrays, kw, px = _tiny_batch(ref)
+    want = np.asarray(ref.st._decode_strip_batch(*[ref.jnp.asarray(a) for a in arrays], **kw))
+    got = sd.decode_strip_batch(*arrays, **kw, device=CPU)
+    assert got.dtype == torch.int16 and got.shape == want.shape
+    assert np.array_equal(got.numpy().view(np.uint16), want)
+    assert np.array_equal(want.reshape(-1)[: px.size], px)
+
+
+def test_build_lane_tables_mirrors_build_strip_batch(ref):
+    """FF 41 with and without escapes and FF 57, one tableLog, 32 lanes."""
+    rng = np.random.default_rng(3)
+    streams = [np.minimum(rng.geometric(0.02, n), 700).astype(np.uint16)
+               for n in (3000, 2900, 2800)]
+    blobs = [dr.mict_encode_alias(streams[0], lanes=32, table_log=11, max_table_log=11),
+             dr.mict_encode_alias(np.minimum(streams[1], 60), lanes=32, table_log=11,
+                                  max_table_log=11),
+             dr.mict_encode(streams[2], lanes=32, table_log=11, max_table_log=11)]
+    parsed = [dr.mict_parse(b) for b in blobs]
+    tl = parsed[0][1]
+    assert [p[1] for p in parsed] == [tl] * 3
+    assert len(parsed[0][7][1]) and not parsed[1][7][1].size
+    strips = [(b, p[2], p[2], 0, 0, st.STRIP_MODE_ZZD) for b, p in zip(blobs, parsed)]
+    want, meta = ref.st.build_strip_batch(parsed, strips, tl)
+    init, words, tsym, tf, tb, toff, tls, counts, escv, esides, steps = \
+        sd.build_lane_tables(parsed + parsed[:1])  # a repeated parse shares its table
+    S = len(parsed)
+    assert steps == meta["n_steps"] and list(toff) == [0, 1 << tl, 2 << tl, 0]
+    assert np.array_equal(init[:S], want[0]) and np.array_equal(words[:S], want[1])
+    for a, w in ((tsym, want[2]), (tf, want[3]), (tb, want[4])):
+        assert np.array_equal(a.reshape(-1, 1 << tl)[:S], w)
+    assert np.array_equal(counts[:S], want[5]) and np.array_equal(escv[:S], want[9])
+    assert np.array_equal(esides[:S], want[10]) and list(tls) == [tl] * (S + 1)
+    assert list(escv[:S] >= 0) == [True, False, False]
+
+
+def _lanes_ops(blobs):
+    parsed = [dr.mict_parse(b) for b in blobs]
+    built = sd.build_lane_tables(parsed)
+    return sd.lane_tensors(built[:10], CPU), built[10], parsed
+
+
+@pytest.mark.parametrize("lanes", [8, 32, 512])
+def test_plain_twin_matches_host_decoder(lanes):
+    """Streams of 4-6 tableLogs mixed in one bucket, FF 57 and FF 41 with
+    escapes: the symbols up to each count equal ``mict_decode_numpy``."""
+    rng = np.random.default_rng(lanes)
+    blobs = []
+    for i, tl in enumerate((10, 11, 12)):
+        data = (np.abs(rng.standard_normal(12000 + 3000 * i)) * 150).astype(np.uint16)
+        blobs.append(dr.mict_encode(data, lanes=lanes, table_log=tl, max_table_log=tl))
+        blobs.append(dr.mict_encode_alias(data, lanes=lanes, table_log=tl))
+    ops, steps, parsed = _lanes_ops(blobs)
+    out = sd.rans_decode_lanes(*ops, steps=steps).numpy().view(np.uint16)
+    assert out.shape == (len(blobs), steps * lanes)
+    for row, b, p in zip(out, blobs, parsed):
+        assert np.array_equal(row[: p[2]], dr.mict_decode_numpy(b))
+    assert sd.rans_decode_lanes_groups([(sd.rans_decode_lanes, ops, {"steps": steps})])[0] \
+        .equal(torch.from_numpy(out.view(np.int16)))
+
+
+@pytest.mark.parametrize("lanes", [4096, 16384])
+def test_plain_twin_wide_lanes(lanes):
+    """4 and 16 lanes a thread in the kernel (LANES_MAX lanes at most):
+    FF 57 and FF 41 streams at tableLogs 11 and 14 through the plain twin
+    equal ``mict_decode_numpy``; one lane more than LANES_MAX is refused."""
+    rng = np.random.default_rng(lanes)
+    blobs = []
+    for tl in (11, 14):
+        data = (np.abs(rng.standard_normal(40000)) * 300).astype(np.uint16)
+        blobs += [encode_at(dr, data, tl, lanes, alias=False), encode_at(dr, data, tl, lanes)]
+    ops, steps, parsed = _lanes_ops(blobs)
+    out = sd.rans_decode_lanes(*ops, steps=steps).numpy().view(np.uint16)
+    for row, b, p in zip(out, blobs, parsed):
+        assert np.array_equal(row[: p[2]], dr.mict_decode_numpy(b))
+    pk = sd.LanesPacking([(sd.rans_decode_lanes, ops, {"steps": steps})])
+    assert (pk.threads, pk.lpt) == (1024, lanes // 1024)
+    with pytest.raises(ValueError, match="lanes"):
+        sd.rans_decode_lanes(torch.zeros((1, 2 * sd.LANES_MAX), dtype=torch.int32), *ops[1:],
+                             steps=steps)
+
+
+def test_packing_layout():
+    """Threads, lanes a thread, table form and block order."""
+    rng = np.random.default_rng(5)
+    data = (np.abs(rng.standard_normal(20000)) * 300).astype(np.uint16)
+    groups = []
+    for lanes, tl in ((2048, 11), (8, 16), (64, 14)):
+        ops, steps, _p = _lanes_ops([encode_at(dr, data, tl, lanes, alias=False)] * 2)
+        groups.append((sd.rans_decode_lanes, ops, {"steps": steps}))
+    pk = sd.LanesPacking(groups)
+    assert (pk.threads, pk.lpt) == (1024, 2)
+    assert [tuple(r) for r in pk.blocks] == [(1, 0), (1, 1), (2, 0), (2, 1), (0, 0), (0, 1)]
+    assert pk.holds(groups) and not pk.holds(groups[:1])
+    narrow = sd.LanesPacking(groups[2:])
+    assert (narrow.threads, narrow.lpt) == (64, 1)
+    wider = sd.LanesPacking([(fn, ops, kw) for fn, ops, kw in groups if ops[0].shape[1] == 8])
+    assert (wider.threads, wider.lpt) == (32, 1)
+    # a frequency past 16 bits: three tables
+    fn, ops, kw = groups[0]
+    wide = sd.LanesPacking([(fn, (*ops[:3], ops[3] + 65536, *ops[4:]), kw)])
+    assert [list(a) for a in pk.desc["arg"][:1]] == [[2048, ops[1].shape[1], 1, kw["steps"],
+                                                      0, 0]]
+    assert wide.desc["arg"][0, 4] == 1 and pk.desc["arg"][1, 4] == 0
+    with pytest.raises(ValueError, match="steps"):
+        sd.LanesPacking([(sd.rans_decode_lanes, groups[0][1], {"steps": 0})])
+    bad = list(groups[0][1])
+    bad[5] = torch.full_like(bad[5], 1 << 20)  # a table past the flat tables
+    with pytest.raises(ValueError, match="toff"):
+        sd.rans_decode_lanes(*bad, steps=groups[0][2]["steps"])
+
+
+# ---------------------------------------------------------------------------
+# (c) plans against mic_tpu's host decoder and scan tier
+# ---------------------------------------------------------------------------
+
+FREEZE = {"micw": {}, "micw_zzd": {"predictor": "zzd"}, "micw_pdd": {"predictor": "pdd"},
+          "micw_alias": {"entropy": "alias"}, "micw_rdense": {"predictor": "zzr"},
+          "micw_auto": {"predictor": "auto"}, "micw_auto_alias": {"predictor": "auto",
+                                                                  "entropy": "alias"}}
+
+
+def _freeze_px():
+    """The format-freeze test's 64 x 48 image and its banded 1024 x 96 one."""
+    rng = np.random.default_rng(20260816)
+    img = (rng.standard_normal((48, 64)).cumsum(axis=1) * 8 + 1000).astype(np.int32)
+    px = (img >> 2 << 2).clip(0, 4095).astype(np.uint16).ravel()
+    rng = np.random.default_rng(20260817)
+    wide = (rng.standard_normal((96, 1024)).cumsum(axis=1) * 8 + 1000).astype(np.int32)
+    return px, wide.clip(0, 4095).astype(np.uint16).ravel()
+
+
+@pytest.mark.parametrize("name", sorted(FREEZE) + ["micw_banded"])
+def test_format_freeze_containers_decode(ref, name):
+    px, wide = _freeze_px()
+    if name == "micw_banded":
+        blob, want, wh = ref.st.micw_compress(wide, 1024, 96, int(wide.max()), lanes=64), \
+            wide, (1024, 96)
+    else:
+        blob, want, wh = ref.st.micw_compress(px, 64, 48, int(px.max()), lanes=64,
+                                              **FREEZE[name]), px, (64, 48)
+    assert st.micw_parse(blob)[6] == 64
+    plan = MicwDecodePlan([blob], CPU)
+    assert all(k[0] == "scan" and k[1] == 64 for k in plan.buckets)
+    ((out, w, h),) = plan.assemble(plan.run())
+    assert (w, h) == wh and np.array_equal(out, want)
+    host = np.asarray(ref.st.micw_decompress_host(blob)[0]).ravel()
+    dev = np.asarray(ref.st.micw_decompress_device(blob)[0]).ravel()
+    assert np.array_equal(out, host) and np.array_equal(out, dev)
+    scan, sw, sh = micw_decompress_scan(blob, CPU)
+    assert (sw, sh) == wh and np.array_equal(scan, want)
+
+
+@pytest.mark.parametrize("lanes", [8, 32, 512])
+def test_lane_counts_decode(ref, lanes):
+    px = _smooth(lanes, 64, 96, spikes=0.01)
+    mx = int(px.max())
+    blobs = [ref.st.micw_compress(px, 96, 64, mx, lanes=lanes, num_strips=2, predictor=p,
+                                  entropy=e)
+             for p, e in (("auto-fast", "standard"), ("auto", "alias"), ("auto-r", "best"))]
+    outs = [o for o, _w, _h in st.micw_decode_many(blobs, CPU)]
+    assert all(np.array_equal(o, px) for o in outs)
+    for decode in (st.micw_decompress_device, micw_decompress_scan):
+        out, w, h = decode(blobs[0], CPU)
+        assert (w, h) == (96, 64) and np.array_equal(out, px)
+    batch = micw_decode_batch(blobs, CPU)
+    want = ref.st.micw_decode_batch(blobs)
+    assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(batch, want))
+    assert all(np.array_equal(a, px) for a in batch)
+
+
+def test_alias_fixtures_are_current(ref):
+    """The FF 41 fixtures above tableLog 12 equal :func:`alias_reencode`
+    of CT_dev today, and mic_tpu decodes them: its host decoder and its
+    scan tier (to which its plan sends them); so do the port's scan-tier
+    entry points."""
+    blob = (TESTDATA / "CT_dev.micw").read_bytes()
+    px = _ct()
+    for tl, (path, lanes) in ALIAS_FIXTURES.items():
+        fixture = path.read_bytes()
+        assert fixture == alias_reencode(ref, blob, tl, lanes), path.name
+        parsed = [dr.mict_parse(s[0]) for s in st.micw_parse(fixture)[7]]
+        assert {(p[0], p[1], p[7] is not None) for p in parsed} == {(lanes, tl, True)}
+        assert np.array_equal(np.asarray(ref.st.micw_decompress_host(fixture)[0]).ravel(), px)
+        if tl == 13:  # the tiers of mic_tpu's plan decode the others in the mixed test
+            assert np.array_equal(np.asarray(ref.st.micw_decompress_device(fixture)[0]).ravel(),
+                                  px)
+    fixtures = [p.read_bytes() for p, _l in ALIAS_FIXTURES.values()]
+    assert all(np.array_equal(o, px) for o in micw_decode_batch(fixtures, CPU))
+    out, _w, _h = st.micw_decompress_device(fixtures[-1], CPU)
+    assert np.array_equal(out, px)
+
+
+def test_mixed_plan(ref):
+    """128-lane, 64-lane and FF 41 tableLog 13-16 containers in one plan:
+    the scan buckets mix families and tableLogs, the others take their
+    kernels; every image against its pixels and mic_tpu's plan."""
+    ct = _ct()
+    px = _smooth(7, 64, 128, spikes=0.02)
+    blobs = [(TESTDATA / "CT_dev.micw").read_bytes(),
+             ref.st.micw_compress(px, 128, 64, 4095, lanes=64, predictor="auto",
+                                  entropy="best"),
+             *[p.read_bytes() for p, _l in ALIAS_FIXTURES.values()]]
+    plan = MicwDecodePlan(blobs, CPU)
+    scan = [k for k in plan.buckets if k[0] == "scan"]
+    assert {k[1] for k in scan} == {64, 128} and len(scan) < len(plan.buckets)
+    tls = {int(t) for k in scan for t in plan.buckets[k].ops[6]}
+    assert {13, 14, 15, 16} <= tls
+    decoded = plan.run()
+    want = [ct, px] + [ct] * len(ALIAS_FIXTURES)
+    assert plan.verify_batch(decoded, want) == 0
+    for (out, _w, _h), w in zip(plan.assemble(decoded), want):
+        assert np.array_equal(out, w)
+    assert np.array_equal(ref.st.micw_decode_many(blobs[2:3])[0][0].ravel(), ct)
+
+
+def test_mict_decode_device(ref):
+    rng = np.random.default_rng(11)
+    data = (np.abs(rng.standard_normal(9000)) * 700).astype(np.uint16)
+    for blob in (dr.mict_encode(data, lanes=64), dr.mict_encode_alias(data, lanes=32),
+                 dr.mict_encode(data, lanes=512, table_log=13, max_table_log=13)):
+        got = port_decode.mict_decode_device(blob, CPU)
+        assert np.array_equal(got, np.asarray(ref.dec.mict_decode_device(blob)))
+        assert np.array_equal(got, data)
+        mine, theirs = port_decode.make_plan(blob), ref.dec.make_plan(blob)
+        for f in ("lanes", "table_log", "count", "n_steps"):
+            assert getattr(mine, f) == getattr(theirs, f)
+        for f in ("init_states", "words", "tab_sym", "tab_freq", "tab_bias"):
+            assert np.array_equal(getattr(mine, f), getattr(theirs, f))
+
+
+def test_rle_expand(ref):
+    from mic_tpu.ops.rle import RleEncoder, rle_expand
+
+    rng = np.random.default_rng(4)
+    for n in (40, 300):
+        data = np.repeat(rng.integers(0, 200, n), rng.integers(1, 40, n)).astype(np.uint16)
+        enc = RleEncoder(len(data), 1, 255)
+        enc.encode(123)
+        for v in data.tolist():
+            enc.encode(v)
+        enc.flush()
+        stream = np.array(enc.out, dtype=np.uint16)
+        host, _ = rle_expand(stream, 1, 127, None)
+        m_pad = len(stream) + 8
+        s_pad = np.zeros(m_pad, np.int32)
+        s_pad[: len(stream) - 1] = stream[1:]
+        for max_out in (len(host) + 64, len(host) // 2):
+            want, want_n = ref.pl.rle_expand_device(ref.jnp.asarray(s_pad),
+                                                    ref.jnp.int32(len(stream) - 1),
+                                                    ref.jnp.int32(127), max_out)
+            got, got_n = post.rle_expand(torch.from_numpy(s_pad), len(stream) - 1, 127,
+                                         max_out)
+            assert int(got_n) == int(want_n) == len(host)
+            assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# (d) damaged streams through the scan tier
+# ---------------------------------------------------------------------------
+
+KINDS = ["words", "states", "count_up", "count_down", "n_words_down", "escapes", "ncount"]
+
+
+def _scan_fixture(name):
+    if name == "lanes64":
+        px = _smooth(9, 96, 128, spikes=0.03)
+        from mic_tpu_torch.tpu.strips import micw_compress
+
+        return micw_compress(px, 128, 96, 4095, lanes=64, predictor="auto", entropy="best")
+    return ALIAS_FIXTURES[14][0].read_bytes()
+
+
+def _corrupt(blob: bytes, kind: str) -> bytes:
+    """``blob`` with its first entropy strip's MICT stream damaged."""
+    blob = bytearray(blob)
+    mict = st.micw_parse(bytes(blob))[7][0][0]
+    at = bytes(blob).find(mict)
+    L, _tl, count, _states, words, _norm, _sl, alias = dr.mict_parse(mict)
+    n_esc = len(alias[1]) if alias is not None else 0
+    words_at = at + len(mict) - 2 * (len(words) + n_esc)
+    rng = np.random.default_rng(KINDS.index(kind))
+    if kind == "words":
+        for o in rng.integers(words_at, words_at + 2 * len(words), 64):
+            blob[o] ^= 0xFF
+    elif kind == "states":
+        for o in rng.integers(words_at - 4 * L, words_at, 32):
+            blob[o] ^= 0x5A
+    elif kind in ("count_up", "count_down"):
+        struct.pack_into("<I", blob, at + 4, count * 2 if kind == "count_up" else count // 2)
+    elif kind == "n_words_down":
+        struct.pack_into("<I", blob, at + 8, len(words) // 2)
+    elif kind == "escapes":
+        for o in rng.integers(words_at + 2 * len(words), at + len(mict), 64):
+            blob[o] ^= 0xFF
+    else:
+        blob[at + (18 if alias is not None else 12) + 1] ^= 0x3C
+    return bytes(blob)
+
+
+SCAN_CASES = [(n, k) for n in ("lanes64", "alias_tl14") for k in KINDS]
+
+
+@pytest.mark.parametrize("name,kind", SCAN_CASES)
+def test_corrupt_scan_stream_stays_in_bounds(name, kind):
+    blob = _corrupt(_scan_fixture(name), kind)
+    try:
+        plan = MicwDecodePlan([blob], CPU)
+    except ValueError:
+        return  # rejected at parse or table build
+    (out, w, h), = plan.assemble(plan.run())
+    assert (w, h) == st.micw_parse(blob)[:2] and out.dtype == np.uint16 and out.size == w * h
+
+
+def test_corrupt_single_stream(ref):
+    """``tests/test_corruption_hardening.py``'s FF 41 cases through the
+    port's single-stream decode: a truncated or miscounted escape stream
+    raises, as in mic_tpu."""
+    rng = np.random.default_rng(2)
+    data = (np.abs(rng.standard_normal(5000)) * 800).astype(np.uint16)
+    blob = dr.mict_encode_alias(data, lanes=64, table_log=11)
+    assert len(dr.mict_parse(blob)[7][1]) > 0
+    with pytest.raises(ValueError):
+        port_decode.mict_decode_device(blob[:-10], CPU)
+    b = bytearray(blob)
+    struct.pack_into("<I", b, 12, 0)  # forged n_esc = 0
+    with pytest.raises(ValueError, match="escape count"):
+        port_decode.mict_decode_device(bytes(b), CPU)
+    with pytest.raises(ValueError, match="escape count"):
+        ref.dec.mict_decode_device(bytes(b))
+
+
+# ---------------------------------------------------------------------------
+# (e) the card
+# ---------------------------------------------------------------------------
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 64, 512, 2048, 4096, 16384])
+def test_cuda_lanes_kernel_matches_plain(lanes):
+    dev = _cuda()
+    rng = np.random.default_rng(lanes)
+    blobs = []
+    for tl in (11, 12, 14, 16):
+        data = (np.abs(rng.standard_normal(40000)) * 300).astype(np.uint16)
+        blobs += [encode_at(dr, data, tl, lanes, alias=False), encode_at(dr, data, tl, lanes)]
+    ops, steps, parsed = _lanes_ops(blobs)
+    want = sd.rans_decode_lanes_plain(*ops, steps=steps)
+    for row, b, p in zip(want.numpy().view(np.uint16), blobs, parsed):
+        assert np.array_equal(row[: p[2]], dr.mict_decode_numpy(b))
+    ops_d = tuple(t.to(dev) for t in ops)
+    got = sd.rans_decode_lanes(*ops_d, steps=steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    (grouped,) = sd.rans_decode_lanes_groups([(sd.rans_decode_lanes, ops_d, {"steps": steps})])
+    torch.cuda.synchronize()
+    assert torch.equal(grouped.cpu(), want)
+    # frequencies past 16 bits: the three-table form (garbage symbols, the same on both)
+    wide = list(ops)
+    wide[3] = ops[3] + 65536
+    assert sd.LanesPacking([(sd.rans_decode_lanes, tuple(t.to(dev) for t in wide),
+                             {"steps": steps})]).desc["arg"][0, 4] == 1
+    got = sd.rans_decode_lanes(*(t.to(dev) for t in wide), steps=steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sd.rans_decode_lanes_plain(*wide, steps=steps))
+
+
+@pytest.mark.cuda
+def test_cuda_plans_match_cpu():
+    dev = _cuda()
+    blobs = [_scan_fixture("lanes64")] + [p.read_bytes() for p, _l in ALIAS_FIXTURES.values()]
+    blobs += [_corrupt(b, k) for b in blobs[:2] for k in KINDS]
+    for blob in blobs:
+        try:
+            want = MicwDecodePlan([blob], CPU).run()
+        except ValueError:
+            continue
+        got = MicwDecodePlan([blob], dev).run()
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), k
+    px = _ct()
+    outs = micw_decode_batch([p.read_bytes() for p, _l in ALIAS_FIXTURES.values()], dev)
+    assert all(np.array_equal(o, px) for o in outs)
