@@ -39,13 +39,16 @@ Phases (any failure exits non-zero; nothing is caught):
    the YCoCg-R pair on full-range random u16 planes and on the planes of
    phase 8's slide (16.5 M pixels each), the 5/3 lifting pair on random
    int32 rows in the u16 range at even, odd and non-multiple-of-4 widths.
-   L-lane decode: the lanes kernel through its one-bucket wrapper on
-   every bucket of phase 10's batch (the tableLog 13-16 fixtures among
-   them; every table is read from device memory), each against its plain
-   twin run once, then the plan's one launch against them all, then
-   CT_dev's first 128 rows at 8, 512, 2048, 4096 and 16,384 lanes (1 to
-   16 lanes a thread), with the launch's blocks, threads, shared memory a
-   block and blocks an SM, and the half's wall seconds.
+   L-lane decode: the lanes kernel on every bucket of phase 10's batch
+   (the tableLog 13-16 fixtures among them; every table is read from
+   device memory) in both forms, each against its plain twin run once:
+   the warp form through the one-bucket wrapper with the bucket's zzd /
+   vdd / pdd inverse fused, the block form symbols out; then the plan's
+   launch in both forms against them all; then CT_dev's first 128 rows at
+   8, 512, 2048, 4096 and 16,384 lanes (the last three in the block form
+   only); with ns a step, each launch's blocks, strips or threads a
+   block, shared memory a block, blocks an SM and registers, and the
+   half's wall seconds.
    Times from CUDA events after a warm-up (the plain tANS version: its
    one compared call).
 3. Decode path: ``MicwDecodePlan`` over a mixed batch (CT_dev x256, the
@@ -157,12 +160,16 @@ Phases (any failure exits non-zero; nothing is caught):
    the reference bench targets; MR_dev at 64 lanes (alias) x64; CT_dev at
    256 and at 32 lanes x16; and the FF 41 fixtures at tableLog 13-16
    (``tests/data/torch_port/CT_dev_alias_tl*.micw``) x32.  Every strip of
-   every replica is verified, in the first run and in the last timed one;
-   one ``plan.run()`` must be exactly ``LANES_LAUNCHES_PER_RUN`` (1) launch
-   of the lanes kernel, holding every bucket.  Prints staging seconds, ms
-   per ``plan.run()`` and GB/s (CUDA events), the launch alone, its blocks,
-   shared memory a block and blocks an SM, and a profiler split of the
-   lanes launch against ``post_batch``'s torch ops.  Then the graft
+   every replica is verified, in the first run and in the first and the
+   last timed ones; one ``plan.run()`` must be exactly
+   ``LANES_LAUNCHES_PER_RUN`` (1) launch of the lanes kernel, holding every
+   bucket, each with its inverse fused: ``post_batch.calls`` must stay 0
+   (its counter, not the profiler).  Prints the fused and unfused buckets,
+   staging seconds, its blocks, shared memory a block and blocks an SM;
+   then ``SCAN_REPS`` pairs of ``plan.run()`` and the launch alone,
+   interleaved in one loop, each timed by its own CUDA events: the least,
+   median and most ms of each and the run's GB/s; and whether
+   torch.profiler's trace holds the launch.  Then the graft
    entry's tiny 64-lane batch through ``decode_strip_batch`` against its
    pixels, ``mict_decode_device`` on one 64-lane stream against the host
    decoder, and ``compress_multi_frame_device(lanes=64)`` on
@@ -291,18 +298,23 @@ KERNELS = {
 # two table reads and the freq / bias split, shift, multiply-add, the
 # active and renorm tests, the escape compare, two ballots and two masked
 # popcounts, the rank adds, the word clip and merge, the state select, the
-# escape select and the store: 24).
+# escape select and the store: 24), plus in its fused form the inverse's
+# unzigzag and sum per pixel as the direct kernel's rows count them
+# (lanes_inverse, 4: zzd's row prefix, vdd's column add), plus pdd's
+# column carry on its row prefix (lanes_column, 2: the add and the mask).
 MEM_BPS, CORE_OPS = 3.35e12, 67e12
 OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18,
                    "rans_decode_direct_groups": 2, "rans_decode_packed": 9,
                    "rans_decode": 9, "rans_decode_rle": 29, "rans_decode_rle_alias": 34,
                    "rans_encode": 12, "rans_encode_alias": 20, "tans_decode": 24,
                    "ycocgr_forward": 5, "ycocgr_inverse": 5,
-                   "wt53_rows_forward": 8, "wt53_rows_inverse": 8, "rans_decode_lanes": 24}
+                   "wt53_rows_forward": 8, "wt53_rows_inverse": 8, "rans_decode_lanes": 24,
+                   "lanes_inverse": 4, "lanes_column": 2}
 TILE = 256  # phase 8's tile edge and the slide's margin
 RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-buckets at once
 DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): all direct buckets
 LANES_LAUNCHES_PER_RUN = 1  # lanes-kernel launches per MicwDecodePlan.run(): all scan buckets
+SCAN_REPS = 20  # phase 10's timed pairs of plan.run() and the lanes launch alone
 PHASE3_PACKING = (352, 69760)  # phase 3's blocks and bytes a block (4 strips a block, kept)
 WIDE_PDD = (110208, 8)  # phase 3's pdd image whose column carry leaves a block no room
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
@@ -1639,22 +1651,52 @@ def _scan_batch():
 
 
 def _lanes_shape(packing) -> str:
-    """A lanes-kernel packing's launch: blocks, threads, lanes a thread,
-    shared memory a block and blocks an SM."""
-    from mic_tpu_torch.tpu.scan_decode import _launch_shape
+    """A lanes-kernel packing's launches: for each form its blocks, teams
+    (strips) a block or threads, shared memory a block, blocks an SM and
+    registers a thread."""
+    from mic_tpu_torch.tpu.scan_decode import TEAMS, _launch_shape
 
-    smem, occ = _launch_shape(packing)
-    return (f"launch: {len(packing.blocks)} blocks of {packing.threads} threads "
-            f"({packing.lpt} lanes a thread at most), {smem} bytes of shared memory a block, "
-            f"{occ} blocks an SM, every table read from device memory")
+    parts = []
+    if len(packing.teams):
+        smem, occ, regs = _launch_shape(packing)
+        parts.append(f"warp form: {len(packing.teams)} blocks of up to {TEAMS} strips (a warp "
+                     f"each), {smem} bytes of shared memory a block, {occ} blocks an SM, "
+                     f"{regs} registers a thread")
+    if len(packing.blocks):
+        smem, occ, regs = _launch_shape(packing, wide=True)
+        parts.append(f"block form: {len(packing.blocks)} blocks of {packing.threads} threads "
+                     f"({packing.lpt} lanes a thread at most), {smem} bytes of shared memory a "
+                     f"block, {occ} blocks an SM, {regs} registers a thread")
+    return "; ".join(parts) + "; every table read from device memory"
+
+
+def _symbols_out(groups):
+    """Lanes-kernel groups with their inverse dropped (symbols out)."""
+    return [(fn, ops, {"steps": kw["steps"]}) for fn, ops, kw in groups]
+
+
+def _lanes_account(r, groups, outputs, ms, plain_ms) -> None:
+    """Adds timed lanes-kernel groups to their report entry: the step's
+    operations per decoded symbol, and for a fused group the inverse's per
+    pixel (pdd's column carry on top)."""
+    _account(r, "rans_decode_lanes", [t for _f, ops, _k in groups for t in ops], outputs, ms,
+             plain_ms)
+    for (_fn, ops, kw), out in zip(groups, outputs):
+        inv = kw.get("inverse")
+        if inv:
+            r["ops"] += (OPS_PER_ELEMENT["lanes_inverse"]
+                         + (OPS_PER_ELEMENT["lanes_column"] if inv == "pdd" else 0)) * out.numel()
 
 
 def _lanes_kernels_vs_plain(dev, report, blobs) -> None:
     """Phase 2, scan half: the plain twin once on every scan bucket of
-    phase 10's batch (timed), the lanes kernel through its one-bucket
-    wrapper on each bucket against it, then the plan's one launch against
-    them all (the tableLog 15-16 buckets among them); then CT_dev's first
-    128 rows at SCAN_EXTRA_LANES lanes.  Prints its wall seconds."""
+    phase 10's batch (timed; the fused form's inverse applied to its
+    symbols), the lanes kernel on each bucket in both forms against it (the
+    warp form through the one-bucket wrapper, with the bucket's inverse;
+    the block form symbols out), then the plan's launch in both forms
+    against them all; then CT_dev's first 128 rows at SCAN_EXTRA_LANES
+    lanes.  Prints ns a step and each launch's shape, and its wall
+    seconds."""
     import numpy as np
     import torch
 
@@ -1667,48 +1709,64 @@ def _lanes_kernels_vs_plain(dev, report, blobs) -> None:
     def plain(b):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = sd.rans_decode_lanes_plain(*b.ops, **b.kwargs)
+        sym = sd.rans_decode_lanes_plain(*b.ops, steps=b.kwargs["steps"])
+        inv = b.kwargs.get("inverse")
+        want = sym if inv is None else sd._inverse_plain(sym, inv, b.kwargs["width"],
+                                                         b.kwargs["strip_h"])
         end.record()
         torch.cuda.synchronize()
-        return want, start.elapsed_time(end)
+        return sym, want, start.elapsed_time(end)
 
     def compare(tag, key, b, timed):
-        want, plain_ms = plain(b)
-        got = b.fn(*b.ops, **b.kwargs)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"rans_decode_lanes {tag} {key}: kernel != plain "
-                                 f"(max abs err {err})")
-        pk = sd.LanesPacking([b.launch])
-        ms = _cuda_ms(lambda: sd._lanes_launch(pk), 10)
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if timed:
-            _account(r, "rans_decode_lanes", b.ops, (got,), ms, plain_ms)
+        sym, want, plain_ms = plain(b)
+        steps = min(b.kwargs["steps"], want.shape[1] // b.ops[0].shape[1])
+        line = []
+        for form, warp_lanes, kw, expect in (("warp", sd.WARP_LANES, b.kwargs, want),
+                                             ("block", 0, {"steps": b.kwargs["steps"]}, sym)):
+            if warp_lanes and b.ops[0].shape[1] > warp_lanes:
+                continue
+            if form == "warp":
+                got = b.fn(*b.ops, **kw)  # the wrapper, as the plan's bucket calls it
+            pk = sd.LanesPacking([(b.fn, b.ops, kw)], warp_lanes=warp_lanes)
+            if form == "block":
+                (got,) = sd._lanes_launch(pk)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int32) - expect.to(torch.int32)).abs().max())
+            if not torch.equal(got, expect):
+                raise AssertionError(f"rans_decode_lanes {tag} {key} {form} form: kernel != "
+                                     f"plain (max abs err {err})")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            ms = _cuda_ms(lambda: sd._lanes_launch(pk), 10)
+            if timed and form == "warp":
+                _lanes_account(r, [(b.fn, b.ops, kw)], (got,), ms, plain_ms)
+            line.append(f"{form} form{' ' + kw['inverse'] + ' fused' if 'inverse' in kw else ''}"
+                        f" {ms:.3f} ms ({ms * 1e6 / steps:.1f} ns a step; {_lanes_shape(pk)})")
         tls = sorted({int(t) for t in b.ops[6].cpu()})
-        steps = b.kwargs["steps"]
         print(f"kernel-vs-plain rans_decode_lanes {tag} bucket={key} strips={b.n} "
               f"lanes={b.ops[0].shape[1]} steps={steps} tls={tls} equal=True "
-              f"kernel_ms={ms:.3f} ({ms * 1e6 / steps:.1f} ns a step) plain_ms={plain_ms:.3f}; "
-              f"{_lanes_shape(pk)}")
-        return want, plain_ms
+              f"plain_ms={plain_ms:.3f}: " + " | ".join(line))
+        return sym, want, plain_ms
 
     plan = MicwDecodePlan(blobs, dev)
     compared = [compare("phase-10-batch", k, plan.buckets[k], True) for k in plan._scan_keys]
-    want = [w for w, _ms in compared]
-    plain_ms = sum(ms for _w, ms in compared)
-    groups, packing = plan._scan_groups, plan.scan_packing
-    got = sd._lanes_launch(packing)
-    torch.cuda.synchronize()
-    err = _max_abs_err(got, want)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"lanes launch: kernel != plain (max abs err {err})")
-    ms = _cuda_ms(lambda: sd._lanes_launch(packing), 10)
-    print(f"kernel-vs-plain lanes launch phase-10-batch: {len(groups)} groups "
-          f"({sum(ops[0].shape[0] for _f, ops, _k in groups)} strips) equal=True "
-          f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (the buckets' plain twins); "
-          f"{_lanes_shape(packing)}")
-    del plan, want, compared, got
+    plain_ms = sum(ms for _s, _w, ms in compared)
+    groups = plan._scan_groups
+    for form, pk, want in (("warp", plan.scan_packing, [w for _s, w, _m in compared]),
+                           ("block", sd.LanesPacking(_symbols_out(groups), warp_lanes=0),
+                            [sym for sym, _w, _m in compared])):
+        got = sd._lanes_launch(pk)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"lanes launch, {form} form: kernel != plain "
+                                 f"(max abs err {err})")
+        ms = _cuda_ms(lambda: sd._lanes_launch(pk), 10)
+        what = "the plan's inverses fused" if form == "warp" else "symbols out"
+        print(f"kernel-vs-plain lanes launch phase-10-batch {form} form: {len(groups)} groups "
+              f"({sum(ops[0].shape[0] for _f, ops, _k in groups)} strips, {what}) equal=True "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (the buckets' plain twins); "
+              f"{pk.n_launches} launch(es); {_lanes_shape(pk)}")
+    del plan, compared, got
     ct = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")[: 128 * 512]
     for lanes in SCAN_EXTRA_LANES:
         blob = micw_compress(ct, 512, 128, int(ct.max()), num_strips=1, lanes=lanes)
@@ -1776,6 +1834,7 @@ def _scan_phase(dev, blobs, expected, names):
     from mic_tpu_torch.tpu import scan_decode as sd
     from mic_tpu_torch.tpu.decode import mict_decode_device
     from mic_tpu_torch.tpu.device_rans import mict_decode_numpy
+    from mic_tpu_torch.tpu.post import post_batch
 
     t_phase = time.perf_counter()
     grp = sd.rans_decode_lanes_groups
@@ -1784,12 +1843,15 @@ def _scan_phase(dev, blobs, expected, names):
     plan = MicwDecodePlan(blobs, dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
+    fused = [k for k in plan._scan_keys if plan.buckets[k].post is None]
     grp.launches = 0
+    post_batch.calls = 0
     t0 = time.perf_counter()
     decoded = plan.run()
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
     launches = {"rans_decode_lanes": grp.launches}
+    post_calls = post_batch.calls
     kinds = {}
     for key, b in plan.buckets.items():
         kind = f"{key[0]}:{key[1]}:{key[3]}" if key[0] == "scan" else key[0]
@@ -1802,6 +1864,9 @@ def _scan_phase(dev, blobs, expected, names):
     print(f"scan tier: {len(blobs)} images, {n_strips} entropy strips in {len(plan.buckets)} "
           f"buckets {kinds}, stage_s={stage_s:.3f} first_run_s={first_run_s:.3f} "
           f"mismatches={mism} bad_images={len(bad)} launches={launches}")
+    print(f"scan tier: {len(fused)} fused buckets (the inverse in the kernel), "
+          f"{len(plan._scan_keys) - len(fused)} unfused; {post_calls} post_batch calls in one "
+          f"plan.run() (design: {len(plan._scan_keys) - len(fused)})")
     if mism or bad:
         raise AssertionError(f"scan tier decoded wrong pixels: {mism} mismatches, "
                              f"images {[names[i] for i in bad[:10]]}")
@@ -1809,36 +1874,54 @@ def _scan_phase(dev, blobs, expected, names):
         raise AssertionError(f"the scan tier made {grp.launches} lanes-kernel launches in one "
                              f"plan.run() for {len(plan._scan_keys)} of {len(plan.buckets)} "
                              f"buckets, the design makes {LANES_LAUNCHES_PER_RUN} for all")
+    if len(fused) != len(plan._scan_keys) or post_calls:
+        raise AssertionError(f"phase 10's direct buckets must all run fused: {len(fused)} of "
+                             f"{len(plan._scan_keys)} fused, {post_calls} post_batch calls")
     print(f"scan tier: {grp.launches} lanes-kernel launch per plan.run() for "
           f"{len(plan._scan_keys)} scan buckets (design: {LANES_LAUNCHES_PER_RUN}); "
           f"{_lanes_shape(plan.scan_packing)}")
-    last = {}
-    run_ms = _cuda_ms(lambda: last.update(out=plan.run()), 5)
-    timed_mism = plan.verify_batch(last["out"], expected)
-    launch_ms = _cuda_ms(lambda: sd._lanes_launch(plan.scan_packing), 10)
-    print(f"scan tier: {run_ms:.3f} ms per plan.run(), "
-          f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
-          f"({timed_bytes} bytes); the lanes launch alone {launch_ms:.3f} ms (CUDA events); "
-          f"the last timed run: mismatches={timed_mism}, {grp.launches} launches in 7 runs")
-    if timed_mism or grp.launches != 7 * LANES_LAUNCHES_PER_RUN:
+    # plan.run() and the launch alone, interleaved in one loop, each
+    # between its own pair of CUDA events; the first and the last timed
+    # runs verified strip by strip.
+    plan.run()
+    sd._lanes_launch(plan.scan_packing)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(SCAN_REPS)]
+    timed = []
+    for i, (e0, e1, e2) in enumerate(ev):
+        e0.record()
+        out = plan.run()
+        e1.record()
+        sd._lanes_launch(plan.scan_packing)
+        e2.record()
+        if i in (0, SCAN_REPS - 1):
+            timed.append(out)
+    torch.cuda.synchronize()
+    run_ms = sorted(e0.elapsed_time(e1) for e0, e1, _e2 in ev)
+    launch_ms = sorted(e1.elapsed_time(e2) for _e0, e1, e2 in ev)
+    timed_mism = [plan.verify_batch(out, expected) for out in timed]
+    args = plan.scan_packing.desc["arg"]
+    chain = int(np.minimum(args[:, 3], args[:, 6]).max())  # steps, output steps
+    med = SCAN_REPS // 2
+    gbs = [timed_bytes / (ms / 1e3) / 1e9 for ms in (run_ms[-1], run_ms[med], run_ms[0])]
+    print(f"scan tier, {SCAN_REPS} interleaved pairs by CUDA events: plan.run() "
+          f"{run_ms[0]:.3f} / {run_ms[med]:.3f} / {run_ms[-1]:.3f} ms (least / median / most), "
+          f"{gbs[0]:.3f} / {gbs[1]:.3f} / {gbs[2]:.3f} GB/s of decoded u16 pixels "
+          f"({timed_bytes} bytes); the lanes launch alone {launch_ms[0]:.3f} / "
+          f"{launch_ms[med]:.3f} / {launch_ms[-1]:.3f} ms ({launch_ms[med] * 1e6 / chain:.1f} "
+          f"ns a step of the longest chain, {chain}, at the median); the first and the last "
+          f"timed runs: mismatches={timed_mism}, {grp.launches} launches and "
+          f"{post_batch.calls} post_batch calls in {SCAN_REPS + 2} runs")
+    if (any(timed_mism) or grp.launches != (SCAN_REPS + 2) * LANES_LAUNCHES_PER_RUN
+            or post_batch.calls):
         raise AssertionError(f"timed scan runs: {timed_mism} mismatches, {grp.launches} "
-                             f"launches")
-    del last
+                             f"launches, {post_batch.calls} post_batch calls")
+    del timed, out
+    # torch.profiler only to see whether its trace keeps the launch's record
     _out, wall_ms, by_name, span = _profiled(plan.run)
-    if not by_name:
-        print(f"profile: wall_ms={wall_ms:.3f}; no device events recorded "
-              "(device breakdown not measured)")
-    else:
-        busy = sum(by_name.values())
-        lanes_ms = sum(v for k, v in by_name.items() if "lanes_groups_kernel" in k)
-        split = (f"lanes_kernel_ms={lanes_ms:.3f} ({100 * lanes_ms / busy:.1f}% of busy) "
-                 f"post_torch_ops_ms={busy - lanes_ms:.3f}" if lanes_ms else
-                 "lanes_kernel_ms not measured (the trace holds no record of its launch)")
-        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
-              f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
-              f"{split} device_kernel_names={len(by_name)}")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
+    lanes_ms = sum(v for k, v in by_name.items() if "lanes_groups_kernel" in k)
+    print(f"profile (not used for the split above): one plan.run() wall_ms={wall_ms:.3f}, "
+          f"{len(by_name)} device kernel names, the lanes launch "
+          f"{'recorded, %.3f ms' % lanes_ms if lanes_ms else 'not recorded'}")
     del plan, decoded, outs
 
     # The graft entry's step on its tiny 64-lane batch.

@@ -9,7 +9,8 @@ container ``mic_tpu.tpu.strips.micw_compress`` writes.  The decode
 takes every strip mode at any width on both entropy families (FF 57
 standard at tableLog up to 16, FF 41 alias); strips with lanes != 128
 and FF 41 strips above tableLog 12 take the scan tier, an L-lane rANS
-kernel (``tpu.scan_decode``) and the post stage, as do all strips of
+kernel (``tpu.scan_decode``) with the zzd / vdd / pdd inverse fused, or
+then the post stage, as do all strips of
 ``micw_decompress_scan`` / ``micw_decode_batch``.  ``micw_compress`` is
 the host encoder at any lane count, and ``tpu.decode.mict_decode_device``
 decodes one MICT stream.

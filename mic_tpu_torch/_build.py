@@ -50,10 +50,13 @@ _SIGNATURES = {
     "mic_tans_decode_groups": [_P, _P, _P, _I, _I, _I, _I, _P],
     # warps, smem_bytes
     "mic_tans_occupancy": [_I, _I],
+    # groups, teams, n_blocks, out, smem_bytes, stream
+    "mic_lanes_decode_groups": [_P, _P, _I, _P, _I, _P],
     # groups, blocks, n_blocks, out, threads, lanes a thread, stream
-    "mic_lanes_decode_groups": [_P, _P, _I, _P, _I, _I, _P],
-    # threads, lanes a thread, out (int[2]: shared bytes a block, blocks an SM)
-    "mic_lanes_shape": [_I, _I, _P],
+    "mic_lanes_decode_wide": [_P, _P, _I, _P, _I, _I, _P],
+    # wide, threads, lanes a thread, smem_bytes, out (int[3]: shared bytes a
+    # block, blocks an SM, registers a thread)
+    "mic_lanes_shape": [_I, _I, _I, _I, _P],
     # a0, a1, a2, o0, o1, o2, n, inverse, stream
     "mic_ycocgr": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
     # x, out, rows, n, inverse, stream
@@ -87,7 +90,8 @@ def build(defines: tuple = ()) -> Path:
     """Compile the sources if their library is missing; returns its path.
     ``defines`` are extra ``-DNAME=value`` flags (a library of its own:
     ``scripts/tans_design_points.py``, ``scripts/rle_design_points.py``,
-    ``scripts/direct_design_points.py`` and ``scripts/enc_design_points.py``
+    ``scripts/direct_design_points.py``, ``scripts/enc_design_points.py`` and
+    ``scripts/lanes_design_points.py``
     build the kernels' other forms with them).  nvcc's output (ptxas
     registers, shared memory and spills per kernel) is kept beside the
     library with the suffix ``.log``."""

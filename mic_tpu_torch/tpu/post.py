@@ -285,7 +285,9 @@ def post_batch(ent: torch.Tensor, n_tokens, n_runs, n_same, *, width: int, strip
     the expand, the escape parse and the zz or avg inverse (zz, avg;
     token 0 is the strip's maxValue word).  ``n_tokens``, ``n_runs`` and
     ``n_same`` are the strips' table entries; ``mid_count`` and ``delim``
-    those of ``strips._post_params``.  Returns int16 [S, width * strip_h]."""
+    those of ``strips._post_params``.  Returns int16 [S, width * strip_h].
+    ``.calls`` counts the calls."""
+    post_batch.calls += 1
     syms = ent.reshape(ent.shape[0], -1).to(torch.int64) & 0xFFFF
     need = width * strip_h
     if predictor in ("zzd", "vdd", "pdd"):
@@ -303,3 +305,6 @@ def post_batch(ent: torch.Tensor, n_tokens, n_runs, n_same, *, width: int, strip
             else:
                 pix = zz_delta_inverse(vals, is_raw, width, strip_h)
     return (((pix & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
+
+
+post_batch.calls = 0

@@ -13,14 +13,20 @@ table lookups, ``rans_one``; the escape substitution, ``subst_one``; then
   its longest, FF 57 strips' escape value -1.  The slot tables are flat,
   each strip's at its own tableLog (``toff``, ``tls``), so tableLogs mix
   in a bucket and replicas of one stream share one table;
-* :func:`rans_decode_lanes` — the entropy stage of one bucket: the kernel
-  of ``csrc/rans_lanes.cu`` on the card, its plain twin
-  :func:`rans_decode_lanes_plain` on the CPU; int16 [S, steps * L] symbols
-  in stream order (step, then lane), the layout ``post.post_batch`` reads;
+* :func:`rans_decode_lanes` — one bucket through the kernel of
+  ``csrc/rans_lanes.cu`` on the card, its plain twin
+  :func:`rans_decode_lanes_plain` on the CPU: int16 [S, steps * L]
+  symbols in stream order (step, then lane), the layout
+  ``post.post_batch`` reads, or with ``inverse`` zzd / vdd / pdd the
+  pixels, [S, width * strip_h], ``_post_one_strip``'s direct branch fused
+  (the warp form of the kernel, strips of up to ``WARP_LANES`` lanes);
 * :class:`LanesPacking` / :func:`rans_decode_lanes_groups` — every scan
-  bucket of a plan in one launch;
+  bucket of a plan in one launch (one a form: the warp form up to
+  ``WARP_LANES`` lanes, the block form, symbols out, past it);
+  :func:`fused_strip_fits` says which buckets the plan fuses;
 * :func:`decode_strip_batch` — ``decode_strip_batch_impl`` on its own
-  operands: the lanes kernel, then ``post.post_batch``.
+  operands: the direct predictors fused, every other one through the
+  lanes kernel and then ``post.post_batch``.
 
 Operands are int32 (u32) and int16 (u16) bit-views.  On a damaged stream
 the kernel equals the plain twin bit for bit and reads nothing out of
@@ -36,11 +42,12 @@ import numpy as np
 import torch
 
 from .device_rans import slot_tables
-from .post import post_batch
-from .rans_decode import _U32, _as_i16, _check, _Packing, _u
+from .post import _DIRECT_INVERSE, post_batch
+from .rans_decode import _U32, _as_i16, _check, _Packing, _round8, _u
 
 __all__ = [
     "LANES_MAX",
+    "WARP_LANES",
     "build_lane_tables",
     "lane_tensors",
     "rans_decode_lanes",
@@ -48,17 +55,37 @@ __all__ = [
     "LanesPacking",
     "rans_decode_lanes_groups",
     "rans_decode_lanes_groups_plain",
+    "fused_strip_fits",
     "decode_strip_batch",
 ]
 
-LANES_MAX = 16384  # csrc/rans_lanes.cu: 1024 threads x 16 lanes a thread
+LANES_MAX = 16384  # csrc/rans_lanes.cu's block form: 1024 threads x 16 lanes a thread
+# Its warp form's widest strip (32 threads x 16 lanes a thread), and the
+# strips that take it: fused there, a bucket beats the block form and
+# post_batch at every lane count up to it (scripts/lanes_design_points.py).
+WARP_LANES = 512
+TEAMS = 4  # csrc/rans_lanes.cu:kTeams, strips (warps) a block of the warp form
 _TABLE_LOG_MAX = 17  # the ncount header's largest tableLog (ops/fse.TABLELOG_ABSOLUTE_MAX)
 _THREADS_MAX = 1024
+_RING_SLOTS = 8  # csrc/rans_lanes.cu:kSlots, chunks of max(L, 64) words a ring
+_ESC_WINDOW = 1024  # csrc/rans_lanes.cu:kEscWindow, escape values a strip holds
+_MAX_BLOCK_BYTES = 232448  # the H100's opt-in shared memory a block (no static use)
+_INVERSES = {"zzd": 1, "vdd": 2, "pdd": 3}  # LaneGroup::inv; 0: symbols out
+_LANES_KW = {"steps", "inverse", "width", "strip_h"}
 # One bucket's descriptor (csrc/rans_lanes.cu:LaneGroup): the operand
-# pointers (init, words, tsym, tfb | tf, tb or 0, toff, tls, counts, escv,
-# esides), the element offset of its output, and (lanes, W, E, steps,
-# form, 0); form 0: tfb = freq << 16 | bias, 1: tf and tb.
-_LANE_GROUP_DESC = np.dtype([("ptr", "<u8", (10,)), ("off", "<i8"), ("arg", "<i4", (6,))])
+# pointers (init, words, tsym, tfb | tf, tb | tfb, toff, tls, counts, escv,
+# esides; words and esides with rows padded to 8 values), the element
+# offset of its output, and (lanes, W, E, steps, form, inv, out_steps, ws,
+# width, wstride, estride, esc); form 0: tfb = freq << 16 | bias, 1: tf
+# and tb; inv 0 symbols out, 1 zzd, 2 vdd, 3 pdd; ws = width / lanes; esc:
+# a strip of the group has escapes; 8 bytes of padding (144 bytes a
+# group).
+_LANE_GROUP_DESC = np.dtype([("ptr", "<u8", (10,)), ("off", "<i8"), ("arg", "<i4", (12,)),
+                             ("pad", "<i4", (2,))])
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
 def build_lane_tables(parsed, min_steps: int = 0):
@@ -153,13 +180,48 @@ def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (lo + (hi << 16)) & _U32
 
 
+def _lanes_kwargs(L: int, steps: int, inverse=None, width: int = 0, strip_h: int = 0):
+    """Checks a call's inverse and geometry; returns (inv code, output
+    steps, steps an image row): symbols out (``inverse`` None) keep the
+    ``steps`` rows; zzd / vdd / pdd give width * strip_h pixels a strip,
+    width a multiple of the lanes."""
+    if inverse is None:
+        if width or strip_h:
+            raise ValueError("width and strip_h go with an inverse")
+        return 0, steps, 1
+    if inverse not in _INVERSES:
+        raise ValueError(f"inverse must be None or one of {sorted(_INVERSES)}, got {inverse!r}")
+    if not (isinstance(width, int) and isinstance(strip_h, int) and width > 0 and strip_h > 0):
+        raise ValueError(f"an inverse needs positive int width and strip_h, got "
+                         f"{width!r}, {strip_h!r}")
+    if width % L:
+        raise ValueError(f"the {inverse} inverse needs a width that is a multiple of the "
+                         f"{L} lanes, got {width}")
+    return _INVERSES[inverse], width * strip_h // L, width // L
+
+
+def _inverse_plain(syms: torch.Tensor, inverse, width: int, strip_h: int) -> torch.Tensor:
+    """The fused form's inverse on the symbols-out twin's output (int16
+    [S, steps * L]): ``post_batch``'s direct branch, the symbols
+    zero-padded (or cut) to width * strip_h, then the inverse."""
+    u = syms.to(torch.int64) & 0xFFFF
+    need = width * strip_h
+    if u.shape[1] < need:
+        u = torch.nn.functional.pad(u, (0, need - u.shape[1]))
+    return _as_i16(_DIRECT_INVERSE[inverse](u, width, strip_h))
+
+
 def rans_decode_lanes_plain(init, words, tsym, tf, tb, toff, tls, counts, escv, esides, *,
-                            steps: int) -> torch.Tensor:
+                            steps: int, inverse=None, width: int = 0,
+                            strip_h: int = 0) -> torch.Tensor:
     """Plain-PyTorch twin of the lanes kernel (any device): ``rans_one``
     and ``subst_one`` of ``decode_strip_batch_impl``, step for step, u32
-    held in int64.  Same operands and output as :func:`rans_decode_lanes`."""
+    held in int64, then for an ``inverse`` (zzd, vdd, pdd) its direct
+    branch of ``_post_one_strip`` as ``post.post_batch`` runs it.  Same
+    operands and output as :func:`rans_decode_lanes`."""
     ops = (init, words, tsym, tf, tb, toff, tls, counts, escv, esides)
     S, L, W, E, N = _lanes_operands(*ops, steps)
+    _lanes_kwargs(L, steps, inverse, width, strip_h)
     _table_spans(toff.cpu().numpy(), tls.cpu().numpy(), N)
     dev = init.device
     x = _u(init)
@@ -188,74 +250,165 @@ def rans_decode_lanes_plain(init, words, tsym, tf, tb, toff, tls, counts, escv, 
     m = syms == escv.to(torch.int64)[:, None]
     rank = torch.cumsum(m.to(torch.int64), dim=1) - 1
     sv = torch.gather(esides.to(torch.int64) & 0xFFFF, 1, rank.clamp(0, E - 1))
-    return _as_i16(torch.where(m, sv, syms))
+    out = _as_i16(torch.where(m, sv, syms))
+    return out if inverse is None else _inverse_plain(out, inverse, width, strip_h)
+
+
+def _team_bytes(L: int, esc: bool, inv: int, width: int) -> int:
+    """Shared bytes of one strip of the warp form (csrc/rans_lanes.cu's
+    layout): the word ring, the escape window, the column carry."""
+    return (2 * _RING_SLOTS * max(L, 64) + (2 * _ESC_WINDOW if esc else 0)
+            + (_round16(2 * width) if inv >= 2 else 0))
+
+
+def fused_strip_fits(lanes: int, inverse: str, width: int, esc: bool) -> bool:
+    """Whether a strip of ``lanes`` lanes and ``width`` pixels a row can
+    run the lanes kernel with the ``inverse`` (zzd, vdd, pdd) fused: the
+    warp form takes its lanes (``WARP_LANES``), its rows are whole steps
+    (width a multiple of the lanes) and its shared memory (ring, escape
+    window if ``esc``, column carry) fits a block.  A plan routes a scan
+    bucket by this, on every device alike; where it is False the bucket
+    runs symbols out and ``post.post_batch``."""
+    return (inverse in _INVERSES and lanes <= WARP_LANES and width % lanes == 0
+            and _team_bytes(lanes, esc, _INVERSES[inverse], width) <= _MAX_BLOCK_BYTES)
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """A [S, n] operand whose rows start 16-byte aligned, as the kernel's
+    16-byte copies of a row need: the operand itself where it is
+    contiguous, its rows a multiple of 8 values and its first value
+    16-byte aligned, else a copy with the rows padded to a multiple of 8
+    values (a view at another storage offset included); the padding is
+    never read (the clip bounds stay the operand's own)."""
+    pad = -t.shape[1] % 8
+    if not pad and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((t.shape[0], t.shape[1] + pad))
+    out[:, :t.shape[1]] = t
+    return out
 
 
 class LanesPacking(_Packing):
-    """The strips of some buckets as the blocks of one launch of the lanes
-    kernel, with its descriptors on the device.
+    """The strips of some buckets as the launches of the lanes kernel
+    (one a form), with its descriptors on the device.
 
-    ``groups`` is a list of ``(rans_decode_lanes, operands, {"steps":
-    steps})``, checked as the wrapper checks them; outputs are laid out
-    group after group in one flat buffer (``out_offs``, ``out_shapes``).
-    A block holds one strip and ``threads`` threads (those of the widest
-    strip, a thread a lane up to 1024, at least a warp; a narrower strip's
-    spare warps leave at once), each thread up to ``lpt`` lanes
-    (``threads * lpt`` >= every strip's lanes).  A group whose tables all
-    fit 16 bits takes the two-table form (tsym and tfb = tf << 16 | tb),
-    else three tables; the kernel reads them from device memory.
-    ``blocks`` (int32 [n, 2]: group, strip) runs the longest chains first.
-    The packing holds the groups' tensors and the two-table groups' tfb:
-    it is valid for those tensors as they were when it was built."""
+    ``groups`` is a list of ``(rans_decode_lanes, operands, kwargs)``:
+    ``steps``, and for a fused group ``inverse``, ``width`` and
+    ``strip_h``, checked as the wrapper checks them; outputs are laid out
+    group after group in one flat buffer (``out_offs``, ``out_shapes``,
+    each group's start a multiple of 8 values).  Strips of up to
+    ``warp_lanes`` lanes (``WARP_LANES``; 0 sends every strip to the block
+    form) take the warp form: ``teams`` (int32 [n, 4, 3]: group or -1,
+    strip and shared byte offset per team) holds 4 consecutive strips a
+    block, or fewer where the largest strip leaves no room, longest output
+    first; ``smem_bytes`` is a block's largest need (``_team_bytes`` a
+    strip).
+    Wider strips take the block form, symbols out: ``blocks`` (int32 [n,
+    2]: group, strip, most steps first), ``threads`` (the widest such
+    strip's, a thread a lane up to 1024, at least a warp) and ``lpt``
+    (lanes a thread); a fused group there raises.  ``n_launches`` is 1 or
+    2.  A group whose tables all fit 16 bits takes the two-table form
+    (tsym and tfb = tf << 16 | tb), else three tables.  The packing holds
+    the groups' tensors, the two-table groups' tfb and the padded copies
+    of rows whose length is not a multiple of 8: it is valid for those
+    tensors as they were when it was built."""
 
-    def __init__(self, groups):
+    def __init__(self, groups, *, warp_lanes: int = WARP_LANES):
         if not groups:
             raise ValueError("expected at least one group")
+        if not 0 <= warp_lanes <= WARP_LANES:
+            raise ValueError(f"warp_lanes must be in [0, {WARP_LANES}], got {warp_lanes}")
         dev = groups[0][1][0].device
         desc = np.zeros(len(groups), _LANE_GROUP_DESC)
         self.groups, self.out_shapes, self.out_offs = [], [], []
-        self._tfb = []  # the two-table groups' tfb, which the descriptors name
-        rows, widest, out_at = [], 1, 0
+        self._keep = []  # tensors the descriptors name: two-table tfb, padded rows
+        team_rows, wide_rows, team_bytes = [], [], []
+        widest, out_at = 1, 0
         for g, (fn, ops, kw) in enumerate(groups):
             if fn is not rans_decode_lanes:
                 raise ValueError(f"not the lanes wrapper: {fn}")
-            if set(kw) != {"steps"}:
-                raise ValueError(f"rans_decode_lanes takes steps only, got {sorted(kw)}")
+            if "steps" not in kw or set(kw) - _LANES_KW:
+                raise ValueError(f"rans_decode_lanes takes steps, inverse, width and strip_h, "
+                                 f"got {sorted(kw)}")
             steps = kw["steps"]
             S, L, W, E, N = _lanes_operands(*ops, steps)
+            inv, out_steps, ws = _lanes_kwargs(L, steps, kw.get("inverse"),
+                                               kw.get("width", 0), kw.get("strip_h", 0))
             if ops[0].device != dev:
                 raise ValueError(f"group {g} on {ops[0].device}, group 0 on {dev}")
             toff, tls = ops[5].cpu().numpy(), ops[6].cpu().numpy()
             _table_spans(toff, tls, N)
             tf, tb = ops[3], ops[4]
             form = int(bool(((tf >> 16) | (tb >> 16)).any()))
-            if form:
-                tab = (tf, tb)
+            tfb = tf if form else (tf << 16) | tb
+            words, esides = _strided(ops[1]), _strided(ops[9])
+            self._keep += [tfb, words, esides]
+            esc = bool((ops[8] >= 0).any())
+            ptrs = [ops[0], words, ops[2], tfb, tb if form else tfb, *ops[5:9], esides]
+            width = kw.get("width", 0)
+            desc[g] = ([t.data_ptr() for t in ptrs], out_at,
+                       (L, W, E, steps, form, inv, out_steps, ws, width, words.shape[1],
+                        esides.shape[1], int(esc)), (0, 0))
+            strips = (np.full(S, g), np.arange(S), np.full(S, out_steps))
+            if L <= warp_lanes:
+                team_rows.append(strips)
+                team_bytes.append(_team_bytes(L, esc, inv, width))
             else:
-                tab = ((tf << 16) | tb, None)
-                self._tfb.append(tab[0])
-            ptrs = [ops[0], ops[1], ops[2], tab[0], tab[1], *ops[5:]]
-            desc[g] = ([0 if t is None else t.data_ptr() for t in ptrs], out_at,
-                       (L, W, E, steps, form, 0))
-            rows.append((np.full(S, g), np.arange(S), np.full(S, steps)))
+                if inv:
+                    raise ValueError(f"group {g}: the {kw['inverse']} inverse needs the warp "
+                                     f"form ({L} lanes, the warp form takes {warp_lanes})")
+                wide_rows.append(strips)
+                team_bytes.append(0)
+                widest = max(widest, L)
             self.groups.append((fn, tuple(ops), dict(kw)))
-            self.out_shapes.append((S, steps * L))
+            self.out_shapes.append((S, out_steps * L))
             self.out_offs.append(out_at)
-            widest = max(widest, L)
-            out_at += S * steps * L
+            out_at += _round8(S * out_steps * L)
+        self.desc, self.out_total, self.device = desc, out_at, dev
+        self.team_bytes = team_bytes
+        self.teams, self.smem_bytes = self._lay_out_teams(team_rows)
+        self.blocks = (self._order(wide_rows) if wide_rows
+                       else np.zeros((0, 2), np.int32))
         self.threads = max(32, min(widest, _THREADS_MAX))
         self.lpt = widest // self.threads if widest > self.threads else 1
-        self.desc, self.out_total, self.device = desc, out_at, dev
+        self.n_launches = int(len(self.teams) > 0) + int(len(self.blocks) > 0)
+        if dev.type == "cuda":
+            self.gdesc, self.tdesc, self.bdesc = self._upload(self.desc, self.teams, self.blocks)
+
+    @staticmethod
+    def _order(rows):
+        """(group, strip) pairs, most steps first, then group and strip."""
         grp, strip, steps = (np.concatenate(c) for c in zip(*rows))
         o = np.lexsort((strip, grp, -steps))
-        self.blocks = np.stack([grp[o], strip[o]], axis=1).astype(np.int32)
-        if dev.type == "cuda":
-            self.gdesc, self.bdesc = self._upload(self.desc, self.blocks)
+        return np.stack([grp[o], strip[o]], axis=1).astype(np.int32)
+
+    def _lay_out_teams(self, rows):
+        """The warp form's blocks: ``TEAMS`` consecutive strips a block (in
+        :meth:`_order`), or fewer where the largest strip leaves no room."""
+        if not rows:
+            return np.zeros((0, TEAMS, 3), np.int32), 0
+        order = self._order(rows)
+        grp = order[:, 0]
+        need = np.asarray(self.team_bytes, np.int64)[grp]
+        per = min(TEAMS, _MAX_BLOCK_BYTES // int(need.max()))
+        if per == 0:
+            raise ValueError(f"a strip needs {int(need.max())} bytes of shared memory, a "
+                             f"block has {_MAX_BLOCK_BYTES}")
+        n = grp.size
+        first = np.arange(n) // per * per  # each strip's block's first strip
+        at = np.cumsum(need) - need
+        at = at - at[first]
+        teams = np.full((-(-n // per) * TEAMS, 3), -1, np.int32)
+        slot = np.arange(n) // per * TEAMS + np.arange(n) % per
+        teams[slot, 0], teams[slot, 1], teams[slot, 2] = grp, order[:, 1], at
+        smem = int(np.add.reduceat(need, np.arange(0, n, per)).max())
+        return teams.reshape(-1, TEAMS, 3), smem
 
 
 def _lanes_launch(packing: LanesPacking, lib=None) -> list[torch.Tensor]:
-    """The lanes kernel over a packing's groups, one launch; one output
-    per group, views into one flat buffer."""
+    """The lanes kernel over a packing's groups, one launch a form; one
+    output per group, views into one flat buffer.  ``lib`` is another
+    build of the kernel library (``scripts/lanes_design_points.py``)."""
     dev = packing.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -266,47 +419,67 @@ def _lanes_launch(packing: LanesPacking, lib=None) -> list[torch.Tensor]:
         lib = kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mic_lanes_decode_groups(packing.gdesc.data_ptr(), packing.bdesc.data_ptr(),
-                                         len(packing.blocks), out.data_ptr(), packing.threads,
-                                         packing.lpt, stream)
-    if rc != 0:
-        raise RuntimeError(f"mic_lanes_decode_groups launch failed: CUDA error {rc}")
+        if len(packing.teams):
+            rc = lib.mic_lanes_decode_groups(packing.gdesc.data_ptr(), packing.tdesc.data_ptr(),
+                                             len(packing.teams), out.data_ptr(),
+                                             packing.smem_bytes, stream)
+            if rc != 0:
+                raise RuntimeError(f"mic_lanes_decode_groups launch failed: CUDA error {rc}")
+        if len(packing.blocks):
+            rc = lib.mic_lanes_decode_wide(packing.gdesc.data_ptr(), packing.bdesc.data_ptr(),
+                                           len(packing.blocks), out.data_ptr(), packing.threads,
+                                           packing.lpt, stream)
+            if rc != 0:
+                raise RuntimeError(f"mic_lanes_decode_wide launch failed: CUDA error {rc}")
     return [out[o:o + S * n].view(S, n) for o, (S, n) in zip(packing.out_offs,
                                                              packing.out_shapes)]
 
 
-def _launch_shape(packing: LanesPacking, lib=None) -> tuple[int, int]:
-    """A packing's launch: (shared-memory bytes a block, blocks resident
-    an SM), from the CUDA occupancy query (``chip_smoke.py`` prints it)."""
+def _launch_shape(packing: LanesPacking, wide: bool = False, lib=None) -> tuple[int, int, int]:
+    """A packing's launch of one form: (shared-memory bytes a block, blocks
+    resident an SM, registers a thread), from the CUDA occupancy query
+    (``chip_smoke.py`` prints it)."""
     import ctypes
 
     if lib is None:
         from .._build import kernel_library
 
         lib = kernel_library()
-    out = (ctypes.c_int * 2)()
-    rc = lib.mic_lanes_shape(packing.threads, packing.lpt, out)
+    out = (ctypes.c_int * 3)()
+    rc = lib.mic_lanes_shape(int(wide), packing.threads, packing.lpt,
+                             0 if wide else max(packing.smem_bytes, 16), out)
     if rc != 0:
         raise RuntimeError(f"mic_lanes_shape failed: CUDA error {rc}")
     return tuple(out)
 
 
 def rans_decode_lanes(init, words, tsym, tf, tb, toff, tls, counts, escv, esides, *,
-                      steps: int) -> torch.Tensor:
+                      steps: int, inverse=None, width: int = 0,
+                      strip_h: int = 0) -> torch.Tensor:
     """L-lane rANS decode of the S strips of one bucket, escapes
-    substituted: int16 [S, steps * L] (bit-view of the u16 symbols, stream
-    order: step, then lane; every lane of every step, past a strip's count
-    included, as ``mic_tpu``'s scan writes them).
+    substituted.  Symbols out (``inverse`` None): int16 [S, steps * L]
+    (bit-view of the u16 symbols, stream order: step, then lane; every
+    lane of every step, past a strip's count included, as ``mic_tpu``'s
+    scan writes them).  With ``inverse`` zzd, vdd or pdd and the strips'
+    ``width`` (a multiple of L) and ``strip_h``: int16 [S, width *
+    strip_h], the pixels ``post.post_batch`` gives for those symbols
+    (zero-padded or cut to width * strip_h, then the inverse).
 
     Operands are :func:`lane_tensors` of :func:`build_lane_tables`' first
     ten arrays.  CPU tensors take :func:`rans_decode_lanes_plain`; CUDA
     tensors launch the kernel of ``csrc/rans_lanes.cu`` for this one bucket
-    (a packing built for the call).  ``.launches`` counts the launches."""
+    (a packing built for the call; strips past ``WARP_LANES`` lanes in its
+    block form, which has no inverse).  ``.launches`` counts the
+    launches."""
     ops = (init, words, tsym, tf, tb, toff, tls, counts, escv, esides)
+    kw = dict(steps=steps)
+    if inverse is not None or width or strip_h:
+        kw.update(inverse=inverse, width=width, strip_h=strip_h)
     if init.device.type == "cpu":
-        return rans_decode_lanes_plain(*ops, steps=steps)
-    (out,) = _lanes_launch(LanesPacking([(rans_decode_lanes, ops, {"steps": steps})]))
-    rans_decode_lanes.launches += 1
+        return rans_decode_lanes_plain(*ops, **kw)
+    packing = LanesPacking([(rans_decode_lanes, ops, kw)])
+    (out,) = _lanes_launch(packing)
+    rans_decode_lanes.launches += packing.n_launches
     return out
 
 
@@ -321,12 +494,13 @@ def rans_decode_lanes_groups_plain(groups) -> list[torch.Tensor]:
 
 def rans_decode_lanes_groups(groups, packing: LanesPacking | None = None) -> list[torch.Tensor]:
     """Decode the strips of several buckets of :func:`rans_decode_lanes`
-    in one launch.  ``groups`` is a list of ``(rans_decode_lanes,
-    operands, {"steps": steps})`` on one device; returns one output per
-    group, as the wrapper returns it.  ``packing`` is one built earlier
-    for these very tensors (a plan builds it once); without it one is
-    built here.  CPU tensors take the plain twin group by group; CUDA
-    tensors launch the kernel.  ``.launches`` counts the launches."""
+    in one launch a form (one where every strip has at most
+    ``WARP_LANES`` lanes).  ``groups`` is a list of ``(rans_decode_lanes,
+    operands, kwargs)`` on one device; returns one output per group, as
+    the wrapper returns it.  ``packing`` is one built earlier for these
+    very tensors (a plan builds it once); without it one is built here.
+    CPU tensors take the plain twin group by group; CUDA tensors launch
+    the kernel.  ``.launches`` counts the launches."""
     if not groups:
         return []
     devs = {ops[0].device for _fn, ops, _kw in groups}
@@ -342,7 +516,7 @@ def rans_decode_lanes_groups(groups, packing: LanesPacking | None = None) -> lis
     elif not packing.holds(groups):
         raise ValueError("packing was built for other groups")
     outs = _lanes_launch(packing)
-    rans_decode_lanes_groups.launches += 1
+    rans_decode_lanes_groups.launches += packing.n_launches
     return outs
 
 
@@ -358,7 +532,9 @@ def decode_strip_batch(init_states, words, tab_sym, tab_freq, tab_bias, counts, 
     numpy operands (those of ``build_strip_batch``: init u32 [S, L], words
     [S, W] holding u16 values, slot tables [S, 2^table_log], counts and the
     table entries [S], esc_vals [S], esc_sides u16 [S, E]) and static
-    arguments; the lanes kernel (escapes substituted), then
+    arguments.  The direct predictors (zzd, vdd, pdd) take the lanes
+    kernel with their inverse fused where :func:`fused_strip_fits`; every
+    other batch the lanes kernel (escapes substituted), then
     ``post.post_batch``.  Returns int16 [S, width * strip_h] (bit-view of
     the u16 pixels)."""
     init_states = np.asarray(init_states, np.uint32)
@@ -370,7 +546,12 @@ def decode_strip_batch(init_states, words, tab_sym, tab_freq, tab_bias, counts, 
               (np.arange(S) * TS).astype(np.int32), np.full(S, table_log, np.int32),
               np.asarray(counts, np.int32), np.asarray(esc_vals, np.int32),
               np.asarray(esc_sides, np.uint16))
-    ent = rans_decode_lanes(*lane_tensors(arrays, device), steps=int(n_steps))
+    ops = lane_tensors(arrays, device)
+    esc = bool((arrays[8] >= 0).any())
+    if fused_strip_fits(init_states.shape[1], predictor, width, esc):
+        return rans_decode_lanes(*ops, steps=int(n_steps), inverse=predictor, width=width,
+                                 strip_h=strip_h)
+    ent = rans_decode_lanes(*ops, steps=int(n_steps))
     meta = torch.tensor(np.stack([n_tokens, n_runs, n_same], axis=1).astype(np.int64),
                         device=device)
     return post_batch(ent, meta[:, 0], meta[:, 1], meta[:, 2], width=width, strip_h=strip_h,

@@ -42,10 +42,13 @@ plain ``torch.cumsum`` as pdr's is on the r-kernel's output, as
 host.
 
 Strips with lanes != 128 and FF 41 strips with tableLog > 12 take the
-scan tier, as in ``mic_tpu``: the L-lane entropy stage in the lanes
-kernel, then ``post.post_batch``, keyed on ("scan", lanes, padded step
-count, predictor, width, strip height, mid, delim); FF 57 and FF 41
-strips and tableLogs mix in such a bucket.  A strip whose table entry
+scan tier, as in ``mic_tpu``: the L-lane lanes kernel, keyed on ("scan",
+lanes, padded step count, predictor, width, strip height, mid, delim);
+FF 57 and FF 41 strips and tableLogs mix in such a bucket.  A zzd, vdd
+or pdd bucket whose width is a multiple of its lanes, of up to
+``scan_decode.WARP_LANES`` lanes, runs its inverse in the kernel
+(``scan_decode.fused_strip_fits``); every other scan bucket takes the
+kernel's symbols and then ``post.post_batch``.  A strip whose table entry
 claims more runs than symbols, or more pixels (zz, avg: tokens) than its
 strip can hold, raises ``ValueError``.
 
@@ -94,6 +97,7 @@ from .scan_decode import (
     LANES_MAX,
     LanesPacking,
     build_lane_tables,
+    fused_strip_fits,
     lane_tensors,
     rans_decode_lanes,
     rans_decode_lanes_groups,
@@ -664,7 +668,8 @@ class _Bucket:
     (pdd's in the kernel: ``pdd_ws`` chunks a row, or 0 where the row
     leaves the kernel no room for its column carry); for a post bucket,
     the symbols-out wrapper (a scan bucket: the lanes kernel's) and the post
-    function's arguments."""
+    function's arguments; a fused scan bucket's kwargs carry its inverse
+    and geometry, and it has no post stage."""
 
     def __init__(self, key, entries, device):
         self.n = len(entries)
@@ -678,6 +683,11 @@ class _Bucket:
             self.fn = rans_decode_lanes
             self.ops = lane_tensors(built[:10], device)
             self.kwargs = dict(steps=built[10])
+            lanes, pred, width, strip_h = key[1], key[3], key[4], key[5]
+            if fused_strip_fits(lanes, pred, width, bool((built[8] >= 0).any())):
+                # the direct inverse in the lanes kernel: no post stage
+                self.kwargs.update(inverse=pred, width=width, strip_h=strip_h)
+                return
             self._set_post(entries, *key[3:], device)
             return
         kind, steps = key[0], key[1]
@@ -806,7 +816,8 @@ class MicwDecodePlan:
     on ``device``.
 
     ``scan=True`` routes every entropy strip through the scan tier (the
-    lanes kernel, then the post stage), as ``mic_tpu``'s
+    lanes kernel, with the direct inverse fused or then the post stage),
+    as ``mic_tpu``'s
     ``micw_decompress_device`` and ``micw_decode_batch`` do; by default a
     strip takes the scan tier only where ``mic_tpu``'s plan does (lanes
     != 128, FF 41 above tableLog 12).
@@ -867,8 +878,9 @@ class MicwDecodePlan:
     def run(self) -> dict:
         """Launch every bucket (the direct buckets and the post buckets'
         entropy stages together, one launch, the r-mode buckets together,
-        one launch, and the scan buckets' entropy stages together, one
-        launch), then the post and scan buckets' torch ops; returns
+        one launch, and the scan buckets together, one launch a form of
+        the lanes kernel), then the post buckets' and the unfused scan
+        buckets' torch ops; returns
         {bucket key: int16 [S, cols] device tensor} (bit-views of the u16
         pixels)."""
         outs = dict(zip(self._direct_keys, rans_decode_direct_groups(self._direct_groups,
@@ -1023,7 +1035,7 @@ class MicwDecodePlan:
 def micw_decode_many(blobs, device):
     """Decode a batch of MICW images on ``device`` (one plan: a launch of
     the direct kernel, one of the r-kernel, one of the lanes kernel, the
-    post and scan buckets' torch ops).
+    post buckets' and unfused scan buckets' torch ops).
     Images may differ in size and statistics.  Returns a list of (pixels
     u16, width, height), blob order."""
     plan = MicwDecodePlan(blobs, device)
@@ -1040,7 +1052,7 @@ def micw_decompress_device(blob: bytes, device):
 
 def micw_decompress_scan(blob: bytes, device):
     """Decode one MICW container on ``device`` with every entropy strip in
-    the scan tier (the lanes kernel, then the post stage), the counterpart
+    the scan tier (the lanes kernel, its direct modes fused), the counterpart
     of ``mic_tpu``'s ``micw_decompress_device``.  Returns (pixels u16,
     width, height)."""
     plan = MicwDecodePlan([blob], device, scan=True)

@@ -19,8 +19,9 @@ Tolerance 0 everywhere: a lossless codec, byte-identical containers.
 * ``decode.mict_decode_device`` and ``post.rle_expand`` against their
   ``mic_tpu`` counterparts; damaged streams through the scan tier.
 
-The ``cuda`` tests hold the lanes kernel to its plain twin on the card;
-they skip without a GPU.  ``mic_tpu`` is imported through the ``ref``
+The ``cuda`` tests hold the lanes kernel to its plain twin on the card,
+in both forms (a warp a strip, and a block a strip, symbols out); they
+skip without a GPU.  ``mic_tpu`` is imported through the ``ref``
 fixture: the machine with the card has no jax.
 """
 
@@ -311,7 +312,8 @@ def test_plain_twin_wide_lanes(lanes):
 
 
 def test_packing_layout():
-    """Threads, lanes a thread, table form and block order."""
+    """The two forms' launches (teams a block, shared bytes, threads,
+    lanes a thread), table form, descriptors and order."""
     rng = np.random.default_rng(5)
     data = (np.abs(rng.standard_normal(20000)) * 300).astype(np.uint16)
     groups = []
@@ -319,18 +321,27 @@ def test_packing_layout():
         ops, steps, _p = _lanes_ops([encode_at(dr, data, tl, lanes, alias=False)] * 2)
         groups.append((sd.rans_decode_lanes, ops, {"steps": steps}))
     pk = sd.LanesPacking(groups)
-    assert (pk.threads, pk.lpt) == (1024, 2)
-    assert [tuple(r) for r in pk.blocks] == [(1, 0), (1, 1), (2, 0), (2, 1), (0, 0), (0, 1)]
+    assert pk.n_launches == 2 and (pk.threads, pk.lpt) == (1024, 2)
+    assert [tuple(r) for r in pk.blocks] == [(0, 0), (0, 1)]  # the block form
+    # the warp form: one block of 4 teams, most steps first, a 1 KB ring each
+    assert pk.teams.shape == (1, sd.TEAMS, 3)
+    assert [tuple(r) for r in pk.teams[0]] == [(1, 0, 0), (1, 1, 1024), (2, 0, 2048),
+                                               (2, 1, 3072)]
+    assert pk.smem_bytes == 4096 and pk.team_bytes == [0, 1024, 1024]
     assert pk.holds(groups) and not pk.holds(groups[:1])
     narrow = sd.LanesPacking(groups[2:])
-    assert (narrow.threads, narrow.lpt) == (64, 1)
-    wider = sd.LanesPacking([(fn, ops, kw) for fn, ops, kw in groups if ops[0].shape[1] == 8])
-    assert (wider.threads, wider.lpt) == (32, 1)
+    assert narrow.n_launches == 1 and len(narrow.blocks) == 0
+    assert [tuple(r) for r in narrow.teams[0]] == [(0, 0, 0), (0, 1, 1024), (-1, -1, -1),
+                                                   (-1, -1, -1)]
+    wider = sd.LanesPacking(groups[2:], warp_lanes=0)  # every strip in the block form
+    assert (wider.n_launches, len(wider.teams), wider.threads, wider.lpt) == (1, 0, 64, 1)
     # a frequency past 16 bits: three tables
     fn, ops, kw = groups[0]
     wide = sd.LanesPacking([(fn, (*ops[:3], ops[3] + 65536, *ops[4:]), kw)])
-    assert [list(a) for a in pk.desc["arg"][:1]] == [[2048, ops[1].shape[1], 1, kw["steps"],
-                                                      0, 0]]
+    W = ops[1].shape[1]
+    assert [list(a) for a in pk.desc["arg"][:1]] == [[2048, W, 1, kw["steps"], 0, 0,
+                                                      kw["steps"], 1, 0, -(-W // 8) * 8, 8,
+                                                      0]]
     assert wide.desc["arg"][0, 4] == 1 and pk.desc["arg"][1, 4] == 0
     with pytest.raises(ValueError, match="steps"):
         sd.LanesPacking([(sd.rans_decode_lanes, groups[0][1], {"steps": 0})])
@@ -348,6 +359,39 @@ FREEZE = {"micw": {}, "micw_zzd": {"predictor": "zzd"}, "micw_pdd": {"predictor"
           "micw_alias": {"entropy": "alias"}, "micw_rdense": {"predictor": "zzr"},
           "micw_auto": {"predictor": "auto"}, "micw_auto_alias": {"predictor": "auto",
                                                                   "entropy": "alias"}}
+
+
+@pytest.mark.parametrize("width", [64, 61])
+def test_packing_aligns_row_operands(width):
+    """The kernel copies rows of words and escape sides 16 bytes at a time:
+    the packing names an operand whose rows start 16-byte aligned as it
+    is, and a copy (rows padded to 8 values) of one at an odd storage
+    offset or with rows of another length; the copy holds the same
+    values."""
+    ops, steps, _p = _lanes_ops([encode_at(dr, np.arange(3000, dtype=np.uint16) % 200, 11,
+                                           64)] * 2)
+    S = ops[0].shape[0]
+
+    def shifted(t, n):  # t's values in rows of n, a contiguous view at storage offset 1
+        flat = torch.zeros(S * n + 1, dtype=t.dtype)
+        view = flat[1:].view(S, n)
+        view[:, :min(n, t.shape[1])] = t[:, :n]
+        return view
+
+    words, esides = shifted(ops[1], width), shifted(ops[9], 8)
+    assert words.is_contiguous() and words.data_ptr() % 16 and esides.data_ptr() % 16
+    for w, e in ((words, esides), (words.clone(), esides.clone())):
+        group = (sd.rans_decode_lanes, (ops[0], w, *ops[2:9], e), {"steps": steps})
+        pk = sd.LanesPacking([group])
+        ptr = pk.desc["ptr"][0]
+        assert ptr[1] % 16 == 0 and ptr[9] % 16 == 0
+        assert pk.desc["arg"][0][9] == -(-width // 8) * 8 and pk.desc["arg"][0][10] == 8
+        held = {t.data_ptr(): t for t in pk._keep}
+        for i, t in ((1, w), (9, e)):
+            row = held[int(ptr[i])]
+            assert torch.equal(row[:, :t.shape[1]], t) and not row[:, t.shape[1]:].any()
+            aligned = t.data_ptr() % 16 == 0 and t.shape[1] % 8 == 0
+            assert (int(ptr[i]) == t.data_ptr()) == aligned
 
 
 def _freeze_px():
@@ -591,6 +635,11 @@ def test_cuda_lanes_kernel_matches_plain(lanes):
     (grouped,) = sd.rans_decode_lanes_groups([(sd.rans_decode_lanes, ops_d, {"steps": steps})])
     torch.cuda.synchronize()
     assert torch.equal(grouped.cpu(), want)
+    if lanes <= sd.WARP_LANES:  # the block form too
+        pk = sd.LanesPacking([(sd.rans_decode_lanes, ops_d, {"steps": steps})], warp_lanes=0)
+        (blocked,) = sd._lanes_launch(pk)
+        torch.cuda.synchronize()
+        assert len(pk.teams) == 0 and torch.equal(blocked.cpu(), want)
     # frequencies past 16 bits: the three-table form (garbage symbols, the same on both)
     wide = list(ops)
     wide[3] = ops[3] + 65536
@@ -611,9 +660,17 @@ def test_cuda_plans_match_cpu():
             want = MicwDecodePlan([blob], CPU).run()
         except ValueError:
             continue
-        got = MicwDecodePlan([blob], dev).run()
+        plan = MicwDecodePlan([blob], dev)
+        got = plan.run()
         for k in want:
             assert torch.equal(got[k].cpu(), want[k]), k
+        # the scan buckets symbols out in the block form, against the plain twin
+        groups = [(fn, ops, {"steps": kw["steps"]}) for fn, ops, kw in plan._scan_groups]
+        blocked = sd._lanes_launch(sd.LanesPacking(groups, warp_lanes=0))
+        plain = sd.rans_decode_lanes_groups_plain(
+            [(fn, tuple(t.cpu() for t in ops), kw) for fn, ops, kw in groups])
+        torch.cuda.synchronize()
+        assert all(torch.equal(b.cpu(), w) for b, w in zip(blocked, plain))
     px = _ct()
     outs = micw_decode_batch([p.read_bytes() for p, _l in ALIAS_FIXTURES.values()], dev)
     assert all(np.array_equal(o, px) for o in outs)
