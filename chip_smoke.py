@@ -61,7 +61,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (``PHASE3_PACKING``: 352 blocks of 69,760 bytes).  Prints staging
    seconds, decode GB/s over ``plan.run()``, the launch alone (CUDA
    events), the launch counts and a torch.profiler breakdown of one
-   ``plan.run()`` by device kernel.  Then a 110,208 x 8 pdd image, encoded
+   ``plan.run()`` by device kernel; the plan's timed runner
+   (``make_timed_runner``): ``runner(1)`` must count 0 mismatches, and
+   ``runner(RUNNER_REPS)``'s GB/s by CUDA events is printed beside
+   ``plan.run()``'s.  Then a 110,208 x 8 pdd image, encoded
    on the card, whose row leaves no room for the kernel's column carry:
    its plan must run the bucket unfused, in one launch, and decode it.
 4. Encode path: ``MicwEncodePlan`` (what ``micw_compress_device_many``
@@ -169,14 +172,28 @@ Phases (any failure exits non-zero; nothing is caught):
    then ``SCAN_REPS`` pairs of ``plan.run()`` and the launch alone,
    interleaved in one loop, each timed by its own CUDA events: the least,
    median and most ms of each and the run's GB/s; and whether
-   torch.profiler's trace holds the launch.  Then the graft
-   entry's tiny 64-lane batch through ``decode_strip_batch`` against its
+   torch.profiler's trace holds the launch; the plan's timed runner as in
+   phase 3.  Then the graft entry's tiny 64-lane batch
+   (``dryrun.tiny_micw_batch``) through ``decode_strip_batch`` against its
    pixels, ``mict_decode_device`` on one 64-lane stream against the host
    decoder, and ``compress_multi_frame_device(lanes=64)`` on
    ``series_dev_ind.raw`` (three 512x512 frames), decoded and verified;
    each call's lanes launches counted from 0 and required > 0.  Prints
    the phase's wall seconds.
-11. Prints the kernel report as one JSON line (with each kernel's bound:
+11. Multi-device (``tpu/mesh.py``): ``dryrun.dryrun_multichip`` over 2
+   and 8 shards on the visible cards round-robin (every sharded path,
+   each equal to the unsharded port call and to its pixels or symbols,
+   each sharded call one kernel launch a shard); then on ``[cuda:0] * k``
+   for k = 1, 2 and 4 (and over the cards themselves where more than one
+   is visible): CT_dev x256's three buckets (phase 2's 1024 strips of 512
+   steps) through ``decode_strips_sharded_pallas`` and the 64-lane CT_dev
+   x256 (phase 10's) through ``decode_strips_sharded``, each equal to the
+   unsharded call, every strip verified against ``CT_dev.raw``, one
+   launch a shard; ms by CUDA events and host seconds of the sharded
+   call, run twice, and the shards' launches alone beside the unsharded
+   launch; phase 2's 1536 encode streams through both sharded encodes
+   (widths sharded), equal to the unsharded outputs.
+12. Prints the kernel report as one JSON line (with each kernel's bound:
    the larger of its bytes over 3.35 TB/s and its integer operations over
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -315,6 +332,10 @@ RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-bu
 DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): all direct buckets
 LANES_LAUNCHES_PER_RUN = 1  # lanes-kernel launches per MicwDecodePlan.run(): all scan buckets
 SCAN_REPS = 20  # phase 10's timed pairs of plan.run() and the lanes launch alone
+RUNNER_REPS = 20  # runs a timed runner makes in phases 3 and 10
+MESH_DRYRUN = (2, 8)  # phase 11's dry runs, shards on the visible cards round-robin
+MESH_SHARDS = (1, 2, 4)  # phase 11's full-width shard counts on one card
+MESH_REPS = 256  # phase 11's CT_dev replicas, at 128 lanes (phase 2's) and at 64 (phase 10's)
 PHASE3_PACKING = (352, 69760)  # phase 3's blocks and bytes a block (4 strips a block, kept)
 WIDE_PDD = (110208, 8)  # phase 3's pdd image whose column carry leaves a block no room
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
@@ -1380,6 +1401,39 @@ def _counted(what, fn, wrappers):
     return out, counts
 
 
+def _timed_runner(what, plan, expected, timed_bytes, run_gbs: str) -> None:
+    """The plan's timed runner (``MicwDecodePlan.make_timed_runner``):
+    ``runner(1)`` must count 0 mismatching pixels, then ``runner(RUNNER_REPS)``
+    by CUDA events, its GB/s printed beside the phase's ``plan.run()``."""
+    import torch
+
+    t0 = time.perf_counter()
+    runner = plan.make_timed_runner(expected)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if runner is None:
+        raise AssertionError(f"{what}: make_timed_runner refused the batch (a raw strip differs)")
+    first = int(runner(1)[0])
+    if first:
+        raise AssertionError(f"{what}: the timed runner's first run has {first} mismatches")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    runner(1)  # one run and the compare
+    ev[1].record()
+    mism, probe = runner(RUNNER_REPS)
+    ev[2].record()
+    torch.cuda.synchronize()
+    one_ms = ev[0].elapsed_time(ev[1])
+    ms = ev[1].elapsed_time(ev[2]) / RUNNER_REPS
+    print(f"{what}: timed runner built in {build_s:.3f} s; runner(1) mismatches=0, "
+          f"{one_ms:.3f} ms (one run and the compare); "
+          f"runner({RUNNER_REPS}) {ms:.3f} ms a run by CUDA events, "
+          f"{timed_bytes / (ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels (plan.run(): "
+          f"{run_gbs} GB/s), mismatches={int(mism)} probe={int(probe)}")
+    if int(mism):
+        raise AssertionError(f"{what}: runner({RUNNER_REPS}) counted {int(mism)} mismatches")
+
+
 def _timed_rgb_decode(what, blobs, dev, n_bytes) -> None:
     """Stage a batch of MWR3 blobs once, then time the device part of
     ``micwr_decode_many`` (entropy launches, assemble, crop, YCoCg-R
@@ -1780,46 +1834,6 @@ def _lanes_kernels_vs_plain(dev, report, blobs) -> None:
     print(f"phase 2, lanes half: {time.perf_counter() - t_half:.3f} s wall")
 
 
-def _tiny_graft_batch():
-    """``__graft_entry__._tiny_micw_batch(4)`` made with the port: a 64 x
-    32 image as 4 zzd strips of 64 lanes, in ``build_strip_batch``'s
-    operands (init, words, slot tables, counts, table entries, escapes) and
-    static arguments; returns (operands, keyword arguments, pixels)."""
-    import numpy as np
-
-    from mic_tpu_torch import micw_compress, micw_parse
-    from mic_tpu_torch.ops.predictors import delta_params
-    from mic_tpu_torch.tpu.device_rans import mict_parse, slot_tables
-
-    h, w, L = 32, 64, 64
-    rng = np.random.default_rng(0)
-    img = (rng.standard_normal((h, w)).cumsum(axis=1) * 8 + 512).astype(np.int32)
-    img = (img >> 2 << 2).clip(0, 1023).astype(np.uint16)
-    blob = micw_compress(img.ravel(), w, h, int(img.max()), num_strips=4, lanes=L,
-                         predictor="zzd")
-    width, _h, _n, strip_h, max_value, _p, _l, strips = micw_parse(blob)
-    parsed = [mict_parse(b) for b, *_ in strips]
-    tl = parsed[0][1]
-    if any(p[1] != tl for p in parsed):
-        raise AssertionError("the tiny batch must share its tableLog")
-    S = len(parsed)
-    tables = [slot_tables(p[5], tl, p[7]) for p in parsed]
-    words = np.zeros((S, max(len(p[4]) for p in parsed) + 1), np.uint32)
-    for i, p in enumerate(parsed):
-        words[i, : len(p[4])] = p[4]
-    ents = np.array([s[2:5] for s in strips], np.int32)
-    ops = (np.stack([p[3] for p in parsed]).astype(np.uint32), words,
-           *(np.stack([t[k] for t in tables]) for k in range(3)),
-           np.array([p[2] for p in parsed], np.int32), ents[:, 0], ents[:, 1], ents[:, 2],
-           np.full(S, -1, np.int32), np.zeros((S, 1), np.uint16))
-    delim = int(delta_params(max_value)[1])
-    kw = dict(table_log=tl, n_steps=max(-(-p[2] // L) for p in parsed), width=width,
-              strip_h=strip_h, max_runs=int(-(-(ents[:, 1].max() + 1) // 128) * 128),
-              max_tokens=int(-(-(ents[:, 0].max() + 1) // 128) * 128),
-              mid_count=(1 << (delim.bit_length() - 1)) - 1, delim=delim, predictor="zzd")
-    return ops, kw, img.ravel()
-
-
 def _scan_phase(dev, blobs, expected, names):
     """Phase 10: the scan-tier decode; returns the run's launch counts."""
     import numpy as np
@@ -1831,6 +1845,7 @@ def _scan_phase(dev, blobs, expected, names):
         decompress_multi_frame_device,
         micw_parse,
     )
+    from mic_tpu_torch.dryrun import tiny_micw_batch
     from mic_tpu_torch.tpu import scan_decode as sd
     from mic_tpu_torch.tpu.decode import mict_decode_device
     from mic_tpu_torch.tpu.device_rans import mict_decode_numpy
@@ -1916,6 +1931,8 @@ def _scan_phase(dev, blobs, expected, names):
         raise AssertionError(f"timed scan runs: {timed_mism} mismatches, {grp.launches} "
                              f"launches, {post_batch.calls} post_batch calls")
     del timed, out
+    _timed_runner("scan tier", plan, expected, timed_bytes,
+                  f"{gbs[0]:.3f} / {gbs[1]:.3f} / {gbs[2]:.3f}")
     # torch.profiler only to see whether its trace keeps the launch's record
     _out, wall_ms, by_name, span = _profiled(plan.run)
     lanes_ms = sum(v for k, v in by_name.items() if "lanes_groups_kernel" in k)
@@ -1925,7 +1942,8 @@ def _scan_phase(dev, blobs, expected, names):
     del plan, decoded, outs
 
     # The graft entry's step on its tiny 64-lane batch.
-    ops, kw, px = _tiny_graft_batch()
+    ops, kw, img = tiny_micw_batch(num_strips=4)
+    px = img.ravel()
     got, _c = _counted("decode_strip_batch (tiny 64-lane batch)",
                        lambda: sd.decode_strip_batch(*ops, **kw, device=dev),
                        (sd.rans_decode_lanes,))
@@ -1955,6 +1973,237 @@ def _scan_phase(dev, blobs, expected, names):
                              f"mict_decode_device {ok_stream}, 64-lane series {ok_series}")
     print(f"phase 10: {time.perf_counter() - t_phase:.3f} s wall")
     return launches
+
+
+def _cuda_shards(mesh) -> int:
+    """The launches a sharded call over ``mesh`` makes: one a CUDA shard."""
+    return sum(d.type == "cuda" for d in mesh)
+
+
+def _sharded_timing(mesh, call):
+    """``call()`` (a sharded call over ``mesh``) run twice: its outputs and,
+    a run each, the host seconds to return, the wall seconds to every
+    device's end and the ms by CUDA events on the first device's stream."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with torch.cuda.device(mesh[0]):
+            start.record()
+        out = call()
+        host_s = time.perf_counter() - t0
+        with torch.cuda.device(mesh[0]):
+            end.record()
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+        runs.append((host_s, time.perf_counter() - t0, start.elapsed_time(end)))
+    return out, runs
+
+
+def _runs(runs) -> str:
+    return "; ".join(f"host {h:.4f} s to return, wall {w:.4f} s, {ms:.3f} ms by CUDA events"
+                     for h, w, ms in runs)
+
+
+def _mesh_ct_decode(label, mesh, plan, raw) -> None:
+    """Phase 11, full width: CT_dev x256's buckets (the main path's 1024
+    strips of 512 steps: zzd, vdd, pdd) through
+    ``decode_strips_sharded_pallas``; each bucket equal to the unsharded
+    wrapper call, every strip verified against ``CT_dev.raw`` (pdd's column
+    sum after the gather, as ``mic_tpu``'s plan takes it), one direct launch
+    a shard; then the shards' launches alone beside the unsharded ones."""
+    import torch
+
+    from mic_tpu_torch.tpu import mesh as M
+    from mic_tpu_torch.tpu import rans_decode as rd
+
+    n = len(mesh)
+    buckets = list(plan.buckets.items())
+    grp = rd.rans_decode_direct_groups
+    before = grp.launches
+
+    def call():
+        return {k: M.decode_strips_sharded_pallas(mesh, *b.ops, n_strips=b.n // n, **b.kwargs)
+                for k, b in buckets}
+
+    shards, runs = _sharded_timing(mesh, call)
+    launched = grp.launches - before
+    decoded = {}
+    for k, b in buckets:
+        out = M.gather(shards[k], plan.device)
+        if not torch.equal(out, rd.rans_decode_zzd(*b.ops, **b.kwargs)):
+            raise AssertionError(f"mesh {label}: bucket {k} != the unsharded call")
+        decoded[k] = (rd._pdd_columns_plain(out, b.geom[0] // 128) if b.geom else out
+                      ).reshape(b.n, -1)
+    mism = plan.verify_batch(decoded, [raw] * len(plan.blobs))
+    # the shards' launches alone: each shard's packing, built here as the
+    # wrapper builds it
+    packings = []
+    for _k, b in buckets:
+        per = b.n // n
+        for i, d in enumerate(mesh):
+            with torch.cuda.device(d):
+                ops = tuple(t[i * per:(i + 1) * per].to(d) for t in b.ops)
+                packings.append(rd.DirectPacking([(rd.rans_decode_zzd, ops, b.kwargs)]))
+    with torch.cuda.device(mesh[0]):
+        alone_ms = _cuda_ms(lambda: [rd._direct_launch(pk) for pk in packings], 10)
+    print(f"mesh {label}: decode_strips_sharded_pallas, CT_dev x{len(plan.blobs)}'s "
+          f"{len(buckets)} buckets "
+          f"({sum(b.n for _k, b in buckets)} strips of {buckets[0][1].kwargs['steps']} steps), "
+          f"{n} shards each: {launched} direct launches in 2 runs, equal to the unsharded "
+          f"calls, mismatches={mism} against CT_dev.raw; the sharded calls: {_runs(runs)}; "
+          f"the {len(packings)} shard launches alone {alone_ms:.3f} ms (CUDA events)")
+    if mism or launched != 2 * _cuda_shards(mesh) * len(buckets):
+        raise AssertionError(f"mesh {label}: {mism} mismatches, {launched} launches")
+
+
+def _scan_strip_batches(blob, px, reps):
+    """Phase 11: a container's strips, replicated ``reps`` times, as
+    ``decode_strip_batch`` operands, one batch a predictor: (predictor,
+    operands, statics, expected u16 [S, width * strip_h]) each."""
+    import numpy as np
+
+    from mic_tpu_torch import micw_parse
+    from mic_tpu_torch.ops.predictors import delta_params
+    from mic_tpu_torch.tpu import scan_decode as sd
+    from mic_tpu_torch.tpu.device_rans import mict_parse
+    from mic_tpu_torch.tpu.strips import strip_predictor
+
+    width, _h, _ns, strip_h, mv, gpred, _l, strips = micw_parse(blob)
+    delim = int(delta_params(mv)[1])
+    by_pred = {}
+    for i, st in enumerate(strips):
+        by_pred.setdefault(strip_predictor(gpred, st[5]), []).append(i)
+    out = []
+    for pred, idx in by_pred.items():
+        parsed = [mict_parse(strips[i][0]) for i in idx] * reps
+        tl = parsed[0][1]
+        arrays, meta = sd.build_strip_batch(parsed, [strips[i] for i in idx] * reps, tl)
+        static = dict(table_log=tl, n_steps=meta["n_steps"], width=width, strip_h=strip_h,
+                      max_runs=meta["max_runs"], max_tokens=meta["max_tokens"],
+                      mid_count=(1 << (delim.bit_length() - 1)) - 1, delim=delim,
+                      predictor=pred)
+        rows = np.stack([px[i * strip_h * width:(i + 1) * strip_h * width] for i in idx] * reps)
+        out.append((pred, arrays, static, rows))
+    return out
+
+
+def _mesh_scan_decode(label, mesh, batches, unsharded) -> None:
+    """Phase 11, the scan tier at full width: phase 10's 64-lane CT_dev x256
+    through ``decode_strips_sharded``, one batch a predictor; each equal
+    to the unsharded ``decode_strip_batch``, every strip verified, one
+    lanes launch a shard; then the shards' launches alone."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch.tpu import mesh as M
+    from mic_tpu_torch.tpu import scan_decode as sd
+
+    n = len(mesh)
+    grp = sd.rans_decode_lanes_groups
+    before = grp.launches
+    shards, runs = _sharded_timing(mesh, lambda: [M.decode_strips_sharded(mesh, *a, **st)
+                                                  for _p, a, st, _r in batches])
+    launched = grp.launches - before
+    mism = 0
+    packings = []
+    for (pred, arrays, static, rows), got, want in zip(batches, shards, unsharded):
+        out = M.gather(got, mesh[0])
+        if not torch.equal(out, want):
+            raise AssertionError(f"mesh {label}: the {pred} batch != the unsharded call")
+        mism += int(np.count_nonzero(out.cpu().numpy().view(np.uint16) != rows))
+        per = len(rows) // n
+        for i, d in enumerate(mesh):
+            host, kw, _post = sd.strip_batch_host(*(a[i * per:(i + 1) * per] for a in arrays),
+                                                  **static)
+            with torch.cuda.device(d):
+                packings.append(sd.LanesPacking([(sd.rans_decode_lanes,
+                                                  sd.lane_tensors(host, d), kw)]))
+    with torch.cuda.device(mesh[0]):
+        alone_ms = _cuda_ms(lambda: [sd._lanes_launch(pk) for pk in packings], 10)
+    print(f"mesh {label}: decode_strips_sharded, 64-lane CT_dev x{MESH_REPS} "
+          f"({sum(len(b[3]) for b in batches)} strips in {len(batches)} batches: "
+          f"{[b[0] for b in batches]}), {n} shards each: {launched} lanes launches in 2 runs, "
+          f"equal to the unsharded calls, mismatches={mism} against CT_dev.raw; the sharded "
+          f"calls: {_runs(runs)}; the {len(packings)} shard launches alone {alone_ms:.3f} ms")
+    if mism or launched != 2 * _cuda_shards(mesh) * len(batches):
+        raise AssertionError(f"mesh {label}: {mism} mismatches, {launched} launches")
+
+
+def _mesh_phase(dev, scan_blobs, scan_expected) -> None:
+    """Phase 11: the multi-device tier (``tpu/mesh.py``) on the card."""
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.dryrun import dryrun_multichip
+    from mic_tpu_torch.tpu import mesh as M
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu import scan_decode as sd
+
+    t_phase = time.perf_counter()
+    for n in MESH_DRYRUN:
+        dryrun_multichip(n)
+    count = torch.cuda.device_count()
+    meshes = [(f"[cuda:0] x {k}", M.make_strip_mesh([dev] * k)) for k in MESH_SHARDS]
+    if count > 1:  # the cards themselves, a power of two of them (the batches divide)
+        cards = 1 << (count.bit_length() - 1)
+        meshes.append((f"{cards} of {count} cards",
+                       M.make_strip_mesh([torch.device("cuda", i) for i in range(cards)])))
+    print(f"mesh: {count} visible CUDA device(s); meshes {[label for label, _m in meshes]}")
+
+    plan = MicwDecodePlan([(TESTDATA / "CT_dev.micw").read_bytes()] * MESH_REPS, dev)
+    raw = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2")
+    with_plan = _cuda_ms(lambda: rd._direct_launch(plan.direct_packing), 10)
+    print(f"mesh: unsharded, CT_dev x{MESH_REPS}'s plan in one direct launch {with_plan:.3f} ms "
+          f"(CUDA events)")
+    for label, mesh in meshes:
+        _mesh_ct_decode(label, mesh, plan, raw)
+    del plan
+
+    batches = _scan_strip_batches(scan_blobs[0], scan_expected[0], MESH_REPS)
+    unsharded = [sd.decode_strip_batch(*a, **st, device=dev) for _p, a, st, _r in batches]
+    whole = []
+    for _p, arrays, static, _r in batches:
+        host, kw, _post = sd.strip_batch_host(*arrays, **static)
+        whole.append((sd.rans_decode_lanes, sd.lane_tensors(host, dev), kw))
+    packing = sd.LanesPacking(whole)
+    one_ms = _cuda_ms(lambda: sd._lanes_launch(packing), 10)
+    print(f"mesh: unsharded, the 64-lane CT_dev x{MESH_REPS} batches in one lanes launch "
+          f"{one_ms:.3f} "
+          f"ms (CUDA events)")
+    del whole, packing
+    for label, mesh in meshes[:len(MESH_SHARDS)]:
+        _mesh_scan_decode(label, mesh, batches, unsharded)
+    del batches, unsharded
+
+    for alias, sharded, kernel in ((False, M.encode_strips_sharded, renc.rans_encode),
+                                   (True, M.encode_alias_sharded, renc.rans_encode_alias)):
+        staged, ops, widths = _encode_operands(dev, alias, 128)
+        want = kernel(*ops, steps=staged.steps, widths=widths)
+        for k, operands, w in ((2, ops, widths), (4, staged.ops, staged.widths)):
+            before = kernel.launches
+            t0 = time.perf_counter()
+            got = M.gather(sharded(M.make_strip_mesh([dev] * k), *operands, steps=staged.steps,
+                                   widths=w), dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = kernel.launches - before
+            equal = all(torch.equal(g, x) for g, x in zip(got, want))
+            print(f"mesh [cuda:0] x {k}: {sharded.__name__}, phase 2's {len(staged.widths)} "
+                  f"streams of {staged.steps} steps ({'tensors' if k == 2 else 'numpy'} on "
+                  f"the host side), widths sharded: equal to the unsharded call={equal}, "
+                  f"{launched} launches, {wall:.3f} s wall")
+            if not equal or launched != _cuda_shards([dev] * k):
+                raise AssertionError(f"{sharded.__name__} x {k}: equal={equal}, {launched} "
+                                     f"launches")
+        del staged, ops, widths, want, got
+    print(f"phase 11: {time.perf_counter() - t_phase:.3f} s wall")
 
 
 def _main_batch():
@@ -2181,6 +2430,8 @@ def main() -> int:
         raise AssertionError(f"timed decode runs: {timed_mism} mismatches, "
                              f"{merged.launches} launches")
     del last
+    _timed_runner("decode path", plan, expected, timed_bytes,
+                  f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f}")
 
     _profile(plan)
     del plan, decoded
@@ -2223,8 +2474,12 @@ def main() -> int:
     _clock(t_start, 10)
     launches.update(_scan_phase(dev, scan_blobs, scan_expected, scan_names))
 
-    # --- 11. report -----------------------------------------------------------
+    # --- 11. multi-device ------------------------------------------------------
     _clock(t_start, 11)
+    _mesh_phase(dev, scan_blobs, scan_expected)
+
+    # --- 12. report -----------------------------------------------------------
+    _clock(t_start, 12)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = report[name]

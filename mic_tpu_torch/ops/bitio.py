@@ -1,14 +1,66 @@
-"""Reverse bit reader of the reference's FSE / rANS streams.
+"""Bit streams of the reference's FSE / rANS coders.
 
-A copy of ``mic_tpu.ops.bitio.ReverseBitReader`` (same name, same
-reads; pinned by ``tests/test_torch_tans_decode.py``).  The encoder
-writes values LSB-first and ends the stream with a 1 bit in its last
-byte, so the decoder reads the top unread bits first (bitreader.go:56-61).
+A copy of ``mic_tpu.ops.bitio``'s LSB-first pair (same names, same
+bytes; ``ReverseBitReader`` pinned by ``tests/test_torch_tans_decode.py``,
+``pack_bits_lsb`` / ``BitWriterLSB`` through the encoders by
+``tests/test_torch_mesh.py``).  The encoder writes values LSB-first and
+ends the stream with a 1 bit in its last byte, so the decoder reads the
+top unread bits first (bitwriter.go:162-168, bitreader.go:56-61).
 """
 
 from __future__ import annotations
 
-__all__ = ["ReverseBitReader"]
+import numpy as np
+
+__all__ = ["pack_bits_lsb", "BitWriterLSB", "ReverseBitReader"]
+
+
+def pack_bits_lsb(values: np.ndarray, widths: np.ndarray) -> bytes:
+    """Pack ``values[i]`` (low ``widths[i]`` bits) LSB-first into bytes:
+    bit 0 of the stream is the LSB of byte 0 (bitwriter.go:50,151-158;
+    the flush timing never changes the bytes, so one vectorized pass is
+    bit-identical)."""
+    values = np.asarray(values, dtype=np.uint64)
+    widths = np.asarray(widths, dtype=np.uint64)
+    if values.size == 0:
+        return b""
+    mask = np.where(
+        widths >= 64, np.uint64(0xFFFFFFFFFFFFFFFF), (np.uint64(1) << widths) - np.uint64(1)
+    )
+    values = values & mask
+    ends = np.cumsum(widths, dtype=np.uint64)
+    starts = ends - widths
+    total_bits = int(ends[-1])
+    nwords = (total_bits + 63) // 64 + 1  # +1 spill word
+    words = np.zeros(nwords, dtype=np.uint64)
+    word_idx = (starts >> np.uint64(6)).astype(np.int64)
+    shift = starts & np.uint64(63)
+    lo = values << shift
+    # High spill: v >> (64 - s); a shift of 64 is undefined, so gate s == 0.
+    inv = (np.uint64(64) - shift) & np.uint64(63)
+    hi = np.where(shift == 0, np.uint64(0), values >> inv)
+    np.bitwise_or.at(words, word_idx, lo)
+    np.bitwise_or.at(words, word_idx + 1, hi)
+    return words.tobytes()[: (total_bits + 7) // 8]
+
+
+class BitWriterLSB:
+    """Accumulating LSB-first bit writer: (value, width) pairs;
+    :meth:`close` appends the end-mark bit and byte-aligns
+    (bitwriter.go:162-168)."""
+
+    __slots__ = ("values", "widths")
+
+    def __init__(self) -> None:
+        self.values: list[int] = []
+        self.widths: list[int] = []
+
+    def close(self) -> bytes:
+        self.values.append(1)
+        self.widths.append(1)
+        return pack_bits_lsb(
+            np.array(self.values, dtype=np.uint64), np.array(self.widths, dtype=np.uint64)
+        )
 
 
 class ReverseBitReader:

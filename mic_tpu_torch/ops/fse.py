@@ -2,8 +2,9 @@
 normalization and the normalized-count header.
 
 A numpy copy of the parts of ``mic_tpu.ops.fse`` the port needs (the
-MICT stream header of both entropy families is this header, and the
-reference formats' tANS streams decode through ``build_dtable``), with
+MICT stream header of both entropy families is this header, the
+reference formats' tANS streams decode through ``build_dtable`` and
+``dryrun.py`` encodes them through ``build_ctable``), with
 the same names and the same bytes; pinned to the original and, where it
 is built, to ``mic_tpu.native``'s C++ pair by
 ``tests/test_torch_isolation.py`` and ``tests/test_torch_tans_decode.py``.
@@ -26,6 +27,7 @@ __all__ = [
     "normalize_count",
     "write_count",
     "read_ncount",
+    "build_ctable",
     "build_dtable",
 ]
 
@@ -427,6 +429,52 @@ def _spread_symbols(norm: np.ndarray, symbol_len: int, table_log: int) -> np.nda
     if position != 0:
         raise ValueError("corrupted input (position != 0)")
     return table_symbol
+
+
+def build_ctable(
+    norm: np.ndarray, symbol_len: int, table_log: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
+    """Build the compression tables (fsecompressu16.go:329-431).
+
+    Returns ``(state_table u32[ts], delta_nb_bits u32[symbol_len],
+    delta_find_state i64[symbol_len], zero_bits)``.  Encode step for
+    symbol s from state x (fsecompressu16.go:95-100): ``nb = (x +
+    delta_nb_bits[s]) >> 16``, emit the low nb bits of x, then ``x' =
+    state_table[(x >> nb) + delta_find_state[s]]``.
+    """
+    table_size = 1 << table_log
+    norm = np.asarray(norm, dtype=np.int64)
+    sizes = np.where(norm == -1, 1, np.maximum(norm, 0))  # low-prob symbols take 1 slot
+    if int(sizes[:symbol_len].sum()) != table_size:
+        raise ValueError("buildCTable: cumul mismatch")
+    table_symbol = _spread_symbols(norm, symbol_len, table_log)
+    # For table position u holding symbol v: state_table[cumul[v]++] = ts +
+    # u; a stable argsort of the spread groups positions by symbol in that
+    # order.
+    order = np.argsort(table_symbol, kind="stable")
+    state_table = (table_size + order).astype(np.uint32)
+    zero_bits = bool(np.any(norm > (1 << (table_log - 1))))
+    delta_nb_bits = np.zeros(symbol_len, dtype=np.uint32)
+    delta_find_state = np.zeros(symbol_len, dtype=np.int64)
+    total = 0
+    tl = ((table_log << 16) - (1 << table_log)) & 0xFFFFFFFF
+    for i in range(symbol_len):
+        v = int(norm[i])
+        if v == 0:
+            continue
+        if v == -1 or v == 1:
+            delta_nb_bits[i] = tl
+            delta_find_state[i] = total - 1
+            total += 1
+        else:
+            max_bits_out = table_log - _high_bits(v - 1)
+            min_state_plus = v << max_bits_out
+            delta_nb_bits[i] = ((max_bits_out << 16) - min_state_plus) & 0xFFFFFFFF
+            delta_find_state[i] = total - v
+            total += v
+    if total != table_size:
+        raise ValueError(f"buildCTable: total {total} != {table_size}")
+    return state_table, delta_nb_bits, delta_find_state, zero_bits
 
 
 def build_dtable(

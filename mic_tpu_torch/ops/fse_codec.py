@@ -1,8 +1,11 @@
 """Host decoders of the reference's FSE / tANS streams for 1/2/4/8
-interleaved states, and the magic-byte dispatch.
+interleaved states, the magic-byte dispatch, and the 4-state encoder.
 
-A numpy copy of the decode side of ``mic_tpu.ops.fse_codec`` (same
-names, same outputs; pinned by ``tests/test_torch_tans_decode.py``).
+A numpy copy of the decode side of ``mic_tpu.ops.fse_codec`` and of its
+4-state encoder (same names, same outputs; the decoders pinned by
+``tests/test_torch_tans_decode.py``, the encoder by
+``tests/test_torch_mesh.py``; ``dryrun.py`` encodes its tANS streams
+with it).
 Stream formats (byte-compatible with the reference):
 
 * 1-state: ``[writeCount header][reverse bitstream]`` (fsecompressu16.go:19)
@@ -20,8 +23,19 @@ from __future__ import annotations
 
 import numpy as np
 
-from .bitio import ReverseBitReader
-from .fse import build_dtable, read_ncount
+from .bitio import BitWriterLSB, ReverseBitReader
+from .fse import (
+    DEFAULT_TABLE_LOG,
+    IncompressibleError,
+    UseRLEError,
+    build_ctable,
+    build_dtable,
+    histogram,
+    normalize_count,
+    optimal_table_log,
+    read_ncount,
+    write_count,
+)
 from .rans import DECOMPRESS_LIMIT_DEFAULT, MAGIC_8STATE_RANS, rans_decompress_8state
 
 __all__ = [
@@ -35,11 +49,73 @@ __all__ = [
     "fse_decompress_4state",
     "fse_decompress_8state",
     "fse_decompress_auto",
+    "fse_compress_4state",
 ]
 
 MAGIC_2STATE = b"\xff\x02"
 MAGIC_4STATE = b"\xff\x04"
 MAGIC_8STATE_FSE = b"\xff\x84"
+
+
+def _prepare_tables(data: np.ndarray, table_log_hint: int):
+    """The encoder's front end: histogram, tableLog, normalized counts,
+    header; raises UseRLEError / IncompressibleError at the reference's
+    gates (fsecompressu16.go:39-45) and on a table that does not sum
+    (validateNorm, fsecompressu16.go:58)."""
+    n = len(data)
+    counts, max_count, symbol_len = histogram(data)
+    if max_count == n:
+        raise UseRLEError
+    if max_count == 1 or max_count < (n >> 15):
+        raise IncompressibleError
+    table_log = optimal_table_log(table_log_hint, n, symbol_len)
+    norm = normalize_count(counts, n, table_log, symbol_len)
+    if int(np.abs(norm).sum()) != (1 << table_log):
+        raise IncompressibleError
+    return norm, symbol_len, table_log, write_count(norm, symbol_len, table_log)
+
+
+def _encode_bitstream(data: np.ndarray, norm: np.ndarray, symbol_len: int, table_log: int,
+                      n_states: int) -> bytes:
+    """N-lane backwards tANS encode: positions in descending order, position
+    i by lane ``i % N`` (every reference variant reduces to this order),
+    then the final states, lane N-1 .. 0, tableLog bits each."""
+    state_table, delta_nb_bits, delta_find_state, _zero_bits = build_ctable(
+        norm, symbol_len, table_log)
+    st, dnb, dfs = state_table.tolist(), delta_nb_bits.tolist(), delta_find_state.tolist()
+    src = np.asarray(data, dtype=np.uint16).tolist()
+    states = [1 << table_log] * n_states
+    w = BitWriterLSB()
+    vap, wap = w.values.append, w.widths.append
+    for i in range(len(src) - 1, -1, -1):
+        s = src[i]
+        lane = i % n_states
+        x = states[lane]
+        nb = (x + dnb[s]) >> 16
+        vap(x)
+        wap(nb)
+        states[lane] = st[(x >> nb) + dfs[s]]
+    for lane in range(n_states - 1, -1, -1):
+        vap(states[lane])
+        wap(table_log)
+    return w.close()
+
+
+def fse_compress_4state(data, table_log: int = DEFAULT_TABLE_LOG) -> bytes:
+    """Four-state FSE compress (reference FSECompressU16FourState,
+    fse4state.go:24): ``MAGIC_4STATE``, the count, the header and the
+    bitstream."""
+    data = np.asarray(data, dtype=np.uint16)
+    n = len(data)
+    if n <= 3:
+        raise IncompressibleError
+    if n > (2 << 30) - 1:
+        raise ValueError("input too big, must be < 2GB")
+    norm, symbol_len, actual_tl, header = _prepare_tables(data, table_log)
+    out = header + _encode_bitstream(data, norm, symbol_len, actual_tl, 4)
+    if len(out) >= n * 2:
+        raise IncompressibleError
+    return MAGIC_4STATE + int(n).to_bytes(4, "little") + out
 
 
 def _decode_bitstream(

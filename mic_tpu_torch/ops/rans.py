@@ -1,9 +1,11 @@
-"""8-state interleaved rANS of the reference format (magic FF 08), decode
-side.
+"""8-state interleaved rANS of the reference format (magic FF 08).
 
-A numpy copy of ``build_rans_dec_table`` and ``rans_decompress_8state``
-of ``mic_tpu.ops.rans`` (same names, same outputs; pinned by
-``tests/test_torch_tans_decode.py``).  Stream format:
+A numpy copy of ``build_rans_dec_table``, ``rans_decompress_8state``,
+``build_rans_enc_table`` and ``rans_compress_8state`` of
+``mic_tpu.ops.rans`` (same names, same outputs; the decode side pinned by
+``tests/test_torch_tans_decode.py``, the encode side by
+``tests/test_torch_mesh.py``; ``dryrun.py`` encodes its FF 08 streams
+with it).  Stream format:
 ``[0xFF][0x08][count u32 LE][writeCount header][bitstream]``
 (rans8state.go:14-17,27).  The decode step has the shape of the tANS
 step, ``x' = newState[x] + readBits(nbBits[x])`` (ransu16.go:33-39); only
@@ -15,10 +17,20 @@ from __future__ import annotations
 
 import numpy as np
 
-from .bitio import ReverseBitReader
-from .fse import read_ncount
+from .bitio import BitWriterLSB, ReverseBitReader
+from .fse import (
+    DEFAULT_TABLE_LOG,
+    IncompressibleError,
+    UseRLEError,
+    histogram,
+    normalize_count,
+    optimal_table_log,
+    read_ncount,
+    write_count,
+)
 
-__all__ = ["build_rans_dec_table", "rans_decompress_8state"]
+__all__ = ["build_rans_dec_table", "rans_decompress_8state", "build_rans_enc_table",
+           "rans_compress_8state"]
 
 MAGIC_8STATE_RANS = b"\xff\x08"
 DECOMPRESS_LIMIT_DEFAULT = (2 << 30) - 1
@@ -103,3 +115,78 @@ def rans_decompress_8state(
         out[i] = sym[x]
         states[lane] = ns[x] + get(nb[x])
     return np.array(out, dtype=np.uint16)
+
+
+def build_rans_enc_table(
+    norm: np.ndarray, symbol_len: int, table_log: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Per-symbol rANS encode parameters (ransu16.go:139-180): ``(freq,
+    bias, k0, threshold)`` indexed by symbol, in the decode table's
+    cumulative order (norm > 0 symbols, then low-probability ones)."""
+    norm = np.asarray(norm, dtype=np.int64)
+    freq = np.zeros(symbol_len, dtype=np.int64)
+    bias = np.zeros(symbol_len, dtype=np.int64)
+    k0 = np.zeros(symbol_len, dtype=np.int64)
+    cumul = 0
+    for sym in range(symbol_len):
+        v = int(norm[sym])
+        if v <= 0:
+            continue
+        freq[sym] = v
+        bias[sym] = cumul
+        k0[sym] = table_log - _high_bits_arr(np.array([v]))[0]
+        cumul += v
+    for sym in range(symbol_len):
+        if norm[sym] != -1:
+            continue
+        freq[sym] = 1
+        bias[sym] = cumul
+        k0[sym] = table_log
+        cumul += 1
+    if cumul != (1 << table_log):
+        raise ValueError(f"buildRansEncTable: cumul {cumul} != {1 << table_log}")
+    return freq, bias, k0, freq << k0
+
+
+def rans_compress_8state(data, table_log: int = DEFAULT_TABLE_LOG) -> bytes:
+    """8-lane interleaved rANS compress (reference
+    RANSCompressU16EightState): ``MAGIC_8STATE_RANS``, the count, the
+    header and the bitstream."""
+    data = np.asarray(data, dtype=np.uint16)
+    n = len(data)
+    if n <= 7:
+        raise IncompressibleError
+    counts, max_count, symbol_len = histogram(data)
+    if max_count == n:
+        raise UseRLEError
+    if max_count == 1 or max_count < (n >> 15):
+        raise IncompressibleError
+    actual_tl = optimal_table_log(table_log, n, symbol_len)
+    norm = normalize_count(counts, n, actual_tl, symbol_len)
+    if int(np.abs(norm).sum()) != (1 << actual_tl):  # reference validateNorm
+        raise IncompressibleError
+    header = write_count(norm, symbol_len, actual_tl)
+    freq, bias, k0, thr = (a.tolist() for a in build_rans_enc_table(norm, symbol_len,
+                                                                     actual_tl))
+    table_size = 1 << actual_tl
+    src = data.tolist()
+    states = [0] * 8
+    w = BitWriterLSB()
+    vap, wap = w.values.append, w.widths.append
+    for i in range(n - 1, -1, -1):
+        s = src[i]
+        lane = i & 7
+        x_l = states[lane] + table_size
+        k = k0[s]
+        if x_l < thr[s]:
+            k -= 1
+        vap(x_l)
+        wap(k)
+        states[lane] = bias[s] + (x_l >> k) - freq[s]
+    for lane in range(7, -1, -1):
+        vap(states[lane])
+        wap(actual_tl)
+    out = header + w.close()
+    if len(out) >= n * 2:
+        raise IncompressibleError
+    return MAGIC_8STATE_RANS + int(n).to_bytes(4, "little") + out

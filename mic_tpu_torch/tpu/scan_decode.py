@@ -25,8 +25,11 @@ table lookups, ``rans_one``; the escape substitution, ``subst_one``; then
   ``WARP_LANES`` lanes, the block form, symbols out, past it);
   :func:`fused_strip_fits` says which buckets the plan fuses;
 * :func:`decode_strip_batch` — ``decode_strip_batch_impl`` on its own
-  operands: the direct predictors fused, every other one through the
-  lanes kernel and then ``post.post_batch``.
+  operands (:func:`build_strip_batch`, a copy of ``mic_tpu``'s): the
+  direct predictors fused, every other one through the lanes kernel and
+  then ``post.post_batch``; its host half
+  :func:`strip_batch_host` and its post stage :func:`strip_batch_post`
+  are what ``tpu/mesh.py``'s ``decode_strips_sharded`` stages per shard.
 
 Operands are int32 (u32) and int16 (u16) bit-views.  On a damaged stream
 the kernel equals the plain twin bit for bit and reads nothing out of
@@ -56,6 +59,9 @@ __all__ = [
     "rans_decode_lanes_groups",
     "rans_decode_lanes_groups_plain",
     "fused_strip_fits",
+    "build_strip_batch",
+    "strip_batch_host",
+    "strip_batch_post",
     "decode_strip_batch",
 ]
 
@@ -523,6 +529,87 @@ def rans_decode_lanes_groups(groups, packing: LanesPacking | None = None) -> lis
 rans_decode_lanes_groups.launches = 0
 
 
+def build_strip_batch(parsed, strips, table_log: int, pad_strips_to: int = 0):
+    """``mic_tpu``'s ``build_strip_batch``: parsed MICT strips of one
+    tableLog and their MICW table entries as :func:`decode_strip_batch`'s
+    operands, padded to common shapes.  Returns ``(arrays, meta)``, arrays
+    = (init, words, ts, tf, tb, counts, n_tokens, n_runs, n_same,
+    esc_vals, esc_sides) and meta = dict(n_steps, max_runs, max_tokens);
+    ``pad_strips_to`` appends replicas of strip 0 (a batch that divides a
+    mesh).  FF 41 and FF 57 strips mix: esc_vals is -1 for FF 57."""
+    S = len(parsed)
+    L = parsed[0][0]
+    counts = np.array([p[2] for p in parsed], dtype=np.int32)
+    n_tokens, n_runs, n_same = (np.array([m[k] for m in strips], dtype=np.int32)
+                                for k in (2, 3, 4))
+    n_steps = int(max((c + L - 1) // L for c in counts))
+    S_pad = max(S, pad_strips_to)
+    ts = np.zeros((S_pad, 1 << table_log), dtype=np.uint16)
+    tf = np.ones((S_pad, 1 << table_log), dtype=np.uint32)
+    tb = np.zeros((S_pad, 1 << table_log), dtype=np.uint32)
+    init = np.zeros((S_pad, L), dtype=np.uint32)
+    words = np.zeros((S_pad, int(max(len(p[4]) for p in parsed)) + 1), dtype=np.uint32)
+    esc_vals = np.full(S_pad, -1, dtype=np.int32)
+    esc_sides = np.zeros((S_pad, max([1] + [len(p[7][1]) for p in parsed if p[7] is not None])),
+                         dtype=np.uint16)
+    for i, (_L, tl, _count, states, wrds, norm, _sl, alias) in enumerate(parsed):
+        ts[i], tf[i], tb[i] = slot_tables(norm, tl, alias)[:3]
+        init[i] = states
+        words[i, : len(wrds)] = wrds
+        if alias is not None and len(alias[1]):
+            esc_vals[i] = alias[0]
+            esc_sides[i, : len(alias[1])] = alias[1]
+    if S_pad > S:
+        pad = S_pad - S
+        counts, n_tokens, n_runs, n_same = (np.concatenate([a, np.full(pad, a[0], np.int32)])
+                                            for a in (counts, n_tokens, n_runs, n_same))
+        for a in (ts, tf, tb, init, words, esc_vals, esc_sides):
+            a[S:] = a[0]
+    meta = {"n_steps": n_steps,
+            "max_runs": int(-(-(int(n_runs.max()) + 1) // 128) * 128),
+            "max_tokens": int(-(-(int(n_tokens.max()) + 1) // 128) * 128)}
+    return (init, words, ts, tf, tb, counts, n_tokens, n_runs, n_same, esc_vals,
+            esc_sides), meta
+
+
+def strip_batch_host(init_states, words, tab_sym, tab_freq, tab_bias, counts, n_tokens, n_runs,
+                     n_same, esc_vals, esc_sides, *, table_log: int, n_steps: int, width: int,
+                     strip_h: int, max_runs: int, max_tokens: int, mid_count: int, delim: int,
+                     predictor: str = "zz"):
+    """The host half of :func:`decode_strip_batch` on its operands and
+    static arguments: (the lanes kernel's ten numpy operands, its keyword
+    arguments, the post stage), the inverse fused where
+    :func:`fused_strip_fits`, else the post stage (int64 [S, 3] n_tokens,
+    n_runs, n_same, and ``post.post_batch``'s keyword arguments); None
+    when fused."""
+    init_states = np.asarray(init_states, np.uint32)
+    S, TS = np.shape(tab_sym)
+    arrays = (init_states, np.asarray(words).astype(np.uint16),
+              np.asarray(tab_sym, np.uint16).reshape(-1),
+              np.asarray(tab_freq, np.uint32).reshape(-1),
+              np.asarray(tab_bias, np.uint32).reshape(-1),
+              (np.arange(S) * TS).astype(np.int32), np.full(S, table_log, np.int32),
+              np.asarray(counts, np.int32), np.asarray(esc_vals, np.int32),
+              np.asarray(esc_sides, np.uint16))
+    if fused_strip_fits(init_states.shape[1], predictor, width, bool((arrays[8] >= 0).any())):
+        return arrays, dict(steps=int(n_steps), inverse=predictor, width=width,
+                            strip_h=strip_h), None
+    meta = np.stack([n_tokens, n_runs, n_same], axis=1).astype(np.int64)
+    return arrays, dict(steps=int(n_steps)), (meta, dict(
+        width=width, strip_h=strip_h, max_runs=max_runs, max_tokens=max_tokens,
+        mid_count=mid_count, delim=delim, predictor=predictor))
+
+
+def strip_batch_post(out: torch.Tensor, post) -> torch.Tensor:
+    """The post stage of :func:`strip_batch_host` on the lanes kernel's
+    output (``post`` with its meta on the output's device), or the output
+    itself when fused."""
+    if post is None:
+        return out
+    meta, kw = post
+    return post_batch(out, meta[:, 0], meta[:, 1], meta[:, 2], **kw)
+
+
 def decode_strip_batch(init_states, words, tab_sym, tab_freq, tab_bias, counts, n_tokens,
                        n_runs, n_same, esc_vals, esc_sides, *, table_log: int, n_steps: int,
                        width: int, strip_h: int, max_runs: int, max_tokens: int,
@@ -537,23 +624,12 @@ def decode_strip_batch(init_states, words, tab_sym, tab_freq, tab_bias, counts, 
     other batch the lanes kernel (escapes substituted), then
     ``post.post_batch``.  Returns int16 [S, width * strip_h] (bit-view of
     the u16 pixels)."""
-    init_states = np.asarray(init_states, np.uint32)
-    S, TS = np.shape(tab_sym)
-    arrays = (init_states, np.asarray(words).astype(np.uint16),
-              np.asarray(tab_sym, np.uint16).reshape(-1),
-              np.asarray(tab_freq, np.uint32).reshape(-1),
-              np.asarray(tab_bias, np.uint32).reshape(-1),
-              (np.arange(S) * TS).astype(np.int32), np.full(S, table_log, np.int32),
-              np.asarray(counts, np.int32), np.asarray(esc_vals, np.int32),
-              np.asarray(esc_sides, np.uint16))
-    ops = lane_tensors(arrays, device)
-    esc = bool((arrays[8] >= 0).any())
-    if fused_strip_fits(init_states.shape[1], predictor, width, esc):
-        return rans_decode_lanes(*ops, steps=int(n_steps), inverse=predictor, width=width,
-                                 strip_h=strip_h)
-    ent = rans_decode_lanes(*ops, steps=int(n_steps))
-    meta = torch.tensor(np.stack([n_tokens, n_runs, n_same], axis=1).astype(np.int64),
-                        device=device)
-    return post_batch(ent, meta[:, 0], meta[:, 1], meta[:, 2], width=width, strip_h=strip_h,
-                      max_runs=max_runs, max_tokens=max_tokens, mid_count=mid_count,
-                      delim=delim, predictor=predictor)
+    arrays, kw, post = strip_batch_host(
+        init_states, words, tab_sym, tab_freq, tab_bias, counts, n_tokens, n_runs, n_same,
+        esc_vals, esc_sides, table_log=table_log, n_steps=n_steps, width=width,
+        strip_h=strip_h, max_runs=max_runs, max_tokens=max_tokens, mid_count=mid_count,
+        delim=delim, predictor=predictor)
+    out = rans_decode_lanes(*lane_tensors(arrays, device), **kw)
+    if post is not None:
+        post = (torch.from_numpy(post[0]).to(device), post[1])
+    return strip_batch_post(out, post)

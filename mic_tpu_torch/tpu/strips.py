@@ -904,11 +904,11 @@ class MicwDecodePlan:
             return np.full(n, np.frombuffer(st[0], dtype="<u2", count=1)[0], np.uint16)
         return np.frombuffer(st[0], dtype="<u2", count=n)
 
-    def _mismatches(self, decoded: dict, expected_by_blob: dict) -> int:
-        """Count of decoded pixels that differ from ``expected_by_blob``
-        ({blob index: pixels in image order}).  Bucket outputs compare on
-        the device against expected arrays of their own shape (rows of
-        other blobs masked out); raw strips compare on the host."""
+    def _segments(self, expected_by_blob: dict):
+        """The host half of verification: (the mismatching pixels of the
+        raw and constant strips, counted on the host; per bucket key, each
+        row's expected pixels).  ``expected_by_blob`` is {blob index:
+        pixels in image order}."""
         segs: dict = {}
         host = 0
         for bi, expected in expected_by_blob.items():
@@ -925,20 +925,96 @@ class MicwDecodePlan:
                     host += int(np.count_nonzero(self._raw_pixels(idx, seg.size) != seg))
                 else:
                     segs.setdefault(k, {})[idx] = seg
-        total = torch.zeros((), dtype=torch.int64, device=self.device)
-        for k, rows in segs.items():
-            dev = decoded[k]
-            cols = max(len(s) for s in rows.values())
-            exp = np.zeros((dev.shape[0], cols), np.uint16)
-            valid = np.zeros((dev.shape[0], 1), np.int64)
-            for i, s in rows.items():
+        return host, segs
+
+    def _expected_rows(self, rows: dict, n_rows: int):
+        """A bucket's first ``n_rows`` expected rows on the plan's device:
+        (int16 [n_rows, cols] bit-views, rows padded to the bucket's widest
+        segment; None where every row is that wide, else the bool mask of
+        each row's valid pixels)."""
+        cols = max(len(s) for s in rows.values())
+        exp = np.zeros((n_rows, cols), np.uint16)
+        valid = np.zeros((n_rows, 1), np.int64)
+        for i, s in rows.items():
+            if i < n_rows:
                 exp[i, : len(s)] = s
                 valid[i, 0] = len(s)
-            exp_d = torch.from_numpy(exp.view(np.int16)).to(self.device)
-            valid_d = torch.from_numpy(valid).to(self.device)
-            lane = torch.arange(cols, device=self.device)[None, :]
-            total += ((dev[:, :cols] != exp_d) & (lane < valid_d)).sum()
+        exp_d = torch.from_numpy(exp.view(np.int16)).to(self.device)
+        if (valid == cols).all():
+            return exp_d, None
+        return exp_d, torch.from_numpy(np.arange(cols)[None, :] < valid).to(self.device)
+
+    @staticmethod
+    def _count(out: torch.Tensor, exp: torch.Tensor, mask) -> torch.Tensor:
+        """Mismatching pixels of a bucket's output against its expected
+        rows, within ``mask`` where there is one (0-d, on the device)."""
+        ne = out[:, : exp.shape[1]] != exp
+        if mask is not None:
+            ne &= mask
+        return ne.sum()
+
+    def _mismatches(self, decoded: dict, expected_by_blob: dict) -> int:
+        """Count of decoded pixels that differ from ``expected_by_blob``
+        ({blob index: pixels in image order}).  Bucket outputs compare on
+        the device against expected arrays of their own shape (rows of
+        other blobs masked out); raw strips compare on the host."""
+        host, segs = self._segments(expected_by_blob)
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        for k, rows in segs.items():
+            total += self._count(decoded[k], *self._expected_rows(rows, decoded[k].shape[0]))
         return host + int(total)
+
+    def make_timed_runner(self, expected_per_blob):
+        """A runner that decodes the plan ``n`` times back to back and
+        verifies the first decode on the device: the counterpart of
+        ``mic_tpu``'s ``MicwDecodePlan.make_timed_runner``.
+
+        At build time the expected pixels (``expected_per_blob``, blob
+        order) are staged on the plan's device once per bucket, rows padded
+        to the bucket's widest segment with a mask of each row's valid
+        pixels (none where every row is full); where
+        the batch replicates one blob (the same blob and expected objects
+        throughout) one period of rows is copied and tiled on the device.
+        Raw and constant strips are checked once, on the host.
+        ``runner(n)`` calls :meth:`run` ``n`` times on the current stream,
+        counts the first run's mismatching pixels on the device, adds each
+        run's ``out[0, :8]`` (u16 values) of every bucket to a probe, and
+        returns (mismatches, probe) as 0-d int64 device tensors, with no
+        host sync: the caller times it with CUDA events and reads both.
+
+        Returns None where ``mic_tpu``'s does: its one case here is a raw
+        or constant strip whose pixels differ from the expected (the port
+        stages no blob through a fallback)."""
+        host, segs = self._segments(dict(enumerate(expected_per_blob)))
+        if host:
+            return None
+        k_rep = 1
+        if (len(self.blobs) > 1 and all(b is self.blobs[0] for b in self.blobs[1:])
+                and all(e is expected_per_blob[0] for e in expected_per_blob[1:])):
+            k_rep = len(self.blobs)
+        staged = {}
+        for k, rows in segs.items():
+            S = self.buckets[k].n
+            period = S // k_rep if S % k_rep == 0 else S
+            exp, mask = self._expected_rows(rows, period)
+            staged[k] = (exp.repeat(S // period, 1),
+                         None if mask is None else mask.repeat(S // period, 1))
+
+        def runner(n: int):
+            mism = torch.zeros((), dtype=torch.int64, device=self.device)
+            probe = torch.zeros((), dtype=torch.int64, device=self.device)
+            for i in range(n):
+                outs = self.run()
+                if outs:
+                    firsts = torch.cat([out[0, :8] for out in outs.values()])
+                    probe += (firsts.to(torch.int64) & 0xFFFF).sum()
+                if i == 0:
+                    for k, (exp, mask) in staged.items():
+                        mism += self._count(outs[k], exp, mask)
+                del outs  # free this run's outputs before the next run allocates its own
+            return mism, probe
+
+        return runner
 
     def verify_batch(self, decoded: dict, expected_per_blob) -> int:
         """Mismatching pixel count of EVERY blob of the batch (0 = all

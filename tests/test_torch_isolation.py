@@ -13,7 +13,8 @@ pinned to the originals.
   both sides (the decode side serves the reference formats), and the
   decode-side copies of ``deltarle``, ``color`` and ``models.rgb``.
   ``bitio``, ``fse_codec`` and ``rans`` are pinned in
-  ``tests/test_torch_tans_decode.py``.
+  ``tests/test_torch_tans_decode.py`` (their encoders, which the dry run
+  uses, in ``tests/test_torch_mesh.py``).
 
 Tolerance 0: these define the bytes of the format.
 """
@@ -43,7 +44,8 @@ ROOT = Path(__file__).resolve().parent.parent
                                     "mic_tpu_torch.cli", "mic_tpu_torch.tpu.kernels",
                                     "mic_tpu_torch.tpu.wsi_device",
                                     "mic_tpu_torch.tpu.scan_decode",
-                                    "mic_tpu_torch.tpu.decode"])
+                                    "mic_tpu_torch.tpu.decode",
+                                    "mic_tpu_torch.tpu.mesh", "mic_tpu_torch.dryrun"])
 def test_import_loads_no_mic_tpu(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'mic_tpu' or m.startswith('mic_tpu.') "
