@@ -193,7 +193,33 @@ Phases (any failure exits non-zero; nothing is caught):
    call, run twice, and the shards' launches alone beside the unsharded
    launch; phase 2's 1536 encode streams through both sharded encodes
    (widths sharded), equal to the unsharded outputs.
-12. Prints the kernel report as one JSON line (with each kernel's bound:
+12. The reference formats' writers (host numpy, ``mic_tpu``'s bytes) and
+   the round trip through the card.  (a) Every reference container of
+   ``web/testdata`` (19: MIC1 at 2 / 4 / 8 states and rANS8, PICS at 4
+   and 8 strips, PICA, MIC2 independent and temporal, MICR, MIC3 RGB and
+   grey) rewritten from its ``.raw`` by the port's writers, equal to the
+   file.  (b) A batch at a size users run: a ``SERIES_FRAMES``-frame
+   512x512 series of ``CT_2s.raw`` (row and column rolls, as
+   ``web/gen_testdata.py`` builds its series) and one of 256x256 frames
+   of ``MR_2s.raw``, as MIC2 in both modes; a 2048x2048 mosaic of
+   ``CT_2s.raw`` (4x4 copies with flips, a digital radiograph's size) as
+   MIC1 at 2 / 4 / 8 states and rANS8 and as PICS of 8 strips at 4 and 8
+   states; MIC3 of a 2048x2048 crop of phase 8's slide (256x256 tiles,
+   the auto pyramid).  The writers run in ``WRITER_PROCS`` worker
+   processes; each prints its host seconds, MB/s and ratio.  (c) The
+   port's device readers on (b) and (a)'s containers,
+   ``decompress_frames_device``, ``decompress_pics_device_many``,
+   ``decompress_mic2_device`` (each series) and
+   ``decompress_wsi_level_device`` (every level), every pixel against
+   the input; each call's tANS launches counted from 0 beside its
+   kernel-routed and host-routed stream counts (the CT streams, tableLog
+   14-16, go to the host): the kernel must have launched exactly when a
+   stream was routed to it, and each reader at least once; ms by CUDA
+   events and GB/s of pixels.  (d) (b)'s MIC1 and PICS blobs through
+   ``ingest_plan(..., device_encode=True, entropy="device")``, the plan
+   decoded and every strip verified; the encode and direct kernels must
+   have launched.  Prints the phase's wall seconds.
+13. Prints the kernel report as one JSON line (with each kernel's bound:
    the larger of its bytes over 3.35 TB/s and its integer operations over
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -338,6 +364,10 @@ MESH_SHARDS = (1, 2, 4)  # phase 11's full-width shard counts on one card
 MESH_REPS = 256  # phase 11's CT_dev replicas, at 128 lanes (phase 2's) and at 64 (phase 10's)
 PHASE3_PACKING = (352, 69760)  # phase 3's blocks and bytes a block (4 strips a block, kept)
 WIDE_PDD = (110208, 8)  # phase 3's pdd image whose column carry leaves a block no room
+SERIES_FRAMES = 32  # phase 12's MIC2 series (16.8 MB a mode at 512x512)
+MOSAIC_COPIES = 4  # phase 12's mosaic: 4x4 copies of CT_2s.raw, 2048x2048
+WSI_CROP = 2048  # phase 12's MIC3: a WSI_CROP square of phase 8's slide
+WRITER_PROCS = 8  # phase 12's writer processes (one a CPU core of an 8-core H100 host)
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
 ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
 
@@ -2206,6 +2236,297 @@ def _mesh_phase(dev, scan_blobs, scan_expected) -> None:
     print(f"phase 11: {time.perf_counter() - t_phase:.3f} s wall")
 
 
+# Phase 12's reference containers, rewritten from their .raw (web/gen_testdata.py).
+REF_FIXTURES = ([f"{img}_{k}.mic" for img in ("MR", "CT") for k in ("2s", "4s", "8s", "rans8")]
+                + [f"{img}_pics{n}.pics" for img in ("MR", "CT") for n in (4, 8)]
+                + ["MR_pica.pica", "CT_pica.pica", "series_ind.mic2", "series_tmp.mic2",
+                   "tissue.micr", "tissue.mic3", "grey.mic3"])
+
+
+def _raw_u16(stem):
+    import numpy as np
+
+    return np.fromfile(TESTDATA / f"{stem}.raw", "<u2")
+
+
+def _rolled_series(img, n):
+    """Frame k of a series: ``img`` rolled by k rows (k odd) or k columns
+    (k even), so frames 0-2 are web/gen_testdata.py's series."""
+    import numpy as np
+
+    return [np.roll(img, k, axis=(k + 1) % 2).ravel() for k in range(n)]
+
+
+def _mosaic(copies):
+    """CT_2s.raw tiled copies x copies, copy (i, j) flipped vertically
+    where i is odd and horizontally where j is odd."""
+    import numpy as np
+
+    ct = _raw_u16("CT_2s").reshape(512, 512)
+    rows = [np.concatenate([ct[:: (-1) ** i, :: (-1) ** j] for j in range(copies)], axis=1)
+            for i in range(copies)]
+    return np.ascontiguousarray(np.concatenate(rows, axis=0))
+
+
+def _slide_crop(side):
+    import numpy as np
+
+    return np.ascontiguousarray(_slide()[0][TILE:TILE + side, TILE:TILE + side])
+
+
+def _fixture_container(name):
+    """(container, input bytes) of a web/testdata reference fixture,
+    written by the port as web/gen_testdata.py writes it with mic_tpu."""
+    import numpy as np
+
+    import mic_tpu_torch as m
+
+    stem, ext = name.rsplit(".", 1)
+    if ext in ("mic", "pics", "pica"):
+        px = _raw_u16(stem)
+        w = h = 256 if stem.startswith("MR") else 512
+        mx = int(px.max())
+        if ext == "mic":
+            fn = {"2s": m.compress_single_frame, "4s": m.compress_single_frame_4state,
+                  "8s": m.compress_single_frame_8state,
+                  "rans8": m.compress_single_frame_rans8}[stem.split("_")[1]]
+            return m.write_mic1(w, h, fn(px, w, h, mx)), px.nbytes
+        if ext == "pica":
+            return m.compress_parallel_strips_adaptive(px, w, h, mx, 4), px.nbytes
+        fn = (m.compress_parallel_strips_4state if stem.endswith("4")
+              else m.compress_parallel_strips_8state)
+        return fn(px, w, h, mx, int(stem[-1])), px.nbytes
+    if ext == "mic2":
+        ct = _raw_u16("CT_2s").reshape(512, 512)
+        frames = _rolled_series(ct, 3)
+        return (m.compress_multi_frame(frames, 512, 512, int(ct.max()), stem.endswith("tmp")),
+                3 * ct.nbytes)
+    if name == "grey.mic3":
+        grey = np.frombuffer(_raw_u16("grey").astype("<u2").tobytes(), np.uint8)
+        return m.compress_wsi(grey, 256, 256, 1, 16, m.WSIOptions()), grey.nbytes
+    rgb = np.fromfile(TESTDATA / "tissue.raw", np.uint8)
+    if ext == "micr":
+        return m.write_micr(512, 384, m.compress_rgb(rgb, 512, 384)), rgb.nbytes
+    return m.compress_wsi(rgb, 512, 384, 3, 8, m.WSIOptions()), rgb.nbytes
+
+
+def _writer_job(job):
+    """Phase 12, one writer in a worker process: returns (label, container,
+    input bytes, host seconds of the writer call).  A job is (kind, its
+    arguments), the sizes among them (a worker reads no module setting)."""
+    import mic_tpu_torch as m
+
+    kind, arg = job
+    t0 = time.perf_counter()
+    if kind == "fixture":
+        blob, n_in = _fixture_container(arg)
+        return f"fixture {arg}", blob, n_in, time.perf_counter() - t0
+    if kind == "mic2":
+        img, temporal, n_frames = arg
+        src = _raw_u16(f"{img}_2s")
+        side = 512 if img == "CT" else 256
+        frames = _rolled_series(src.reshape(side, side), n_frames)
+        t0 = time.perf_counter()
+        blob = m.compress_multi_frame(frames, side, side, int(src.max()), temporal)
+        return (f"mic2 {img} {n_frames}x{side}x{side} {'tmp' if temporal else 'ind'}",
+                blob, sum(f.nbytes for f in frames), time.perf_counter() - t0)
+    if kind == "mic3":
+        rgb = _slide_crop(arg)
+        t0 = time.perf_counter()
+        blob = m.compress_wsi(rgb.ravel(), arg, arg, 3, 8, m.WSIOptions())
+        return f"mic3 {arg}x{arg} RGB", blob, rgb.nbytes, time.perf_counter() - t0
+    arg, copies = arg
+    px = _mosaic(copies)
+    side = px.shape[0]
+    flat, mx = px.ravel(), int(px.max())
+    t0 = time.perf_counter()
+    if kind == "mic1":
+        fn = {"2s": m.compress_single_frame, "4s": m.compress_single_frame_4state,
+              "8s": m.compress_single_frame_8state, "rans8": m.compress_single_frame_rans8}[arg]
+        blob = m.write_mic1(side, side, fn(flat, side, side, mx))
+    else:
+        fn = m.compress_parallel_strips_4state if arg == 4 else m.compress_parallel_strips_8state
+        blob = fn(flat, side, side, mx, 8)
+    return f"{kind} {arg} {side}x{side}", blob, px.nbytes, time.perf_counter() - t0
+
+
+def _write_all():
+    """Every writer job of phase 12 in WRITER_PROCS spawned processes,
+    longest first; returns {job: (label, container, input bytes, s)}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = ([("mic2", ("CT", t, SERIES_FRAMES)) for t in (False, True)]
+            + [("mic3", WSI_CROP)] + [("pics", (n, MOSAIC_COPIES)) for n in (4, 8)]
+            + [("mic1", (k, MOSAIC_COPIES)) for k in ("2s", "4s", "8s", "rans8")]
+            + [("mic2", ("MR", t, SERIES_FRAMES)) for t in (False, True)]
+            + [("fixture", name) for name in REF_FIXTURES])
+    with ProcessPoolExecutor(max_workers=WRITER_PROCS,
+                             mp_context=multiprocessing.get_context("spawn")) as ex:
+        results = list(ex.map(_writer_job, jobs))
+    return dict(zip(jobs, results))
+
+
+def _observed_routes(fn):
+    """fn() with tpu.ref_decode's entropy batch call observed: returns
+    (result, streams routed to the tANS kernel, streams routed to the
+    host) over the call."""
+    from mic_tpu_torch.tpu import ref_decode
+
+    seen = {"kernel": 0, "host": 0}
+    batch = ref_decode.fse_decompress_device_batch
+
+    def observed(blobs, device, stats=None):
+        st = {}
+        out = batch(blobs, device, stats=st)
+        seen["kernel"] += st["kernel"]
+        seen["host"] += len(st["host"])
+        return out
+
+    ref_decode.fse_decompress_device_batch = observed
+    try:
+        return fn(), seen["kernel"], seen["host"]
+    finally:
+        ref_decode.fse_decompress_device_batch = batch
+
+
+def _reader_call(what, fn, px_bytes, launched):
+    """Phase 12 (c): one device reader call, its tANS launches counted from
+    0, timed by CUDA events around the call (host route and post stages
+    included).  Fails unless the kernel launched exactly when a stream was
+    routed to it; appends its launches to ``launched``."""
+    import torch
+
+    from mic_tpu_torch.tpu.tans_decode import tans_decode_groups
+
+    tans_decode_groups.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out, kernel, host = _observed_routes(fn)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    n = tans_decode_groups.launches
+    print(f"reader {what}: {ms:.3f} ms (CUDA events), {px_bytes / (ms / 1e3) / 1e9:.4f} GB/s of "
+          f"pixels ({px_bytes} bytes); tANS launches={n}, streams kernel={kernel} host={host}")
+    if (n > 0) != (kernel > 0):
+        raise AssertionError(f"{what}: {n} tANS launches for {kernel} kernel-routed streams")
+    launched.append(n)
+    return out
+
+
+def _writers_phase(dev):
+    """Phase 12: the reference writers, (a)-(d) as the module docstring
+    says; returns {tans_decode, rans_encode, rans_decode_direct_groups:
+    launches in the phase}."""
+    import numpy as np
+
+    from mic_tpu_torch import (
+        decompress_frames_device,
+        decompress_mic2_device,
+        decompress_pics_device_many,
+        decompress_wsi_level_device,
+        ingest_plan,
+        read_wsi_header,
+    )
+    from mic_tpu_torch.ops.pyramid import downsample2x_rgb
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.utils.io import read_mic1
+
+    t_phase = time.perf_counter()
+    written = _write_all()
+    print(f"writers: {len(written)} containers in {time.perf_counter() - t_phase:.3f} s wall "
+          f"({WRITER_PROCS} processes, spawned)")
+    for label, blob, n_in, sec in written.values():
+        print(f"writer {label}: {sec:.3f} host s, {n_in / sec / 1e6:.3f} MB/s, "
+              f"ratio {n_in / len(blob):.4f} ({n_in} -> {len(blob)} bytes)")
+    # (a) the fixtures, byte for byte
+    bad = [name for name in REF_FIXTURES
+           if written[("fixture", name)][1] != (TESTDATA / name).read_bytes()]
+    print(f"writers (a): {len(REF_FIXTURES) - len(bad)} of {len(REF_FIXTURES)} reference "
+          "fixtures rewritten byte for byte")
+    if bad:
+        raise AssertionError(f"the port's writers differ from the fixtures: {bad}")
+
+    # (c) the device readers, every pixel against the input
+    launched = {}
+    mosaic = _mosaic(MOSAIC_COPIES).ravel()
+    side = 512 * MOSAIC_COPIES
+    mic1 = [read_mic1(written[("mic1", (k, MOSAIC_COPIES))][1])
+            for k in ("2s", "4s", "8s", "rans8")]
+    mic1 += [read_mic1(written[("fixture", n)][1]) for n in REF_FIXTURES if n.endswith(".mic")]
+    want = [mosaic] * 4 + [_raw_u16(n[:-4]) for n in REF_FIXTURES if n.endswith(".mic")]
+    outs = _reader_call(f"decompress_frames_device ({len(mic1)} MIC1: the mosaic's 4 + (a)'s 8)",
+                        lambda: decompress_frames_device([m[3] for m in mic1],
+                                                         [m[:2] for m in mic1], dev),
+                        sum(w.nbytes for w in want), launched.setdefault("frames", []))
+    if not all(np.array_equal(o, w) for o, w in zip(outs, want)):
+        raise AssertionError("decompress_frames_device decoded wrong pixels")
+    pics_names = [n for n in REF_FIXTURES if n.endswith(".pics")]
+    pics = [written[("pics", (k, MOSAIC_COPIES))][1] for k in (4, 8)] + [
+        written[("fixture", n)][1] for n in pics_names]
+    want = [mosaic] * 2 + [_raw_u16(n[:-5]) for n in pics_names]
+    outs = _reader_call(f"decompress_pics_device_many ({len(pics)} PICS: the mosaic's 2 + "
+                        f"(a)'s {len(pics_names)})",
+                        lambda: decompress_pics_device_many(pics, dev),
+                        sum(w.nbytes for w in want), launched.setdefault("pics", []))
+    if not all(np.array_equal(px, w) for (px, _w, _h), w in zip(outs, want)):
+        raise AssertionError("decompress_pics_device_many decoded wrong pixels")
+    for img, psize in (("CT", 512), ("MR", 256)):
+        frames = _rolled_series(_raw_u16(f"{img}_2s").reshape(psize, psize), SERIES_FRAMES)
+        for temporal in (False, True):
+            label, blob, n_in, _s = written[("mic2", (img, temporal, SERIES_FRAMES))]
+            got, _hdr = _reader_call(f"decompress_mic2_device ({label})",
+                                     lambda: decompress_mic2_device(blob, dev), n_in,
+                                     launched.setdefault("mic2", []))
+            if len(got) != len(frames) or not all(np.array_equal(g, f)
+                                                  for g, f in zip(got, frames)):
+                raise AssertionError(f"decompress_mic2_device decoded wrong pixels: {label}")
+    mic3 = written[("mic3", WSI_CROP)][1]
+    level_px = _slide_crop(WSI_CROP).ravel()
+    lw = lh = WSI_CROP
+    for level, lv in enumerate(read_wsi_header(mic3).levels):
+        if level:
+            level_px, lw, lh = downsample2x_rgb(level_px, lw, lh)
+        if (lv.width, lv.height) != (lw, lh):
+            raise AssertionError(f"MIC3 level {level}: {lv.width}x{lv.height}, expected {lw}x{lh}")
+        got = _reader_call(f"decompress_wsi_level_device (MIC3 {WSI_CROP}x{WSI_CROP} level "
+                           f"{level}, {lw}x{lh}, {lv.tiles_x * lv.tiles_y} tiles)",
+                           lambda: decompress_wsi_level_device(mic3, level, dev),
+                           level_px.nbytes, launched.setdefault("wsi", []))
+        if got != level_px.tobytes():
+            raise AssertionError(f"decompress_wsi_level_device level {level}: wrong pixels")
+    print("readers (c): every pixel equal; calls that launched the tANS kernel: "
+          + " ".join(f"{k}={sum(n > 0 for n in v)}/{len(v)}" for k, v in launched.items()))
+    if not all(any(v) for v in launched.values()):
+        raise AssertionError(f"a device reader never launched the tANS kernel: {launched}")
+
+    # (d) the MIC1 and PICS blobs of (b) ingested to MICW on the card
+    ref_blobs = [m[3] for m in mic1[:4]] + pics[:2]
+    dims = [(side, side)] * 4 + [None] * 2
+    timings = {}
+    t0 = time.perf_counter()
+    plan, counts = _counted("ingest_plan (b)",
+                            lambda: ingest_plan(ref_blobs, dims, dev, entropy="device",
+                                                device_encode=True, timings=timings),
+                            (renc.rans_encode,))
+    ingest_s = time.perf_counter() - t0
+    decoded, direct = _counted("ingest_plan (b)'s MicwDecodePlan.run", plan.run,
+                               (rd.rans_decode_direct_groups,))
+    mism = plan.verify_batch(decoded, [mosaic] * len(ref_blobs))
+    n_bytes = mosaic.nbytes * len(ref_blobs)
+    print(f"ingest (d): {len(ref_blobs)} blobs ({n_bytes} pixel bytes) in {ingest_s:.3f} s, "
+          f"{n_bytes / ingest_s / 1e6:.3f} MB/s, "
+          + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
+          + f"; {sum(b.n for b in plan.buckets.values())} strips in {len(plan.buckets)} "
+          f"buckets, mismatches={mism}")
+    if mism:
+        raise AssertionError(f"ingest_plan's containers decode to wrong pixels: {mism}")
+    print(f"phase 12: {time.perf_counter() - t_phase:.3f} s wall")
+    return {"tans_decode": sum(sum(v) for v in launched.values()), **counts, **direct}
+
+
 def _main_batch():
     """Phase 3's batch: the containers and their expected pixels, batch
     order, and the decoded u16 bytes of its entropy strips."""
@@ -2478,8 +2799,12 @@ def main() -> int:
     _clock(t_start, 11)
     _mesh_phase(dev, scan_blobs, scan_expected)
 
-    # --- 12. report -----------------------------------------------------------
+    # --- 12. the reference writers, round-tripped through the card ------------
     _clock(t_start, 12)
+    print(f"phase 12 launches: {_writers_phase(dev)}")
+
+    # --- 13. report -----------------------------------------------------------
+    _clock(t_start, 13)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = report[name]

@@ -1,4 +1,4 @@
-"""mic_tpu_torch — PyTorch/CUDA port of ``mic_tpu``'s device tier.
+"""mic_tpu_torch — PyTorch/CUDA port of ``mic_tpu``.
 
 Encodes and decodes batches of MICW containers on an NVIDIA GPU through
 kernels written by hand in CUDA C++ (``csrc/``, built with nvcc on first
@@ -15,14 +15,28 @@ then the post stage, as do all strips of
 the host encoder at any lane count, and ``tpu.decode.mict_decode_device``
 decodes one MICT stream.
 
-The reference formats decode with their entropy stage on the GPU too:
-``fse_decompress_device_batch`` decodes FF 02/04/84/08 streams through a
-hand-written tANS kernel (1-state streams and streams past its caps on
-the host), and the ``decompress_*_device`` functions of
-``tpu.ref_decode`` serve MIC1 frames, PICS containers, MIC2 series and
-MIC3 pyramids through it; ``tpu.ingest`` (``transcode_frame``,
-``transcode_pics``, ``transcode_auto``, ``ingest_plan``) transcodes them
-to MICW, byte-identical to ``mic_tpu.tpu.ingest``.
+The reference formats are written on the host, as ``mic_tpu`` writes
+them, byte for byte: MIC1 (``compress_single_frame`` at 2 / 4 / 8
+states, ``_rans8``, ``_grad``, wrapped by ``write_mic1``), PICS
+(``compress_parallel_strips{,_4state,_8state}``), PICA
+(``compress_parallel_strips_adaptive``), MIC2 (``compress_multi_frame``,
+independent or temporal), MIC3 (``compress_wsi``) and MICR
+(``compress_rgb`` wrapped by ``write_micr``), with the host readers of
+each (``decompress_single_frame``, ``decompress_parallel_strips``,
+``decompress_parallel_strips_adaptive``, ``decompress_multi_frame``,
+``decompress_frame``, ``decompress_wsi_tile`` / ``_region``,
+``decompress_rgb``) and ``read_dicom`` for DICOM part-10 files; the
+stages under them (RLE, the predictors, the fused Delta+RLE, the FSE /
+tANS and rANS coders) are exported under ``mic_tpu``'s names and its
+reference-name aliases (``FSECompressU16``, ...).  They decode with the
+entropy stage on the GPU too: ``fse_decompress_device_batch`` decodes
+FF 02/04/84/08 streams through a hand-written tANS kernel (1-state
+streams and streams past its caps on the host), and the
+``decompress_*_device`` functions of ``tpu.ref_decode`` serve MIC1
+frames, PICS containers, MIC2 series and MIC3 pyramids through it;
+``tpu.ingest`` (``transcode_frame``, ``transcode_pics``,
+``transcode_auto``, ``ingest_plan``) transcodes them to MICW,
+byte-identical to ``mic_tpu.tpu.ingest``.
 
 The device RGB, WSI and series containers ride the same kernels: MWR3
 (``micwr_compress`` / ``micwr_compress_device_many`` / ``micwr_decode_many``,
@@ -31,17 +45,92 @@ the YCoCg-R transform on the GPU through ``tpu.kernels``), W3D1
 and the device-format MIC2 (``compress_multi_frame_device`` /
 ``decompress_multi_frame_device``).  ``tpu.kernels`` also holds the 5/3
 lifting wavelet (``wavelet_forward_2d_separated`` and its inverse).
-``python -m mic_tpu_torch.cli`` drives the MICW and MWR3 paths.
+``python -m mic_tpu_torch.cli`` drives the host formats and the MICW and
+MWR3 paths.
 
-Every entry point takes an explicit ``torch.device``.  On the CPU the
-kernels' plain PyTorch versions run instead, which is how the tests hold
-the port against ``mic_tpu``.  The package imports nothing of
+Every device entry point takes an explicit ``torch.device``.  On the CPU
+the kernels' plain PyTorch versions run instead, which is how the tests
+hold the port against ``mic_tpu``.  The package imports nothing of
 ``mic_tpu`` and never imports jax: the host-side format code it shares
-with ``mic_tpu`` is copied into ``mic_tpu_torch.ops`` and
-``mic_tpu_torch.tpu``, each copy pinned to its original by a test.
+with ``mic_tpu`` is copied into ``mic_tpu_torch.ops``, ``.models``,
+``.parallel``, ``.utils`` and ``.tpu``, each copy pinned to its original
+by a test.
 """
 
-from .parallel.multiframe import compress_multi_frame_device, decompress_multi_frame_device
+from .models.rgb import compress_rgb, decompress_rgb
+from .models.single_frame import (
+    compress_residual_frame,
+    compress_single_frame,
+    compress_single_frame_4state,
+    compress_single_frame_8state,
+    compress_single_frame_grad,
+    compress_single_frame_rans8,
+    decode_frame,
+    decompress_residual_frame,
+    decompress_single_frame,
+    decompress_single_frame_grad,
+)
+from .ops.deltarle import (
+    delta_rle_compress,
+    delta_rle_decompress,
+    grad_delta_rle_compress,
+    grad_delta_rle_decompress,
+    zz_delta_rle_compress,
+    zz_delta_rle_decompress,
+)
+from .ops.fse import IncompressibleError, UseRLEError
+from .ops.fse_codec import (
+    ScratchU16,
+    fse_compress,
+    fse_compress_2state,
+    fse_compress_4state,
+    fse_compress_8state,
+    fse_decompress,
+    fse_decompress_2state,
+    fse_decompress_4state,
+    fse_decompress_8state,
+    fse_decompress_auto,
+)
+from .ops.predictors import (
+    delta_compress,
+    delta_decompress,
+    delta_zz_compress,
+    delta_zz_decompress,
+    grad_delta_compress,
+    grad_delta_decompress,
+    med_delta_compress,
+    med_delta_decompress,
+    temporal_delta_decode,
+    temporal_delta_encode,
+    unzigzag,
+    zigzag,
+)
+from .ops.rans import rans_compress_8state, rans_decompress_8state
+from .ops.rle import rle_compress, rle_decompress
+from .parallel.multiframe import (
+    compress_multi_frame,
+    compress_multi_frame_device,
+    decompress_frame,
+    decompress_multi_frame,
+    decompress_multi_frame_device,
+)
+from .parallel.strips import (
+    compress_parallel_strips,
+    compress_parallel_strips_4state,
+    compress_parallel_strips_8state,
+    decompress_parallel_strips,
+)
+from .parallel.strips_adaptive import (
+    compress_parallel_strips_adaptive,
+    decompress_parallel_strips_adaptive,
+)
+from .parallel.wsi import (
+    WSIOptions,
+    compress_wsi,
+    decompress_wsi_region,
+    decompress_wsi_tile,
+    read_wsi_header,
+)
 from .tpu.ingest import ingest_plan, transcode_auto, transcode_frame, transcode_pics
 from .tpu.kernels import wavelet_forward_2d_separated, wavelet_inverse_2d_separated
 from .tpu.rans_encode import micw_compress_device, micw_compress_device_many
@@ -73,21 +162,107 @@ from .tpu.strips import (
 )
 from .tpu.tans_decode import fse_decompress_device_batch
 from .tpu.wsi_device import w3d_compress, w3d_decompress_level, w3d_decompress_region, w3d_header
+from .utils.dicom import DicomImage, read_dicom
+from .utils.io import read_mic1, read_micr, write_mic1, write_micr
+
+# Reference-name aliases (Go API surface), as mic_tpu defines them.
+FSECompressU16 = fse_compress
+FSEDecompressU16 = fse_decompress
+FSECompressU16TwoState = fse_compress_2state
+FSEDecompressU16TwoState = fse_decompress_2state
+FSECompressU16FourState = fse_compress_4state
+FSEDecompressU16FourState = fse_decompress_4state
+FSECompressU16EightState = fse_compress_8state
+FSEDecompressU16EightState = fse_decompress_8state
+FSEDecompressU16Auto = fse_decompress_auto
+RANSCompressU16EightState = rans_compress_8state
+RANSDecompressU16EightState = rans_decompress_8state
+CompressSingleFrame = compress_single_frame
+CompressSingleFrame4State = compress_single_frame_4state
+CompressSingleFrame8State = compress_single_frame_8state
+CompressSingleFrameGrad = compress_single_frame_grad
+DecompressSingleFrame = decompress_single_frame
+DecompressSingleFrameGrad = decompress_single_frame_grad
+TemporalDeltaEncode = temporal_delta_encode
+TemporalDeltaDecode = temporal_delta_decode
+ZigZag = zigzag
+UnZigZag = unzigzag
 
 __all__ = [
-    "MicwDecodePlan",
+    "compress_multi_frame",
     "compress_multi_frame_device",
+    "compress_parallel_strips",
+    "compress_parallel_strips_4state",
+    "compress_parallel_strips_8state",
+    "compress_parallel_strips_adaptive",
+    "compress_residual_frame",
+    "compress_rgb",
+    "compress_single_frame",
+    "compress_single_frame_4state",
+    "compress_single_frame_8state",
+    "compress_single_frame_grad",
+    "compress_single_frame_rans8",
+    "compress_wsi",
+    "CompressSingleFrame",
+    "CompressSingleFrame4State",
+    "CompressSingleFrame8State",
+    "CompressSingleFrameGrad",
+    "decode_frame",
+    "decompress_frame",
     "decompress_frames_device",
     "decompress_mic2_device",
     "decompress_mic2_frame_device",
+    "decompress_multi_frame",
     "decompress_multi_frame_device",
+    "decompress_parallel_strips",
+    "decompress_parallel_strips_adaptive",
     "decompress_pics_device",
     "decompress_pics_device_many",
+    "decompress_residual_frame",
+    "decompress_rgb",
+    "decompress_single_frame",
+    "decompress_single_frame_grad",
     "decompress_wsi_level_device",
+    "decompress_wsi_region",
     "decompress_wsi_region_device",
+    "decompress_wsi_tile",
     "decompress_wsi_tile_device",
+    "DecompressSingleFrame",
+    "DecompressSingleFrameGrad",
+    "delta_compress",
+    "delta_decompress",
+    "delta_rle_compress",
+    "delta_rle_decompress",
+    "delta_zz_compress",
+    "delta_zz_decompress",
+    "DicomImage",
+    "fse_compress",
+    "fse_compress_2state",
+    "fse_compress_4state",
+    "fse_compress_8state",
+    "fse_decompress",
+    "fse_decompress_2state",
+    "fse_decompress_4state",
+    "fse_decompress_8state",
+    "fse_decompress_auto",
     "fse_decompress_device_batch",
+    "FSECompressU16",
+    "FSECompressU16EightState",
+    "FSECompressU16FourState",
+    "FSECompressU16TwoState",
+    "FSEDecompressU16",
+    "FSEDecompressU16Auto",
+    "FSEDecompressU16EightState",
+    "FSEDecompressU16FourState",
+    "FSEDecompressU16TwoState",
+    "grad_delta_compress",
+    "grad_delta_decompress",
+    "grad_delta_rle_compress",
+    "grad_delta_rle_decompress",
+    "IncompressibleError",
     "ingest_plan",
+    "med_delta_compress",
+    "med_delta_decompress",
     "micw_compress",
     "micw_compress_device",
     "micw_compress_device_many",
@@ -96,18 +271,44 @@ __all__ = [
     "micw_decompress_device",
     "micw_decompress_scan",
     "micw_parse",
+    "MicwDecodePlan",
     "micwr_compress",
     "micwr_compress_device",
     "micwr_compress_device_many",
     "micwr_decode_many",
     "micwr_decompress_device",
+    "rans_compress_8state",
+    "rans_decompress_8state",
+    "RANSCompressU16EightState",
+    "RANSDecompressU16EightState",
+    "read_dicom",
+    "read_mic1",
+    "read_micr",
+    "read_wsi_header",
+    "rle_compress",
+    "rle_decompress",
+    "ScratchU16",
+    "temporal_delta_decode",
+    "temporal_delta_encode",
+    "TemporalDeltaDecode",
+    "TemporalDeltaEncode",
     "transcode_auto",
     "transcode_frame",
     "transcode_pics",
+    "UnZigZag",
+    "unzigzag",
+    "UseRLEError",
     "w3d_compress",
     "w3d_decompress_level",
     "w3d_decompress_region",
     "w3d_header",
     "wavelet_forward_2d_separated",
     "wavelet_inverse_2d_separated",
+    "write_mic1",
+    "write_micr",
+    "WSIOptions",
+    "ZigZag",
+    "zigzag",
+    "zz_delta_rle_compress",
+    "zz_delta_rle_decompress",
 ]

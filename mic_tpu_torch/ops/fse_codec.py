@@ -1,11 +1,11 @@
-"""Host decoders of the reference's FSE / tANS streams for 1/2/4/8
-interleaved states, the magic-byte dispatch, and the 4-state encoder.
+"""Host encoders and decoders of the reference's FSE / tANS streams for
+1/2/4/8 interleaved states, and the magic-byte dispatch.
 
-A numpy copy of the decode side of ``mic_tpu.ops.fse_codec`` and of its
-4-state encoder (same names, same outputs; the decoders pinned by
-``tests/test_torch_tans_decode.py``, the encoder by
-``tests/test_torch_mesh.py``; ``dryrun.py`` encodes its tANS streams
-with it).
+A numpy copy of ``mic_tpu.ops.fse_codec`` (same names, same outputs; the
+decoders pinned by ``tests/test_torch_tans_decode.py``, the 4-state
+encoder by ``tests/test_torch_mesh.py``, the others and ``ScratchU16``
+by ``tests/test_torch_host_writers.py``; ``dryrun.py`` encodes its tANS
+streams with the 4-state encoder).
 Stream formats (byte-compatible with the reference):
 
 * 1-state: ``[writeCount header][reverse bitstream]`` (fsecompressu16.go:19)
@@ -49,7 +49,11 @@ __all__ = [
     "fse_decompress_4state",
     "fse_decompress_8state",
     "fse_decompress_auto",
+    "fse_compress",
+    "fse_compress_2state",
     "fse_compress_4state",
+    "fse_compress_8state",
+    "ScratchU16",
 ]
 
 MAGIC_2STATE = b"\xff\x02"
@@ -101,21 +105,43 @@ def _encode_bitstream(data: np.ndarray, norm: np.ndarray, symbol_len: int, table
     return w.close()
 
 
-def fse_compress_4state(data, table_log: int = DEFAULT_TABLE_LOG) -> bytes:
-    """Four-state FSE compress (reference FSECompressU16FourState,
-    fse4state.go:24): ``MAGIC_4STATE``, the count, the header and the
-    bitstream."""
+def _compress_n_state(
+    data: np.ndarray, n_states: int, magic: bytes | None, table_log: int, min_len: int
+) -> bytes:
     data = np.asarray(data, dtype=np.uint16)
     n = len(data)
-    if n <= 3:
+    if n <= min_len:
         raise IncompressibleError
     if n > (2 << 30) - 1:
         raise ValueError("input too big, must be < 2GB")
     norm, symbol_len, actual_tl, header = _prepare_tables(data, table_log)
-    out = header + _encode_bitstream(data, norm, symbol_len, actual_tl, 4)
+    bits = _encode_bitstream(data, norm, symbol_len, actual_tl, n_states)
+    out = header + bits
     if len(out) >= n * 2:
         raise IncompressibleError
-    return MAGIC_4STATE + int(n).to_bytes(4, "little") + out
+    if magic is None:
+        return out
+    return magic + int(n).to_bytes(4, "little") + out
+
+
+def fse_compress(data, table_log: int = DEFAULT_TABLE_LOG) -> bytes:
+    """Single-state FSE compress (reference FSECompressU16, fsecompressu16.go:19)."""
+    return _compress_n_state(data, 1, None, table_log, 1)
+
+
+def fse_compress_2state(data, table_log: int = DEFAULT_TABLE_LOG) -> bytes:
+    """Two-state FSE (reference FSECompressU16TwoState, fse2state.go:22)."""
+    return _compress_n_state(data, 2, MAGIC_2STATE, table_log, 1)
+
+
+def fse_compress_4state(data, table_log: int = DEFAULT_TABLE_LOG) -> bytes:
+    """Four-state FSE (reference FSECompressU16FourState, fse4state.go:24)."""
+    return _compress_n_state(data, 4, MAGIC_4STATE, table_log, 3)
+
+
+def fse_compress_8state(data, table_log: int = DEFAULT_TABLE_LOG) -> bytes:
+    """Eight-state FSE (reference FSECompressU16EightState, fse8state.go:31)."""
+    return _compress_n_state(data, 8, MAGIC_8STATE_FSE, table_log, 7)
 
 
 def _decode_bitstream(
@@ -221,3 +247,34 @@ def fse_decompress_auto(data: bytes, limit: int = DECOMPRESS_LIMIT_DEFAULT):
     if len(data) >= 2 and data[:2] == MAGIC_2STATE:
         return fse_decompress_2state(data, limit)
     return fse_decompress(data, limit)
+
+
+class ScratchU16:
+    """API-parity shim for the reference's ScratchU16 (fseu16.go:62-103):
+    per-block knobs carried across calls.  The numpy tier has no buffer
+    reuse to manage, so this only carries the tunables.
+
+    >>> s = ScratchU16(); s.TableLog = 12
+    >>> blob = s.compress(data); out = s.decompress(blob)
+    """
+
+    def __init__(self) -> None:
+        self.TableLog = DEFAULT_TABLE_LOG
+        self.MaxSymbolValue = 65535
+        self.DecompressLimit = DECOMPRESS_LIMIT_DEFAULT
+        self.Out: bytes | None = None
+        self.OutU16 = None
+
+    def compress(self, data, n_states: int = 1) -> bytes:
+        fn = {
+            1: fse_compress,
+            2: fse_compress_2state,
+            4: fse_compress_4state,
+            8: fse_compress_8state,
+        }[n_states]
+        self.Out = fn(data, table_log=self.TableLog)
+        return self.Out
+
+    def decompress(self, blob: bytes):
+        self.OutU16 = fse_decompress_auto(blob, limit=self.DecompressLimit)
+        return self.OutU16

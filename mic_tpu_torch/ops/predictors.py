@@ -1,10 +1,12 @@
 """Spatial predictors and the escaped residual stream: the encode side of
 the zz and avg strip modes, and the host decode of the reference formats.
 
-A numpy copy of the parts of ``mic_tpu.ops.predictors`` the port needs,
-with the same names and outputs (pinned by
-``tests/test_torch_isolation.py``).  With ``depth = bit_length(maxValue)``,
-``thr = (1<<(depth-1))-1`` and ``delim = (1<<depth)-1``, each pixel
+A numpy copy of ``mic_tpu.ops.predictors``, with the same names and
+outputs (pinned by ``tests/test_torch_isolation.py``; the standalone
+codecs ``delta_*`` / ``grad_delta_*`` / ``med_delta_*`` / ``delta_zz_*``
+by ``tests/test_torch_host_writers.py``).  With ``depth =
+bit_length(maxValue)``, ``thr = (1<<(depth-1))-1`` and ``delim =
+(1<<depth)-1``, each pixel
 encodes as ``thr + diff`` when ``|diff| < thr``, else as ``delim``
 followed by the raw pixel (deltacompressu16.go:11-52).
 """
@@ -20,6 +22,15 @@ __all__ = [
     "predictor_encode",
     "parse_escaped",
     "predictor_decode",
+    "delta_compress",
+    "delta_decompress",
+    "grad_delta_compress",
+    "grad_delta_decompress",
+    "med_delta_compress",
+    "med_delta_decompress",
+    "delta_zz_compress",
+    "delta_zz_decompress",
+    "temporal_delta_encode",
     "temporal_delta_decode",
 ]
 
@@ -209,6 +220,77 @@ def predictor_decode(
         flat[pos] = np.where(rflat[pos], vflat[pos], res)
 
     return out.astype(np.uint16)
+
+
+# ── Standalone (non-RLE) predictor codecs, mirroring the reference API ──
+
+
+def _std_compress(img, width, height, max_value, kind) -> np.ndarray:
+    stream = predictor_encode(img, width, height, max_value, kind)
+    return np.concatenate([[np.uint16(max_value)], stream]).astype(np.uint16)
+
+
+def _std_decompress(stream, width, height, kind) -> np.ndarray:
+    s = np.asarray(stream, dtype=np.uint16)
+    max_value = int(s[0])
+    _, delim = delta_params(max_value)
+    values, is_raw = parse_escaped(s[1:], delim, width * height)
+    return predictor_decode(values, is_raw, width, height, max_value, kind).ravel()
+
+
+def delta_compress(img, width, height, max_value):
+    """Reference DeltaCompressU16 (deltacompressu16.go:11)."""
+    return _std_compress(img, width, height, max_value, "avg")
+
+
+def delta_decompress(stream, width, height):
+    """Reference DeltaDecompressU16 (deltacompressu16.go:54)."""
+    return _std_decompress(stream, width, height, "avg")
+
+
+def grad_delta_compress(img, width, height, max_value):
+    """Reference GradDeltaCompressU16 (deltagradcompressu16.go:20)."""
+    return _std_compress(img, width, height, max_value, "grad")
+
+
+def grad_delta_decompress(stream, width, height):
+    """Reference GradDeltaDecompressU16 (deltagradcompressu16.go:65)."""
+    return _std_decompress(stream, width, height, "grad")
+
+
+def med_delta_compress(img, width, height, max_value):
+    """Reference MEDDeltaCompressU16 (deltamedcompressu16.go:15)."""
+    return _std_compress(img, width, height, max_value, "med")
+
+
+def med_delta_decompress(stream, width, height):
+    """Reference MEDDeltaDecompressU16 (deltamedcompressu16.go:56)."""
+    return _std_decompress(stream, width, height, "med")
+
+
+def _zz_escaped(img, width, height, max_value) -> np.ndarray:
+    """Left-delta with ZigZag mapping and the escape rule, without the
+    leading maxValue word (deltazigzagcompressu16.go:20-54)."""
+    img = np.asarray(img, dtype=np.uint16).reshape(height, width)
+    thr, delim = delta_params(max_value)
+    p = img.astype(np.int64)
+    left = np.zeros_like(p)
+    left[:, 1:] = p[:, :-1]
+    diff = p - left
+    escape = np.abs(diff) >= thr
+    coded = zigzag(diff.astype(np.int16)).ravel()
+    return _interleave_escapes(coded, img.ravel(), escape.ravel(), delim)
+
+
+def delta_zz_compress(img, width, height, max_value):
+    """Reference DeltaZZU16.Compress (deltazigzagcompressu16.go:20-54)."""
+    stream = _zz_escaped(img, width, height, max_value)
+    return np.concatenate([[np.uint16(max_value)], stream]).astype(np.uint16)
+
+
+def delta_zz_decompress(stream, width, height):
+    """Reference DeltaZZU16.Decompress (deltazigzagcompressu16.go:56-73)."""
+    return _std_decompress(stream, width, height, "zz")
 
 
 def temporal_delta_encode(current, prev) -> np.ndarray:

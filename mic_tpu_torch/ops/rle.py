@@ -1,19 +1,106 @@
 """RLE of the MICW strip modes (structure-of-arrays, encode side) and of
-the reference formats (interleaved blocks, decode side).
+the reference formats (interleaved blocks, both sides).
 
-Numpy copies of ``mic_tpu.ops.rle``'s ``soa_encode``, ``rle_expand``,
-``rle_decompress`` and ``rle_decompress_stream`` (same names, same
-outputs; pinned by ``tests/test_torch_isolation.py``).  The MICW decode
-side is the port's device expand (``tpu/post.py:soa_rle_expand``); the
+Numpy copies of ``mic_tpu.ops.rle``'s ``RleEncoder``, ``rle_compress``,
+``soa_encode``, ``rle_expand``, ``rle_decompress`` and
+``rle_decompress_stream`` (same names, same outputs; the decode side
+and ``soa_encode`` pinned by ``tests/test_torch_isolation.py``, the
+encoder by ``tests/test_torch_host_writers.py``).  The MICW decode side
+is the port's device expand (``tpu/post.py:soa_rle_expand``); the
 reference formats' blocks expand here, on the host, after the device
 entropy decode (``tpu/ref_decode.py``).
+
+The reference grammar over uint16 words, after a leading ``maxValue``
+word: a same-run ``[count][value]`` with ``count < midCount``, a
+diff-run ``[midCount + k][v1 .. vk]``; ``midCount = (1 << (depth-1)) -
+1`` with ``depth = bit_length(maxValue)``.  ``RleEncoder``'s buffered
+mode switch (rlecompressu16.go:15-83) defines the bytes: same-runs of
+at least 3, a flush two symbols early on count overflow.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["soa_encode", "rle_expand", "rle_decompress", "rle_decompress_stream"]
+__all__ = ["RleEncoder", "rle_compress", "soa_encode", "rle_expand", "rle_decompress",
+           "rle_decompress_stream"]
+
+
+class RleEncoder:
+    """Streaming RLE encoder replicating the reference state machine exactly
+    (rlecompressu16.go:15-83)."""
+
+    __slots__ = ("out", "b", "mid_count", "same")
+
+    def __init__(self, width: int, height: int, max_value: int) -> None:
+        depth = int(max_value).bit_length()
+        self.mid_count = (1 << (depth - 1)) - 1
+        self.out: list[int] = [int(max_value)]
+        self.b: list[int] = []
+        self.same = False
+
+    def encode(self, symbol: int) -> None:
+        b = self.b
+        bc = len(b)
+        if bc < 2:
+            b.append(symbol)
+            return
+        prev_plus_one = b[bc - 2]
+        prev = b[bc - 1]
+
+        if prev_plus_one == prev and prev == symbol:
+            if not self.same and bc > 2:
+                # Flush the differing prefix, keep the trailing pair.
+                self.out.append(self.mid_count + bc - 2)
+                self.out.extend(b[: bc - 2])
+                del b[: bc - 2]
+            self.same = True
+        else:
+            if self.same and bc > 2:
+                self.out.append(bc)
+                self.out.append(b[0])
+                b.clear()
+            self.same = False
+
+        bc = len(b)
+        if bc >= self.mid_count - 1:
+            if self.same:
+                self.out.append(bc - 2)
+                self.out.append(b[0])
+            else:
+                self.out.append(self.mid_count + bc - 2)
+                self.out.extend(b[: bc - 2])
+            del b[: bc - 2]
+        b.append(symbol)
+
+    def flush(self) -> None:
+        b = self.b
+        bc = len(b)
+        if bc > 0:
+            if self.same:
+                self.out.append(bc)
+                self.out.append(b[0])
+            else:
+                self.out.append(self.mid_count + bc)
+                self.out.extend(b)
+
+    def compress(self, data) -> np.ndarray:
+        """Standalone compress with a 32-bit length prefix stored as two
+        words (rlecompressu16.go:85-93)."""
+        data = np.asarray(data, dtype=np.uint16)
+        n = len(data)
+        self.out.append((n >> 16) & 0xFFFF)
+        self.out.append(n & 0xFFFF)
+        enc = self.encode
+        for v in data.tolist():
+            enc(v)
+        self.flush()
+        return np.array(self.out, dtype=np.uint16)
+
+
+def rle_compress(data, width: int, height: int, max_value: int) -> np.ndarray:
+    """One-shot RLE compress (reference RleCompressU16.Compress)."""
+    return RleEncoder(width, height, max_value).compress(data)
 
 
 def soa_encode(tokens, mid_count: int, min_same: int = 3):

@@ -1,10 +1,14 @@
-"""MIC2 multi-frame container (reference multiframe.go): copies of
-``mic_tpu.parallel.multiframe``'s ``MIC2Header``, ``write_mic2``,
-``read_mic2_header`` and ``extract_frame`` (pinned by
-``tests/test_torch_ref_decode.py`` and ``tests/test_torch_multiframe.py``),
-and the device-format series: ``compress_multi_frame_device`` /
-``decompress_multi_frame_device``, whose frame payloads are MICW blobs,
-with an added ``device``.  Format (multiframe.go:14-32)::
+"""MIC2 multi-frame container (reference multiframe.go +
+multiframecompress.go): a copy of ``mic_tpu.parallel.multiframe``.  The
+container code (``MIC2Header``, ``write_mic2``, ``read_mic2_header``,
+``extract_frame``) is pinned by ``tests/test_torch_ref_decode.py`` and
+``tests/test_torch_multiframe.py``; the host series
+(``compress_multi_frame``, ``decompress_multi_frame``,
+``decompress_frame``) by ``tests/test_torch_host_writers.py``; the
+device-format series, whose frame payloads are MICW blobs
+(``compress_multi_frame_device`` / ``decompress_multi_frame_device``),
+takes an added ``device``, as do the host readers for a frame that is a
+MICW blob.  Format (multiframe.go:14-32)::
 
     "MIC2" | width u32 | height u32 | frameCount u32
     flags u8 (bit0 = spatial, always set; bit1 = temporal) | 3 reserved
@@ -21,6 +25,12 @@ import struct
 
 import numpy as np
 
+from ..models.single_frame import (
+    compress_residual_frame,
+    compress_single_frame,
+    decompress_residual_frame,
+    decompress_single_frame,
+)
 from ..ops.predictors import temporal_delta_decode, temporal_delta_encode
 
 __all__ = [
@@ -28,6 +38,9 @@ __all__ = [
     "write_mic2",
     "read_mic2_header",
     "extract_frame",
+    "compress_multi_frame",
+    "decompress_multi_frame",
+    "decompress_frame",
     "compress_multi_frame_device",
     "decompress_multi_frame_device",
 ]
@@ -93,6 +106,79 @@ def extract_frame(data: bytes, entries, data_offset: int, frame_idx: int) -> byt
     if end > len(data):
         raise ValueError(f"MIC2: frame {frame_idx} data extends beyond file")
     return data[start:end]
+
+
+def compress_multi_frame(frames, width, height, max_value, temporal: bool) -> bytes:
+    """Reference CompressMultiFrame (multiframecompress.go:179)."""
+    if len(frames) == 0:
+        raise ValueError("no frames to compress")
+    blobs = []
+    for i, frame in enumerate(frames):
+        frame = np.asarray(frame, dtype=np.uint16)
+        if temporal and i > 0:
+            residuals = temporal_delta_encode(frame, np.asarray(frames[i - 1], dtype=np.uint16))
+            res_max = int(residuals.max()) if residuals.size else 0
+            blobs.append(compress_residual_frame(residuals, res_max))
+        else:
+            blobs.append(compress_single_frame(frame, width, height, max_value))
+    return write_mic2(MIC2Header(width, height, len(frames), temporal), blobs)
+
+
+def _micw_plane(blob: bytes, device):
+    """A device-format frame payload (a MICW blob, as
+    ``compress_multi_frame_device`` writes) decoded on ``device``."""
+    import torch
+
+    from ..tpu.strips import micw_decompress_device
+
+    return np.asarray(micw_decompress_device(blob, torch.device(device))[0], dtype=np.uint16)
+
+
+def decompress_multi_frame(data: bytes, device="cuda"):
+    """Reference DecompressMultiFrame — returns (frames, header).  A frame
+    stored as a MICW blob (device-format containers) decodes on
+    ``device``; host frames decode with numpy."""
+    hdr, entries, data_offset = read_mic2_header(data)
+    frames = []
+    prev = None
+    for i in range(hdr.frame_count):
+        blob = extract_frame(data, entries, data_offset, i)
+        if hdr.temporal and i > 0:
+            if blob[:4] == b"MICW":
+                residuals = _micw_plane(blob, device)
+            else:
+                residuals = decompress_residual_frame(blob)
+            pixels = temporal_delta_decode(residuals, prev)
+        elif blob[:4] == b"MICW":
+            pixels = _micw_plane(blob, device)
+        else:
+            pixels = decompress_single_frame(blob, hdr.width, hdr.height)
+        frames.append(pixels)
+        prev = pixels
+    return frames, hdr
+
+
+def decompress_frame(data: bytes, frame_idx: int, device="cuda"):
+    """Reference DecompressFrame — O(1) in independent mode, sequential
+    0..k in temporal mode.  Returns (pixels, header).  An independent
+    frame stored as a MICW blob decodes on ``device``."""
+    hdr, entries, data_offset = read_mic2_header(data)
+    if frame_idx < 0 or frame_idx >= hdr.frame_count:
+        raise ValueError(f"frame index {frame_idx} out of range [0, {hdr.frame_count})")
+    if not hdr.temporal:
+        blob = extract_frame(data, entries, data_offset, frame_idx)
+        if blob[:4] == b"MICW":
+            return _micw_plane(blob, device), hdr
+        return decompress_single_frame(blob, hdr.width, hdr.height), hdr
+    prev = None
+    for i in range(frame_idx + 1):
+        blob = extract_frame(data, entries, data_offset, i)
+        if i > 0:
+            residuals = decompress_residual_frame(blob)
+            prev = temporal_delta_decode(residuals, prev)
+        else:
+            prev = decompress_single_frame(blob, hdr.width, hdr.height)
+    return prev, hdr
 
 
 def compress_multi_frame_device(frames, width, height, max_value, device, lanes: int = 128,

@@ -14,7 +14,9 @@ pinned to the originals.
   decode-side copies of ``deltarle``, ``color`` and ``models.rgb``.
   ``bitio``, ``fse_codec`` and ``rans`` are pinned in
   ``tests/test_torch_tans_decode.py`` (their encoders, which the dry run
-  uses, in ``tests/test_torch_mesh.py``).
+  uses, in ``tests/test_torch_mesh.py``); the reference formats' writers
+  and host readers in ``tests/test_torch_host_writers.py``, the DICOM
+  reader in ``tests/test_torch_dicom.py``.
 
 Tolerance 0: these define the bytes of the format.
 """
@@ -45,7 +47,9 @@ ROOT = Path(__file__).resolve().parent.parent
                                     "mic_tpu_torch.tpu.wsi_device",
                                     "mic_tpu_torch.tpu.scan_decode",
                                     "mic_tpu_torch.tpu.decode",
-                                    "mic_tpu_torch.tpu.mesh", "mic_tpu_torch.dryrun"])
+                                    "mic_tpu_torch.tpu.mesh", "mic_tpu_torch.dryrun",
+                                    "mic_tpu_torch.utils.dicom",
+                                    "mic_tpu_torch.parallel.strips_adaptive"])
 def test_import_loads_no_mic_tpu(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'mic_tpu' or m.startswith('mic_tpu.') "
