@@ -219,7 +219,34 @@ Phases (any failure exits non-zero; nothing is caught):
    ``ingest_plan(..., device_encode=True, entropy="device")``, the plan
    decoded and every strip verified; the encode and direct kernels must
    have launched.  Prints the phase's wall seconds.
-13. Prints the kernel report as one JSON line (with each kernel's bound:
+13. The host tier's last modules against the card.  (a) The host oracles
+   (``strips.micw_decompress_host`` on every ``.micw`` of ``web/testdata``
+   and ``tests/data/torch_port``, ``rgb_device.micwr_decompress_host`` on
+   ``tissue_dev.mwr3``; numpy, host seconds a container) against
+   ``micw_decode_many`` / ``micwr_decode_many`` on the card and the
+   ``.raw`` pixels, every pixel; the card decode's launches counted from
+   0 (the direct, r-mode and lanes kernels must each have launched).
+   (b) ``python -m mic_tpu_torch.cli`` on ``CT_2s.raw`` (512x512), one
+   process a run, all started together: ``-micw`` at each ``-entropy``
+   with ``-predictor auto-fast`` and ``auto-r`` and no ``-device`` (the
+   card), each equal to the port's host ``strips.micw_compress`` with
+   that pairing; ``-micw -device`` (bare), equal to its zzd / standard
+   bytes; each decoded back by the CLI's ``-decode`` in this process on
+   the card, its launches counted; ``-wavelet`` and ``-gap``, decoded by
+   the port's host decoders.  (c) The host pipelines at full size, in
+   ``PIPELINE_PROCS`` spawned processes: wavelet V2 (5 levels), gap
+   removal and the Delta+RLE+Huffman payload on phase 12's 2048x2048 CT
+   mosaic, V1 and V1.5 on ``CT_2s.raw``; host seconds, MB/s and ratio of
+   each encode and decode, every pixel equal.  (d) The 5/3 lift on the
+   card (``kernels.wavelet_forward_2d_separated`` at the level count V2's
+   header records) against the copied host
+   ``ops.wavelet.wt53_forward_2d_separated`` on the mosaic, int32, the
+   whole array, and its inverse back to the pixels; ms by CUDA events
+   beside the host transform's seconds; its row launches join the
+   report's ``wt53_rows_*`` counts.  (e) ``available()`` of the
+   comparators ``utils.charls`` and ``utils.j2k``; where present, a round
+   trip of ``CT_2s.raw`` and its ratio.  Prints the phase's wall seconds.
+14. Prints the kernel report as one JSON line (with each kernel's bound:
    the larger of its bytes over 3.35 TB/s and its integer operations over
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -368,6 +395,8 @@ SERIES_FRAMES = 32  # phase 12's MIC2 series (16.8 MB a mode at 512x512)
 MOSAIC_COPIES = 4  # phase 12's mosaic: 4x4 copies of CT_2s.raw, 2048x2048
 WSI_CROP = 2048  # phase 12's MIC3: a WSI_CROP square of phase 8's slide
 WRITER_PROCS = 8  # phase 12's writer processes (one a CPU core of an 8-core H100 host)
+PIPELINE_PROCS = 5  # phase 13's pipeline processes: one a pipeline run
+CLI_PAIRINGS = [(e, p) for p in ("auto-fast", "auto-r") for e in ("standard", "alias", "best")]
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
 ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
 
@@ -2527,6 +2556,298 @@ def _writers_phase(dev):
     return {"tans_decode": sum(sum(v) for v in launched.values()), **counts, **direct}
 
 
+def _pipeline_job(job):
+    """Phase 13 (c), one host pipeline in a worker process: encode and
+    decode ``job`` = (pipeline, mosaic copies or 0 for ``CT_2s.raw``);
+    returns (label, payload, input bytes, encode s, decode s, pixels
+    equal)."""
+    import numpy as np
+
+    from mic_tpu_torch.models import single_frame as sf
+    from mic_tpu_torch.models import wavelet_pipeline as wp
+    from mic_tpu_torch.ops import gapremoval
+
+    name, copies = job
+    px = _mosaic(copies).ravel() if copies else _raw_u16("CT_2s")
+    side = 512 * max(copies, 1)
+    mx = int(px.max())
+    wavelet = {"v2": "wavelet_v2_rle_fse", "v1": "wavelet_fse", "v1.5": "wavelet_rle_fse"}
+    frame = {"gap": (gapremoval.compress_single_frame_gap_removal,
+                     gapremoval.decompress_single_frame_gap_removal),
+             "huffman": (sf.compress_single_frame_huffman, sf.decompress_single_frame_huffman)}
+    t0 = time.perf_counter()
+    if name in wavelet:  # (pixels, rows, cols, max, levels); decode -> (pixels, rows, cols)
+        blob = getattr(wp, wavelet[name] + "_compress")(px, side, side, mx, 5)
+    else:
+        blob = frame[name][0](px, side, side, mx)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if name in wavelet:
+        out = getattr(wp, wavelet[name] + "_decompress")(blob)[0]
+    else:
+        out = frame[name][1](blob, side, side)
+    dec_s = time.perf_counter() - t0
+    return (f"{name} {side}x{side}", blob, px.nbytes, enc_s, dec_s,
+            bool(np.array_equal(out, px)))
+
+
+def _run_pipelines():
+    """Phase 13 (c): every pipeline job in PIPELINE_PROCS spawned
+    processes, longest first; returns {job: _pipeline_job's result}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = ([(name, MOSAIC_COPIES) for name in ("v2", "huffman", "gap")]
+            + [("v1.5", 0), ("v1", 0)])
+    with ProcessPoolExecutor(max_workers=PIPELINE_PROCS,
+                             mp_context=multiprocessing.get_context("spawn")) as ex:
+        results = list(ex.map(_pipeline_job, jobs))
+    return dict(zip(jobs, results))
+
+
+def _decode_counters():
+    """The decode wrappers whose launches phase 13 counts."""
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import scan_decode
+
+    return (rd.rans_decode_direct_groups, rd.rans_decode_rle_groups,
+            scan_decode.rans_decode_lanes_groups)
+
+
+def _zero_decode_counts() -> None:
+    for w in _decode_counters():
+        w.launches = 0
+        if hasattr(w, "family_launches"):
+            w.family_launches = dict.fromkeys(w.family_launches, 0)
+
+
+def _decode_counts() -> dict:
+    """{wrapper or front end: launches} since _zero_decode_counts, the
+    merged launches beside each front end they held."""
+    out = {}
+    for w in _decode_counters():
+        out[w.__name__] = w.launches
+        out.update(getattr(w, "family_launches", {}))
+    return out
+
+
+def _oracle_vs_card(dev) -> None:
+    """Phase 13 (a): the host oracles against the card and the pixels."""
+    import numpy as np
+
+    from mic_tpu_torch.tpu import kernels as K
+    from mic_tpu_torch.tpu.rgb_device import micwr_decode_many, micwr_decompress_host
+    from mic_tpu_torch.tpu.strips import micw_decode_many, micw_decompress_host
+
+    paths = sorted(TESTDATA.glob("*.micw")) + sorted(PORT_DATA.glob("*.micw"))
+    blobs = [p.read_bytes() for p in paths]
+    hosts = []
+    for path, blob in zip(paths, blobs):
+        t0 = time.perf_counter()
+        hosts.append(micw_decompress_host(blob))
+        print(f"oracle (a): micw_decompress_host {path.name}: {hosts[-1][1]}x{hosts[-1][2]}, "
+              f"{time.perf_counter() - t0:.3f} host s")
+    _zero_decode_counts()
+    cards = micw_decode_many(blobs, dev)
+    counts = _decode_counts()
+    bad = []
+    for path, (px, w, h), (cpx, cw, ch) in zip(paths, hosts, cards):
+        want = _fixture_pixels(path)
+        if (cw, ch) != (w, h) or not (np.array_equal(px, want) and np.array_equal(cpx, px)):
+            bad.append(path.name)
+    print(f"oracle (a): {len(paths)} MICW containers, host == card == .raw for "
+          f"{len(paths) - len(bad)}; the card decode's launches {counts}")
+    if bad:
+        raise AssertionError(f"host oracle, card decode and pixels disagree: {bad}")
+    if min(counts[w.__name__] for w in _decode_counters()) <= 0:
+        raise AssertionError(f"the card decode of the oracle's containers missed a kernel: {counts}")
+    blob = (TESTDATA / "tissue_dev.mwr3").read_bytes()
+    t0 = time.perf_counter()
+    rgb, w, h = micwr_decompress_host(blob)
+    host_s = time.perf_counter() - t0
+    _zero_decode_counts()
+    K.ycocgr_inverse.launches = 0
+    ((card, cw, ch),) = micwr_decode_many([blob], dev)
+    counts = dict(_decode_counts(), ycocgr_inverse=K.ycocgr_inverse.launches)
+    want = np.fromfile(TESTDATA / "tissue_dev.raw", np.uint8)
+    ok = (cw, ch) == (w, h) and np.array_equal(rgb, want) and np.array_equal(card, rgb)
+    print(f"oracle (a): micwr_decompress_host tissue_dev.mwr3 {w}x{h}: {host_s:.3f} host s, "
+          f"host == card == .raw {ok}; the card decode's launches {counts}")
+    if not ok or counts["ycocgr_inverse"] <= 0:
+        raise AssertionError(f"MWR3 oracle: equal {ok}, launches {counts}")
+
+
+def _fixture_pixels(path):
+    """The pixels a ``.micw`` fixture holds: its ``.raw``, CT_dev's for the
+    CT re-encodes, a channel of ``tissue_dev.raw`` for the tissue planes."""
+    import numpy as np
+
+    raw = path.with_suffix(".raw")
+    if raw.exists():
+        return np.fromfile(raw, "<u2")
+    if path.name.startswith("CT_dev"):
+        return _raw_u16("CT_dev")
+    return _tissue_plane(path.name[len("tissue_")])
+
+
+def _cli_on_card() -> None:
+    """Phase 13 (b): ``python -m mic_tpu_torch.cli`` on CT_2s.raw, one
+    process a run, all started together, each on the card (no ``-device
+    cpu``); each output checked here, the MICW ones decoded back by the
+    CLI's ``-decode`` in this process, on the card."""
+    import contextlib
+    import io
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mic_tpu_torch import cli
+    from mic_tpu_torch.models.wavelet_pipeline import wavelet_v2_rle_fse_decompress
+    from mic_tpu_torch.ops.gapremoval import decompress_single_frame_gap_removal
+    from mic_tpu_torch.tpu.strips import micw_compress
+
+    src = TESTDATA / "CT_2s.raw"
+    px = _raw_u16("CT_2s")
+    mx = int(px.max())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        runs = {f"micw {e} {p}": ["-micw", "-entropy", e, "-predictor", p]
+                for e, p in CLI_PAIRINGS}
+        runs.update({"micw -device": ["-micw", "-device"], "wavelet": ["-wavelet"],
+                     "gap": ["-gap"]})
+
+        def run(item):
+            label, flags = item
+            out = tmp / (label.replace(" ", "_") + ".bin")
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "mic_tpu_torch.cli", "-input", str(src),
+                                  "-width", "512", "-height", "512", *flags, "-output", str(out)],
+                                 cwd=ROOT, capture_output=True, text=True, timeout=300)
+            return label, res, out, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(runs)) as ex:
+            done = list(ex.map(run, runs.items()))
+        print(f"cli (b): {len(done)} CLI processes in {time.perf_counter() - t0:.3f} s wall")
+        for label, res, out, sec in done:
+            if res.returncode != 0:
+                raise AssertionError(f"cli {label}: exit {res.returncode}\n{res.stderr[-2000:]}")
+            blob = out.read_bytes()
+            if label.startswith("micw"):
+                e, p = ("standard", "zzd") if label == "micw -device" else label.split()[1:]
+                want = micw_compress(px, 512, 512, mx, entropy=e, predictor=p)
+                back = tmp / "back.raw"
+                _zero_decode_counts()
+                with contextlib.redirect_stdout(io.StringIO()):  # its "decoded ..." line
+                    rc = cli.main(["-decode", str(out), "-output", str(back)])
+                counts = {k: v for k, v in _decode_counts().items() if v}
+                ok = blob == want and rc == 0 and back.read_bytes() == src.read_bytes()
+                extra = f"equals host micw_compress({e}, {p}) and decodes back on the card: {ok}; " \
+                        f"-decode's launches {counts}"
+                if not ok or not counts:
+                    raise AssertionError(f"cli {label}: {extra}")
+            else:
+                dec = (wavelet_v2_rle_fse_decompress(blob)[0] if label == "wavelet"
+                       else decompress_single_frame_gap_removal(blob, 512, 512))
+                ok = np.array_equal(dec, px)
+                extra = f"decodes back on the host: {ok}"
+                if not ok:
+                    raise AssertionError(f"cli {label}: {extra}")
+            print(f"cli (b) {label}: {len(blob)} bytes, ratio {px.nbytes / len(blob):.4f}, "
+                  f"{sec:.3f} s in its process ({res.stdout.strip()}); {extra}")
+
+
+def _lift_on_card(dev, v2_blob) -> dict:
+    """Phase 13 (d): the 5/3 lift on the card against the copied host
+    transform at the V2 pipeline's shapes; returns the row launches."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    from mic_tpu_torch.ops.wavelet import wt53_forward_2d_separated
+    from mic_tpu_torch.tpu import kernels as K
+
+    rows, cols, _mx, levels = struct.unpack_from("<IIHB", v2_blob, 0)
+    img = _mosaic(MOSAIC_COPIES)
+    if img.shape != (rows, cols):
+        raise AssertionError(f"V2 header {rows}x{cols}, mosaic {img.shape}")
+    host = img.astype(np.int64)
+    t0 = time.perf_counter()
+    r, c = rows, cols
+    for _ in range(levels):
+        wt53_forward_2d_separated(host, r, c, cols)
+        r, c = (r + 1) // 2, (c + 1) // 2
+    host_s = time.perf_counter() - t0
+    if host.min() < -(1 << 31) or host.max() >= 1 << 31:
+        raise AssertionError("host coefficients leave int32")
+    x = torch.from_numpy(img.astype(np.int32)).to(dev)
+    kw = dict(rows=rows, cols=cols, levels=levels)
+    coeffs, c_f = _counted(f"wavelet_forward_2d_separated mosaic {cols}x{rows} levels={levels}",
+                           lambda: K.wavelet_forward_2d_separated(x, **kw),
+                           (K.wt53_rows_forward,))
+    back, c_i = _counted(f"wavelet_inverse_2d_separated mosaic {cols}x{rows} levels={levels}",
+                         lambda: K.wavelet_inverse_2d_separated(coeffs, **kw),
+                         (K.wt53_rows_inverse,))
+    torch.cuda.synchronize()
+    fwd_ok = torch.equal(coeffs.cpu(), torch.from_numpy(host.astype(np.int32)))
+    inv_ok = torch.equal(back, x)
+    fwd_ms = _cuda_ms(lambda: K.wavelet_forward_2d_separated(x, **kw), 5)
+    inv_ms = _cuda_ms(lambda: K.wavelet_inverse_2d_separated(coeffs, **kw), 5)
+    print(f"lift (d): mosaic {cols}x{rows}, {levels} levels (V2's header): card forward == "
+          f"host wt53_forward_2d_separated {fwd_ok} (int32, whole array), inverse gives the "
+          f"pixels {inv_ok}; forward_ms={fwd_ms:.3f} inverse_ms={inv_ms:.3f} (CUDA events), "
+          f"host forward {host_s:.3f} s")
+    if not (fwd_ok and inv_ok):
+        raise AssertionError(f"5/3 lift on the card: forward {fwd_ok}, inverse {inv_ok}")
+    return {**c_f, **c_i}
+
+
+def _comparators() -> None:
+    """Phase 13 (e): the comparators' availability, and a round trip of
+    CT_2s.raw through each one present."""
+    import numpy as np
+
+    from mic_tpu_torch.utils import charls, j2k
+
+    px = _raw_u16("CT_2s").reshape(512, 512)
+    print(f"comparators (e): charls.available()={charls.available()} "
+          f"j2k.available()={j2k.available()}")
+    for name, mod, kw in (("charls", charls, {"bits_per_sample": max(int(px.max()).bit_length(), 2)}),
+                          ("j2k", j2k, {})):
+        if not mod.available():
+            continue
+        t0 = time.perf_counter()
+        blob = mod.encode(px, **kw)
+        ok = np.array_equal(mod.decode(blob), px)
+        print(f"comparators (e): {name} CT_2s 512x512 round trip {ok}, ratio "
+              f"{px.nbytes / len(blob):.4f}, {time.perf_counter() - t0:.3f} host s")
+        if not ok:
+            raise AssertionError(f"{name} round trip of CT_2s.raw failed")
+
+
+def _host_tier_phase(dev) -> dict:
+    """Phase 13: (a)-(e) as the module docstring says; returns the 5/3 row
+    wrappers' launches in (d)."""
+    t_phase = time.perf_counter()
+    results = _run_pipelines()
+    print(f"pipelines (c): {len(results)} pipeline runs in {time.perf_counter() - t_phase:.3f} s "
+          f"wall ({PIPELINE_PROCS} processes, spawned)")
+    for label, blob, n_in, enc_s, dec_s, ok in results.values():
+        print(f"pipeline (c) {label}: encode {enc_s:.3f} host s ({n_in / enc_s / 1e6:.3f} MB/s), "
+              f"decode {dec_s:.3f} host s ({n_in / dec_s / 1e6:.3f} MB/s), ratio "
+              f"{n_in / len(blob):.4f} ({n_in} -> {len(blob)} bytes), pixels equal {ok}")
+        if not ok:
+            raise AssertionError(f"pipeline {label} decoded wrong pixels")
+    _oracle_vs_card(dev)
+    _cli_on_card()
+    lift = _lift_on_card(dev, results[("v2", MOSAIC_COPIES)][1])
+    _comparators()
+    print(f"phase 13: {time.perf_counter() - t_phase:.3f} s wall")
+    return lift
+
+
 def _main_batch():
     """Phase 3's batch: the containers and their expected pixels, batch
     order, and the decoded u16 bytes of its entropy strips."""
@@ -2803,8 +3124,13 @@ def main() -> int:
     _clock(t_start, 12)
     print(f"phase 12 launches: {_writers_phase(dev)}")
 
-    # --- 13. report -----------------------------------------------------------
+    # --- 13. the host tier's last modules, against the card -----------------
     _clock(t_start, 13)
+    for name, n in _host_tier_phase(dev).items():
+        launches[name] += n
+
+    # --- 14. report -----------------------------------------------------------
+    _clock(t_start, 14)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = report[name]

@@ -17,7 +17,9 @@ decodes one MICT stream.
 
 The reference formats are written on the host, as ``mic_tpu`` writes
 them, byte for byte: MIC1 (``compress_single_frame`` at 2 / 4 / 8
-states, ``_rans8``, ``_grad``, wrapped by ``write_mic1``), PICS
+states, ``_rans8``, ``_grad``, wrapped by ``write_mic1``; the
+Delta+RLE+canonical-Huffman payload ``compress_single_frame_huffman``
+over ``can_huffman_compress``), PICS
 (``compress_parallel_strips{,_4state,_8state}``), PICA
 (``compress_parallel_strips_adaptive``), MIC2 (``compress_multi_frame``,
 independent or temporal), MIC3 (``compress_wsi``) and MICR
@@ -25,7 +27,8 @@ independent or temporal), MIC3 (``compress_wsi``) and MICR
 each (``decompress_single_frame``, ``decompress_parallel_strips``,
 ``decompress_parallel_strips_adaptive``, ``decompress_multi_frame``,
 ``decompress_frame``, ``decompress_wsi_tile`` / ``_region``,
-``decompress_rgb``) and ``read_dicom`` for DICOM part-10 files; the
+``decompress_rgb``, ``decompress_single_frame_huffman``) and
+``read_dicom`` for DICOM part-10 files; the
 stages under them (RLE, the predictors, the fused Delta+RLE, the FSE /
 tANS and rANS coders) are exported under ``mic_tpu``'s names and its
 reference-name aliases (``FSECompressU16``, ...).  They decode with the
@@ -45,8 +48,15 @@ the YCoCg-R transform on the GPU through ``tpu.kernels``), W3D1
 and the device-format MIC2 (``compress_multi_frame_device`` /
 ``decompress_multi_frame_device``).  ``tpu.kernels`` also holds the 5/3
 lifting wavelet (``wavelet_forward_2d_separated`` and its inverse).
-``python -m mic_tpu_torch.cli`` drives the host formats and the MICW and
-MWR3 paths.
+``tpu.strips.micw_decompress_host`` and
+``tpu.rgb_device.micwr_decompress_host`` decode MICW and MWR3 in numpy,
+the device decode's independent cross-check.  The host pipelines of
+``mic_tpu`` are copied too: the wavelet codecs V1 / V1.5 / V2
+(``models.wavelet_pipeline`` over ``ops.wavelet``), gap removal
+(``ops.gapremoval``), and the comparators ``utils.charls`` (JPEG-LS) and
+``utils.j2k`` (JPEG 2000), which run where their library is present.
+``python -m mic_tpu_torch.cli`` drives the host formats, the wavelet and
+gap-removal pipelines and the MICW and MWR3 paths.
 
 Every device entry point takes an explicit ``torch.device``.  On the CPU
 the kernels' plain PyTorch versions run instead, which is how the tests
@@ -64,11 +74,13 @@ from .models.single_frame import (
     compress_single_frame_4state,
     compress_single_frame_8state,
     compress_single_frame_grad,
+    compress_single_frame_huffman,
     compress_single_frame_rans8,
     decode_frame,
     decompress_residual_frame,
     decompress_single_frame,
     decompress_single_frame_grad,
+    decompress_single_frame_huffman,
 )
 from .ops.deltarle import (
     delta_rle_compress,
@@ -91,6 +103,7 @@ from .ops.fse_codec import (
     fse_decompress_8state,
     fse_decompress_auto,
 )
+from .ops.huffman import can_huffman_compress, can_huffman_decompress
 from .ops.predictors import (
     delta_compress,
     delta_decompress,
@@ -187,8 +200,14 @@ TemporalDeltaEncode = temporal_delta_encode
 TemporalDeltaDecode = temporal_delta_decode
 ZigZag = zigzag
 UnZigZag = unzigzag
+CanHuffmanCompressU16 = can_huffman_compress
+CanHuffmanDecompressU16 = can_huffman_decompress
 
 __all__ = [
+    "can_huffman_compress",
+    "can_huffman_decompress",
+    "CanHuffmanCompressU16",
+    "CanHuffmanDecompressU16",
     "compress_multi_frame",
     "compress_multi_frame_device",
     "compress_parallel_strips",
@@ -201,6 +220,7 @@ __all__ = [
     "compress_single_frame_4state",
     "compress_single_frame_8state",
     "compress_single_frame_grad",
+    "compress_single_frame_huffman",
     "compress_single_frame_rans8",
     "compress_wsi",
     "CompressSingleFrame",
@@ -222,6 +242,7 @@ __all__ = [
     "decompress_rgb",
     "decompress_single_frame",
     "decompress_single_frame_grad",
+    "decompress_single_frame_huffman",
     "decompress_wsi_level_device",
     "decompress_wsi_region",
     "decompress_wsi_region_device",

@@ -6,23 +6,29 @@ Usage examples::
     python -m mic_tpu_torch.cli -input image.bin -width 512 -height 512 -output image.mic
     python -m mic_tpu_torch.cli -dicom study.dcm -output study.mic [-temporal]
     python -m mic_tpu_torch.cli -input image.bin -width 512 -height 512 -pics 8 -states 8 -output image.pics
+    python -m mic_tpu_torch.cli -input image.bin -width 512 -height 512 -wavelet -output image.wav
     python -m mic_tpu_torch.cli -rgb slide.rgb -width 4096 -height 4096 -wsi -output slide.mic3
     python -m mic_tpu_torch.cli -decode image.mic -output raw.bin
     python -m mic_tpu_torch.cli -testdata -corpus DIR -outdir testdata_out
-    python -m mic_tpu_torch.cli -input image.bin -width 512 -height 512 -micw -output image.micw
+    python -m mic_tpu_torch.cli -input image.bin -width 512 -height 512 -micw -entropy best -output image.micw
     python -m mic_tpu_torch.cli -rgb tile.rgb -width 512 -height 384 -micw -output tile.mwr3
     python -m mic_tpu_torch.cli -decode tile.mwr3 -output tile.rgb -device cpu
 
-Host formats, with the bytes and messages of ``python -m mic_tpu.cli``:
-MIC1 (single frame, ``-states``, ``-grad``), MIC2 (``-dicom`` with
-several frames, ``-temporal``), MICR (``-rgb``), MIC3 (``-rgb -wsi``),
-PICS (``-pics N``) and PICA (``-pica N``), written and read with numpy.
-Device formats: MICW (``-input ... -micw``) and MWR3 (``-rgb ...
--micw``), encoded and decoded through the port's CUDA kernels, with the
-bytes and pixels of ``python -m mic_tpu.cli ... -device``; their codec
-stages (and a MIC2 frame stored as MICW) run on the GPU unless ``-device
-cpu`` names the CPU (the kernels' plain PyTorch versions).  ``-wavelet``
-and ``-gap`` are not ported yet and exit 2.
+For every argument list ``python -m mic_tpu.cli`` takes, the port writes
+the same files, bytes and standard output.  Host formats, written and
+read with numpy: MIC1 (single frame, ``-states``, ``-grad``), MIC2
+(``-dicom`` with several frames, ``-temporal``), MICR (``-rgb``), MIC3
+(``-rgb -wsi``), PICS (``-pics N``), PICA (``-pica N``), and the
+wavelet V2 (``-wavelet``) and gap-removal (``-gap``) payloads.  Device
+formats: MICW (``-input ... -micw``) and MWR3 (``-rgb ... -micw``),
+encoded and decoded through the port's CUDA kernels.  Without
+``-device``, ``-micw`` writes ``mic_tpu.cli``'s host bytes (``-entropy``,
+``-predictor``), encoded on the card; with ``-device`` it writes
+``mic_tpu.cli -device``'s (predictor zzd, entropy standard; the two flags
+are ignored there, as ``mic_tpu.cli`` ignores them).  The codec stages of
+the device formats (and a MIC2 frame stored as MICW) run on the GPU
+unless ``-device cpu`` names the CPU (the kernels' plain PyTorch
+versions).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import torch
 _CORPUS_IMAGES = (("MR", "MR_256_256_image.bin", 256, 256),
                   ("CT", "CT_512_512_image.bin", 512, 512))
 _CORPUS_RGB = "wsi_tissue_512x384.rgb"
+# Where the device formats' codec stages run when -device is absent.
+DEFAULT_DEVICE = "cuda"
 
 
 def _compress_fn(states: int):
@@ -65,18 +73,32 @@ def main(argv=None) -> int:
     ap.add_argument("-pics", type=int, default=0, help="PICS strip count")
     ap.add_argument("-pica", type=int, default=0, help="PICA adaptive strip count")
     ap.add_argument("-micw", action="store_true", help="device strip format")
+    ap.add_argument("-entropy", default="standard",
+                    choices=["standard", "alias", "best"],
+                    help="MICW strip entropy: standard FF 57, alias-mapped "
+                         "FF 41 (tableLog-independent device decode), or "
+                         "best (smaller of the two per strip)")
+    ap.add_argument("-predictor", default="auto-fast",
+                    choices=["auto-fast", "auto-r", "auto", "zzd", "vdd",
+                             "pdd", "zzr", "vdr", "pdr", "zz", "avg"],
+                    help="MICW strip predictor trial set: auto-fast "
+                         "(speed-first direct modes), auto-r (+RLE'd direct "
+                         "modes, ratio-first), auto (+classic escaped "
+                         "modes), or one fixed mode")
     ap.add_argument("-wsi", action="store_true", help="MIC3 WSI (RGB input)")
-    ap.add_argument("-wavelet", action="store_true", help="Wavelet V2 pipeline (not ported yet)")
-    ap.add_argument("-gap", action="store_true", help="gap-removal pipeline (not ported yet)")
+    ap.add_argument("-wavelet", action="store_true", help="Wavelet V2 pipeline")
+    ap.add_argument("-gap", action="store_true", help="gap-removal pipeline")
     ap.add_argument("-grad", action="store_true", help="gradient predictor")
     ap.add_argument("-testdata", action="store_true", help="compress the test corpus")
     ap.add_argument("-corpus", help="directory of the test corpus -testdata reads")
     ap.add_argument("-outdir", default="testdata_out")
-    ap.add_argument("-device", nargs="?", const="cuda", default="cuda",
-                    help="where the MICW/MWR3 codec stages run: cuda (the default; "
-                         "CUDA kernels) or cpu (their plain PyTorch versions)")
+    ap.add_argument("-device", nargs="?", const="cuda", default=None,
+                    help="where the MICW/MWR3 codec stages run: cuda (CUDA kernels; "
+                         "also when absent) or cpu (their plain PyTorch versions); "
+                         "given, -micw writes mic_tpu.cli -device's bytes (zzd, "
+                         "standard), absent, mic_tpu.cli's (-entropy, -predictor)")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
+    device = torch.device(args.device or DEFAULT_DEVICE)
 
     from .utils.io import write_mic1, write_micr
 
@@ -162,12 +184,19 @@ def main(argv=None) -> int:
     elif args.micw:
         from .tpu.rans_encode import micw_compress_device
 
-        blob = micw_compress_device(px, w, h, mx, device)
-    elif args.wavelet or args.gap:
-        flag = "-wavelet" if args.wavelet else "-gap"
-        print(f"{flag}: not ported to mic_tpu_torch yet (mic_tpu.cli writes it)",
-              file=sys.stderr)
-        return 2
+        if args.device is None:
+            blob = micw_compress_device(px, w, h, mx, device, entropy=args.entropy,
+                                        predictor=args.predictor)
+        else:
+            blob = micw_compress_device(px, w, h, mx, device)
+    elif args.wavelet:
+        from .models.wavelet_pipeline import wavelet_v2_rle_fse_compress
+
+        blob = wavelet_v2_rle_fse_compress(px, h, w, mx, 5)
+    elif args.gap:
+        from .ops.gapremoval import compress_single_frame_gap_removal
+
+        blob = compress_single_frame_gap_removal(px, w, h, mx)
     elif args.grad:
         from .models.single_frame import compress_single_frame_grad
 

@@ -1,10 +1,10 @@
 """Single-frame orchestrators of the reference formats: Delta+RLE+FSE
 with state-count fallbacks (reference multiframecompress.go:15-175).
 
-A copy of ``mic_tpu.models.single_frame`` without the Huffman pipeline
-and the native tier (same names, same bytes; the decoders pinned by
-``tests/test_torch_ingest.py``, the encoders by
-``tests/test_torch_host_writers.py``).  Each N-state encoder falls back
+A copy of ``mic_tpu.models.single_frame`` without the native tier (same
+names, same bytes; the decoders pinned by ``tests/test_torch_ingest.py``,
+the encoders by ``tests/test_torch_host_writers.py``, the Huffman pair
+by ``tests/test_torch_wavelet_huffman_gap.py``).  Each N-state encoder falls back
 down the chain N -> ... -> 1 when the entropy stage rejects the input,
 as the reference does.  The decoders are the Python tier
 ``tpu/ingest.py`` runs with ``entropy="native"``.
@@ -28,6 +28,7 @@ from ..ops.fse_codec import (
     fse_compress_8state,
     fse_decompress_auto,
 )
+from ..ops.huffman import can_huffman_compress, can_huffman_decompress
 from ..ops.rans import rans_compress_8state
 from ..ops.rle import RleEncoder, rle_decompress
 
@@ -40,6 +41,8 @@ __all__ = [
     "decompress_single_frame",
     "decompress_single_frame_grad",
     "compress_residual_frame",
+    "compress_single_frame_huffman",
+    "decompress_single_frame_huffman",
     "decompress_residual_frame",
     "decode_frame",
 ]
@@ -139,6 +142,20 @@ def compress_residual_frame(residuals, max_value) -> bytes:
 
 def decompress_residual_frame(blob: bytes) -> np.ndarray:
     return rle_decompress(fse_decompress_auto(blob))
+
+
+def compress_single_frame_huffman(pixels, width, height, max_value) -> bytes:
+    """Delta+RLE+canonical-Huffman pipeline (the encode side of the
+    reference's deltarlehuffdecompressu16.go / rlehuffdecompressu16.go
+    decode stack; benched as BenchmarkDeltaRLEHuffCompress)."""
+    rle = delta_rle_compress(pixels, width, height, max_value)
+    return can_huffman_compress(rle)
+
+
+def decompress_single_frame_huffman(blob: bytes, width, height) -> np.ndarray:
+    """Inverse of compress_single_frame_huffman: Huffman → RLE → delta."""
+    rle = can_huffman_decompress(blob)
+    return delta_rle_decompress(rle, width, height)
 
 
 def decode_frame(blob: bytes, width: int, height: int, kind: str = "avg", tier: str = "auto"):

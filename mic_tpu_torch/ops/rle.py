@@ -2,13 +2,17 @@
 the reference formats (interleaved blocks, both sides).
 
 Numpy copies of ``mic_tpu.ops.rle``'s ``RleEncoder``, ``rle_compress``,
-``soa_encode``, ``rle_expand``, ``rle_decompress`` and
-``rle_decompress_stream`` (same names, same outputs; the decode side
-and ``soa_encode`` pinned by ``tests/test_torch_isolation.py``, the
-encoder by ``tests/test_torch_host_writers.py``).  The MICW decode side
-is the port's device expand (``tpu/post.py:soa_rle_expand``); the
-reference formats' blocks expand here, on the host, after the device
-entropy decode (``tpu/ref_decode.py``).
+``rle_to_soa``, ``soa_encode``, ``soa_expand``, ``rle_expand``,
+``rle_decompress`` and ``rle_decompress_stream`` (same names, same
+outputs; the decode side and ``soa_encode`` pinned by
+``tests/test_torch_isolation.py``, the encoder by
+``tests/test_torch_host_writers.py``, ``rle_to_soa`` / ``soa_expand`` by
+``tests/test_torch_host_oracle.py``).  The MICW decode side is the
+port's device expand (``tpu/post.py:soa_rle_expand``); ``soa_expand`` is
+its host mirror, which the host MICW oracle
+(``tpu/strips.py:micw_decompress_host``) uses.  The reference formats'
+blocks expand here, on the host, after the device entropy decode
+(``tpu/ref_decode.py``).
 
 The reference grammar over uint16 words, after a leading ``maxValue``
 word: a same-run ``[count][value]`` with ``count < midCount``, a
@@ -22,8 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["RleEncoder", "rle_compress", "soa_encode", "rle_expand", "rle_decompress",
-           "rle_decompress_stream"]
+__all__ = ["RleEncoder", "rle_compress", "rle_to_soa", "soa_encode", "soa_expand",
+           "rle_expand", "rle_decompress", "rle_decompress_stream"]
 
 
 class RleEncoder:
@@ -101,6 +105,44 @@ class RleEncoder:
 def rle_compress(data, width: int, height: int, max_value: int) -> np.ndarray:
     """One-shot RLE compress (reference RleCompressU16.Compress)."""
     return RleEncoder(width, height, max_value).compress(data)
+
+
+def rle_to_soa(stream, start: int, mid_count: int):
+    """Re-order an interleaved RLE block stream into structure-of-arrays
+    sections: ``(soa_symbols, n_runs, n_same)`` where soa_symbols =
+    [counts][same-run values][literals].  The symbol multiset is
+    unchanged, so entropy-coding the SoA layout costs the same bits as
+    the interleaved layout."""
+    s = np.asarray(stream)
+    i = int(start)
+    total = len(s)
+    counts: list[int] = []
+    same_vals: list[int] = []
+    lit_spans: list[tuple[int, int]] = []
+    while i < total:
+        c = int(s[i])
+        i += 1
+        counts.append(c)
+        if c > mid_count:
+            k = c - mid_count
+            lit_spans.append((i, i + k))
+            i += k
+        else:
+            same_vals.append(int(s[i]))
+            i += 1
+    lits = (
+        np.concatenate([s[a:b] for a, b in lit_spans])
+        if lit_spans
+        else np.zeros(0, dtype=s.dtype)
+    )
+    soa = np.concatenate(
+        [
+            np.array(counts, dtype=np.uint16),
+            np.array(same_vals, dtype=np.uint16),
+            lits.astype(np.uint16),
+        ]
+    )
+    return soa, len(counts), len(same_vals)
 
 
 def soa_encode(tokens, mid_count: int, min_same: int = 3):
@@ -189,6 +231,29 @@ def soa_encode(tokens, mid_count: int, min_same: int = 3):
         [counts, np.array(same_vals, dtype=np.uint16), lits.astype(np.uint16)]
     )
     return soa, len(counts), len(same_vals)
+
+
+def soa_expand(soa, n_runs: int, n_same: int, mid_count: int) -> np.ndarray:
+    """Host mirror of the device SoA-RLE expansion (for cross-tier tests)."""
+    s = np.asarray(soa, dtype=np.int64)
+    counts = s[:n_runs]
+    is_same = counts <= mid_count
+    lengths = np.where(is_same, counts, counts - mid_count)
+    same_vals = s[n_runs : n_runs + n_same]
+    lits = s[n_runs + n_same :]
+    parts = []
+    si = 0
+    li = 0
+    for r in range(n_runs):
+        if is_same[r]:
+            parts.append(np.full(lengths[r], same_vals[si]))
+            si += 1
+        else:
+            parts.append(lits[li : li + lengths[r]])
+            li += lengths[r]
+    if not parts:
+        return np.zeros(0, dtype=np.uint16)
+    return np.concatenate(parts).astype(np.uint16)
 
 
 def rle_expand(stream: np.ndarray, start: int, mid_count: int, n: int | None = None):

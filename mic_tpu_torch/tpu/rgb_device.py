@@ -16,7 +16,9 @@ the forward transform in one launch for the whole batch and brings the
 planes back for the padding, the maximum and the host candidates of
 ``micw_compress_device_many``.  Containers are byte-identical to
 ``mic_tpu``'s and decodes bit-exact (``tests/test_torch_rgb_device.py``).
-``micwr_decompress_host`` is not ported.
+``micwr_decompress_host`` is ``mic_tpu``'s host decoder, copied: numpy,
+no device, each plane through ``strips.micw_decompress_host`` and the
+colour inverse of ``ops.color`` (``tests/test_torch_host_oracle.py``).
 
 Container::
 
@@ -30,15 +32,17 @@ import struct
 import numpy as np
 import torch
 
+from ..ops import color
 from .kernels import ycocgr_forward, ycocgr_inverse
 from .rans_encode import micw_compress_device_many
-from .strips import MicwDecodePlan
+from .strips import MicwDecodePlan, micw_decompress_host
 
 __all__ = [
     "micwr_compress",
     "micwr_compress_device",
     "micwr_compress_device_many",
     "micwr_decompress_device",
+    "micwr_decompress_host",
     "micwr_decode_many",
 ]
 
@@ -61,6 +65,14 @@ def _pad_plane(plane: np.ndarray, width: int, height: int):
 def _crop_plane(plane: torch.Tensor, pw: int, width: int, height: int) -> torch.Tensor:
     """Undo _pad_plane on a decoded plane: [height, width], a view."""
     return plane.reshape(height, pw)[:, :width]
+
+
+def _crop_plane_host(plane, pw: int, width: int, height: int):
+    """Undo _pad_plane on a plane decoded on the host (no-op when pw ==
+    width): the numpy twin of _crop_plane."""
+    if pw == width:
+        return plane
+    return np.asarray(plane, np.uint16).reshape(height, pw)[:, :width].ravel()
 
 
 def _forward_planes(rgbs, device):
@@ -146,6 +158,15 @@ def _parse(blob: bytes):
         planes.append(blob[off : off + ln])
         off += ln
     return width, height, planes
+
+
+def micwr_decompress_host(blob: bytes):
+    """Host (numpy) MWR3 decoder, ``mic_tpu``'s: returns (rgb bytes as a
+    uint8 array, width, height)."""
+    width, height, planes = _parse(blob)
+    y, co, cg = (_crop_plane_host(px, pw, width, height)
+                 for px, pw, _ph in (micw_decompress_host(p) for p in planes))
+    return color.ycocgr_inverse(y, co, cg, width, height), width, height
 
 
 def _stage(blobs, device):

@@ -15,8 +15,10 @@ Port of ``mic_tpu.tpu.strips``, in four parts:
   width and any lane count, on both entropy families (FF 57 standard at
   tableLog up to 16, FF 41 alias at any tableLog); ``micw_decompress_scan``
   / ``micw_decode_batch``, the scan tier alone;
-* the host encoder ``micw_compress`` at any lane count (a jax-free copy,
-  pinned byte for byte).
+* the host encoder ``micw_compress`` at any lane count and the host
+  decoder ``micw_decompress_host`` (numpy, no device: the independent
+  cross-check of the device decode), jax-free copies pinned byte for
+  byte and pixel for pixel.
 
 The plan pools the strips of every image of a batch into buckets; the
 direct buckets and the post buckets' entropy stages run together as one
@@ -70,9 +72,16 @@ import numpy as np
 import torch
 
 from ..ops.fse import IncompressibleError, UseRLEError
-from ..ops.predictors import _interleave_escapes, delta_params, predictor_encode, zigzag
-from ..ops.rle import soa_encode
-from .device_rans import ALIAS_MAX_KEPT, mict_encode, mict_parse
+from ..ops.predictors import (
+    _interleave_escapes,
+    delta_params,
+    parse_escaped,
+    predictor_decode,
+    predictor_encode,
+    zigzag,
+)
+from ..ops.rle import soa_encode, soa_expand
+from .device_rans import ALIAS_MAX_KEPT, mict_decode_numpy, mict_encode, mict_parse
 from .post import post_batch
 from .rans_decode import (
     MID_DIRECT,
@@ -110,6 +119,7 @@ __all__ = [
     "band_merge",
     "strip_predictor",
     "micw_compress",
+    "micw_decompress_host",
     "MicwDecodePlan",
     "micw_decode_many",
     "micw_decompress_device",
@@ -565,6 +575,54 @@ def micw_parse(blob: bytes):
     else:
         predictor = "zz"
     return width, height, num_strips, strip_h, max_value, predictor, 1 << lanes_log2, strips
+
+
+def micw_decompress_host(blob: bytes) -> tuple[np.ndarray, int, int]:
+    """Host (numpy) MICW decoder: cross-checks the device path.  A copy of
+    ``mic_tpu.tpu.strips.micw_decompress_host``; it takes no device."""
+    width, height, num_strips, strip_h, max_value, gpred, _lanes, strips = micw_parse(blob)
+    _thr, delim = delta_params(max_value)
+    mid = _rle_mid(max_value)
+    out = np.empty(width * height, dtype=np.uint16)
+    for i, (b, _n_soa, n_tok, n_runs, n_same, mode) in enumerate(strips):
+        y0 = i * strip_h
+        sh = min(strip_h, height - y0)
+        pred = strip_predictor(gpred, mode)
+        if pred is None:
+            if mode == STRIP_MODE_CONST:
+                out[y0 * width : (y0 + sh) * width] = np.frombuffer(b, dtype="<u2", count=1)[0]
+            else:
+                out[y0 * width : (y0 + sh) * width] = np.frombuffer(b, dtype="<u2", count=width * sh)
+            continue
+        if pred in _DIRECT_PREDS or pred in _RLE_DIRECT_PREDS:
+            if pred in _RLE_DIRECT_PREDS:
+                soa = mict_decode_numpy(b)
+                syms = soa_expand(soa, n_runs, n_same, MID_DIRECT)
+                if len(syms) != n_tok:
+                    raise ValueError("micw: r-mode token count mismatch")
+                syms = syms[: width * sh]
+                pred = {"zzr": "zzd", "vdr": "vdd", "pdr": "pdd"}[pred]
+            else:
+                syms = mict_decode_numpy(b)[: width * sh].astype(np.uint16)
+            u = syms.astype(np.uint32)
+            dz = ((u >> 1) ^ (-(u & 1) & 0xFFFFFFFF)).astype(np.uint16).astype(np.int64)
+            if pred == "pdd":
+                img = np.cumsum(dz.reshape(sh, width), axis=1) & 0xFFFF
+                img = np.cumsum(img, axis=0) & 0xFFFF
+            else:
+                axis = 1 if pred == "zzd" else 0
+                img = np.cumsum(dz.reshape(sh, width), axis=axis) & 0xFFFF
+            out[y0 * width : (y0 + sh) * width] = img.astype(np.uint16).ravel()
+            continue
+        soa = mict_decode_numpy(b)
+        tokens = soa_expand(soa, n_runs, n_same, mid)
+        if len(tokens) != n_tok:
+            raise ValueError("micw: token count mismatch")
+        values, is_raw = parse_escaped(tokens[1:], delim, width * sh)
+        out[y0 * width : (y0 + sh) * width] = predictor_decode(
+            values, is_raw, width, sh, int(tokens[0]), "zz" if pred == "zz" else "avg"
+        ).ravel()
+    return _unband(out, width, height, blob)
 
 
 def _pow2_at_least(x: int, lo: int = 1) -> int:

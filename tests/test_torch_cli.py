@@ -2,11 +2,14 @@
 same files in, byte-identical containers and pixels out.  The device
 formats (MICW, MWR3) against ``mic_tpu.cli -device``: the port's CLI runs
 them with ``-device cpu`` here (the kernels' plain twins), ``mic_tpu``'s
-runs its Pallas kernels in interpret mode.  The host formats (MIC1 at
-each ``-states`` and ``-grad``, PICS, PICA, MICR, MIC3, ``-dicom`` to MIC1
-and MIC2, ``-decode`` of each and of a bare payload, ``-testdata``): both
-CLIs in directories of their own, the same files written, the same exit
-code and the same standard output.  ``-wavelet`` and ``-gap`` exit 2.
+runs its Pallas kernels in interpret mode.  ``-micw`` without
+``-device`` against ``mic_tpu.cli``'s host MICW writer at each
+``-entropy`` and ``-predictor`` (the port's default device pointed at
+the CPU).  The host formats (MIC1 at each ``-states`` and ``-grad``,
+PICS, PICA, MICR, MIC3, the ``-wavelet`` and ``-gap`` payloads,
+``-dicom`` to MIC1 and MIC2, ``-decode`` of each and of a bare payload,
+``-testdata``): both CLIs in directories of their own, the same files
+written, the same exit code and the same standard output.
 """
 
 from pathlib import Path
@@ -67,7 +70,7 @@ def test_default_output_paths(rgb_file):
 
 @pytest.mark.parametrize("argv", [[], ["-input", "x.bin"], ["-rgb", "RGB", "-width", "5",
                                                             "-height", "5", "-micw"],
-                                  ["-input", "U16", "-width", "128", "-height", "64", "-gap"],
+                                  ["-input", "U16", "-width", "9", "-height", "9999", "-gap"],
                                   ["-input", "U16", "-width", "9", "-height", "9999", "-micw"],
                                   ["-decode", "JUNK"]])
 def test_usage_errors_return_2(argv, rgb_file, u16_file, tmp_path):
@@ -77,15 +80,41 @@ def test_usage_errors_return_2(argv, rgb_file, u16_file, tmp_path):
     assert cli.main([names.get(a, a) for a in argv] + ["-device", "cpu"]) == 2
 
 
-def test_device_defaults_to_the_card():
+def test_device_defaults_to_the_card(u16_file, tmp_path):
     """Without ``-device cpu`` the codec stages go to the GPU: on a machine
-    without one the call fails instead of moving to the CPU."""
+    without one a decode, and a ``-micw`` encode without ``-device``, fail
+    instead of moving to the CPU."""
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
+    assert cli.DEFAULT_DEVICE == "cuda"
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main(["-decode", str(TESTDATA / "MR_dev.micw"), "-output", "/dev/null"])
+    out = tmp_path / "a.micw"
+    with pytest.raises((RuntimeError, AssertionError)):
+        cli.main(["-input", str(u16_file), "-width", "128", "-height", "64", "-micw",
+                  "-output", str(out)])
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("entropy", ["standard", "alias", "best"])
+@pytest.mark.parametrize("predictor", ["auto-fast", "auto-r", "auto", "zzd"])
+def test_micw_host_pairing_matches_reference(entropy, predictor, u16_file, tmp_path,
+                                             monkeypatch, capsys):
+    """``-micw`` without ``-device``: ``mic_tpu.cli``'s host MICW bytes
+    (``strips.micw_compress`` with ``-entropy`` / ``-predictor``), written
+    by the port through its device encoder (here on the CPU, where the
+    default device is pointed), the same file and standard output; then
+    decoded back."""
+    monkeypatch.setattr(cli, "DEFAULT_DEVICE", "cpu")
+    argv = ["-input", str(u16_file), "-width", "128", "-height", "64", "-micw",
+            "-entropy", entropy, "-predictor", predictor, "-output", "out.micw"]
+    blob = _same(_both(argv, tmp_path, monkeypatch, capsys))["out.micw"]
+    assert blob[:4] == b"MICW"
+    back = tmp_path / "back.raw"
+    assert cli.main(["-decode", str(tmp_path / "port" / "out.micw"), "-output", str(back)]) == 0
+    assert back.read_bytes() == u16_file.read_bytes()
 
 
 @pytest.fixture()
@@ -210,9 +239,22 @@ def test_testdata_matches_reference(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", ["-wavelet", "-gap"])
-def test_unported_pipelines_exit_2(flag, mr_file, tmp_path, capsys):
-    out = tmp_path / "out.bin"
-    rc = cli.main(["-input", str(mr_file), "-width", "256", "-height", "256", flag,
-                   "-output", str(out)])
-    assert rc == 2 and not out.exists()
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("image", ["MR", "CT"])
+def test_pipelines_match_reference(flag, image, tmp_path, monkeypatch, capsys):
+    """``-wavelet`` (V2, 5 levels) and ``-gap``: the same payload and
+    standard output as ``mic_tpu.cli``, decoded back by the port's host
+    decoders."""
+    from mic_tpu_torch.models.wavelet_pipeline import wavelet_v2_rle_fse_decompress
+    from mic_tpu_torch.ops.gapremoval import decompress_single_frame_gap_removal
+
+    side = 256 if image == "MR" else 512
+    src = TESTDATA / f"{image}_2s.raw"
+    argv = ["-input", str(src), "-width", str(side), "-height", str(side), flag,
+            "-output", "out.bin"]
+    blob = _same(_both(argv, tmp_path, monkeypatch, capsys))["out.bin"]
+    if flag == "-wavelet":
+        px, rows, cols = wavelet_v2_rle_fse_decompress(blob)
+        assert (rows, cols) == (side, side)
+    else:
+        px = decompress_single_frame_gap_removal(blob, side, side)
+    assert px.tobytes() == src.read_bytes()

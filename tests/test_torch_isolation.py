@@ -1,9 +1,10 @@
 """The port imports nothing of mic_tpu, and its copies of mic_tpu.ops are
 pinned to the originals.
 
-* ``import mic_tpu_torch`` and ``import chip_smoke`` load no module of
-  ``mic_tpu`` (a fresh interpreter), and no source of the port names
-  ``mic_tpu`` in an import;
+* ``import mic_tpu_torch``, ``import chip_smoke`` and the import of each
+  module of the port that the package does not load itself load no
+  module of ``mic_tpu`` and no jax (a fresh interpreter), and no source
+  of the port names ``mic_tpu`` or jax in an import;
 * ``mic_tpu_torch.ops.fse`` against ``mic_tpu.ops.fse`` (and the C++ pair
   of ``mic_tpu.native`` where it is built): histograms, tableLog choice,
   normalization, and the ncount header written and read back at tableLogs
@@ -16,7 +17,11 @@ pinned to the originals.
   ``tests/test_torch_tans_decode.py`` (their encoders, which the dry run
   uses, in ``tests/test_torch_mesh.py``); the reference formats' writers
   and host readers in ``tests/test_torch_host_writers.py``, the DICOM
-  reader in ``tests/test_torch_dicom.py``.
+  reader in ``tests/test_torch_dicom.py``; the host MICW / MWR3 decoders
+  and the SoA-RLE helpers in ``tests/test_torch_host_oracle.py``; the
+  wavelet, Huffman and gap-removal pipelines in
+  ``tests/test_torch_wavelet_huffman_gap.py``; the comparators in
+  ``tests/test_torch_comparators.py``.
 
 Tolerance 0: these define the bytes of the format.
 """
@@ -49,7 +54,10 @@ ROOT = Path(__file__).resolve().parent.parent
                                     "mic_tpu_torch.tpu.decode",
                                     "mic_tpu_torch.tpu.mesh", "mic_tpu_torch.dryrun",
                                     "mic_tpu_torch.utils.dicom",
-                                    "mic_tpu_torch.parallel.strips_adaptive"])
+                                    "mic_tpu_torch.parallel.strips_adaptive",
+                                    "mic_tpu_torch.models.wavelet_pipeline, "
+                                    "mic_tpu_torch.ops.gapremoval, mic_tpu_torch.utils.charls, "
+                                    "mic_tpu_torch.utils.j2k"])
 def test_import_loads_no_mic_tpu(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'mic_tpu' or m.startswith('mic_tpu.') "
@@ -61,10 +69,14 @@ def test_import_loads_no_mic_tpu(module):
 
 
 def test_sources_import_no_mic_tpu():
-    pat = re.compile(r"^\s*(from|import)\s+mic_tpu(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(from|import)\s+(mic_tpu|jax)(\.|\s|$)", re.M)
     files = (sorted((ROOT / "mic_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "scripts").glob("*.py")))
     assert len(files) >= 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"mic_tpu_torch/{m}.py" for m in ("ops/wavelet", "ops/huffman", "ops/gapremoval",
+                                               "models/wavelet_pipeline", "utils/charls",
+                                               "utils/j2k")} <= names
     bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
     assert not bad, bad
 
