@@ -6,8 +6,11 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. Setup: needs ``torch.cuda.is_available()``; prints the card's name and
-   power limit, builds the CUDA kernels from ``mic_tpu_torch/csrc`` and
-   prints the build seconds and nvcc's per-kernel resource report.
+   power limit, builds the CUDA kernels from ``mic_tpu_torch/csrc`` and,
+   beside them in a thread, the C++ host tier (``native/micfse.cpp``) and
+   its stage profiler (``native/prof_encode.cpp``) with the host
+   compiler; prints the build seconds and nvcc's per-kernel resource
+   report.
 2. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, whole output arrays, tolerance 0.  Decode: on the operands of
    the main path's buckets through the one-bucket wrappers (CT_dev x256
@@ -206,8 +209,9 @@ Phases (any failure exits non-zero; nothing is caught):
    MIC1 at 2 / 4 / 8 states and rANS8 and as PICS of 8 strips at 4 and 8
    states; MIC3 of a 2048x2048 crop of phase 8's slide (256x256 tiles,
    the auto pyramid).  The writers run in ``WRITER_PROCS`` worker
-   processes; each prints its host seconds, MB/s and ratio.  (c) The
-   port's device readers on (b) and (a)'s containers,
+   processes (the PICS writers on the C++ tier's thread pool, the others
+   in numpy and Python); each prints its host seconds, MB/s and ratio.
+   (c) The port's device readers on (b) and (a)'s containers,
    ``decompress_frames_device``, ``decompress_pics_device_many``,
    ``decompress_mic2_device`` (each series) and
    ``decompress_wsi_level_device`` (every level), every pixel against
@@ -246,7 +250,30 @@ Phases (any failure exits non-zero; nothing is caught):
    report's ``wt53_rows_*`` counts.  (e) ``available()`` of the
    comparators ``utils.charls`` and ``utils.j2k``; where present, a round
    trip of ``CT_2s.raw`` and its ratio.  Prints the phase's wall seconds.
-14. Prints the kernel report as one JSON line (with each kernel's bound:
+14. The C++ host tier (``mic_tpu_torch.native``), on the card machine's
+   CPU in this process.  (a) The compiler, its flags, the host build's
+   seconds (phase 1), a process's first call with the library built, the
+   CPU model and thread count.  (b) Equality with
+   the plain twins: every MIC1 and PICS fixture of ``web/testdata``
+   decoded by ``decode_frame(tier="native")`` /
+   ``decompress_strips_native`` and by the Python tier, both equal to the
+   ``.raw``; the PICS containers (4 and 8 strips) and MIC1 frames of
+   ``CT_2s.raw`` and ``MR_2s.raw`` at 2 / 4 / 8 states written by the
+   C++ tier, equal to the Python writers'; every candidate stream of
+   phase 4's settings through ``mict_encode`` (``_norm_and_header``,
+   ``_lane_encode``) equal to the numpy twins.  (c) Timings on phase
+   12's 2048x2048 CT mosaic (the least of ``NATIVE_REPS`` calls, host
+   seconds and MB/s of pixels): ``decode_frame(tier="native")`` of its
+   four MIC1, ``decompress_strips_native`` of its two PICS threaded and
+   on one thread, the PICS writers (equal to phase 12's containers) and
+   ``compress_frame_native`` (equal to phase 12's MIC1), each beside
+   phase 12's; then ``ingest_plan(..., device_encode=True,
+   entropy="native")`` on phase 12's six blobs with ``decode_s`` /
+   ``encode_s`` / ``stage_s``, its encode and direct launches counted
+   from 0 and required, every strip verified.  (d) ``prof_encode`` on
+   ``CT_dev.raw``: the native encode's stages in MB/s.  Prints the
+   phase's wall seconds.
+15. Prints the kernel report as one JSON line (with each kernel's bound:
    the larger of its bytes over 3.35 TB/s and its integer operations over
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -257,10 +284,13 @@ Imports neither jax nor anything of mic_tpu.
 from __future__ import annotations
 
 import json
+import os
 import re
+import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -396,6 +426,7 @@ MOSAIC_COPIES = 4  # phase 12's mosaic: 4x4 copies of CT_2s.raw, 2048x2048
 WSI_CROP = 2048  # phase 12's MIC3: a WSI_CROP square of phase 8's slide
 WRITER_PROCS = 8  # phase 12's writer processes (one a CPU core of an 8-core H100 host)
 PIPELINE_PROCS = 5  # phase 13's pipeline processes: one a pipeline run
+NATIVE_REPS = 3  # phase 14's calls of each timed native decode and write (the least printed)
 CLI_PAIRINGS = [(e, p) for p in ("auto-fast", "auto-r") for e in ("standard", "alias", "best")]
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
 ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
@@ -2446,8 +2477,9 @@ def _reader_call(what, fn, px_bytes, launched):
 
 def _writers_phase(dev):
     """Phase 12: the reference writers, (a)-(d) as the module docstring
-    says; returns {tans_decode, rans_encode, rans_decode_direct_groups:
-    launches in the phase}."""
+    says; returns ({tans_decode, rans_encode, rans_decode_direct_groups:
+    launches in the phase}, {writer job: (label, container, input bytes,
+    host s)})."""
     import numpy as np
 
     from mic_tpu_torch import (
@@ -2553,7 +2585,7 @@ def _writers_phase(dev):
     if mism:
         raise AssertionError(f"ingest_plan's containers decode to wrong pixels: {mism}")
     print(f"phase 12: {time.perf_counter() - t_phase:.3f} s wall")
-    return {"tans_decode": sum(sum(v) for v in launched.values()), **counts, **direct}
+    return {"tans_decode": sum(sum(v) for v in launched.values()), **counts, **direct}, written
 
 
 def _pipeline_job(job):
@@ -2848,6 +2880,217 @@ def _host_tier_phase(dev) -> dict:
     return lift
 
 
+def _host_builds():
+    """Phase 1's host half: the C++ host tier and its stage profiler,
+    built with the host compiler; returns (library, profiler, seconds)."""
+    from mic_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    lib = _build.host_build()
+    _build.host_library()
+    prog = _build.host_program()
+    return lib, prog, time.perf_counter() - t0
+
+
+def _least_s(fn, reps):
+    """(the least host seconds of ``reps`` calls of fn, its last result)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def _twins_encode(drans, syms, alias):
+    """mict_encode of ``syms`` at 128 lanes on the C++ tier and on its
+    numpy twins (``_norm_and_header_numpy``, ``_lane_encode_numpy``):
+    each the blob or the sentinel error's name."""
+    def one():
+        try:
+            return drans.mict_encode(syms, lanes=128, alias=alias)
+        except (drans.IncompressibleError, drans.UseRLEError) as e:
+            return type(e).__name__
+
+    native = one()
+    saved = drans._lane_encode, drans._norm_and_header
+    drans._lane_encode, drans._norm_and_header = (drans._lane_encode_numpy,
+                                                  drans._norm_and_header_numpy)
+    try:
+        return native, one()
+    finally:
+        drans._lane_encode, drans._norm_and_header = saved
+
+
+def _native_equal(host_build):
+    """Phase 14 (a)-(b): the build, and the C++ tier's bytes and pixels
+    against its plain twins on the fixtures, the writers and phase 4's
+    streams."""
+    import numpy as np
+
+    from mic_tpu_torch import _build, native
+    from mic_tpu_torch.models import single_frame as sf
+    from mic_tpu_torch.parallel import strips as pics
+    from mic_tpu_torch.tpu import device_rans as drans
+    from mic_tpu_torch.tpu.rans_encode import MicwEncodePlan
+    from mic_tpu_torch.utils.io import read_mic1
+
+    lib, prog, build_s = host_build
+    cxx = _build.host_compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    # the first call in a process with the library built: the compiler's
+    # identity (the name's hash) and the load
+    _build.host_library.cache_clear()
+    t0 = time.perf_counter()
+    _build.host_library()
+    load_s = time.perf_counter() - t0
+    print(f"native (a): {cxx} ({version}), flags {' '.join(_build.HOST_FLAGS)}; "
+          f"{lib.name} and {prog.name} built in {build_s:.3f} s (phase 1, beside nvcc); "
+          f"the first call of a process with them built {load_s:.3f} s; "
+          f"host CPU: {_cpu_model()}, {os.cpu_count()} threads")
+    # (b) MIC1 and PICS fixtures: the C++ decode, the Python decode, the .raw
+    n = 0
+    for name in REF_FIXTURES:
+        stem, ext = name.rsplit(".", 1)
+        raw = _raw_u16(stem)
+        blob = (TESTDATA / name).read_bytes()
+        if ext == "mic":
+            w, h, _p, payload = read_mic1(blob)
+            got = [sf.decode_frame(payload, w, h, "avg", tier) for tier in ("native", "python")]
+        elif ext == "pics":
+            got = [native.decompress_strips_native(blob)[0],
+                   np.asarray(pics.decompress_parallel_strips(blob)[0])]
+        else:
+            continue
+        if not all(np.array_equal(g, raw) for g in got):
+            raise AssertionError(f"native (b): {name} decodes to other pixels than its .raw")
+        n += 1
+    # the writers: the C++ container / frame against the Python writers
+    writers = 0
+    for stem, side in (("CT_2s", 512), ("MR_2s", 256)):
+        px = _raw_u16(stem)
+        mx = int(px.max())
+        for n_states, frame in ((2, sf.compress_single_frame), (4, sf.compress_single_frame_4state),
+                                (8, sf.compress_single_frame_8state)):
+            for num_strips in (4, 8):
+                nat = native.compress_strips_native(px, side, side, mx, n_states=n_states,
+                                                    num_strips=num_strips)
+                if nat != pics._compress_strips_python(px, side, side, mx, num_strips, n_states):
+                    raise AssertionError(f"native (b): PICS {stem} {n_states} states, "
+                                         f"{num_strips} strips: C++ != Python")
+            if native.compress_frame_native(px, side, side, mx, kind=native.PRED_AVG,
+                                            n_states=n_states) != frame(px, side, side, mx):
+                raise AssertionError(f"native (b): MIC1 {stem} {n_states} states: C++ != Python")
+            writers += 3
+    # phase 4's streams through _norm_and_header and _lane_encode
+    streams = equal = 0
+    for cont, raw, pred, ent, _reps in ENCODE.values():
+        px = np.fromfile(raw, dtype="<u2")
+        w, h = struct.unpack_from("<II", cont.read_bytes(), 4)
+        plan = MicwEncodePlan([(px, w, h, int(px.max()))], ent, pred)
+        for alias, jobs in plan.jobs.items():
+            for syms, _max_bytes in jobs:
+                nat, twin = _twins_encode(drans, syms, alias)
+                streams += 1
+                equal += nat == twin
+    print(f"native (b): {n} MIC1 / PICS fixtures decoded by the C++ and Python tiers to their "
+          f".raw; {writers} containers and frames written by the C++ tier equal to the Python "
+          f"writers'; {equal} of {streams} of phase 4's streams encoded (_norm_and_header, "
+          "_lane_encode) equal to the numpy twins")
+    if equal != streams:
+        raise AssertionError(f"native (b): {streams - equal} of phase 4's streams differ")
+
+
+def _cpu_model() -> str:
+    """lscpu's vendor, model name, family and model number."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    fields = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
+    return ", ".join(f"{k} {fields[k].strip()}" for k in ("Vendor ID", "Model name",
+                                                          "CPU family", "Model")
+                     if k in fields)
+
+
+def _native_phase(dev, written, host_build) -> dict:
+    """Phase 14: the C++ host tier, (a)-(d) as the module docstring says;
+    returns the kernels' launches in (c)'s ingest."""
+    import numpy as np
+
+    from mic_tpu_torch import ingest_plan, native
+    from mic_tpu_torch.models import single_frame as sf
+    from mic_tpu_torch.parallel import strips as pics
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.utils.io import read_mic1
+
+    t_phase = time.perf_counter()
+    _native_equal(host_build)
+    # (c) the mosaic of phase 12, on the host, one process
+    mosaic = _mosaic(MOSAIC_COPIES)
+    side, flat, mx = mosaic.shape[0], mosaic.ravel(), int(mosaic.max())
+    mb = flat.nbytes / 1e6
+    mic1 = {k: read_mic1(written[("mic1", (k, MOSAIC_COPIES))][1])[3]
+            for k in ("2s", "4s", "8s", "rans8")}
+    for k, payload in mic1.items():
+        sec, out = _least_s(lambda: sf.decode_frame(payload, side, side, "avg", "native"),
+                            NATIVE_REPS)
+        if not np.array_equal(out, flat):
+            raise AssertionError(f"native (c): decode_frame of the mosaic's MIC1 {k}: wrong pixels")
+        print(f"native (c): decode_frame(tier='native') MIC1 {k} {side}x{side}: {sec:.4f} host s, "
+              f"{mb / sec:.1f} MB/s of pixels (least of {NATIVE_REPS})")
+    for n_states in (4, 8):
+        blob = written[("pics", (n_states, MOSAIC_COPIES))][1]
+        for threads in (0, 1):
+            sec, out = _least_s(lambda: native.decompress_strips_native(blob, n_threads=threads),
+                                NATIVE_REPS)
+            if not np.array_equal(out[0], flat):
+                raise AssertionError(f"native (c): PICS {n_states} states: wrong pixels")
+            print(f"native (c): decompress_strips_native PICS {n_states} states, 8 strips, "
+                  f"{'a thread a strip (pool)' if threads == 0 else 'one thread'}: "
+                  f"{sec:.4f} host s, {mb / sec:.1f} MB/s of pixels")
+        writer = (pics.compress_parallel_strips_4state if n_states == 4
+                  else pics.compress_parallel_strips_8state)
+        sec, out = _least_s(lambda: writer(flat, side, side, mx, 8), NATIVE_REPS)
+        if out != blob:
+            raise AssertionError(f"native (c): the PICS {n_states}-state writer != phase 12's")
+        print(f"native (c): PICS writer {n_states} states, 8 strips: {sec:.4f} host s, "
+              f"{mb / sec:.1f} MB/s (phase 12's, in a worker process: "
+              f"{written[('pics', (n_states, MOSAIC_COPIES))][3]:.3f} s)")
+    for k, n_states in (("2s", 2), ("4s", 4), ("8s", 8)):
+        sec, out = _least_s(lambda: native.compress_frame_native(
+            flat, side, side, mx, kind=native.PRED_AVG, n_states=n_states), NATIVE_REPS)
+        if out != mic1[k]:
+            raise AssertionError(f"native (c): compress_frame_native {k} != phase 12's MIC1")
+        print(f"native (c): compress_frame_native MIC1 {k}: {sec:.4f} host s, {mb / sec:.1f} "
+              f"MB/s (phase 12's Python writer: {written[('mic1', (k, MOSAIC_COPIES))][3]:.3f} s)")
+    # ingest_plan on phase 12's blobs, the reference decode on the C++ tier
+    ref_blobs = list(mic1.values()) + [written[("pics", (n, MOSAIC_COPIES))][1] for n in (4, 8)]
+    dims = [(side, side)] * 4 + [None] * 2
+    timings = {}
+    t0 = time.perf_counter()
+    plan, counts = _counted("ingest_plan(entropy='native') (c)",
+                            lambda: ingest_plan(ref_blobs, dims, dev, entropy="native",
+                                                device_encode=True, timings=timings),
+                            (renc.rans_encode,))
+    ingest_s = time.perf_counter() - t0
+    decoded, direct = _counted("ingest_plan(entropy='native') (c)'s MicwDecodePlan.run",
+                               plan.run, (rd.rans_decode_direct_groups,))
+    mism = plan.verify_batch(decoded, [flat] * len(ref_blobs))
+    n_bytes = flat.nbytes * len(ref_blobs)
+    print(f"native (c): ingest_plan(entropy='native', device_encode=True): {len(ref_blobs)} blobs "
+          f"({n_bytes} pixel bytes) in {ingest_s:.3f} s, {n_bytes / ingest_s / 1e6:.3f} MB/s, "
+          + " ".join(f"{k}={v:.3f}" for k, v in timings.items()) + f", mismatches={mism}")
+    if mism:
+        raise AssertionError(f"native (c): ingest_plan's containers decode wrong: {mism}")
+    # (d) the native encode's stages on CT_dev.raw
+    res = subprocess.run([str(host_build[1]), str(TESTDATA / "CT_dev.raw"), "512", "512", "20"],
+                         capture_output=True, text=True, check=True)
+    for line in res.stdout.splitlines():
+        print(f"native (d): prof_encode CT_dev.raw: {line}")
+    print(f"phase 14: {time.perf_counter() - t_phase:.3f} s wall")
+    return {**counts, **direct}
+
+
 def _main_batch():
     """Phase 3's batch: the containers and their expected pixels, batch
     order, and the decoded u16 bytes of its entropy strips."""
@@ -2958,9 +3201,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     t0 = time.perf_counter()
-    lib_path = build()
-    kernel_library()
-    print(f"build: {time.perf_counter() - t0:.3f} s ({lib_path.name})")
+    with ThreadPoolExecutor(max_workers=1) as ex:  # the host tier's build beside nvcc's
+        host = ex.submit(_host_builds)
+        lib_path = build()
+        kernel_library()
+        nvcc_s = time.perf_counter() - t0
+        host_build = host.result()
+    print(f"build: {nvcc_s:.3f} s ({lib_path.name}); host tier {host_build[2]:.3f} s "
+          f"({host_build[0].name}, {host_build[1].name}); both {time.perf_counter() - t0:.3f} s")
     log = lib_path.with_suffix(".log")
     if log.exists():  # absent when the library was built by an earlier run
         text = log.read_text()
@@ -3122,15 +3370,20 @@ def main() -> int:
 
     # --- 12. the reference writers, round-tripped through the card ------------
     _clock(t_start, 12)
-    print(f"phase 12 launches: {_writers_phase(dev)}")
+    phase12, written = _writers_phase(dev)
+    print(f"phase 12 launches: {phase12}")
 
     # --- 13. the host tier's last modules, against the card -----------------
     _clock(t_start, 13)
     for name, n in _host_tier_phase(dev).items():
         launches[name] += n
 
-    # --- 14. report -----------------------------------------------------------
+    # --- 14. the C++ host tier ---------------------------------------------------
     _clock(t_start, 14)
+    print(f"phase 14 launches: {_native_phase(dev, written, host_build)}")
+
+    # --- 15. report -----------------------------------------------------------
+    _clock(t_start, 15)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = report[name]

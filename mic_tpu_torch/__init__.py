@@ -58,6 +58,20 @@ the device decode's independent cross-check.  The host pipelines of
 ``python -m mic_tpu_torch.cli`` drives the host formats, the wavelet and
 gap-removal pipelines and the MICW and MWR3 paths.
 
+The tiers, as in ``mic_tpu``:
+
+* ``mic_tpu_torch.tpu`` — the device tier (CUDA kernels, above);
+* ``mic_tpu_torch.native`` — the C++ host tier (ctypes over
+  ``native/micfse.cpp``, a copy of ``mic_tpu``'s, built by the host
+  compiler into ``build/`` at the first call, never at import; a failed
+  build raises, nothing falls back).  It decodes MIC1 frames
+  (``decode_frame``, ``ingest``'s default ``entropy="native"``) and PICS
+  containers on a thread pool, writes the 2-, 4- and 8-state PICS
+  containers, and carries MICT's host staging (the ncount header read
+  and written, the L-lane rANS encode);
+* ``mic_tpu_torch.ops`` / ``.models`` / ``.parallel`` — the numpy tier,
+  which defines the bytes.
+
 Every device entry point takes an explicit ``torch.device``.  On the CPU
 the kernels' plain PyTorch versions run instead, which is how the tests
 hold the port against ``mic_tpu``.  The package imports nothing of

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its C++ host tier.
 
 ``csrc/*.cu`` compile with nvcc, one process per source, all started
 together, and link into one shared library with a plain C interface (no
@@ -7,6 +7,13 @@ library lands in ``build/`` at the repository root, named by a hash of
 the sources (headers included) and flags, so an edited source rebuilds
 and an unchanged one loads the existing file.  The build happens on
 first use.
+
+``native/micfse.cpp``, the host tier, builds the same way with the host
+compiler (``host_library``): no nvcc, CUDA or GPU, so the CPU tests run
+it too.  Its name hashes the source, the flags, the compiler's version
+and the instruction set ``-march=native`` selects, so a library built
+for another CPU is never loaded.  A missing compiler or a failed compile
+raises ``RuntimeError``; nothing falls back.
 """
 
 from __future__ import annotations
@@ -20,13 +27,17 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build", "kernel_library"]
+__all__ = ["build", "host_build", "host_compiler", "host_library", "host_program", "kernel_library"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
+_NATIVE = _PKG / "native"
 BUILD_DIR = _PKG.parent / "build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# mic_tpu/native/Makefile's flags (its plain -O3 build: the PGO pass needs
+# the reference corpus)
+HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,4 +139,96 @@ def kernel_library(defines: tuple = ()) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    return lib
+
+
+_S = ctypes.c_size_t
+_B = ctypes.c_char_p
+_HOST_SIGNATURES = {
+    # name: (restype, argtypes), mic_tpu/native/__init__.py's declarations
+    "mic_read_ncount": (_S, [_B, _S, _P, _S, _P]),
+    "mic_decompress_frame": (_I, [_B, _S, _I, _I, _I, _P]),
+    "mic_compress_frame": (_S, [_P, _I, _I, ctypes.c_uint16, _I, _I, _P, _S]),
+    "mic_entropy_compress": (_S, [_P, _S, _I, _P, _S]),
+    "mic_entropy_decompress": (_S, [_B, _S, _P, _S]),
+    "mic_native_version": (_I, []),
+    "mic_normalize_write_count": (_S, [_P, ctypes.c_int64, _I, _I, _P, _P, _S]),
+    "mic_lane_encode": (_S, [_P, _S, _I, _I, _P, _P, _P, _P, _P, _S]),
+    "mic_compress_strips": (_S, [_P, _I, _I, ctypes.c_uint16, _I, _I, _I, _I, _P, _S]),
+    "mic_decompress_strips": (_I, [_B, _S, _I, _P, _I]),
+}
+
+
+def host_compiler() -> str:
+    """``$CXX`` where it is set, else ``c++`` or ``g++`` on ``PATH``."""
+    cxx = os.environ.get("CXX")
+    for c in ([cxx] if cxx else ["c++", "g++"]):
+        path = shutil.which(c)
+        if path:
+            return path
+    raise RuntimeError(f"no host C++ compiler: {'CXX=' + cxx if cxx else 'c++ and g++'} "
+                       "not found; set CXX or put c++ on PATH")
+
+
+def _run_checked(cmd) -> str:
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+    if res.returncode:
+        raise RuntimeError(f"host compiler failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
+
+
+def _host_output_path(source: str, name: str, cxx: str, flags: tuple) -> Path:
+    """Where ``native/<source>`` built by ``cxx`` with ``flags`` lives:
+    ``build/<name>`` with the hash before its suffix."""
+    h = hashlib.sha256(" ".join((source, *flags)).encode())
+    h.update(_run_checked([cxx, "--version"]).encode())
+    # the instruction set -march=native stands for on this CPU
+    h.update(_run_checked([cxx, *flags, "-dM", "-E", "-x", "c++", os.devnull]).encode())
+    for src in sorted(_NATIVE.glob("*.cpp")):  # prof_encode.cpp includes micfse.cpp
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    stem, dot, suffix = name.partition(".")
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}{dot}{suffix}"
+
+
+def _host_build(source: str, name: str, flags: tuple) -> Path:
+    cxx = host_compiler()
+    out = _host_output_path(source, name, cxx, flags)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        target = os.path.join(tmp, "out")
+        log = _run_checked([cxx, *flags, "-o", target, str(_NATIVE / source)])
+        out.with_name(out.name + ".log").write_text(f"{cxx} {' '.join(flags)}\n{log}")
+        os.replace(target, out)  # atomic: a loader sees all or nothing
+    return out
+
+
+def host_build() -> Path:
+    """Compile ``native/micfse.cpp`` into ``build/libmicfse-<hash>.so`` if
+    that library is missing; returns its path."""
+    return _host_build("micfse.cpp", "libmicfse.so", (*HOST_FLAGS, "-shared"))
+
+
+def host_program() -> Path:
+    """Compile ``native/prof_encode.cpp``, the native encode's stage
+    profiler, into ``build/prof_encode-<hash>`` (``-DMIC_PROF_MAIN``) if
+    it is missing; returns its path."""
+    return _host_build("prof_encode.cpp", "prof_encode", (*HOST_FLAGS, "-DMIC_PROF_MAIN"))
+
+
+@functools.cache
+def host_library() -> ctypes.CDLL:
+    """The host tier's library, built at first use, with every C entry
+    point declared.  Raises ``RuntimeError`` where it cannot be built."""
+    lib = ctypes.CDLL(str(host_build()))
+    for name, (res, args) in _HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
     return lib

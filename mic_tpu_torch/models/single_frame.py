@@ -1,19 +1,22 @@
 """Single-frame orchestrators of the reference formats: Delta+RLE+FSE
 with state-count fallbacks (reference multiframecompress.go:15-175).
 
-A copy of ``mic_tpu.models.single_frame`` without the native tier (same
-names, same bytes; the decoders pinned by ``tests/test_torch_ingest.py``,
-the encoders by ``tests/test_torch_host_writers.py``, the Huffman pair
-by ``tests/test_torch_wavelet_huffman_gap.py``).  Each N-state encoder falls back
-down the chain N -> ... -> 1 when the entropy stage rejects the input,
-as the reference does.  The decoders are the Python tier
-``tpu/ingest.py`` runs with ``entropy="native"``.
+A copy of ``mic_tpu.models.single_frame`` (same names, same bytes; the
+decoders pinned by ``tests/test_torch_ingest.py``, the encoders by
+``tests/test_torch_host_writers.py``, the Huffman pair by
+``tests/test_torch_wavelet_huffman_gap.py``).  Each N-state encoder falls
+back down the chain N -> ... -> 1 when the entropy stage rejects the
+input, as the reference does.  The explicit decoders are the Python tier
+(``tpu/ingest.py`` runs it with ``entropy="python"``); ``decode_frame``
+routes to the C++ tier (``..native``) by default, as ``mic_tpu`` does
+with its library built.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..ops.deltarle import (
     delta_rle_compress,
     delta_rle_decompress,
@@ -159,13 +162,20 @@ def decompress_single_frame_huffman(blob: bytes, width, height) -> np.ndarray:
 
 
 def decode_frame(blob: bytes, width: int, height: int, kind: str = "avg", tier: str = "auto"):
-    """Tier-routing decode convenience.  ``mic_tpu``'s native C++ tier is
-    not ported: ``tier="native"`` raises ``ValueError``, and ``"auto"``
-    and ``"python"`` run the numpy tier, as ``mic_tpu`` does where its
-    native library is not built (kinds 'avg' and 'grad')."""
-    if tier == "native":
-        raise ValueError("decode_frame: mic_tpu_torch has no native tier; "
-                         "use tier='auto' or 'python'")
+    """Tier-routing decode convenience: ``"auto"`` and ``"native"`` run the
+    C++ tier (kinds 'avg', 'grad', 'med', 'zz'), ``"python"`` (or any
+    other value, as in ``mic_tpu``) the numpy tier (kinds 'avg' and
+    'grad').  There is no fallback: a native error or a failed build
+    raises.
+
+    The explicit decompress_single_frame* functions always use the numpy
+    tier (they are the cross-tier correctness oracle)."""
+    if tier in ("auto", "native"):
+        kmap = {"avg": native.PRED_AVG, "grad": native.PRED_GRAD,
+                "med": native.PRED_MED, "zz": native.PRED_ZZ}
+        if kind not in kmap:
+            raise ValueError(f"unsupported kind for native tier: {kind}")
+        return native.decompress_frame_native(blob, width, height, kmap[kind])
     if kind == "avg":
         return decompress_single_frame(blob, width, height)
     if kind == "grad":

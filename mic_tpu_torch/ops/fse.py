@@ -5,9 +5,11 @@ A numpy copy of the parts of ``mic_tpu.ops.fse`` the port needs (the
 MICT stream header of both entropy families is this header, the
 reference formats' tANS streams decode through ``build_dtable`` and
 ``dryrun.py`` encodes them through ``build_ctable``), with
-the same names and the same bytes; pinned to the original and, where it
-is built, to ``mic_tpu.native``'s C++ pair by
-``tests/test_torch_isolation.py`` and ``tests/test_torch_tans_decode.py``.
+the same names and the same bytes; pinned to the original, to
+``mic_tpu.native``'s C++ pair where it is built, and to the port's own
+C++ pair (``mic_tpu_torch.native``, which MICT's host staging calls) by
+``tests/test_torch_isolation.py``, ``tests/test_torch_tans_decode.py``
+and ``tests/test_torch_native.py``.
 Reference files: fseu16.go, fsecompressu16.go, fsedecompressu16.go.
 """
 

@@ -1,15 +1,19 @@
 """PICS, Parallel Image Compressed Strips (reference parallelstrips.go):
-a copy of ``mic_tpu.parallel.strips`` without its native whole-container
-branch, which writes the same bytes (the decode side pinned by
+a copy of ``mic_tpu.parallel.strips`` (the decode side pinned by
 ``tests/test_torch_ref_decode.py`` and ``tests/test_torch_ingest.py``,
-the writers by ``tests/test_torch_host_writers.py``).  Format::
+the writers by ``tests/test_torch_host_writers.py`` and
+``tests/test_torch_native.py``).  Format::
 
     "PICS" | width u32 | height u32 | numStrips u32 | stripHeight u32
     offset table: numStrips x [offset u32, length u32]
     concatenated strip blobs
 
-Each strip is an independent single-frame blob, written and read on a
-thread pool in strip order.  ``tpu/ref_decode.py`` decodes the strips of
+Each strip is an independent single-frame blob.  The 2-, 4- and 8-state
+writers write the whole container on the C++ tier's ``std::thread`` pool
+(``native.compress_strips_native``), as ``mic_tpu`` does with its
+library built; where a strip is incompressible (``None``) the strips are
+written in Python on a thread pool in strip order, as there.  The Python
+reader decodes them on a thread pool.  ``tpu/ref_decode.py`` decodes the strips of
 many containers as one device entropy batch.
 """
 
@@ -27,6 +31,7 @@ from ..models.single_frame import (
     compress_single_frame_8state,
     decompress_single_frame,
 )
+from ..native import compress_strips_native
 
 __all__ = [
     "PICS_MAGIC",
@@ -47,7 +52,7 @@ def _strip_plan(height: int, num_strips: int) -> tuple[int, int]:
     return strip_h, actual
 
 
-def _compress_strips(pixels, width, height, max_value, num_strips, frame_compress) -> bytes:
+def _strip_args(pixels, width, height, num_strips):
     pixels = np.asarray(pixels, dtype=np.uint16)
     if len(pixels) != width * height:
         raise ValueError(
@@ -55,7 +60,30 @@ def _compress_strips(pixels, width, height, max_value, num_strips, frame_compres
         )
     if num_strips <= 0:
         num_strips = os.cpu_count() or 1
-    num_strips = max(1, min(num_strips, height))
+    return pixels, max(1, min(num_strips, height))
+
+
+def _compress_strips(pixels, width, height, max_value, num_strips, n_states) -> bytes:
+    """The whole container on the C++ tier's thread pool; ``None`` (an
+    incompressible strip) falls through to the Python assembly, as in
+    mic_tpu."""
+    pixels, num_strips = _strip_args(pixels, width, height, num_strips)
+    blob = compress_strips_native(pixels, width, height, max_value, n_states=n_states,
+                                  num_strips=num_strips)
+    if blob is not None:
+        return blob
+    return _compress_strips_python(pixels, width, height, max_value, num_strips, n_states)
+
+
+_FRAME_WRITERS = {2: compress_single_frame, 4: compress_single_frame_4state,
+                  8: compress_single_frame_8state}
+
+
+def _compress_strips_python(pixels, width, height, max_value, num_strips, n_states) -> bytes:
+    """The numpy twin of the native container write, byte for byte: each
+    strip's single-frame blob on a thread pool, in strip order."""
+    pixels, num_strips = _strip_args(pixels, width, height, num_strips)
+    frame_compress = _FRAME_WRITERS[n_states]
     strip_h, actual = _strip_plan(height, num_strips)
 
     def one(idx: int) -> bytes:
@@ -78,19 +106,17 @@ def _compress_strips(pixels, width, height, max_value, num_strips, frame_compres
 
 def compress_parallel_strips(pixels, width, height, max_value, num_strips=0) -> bytes:
     """2-state strips (reference CompressParallelStrips, parallelstrips.go:55)."""
-    return _compress_strips(pixels, width, height, max_value, num_strips, compress_single_frame)
+    return _compress_strips(pixels, width, height, max_value, num_strips, 2)
 
 
 def compress_parallel_strips_4state(pixels, width, height, max_value, num_strips=0) -> bytes:
     """4-state strips (parallelstrips.go:128)."""
-    return _compress_strips(pixels, width, height, max_value, num_strips,
-                            compress_single_frame_4state)
+    return _compress_strips(pixels, width, height, max_value, num_strips, 4)
 
 
 def compress_parallel_strips_8state(pixels, width, height, max_value, num_strips=0) -> bytes:
     """8-state strips (parallelstrips.go:199)."""
-    return _compress_strips(pixels, width, height, max_value, num_strips,
-                            compress_single_frame_8state)
+    return _compress_strips(pixels, width, height, max_value, num_strips, 8)
 
 
 def pics_strip_blobs(blob: bytes):

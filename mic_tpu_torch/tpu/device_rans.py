@@ -8,13 +8,18 @@ the single-stream path.  Encode: the normalization + ncount header
 (``_norm_and_header``) and the alias escape-fold plan (``_alias_plan`` /
 ``_alias_apply`` / ``alias_encode_plan``) that define an encoded blob's
 bytes, which the device encoder shares; and the host encoder at any lane
-count (``mict_encode`` / ``mict_encode_alias`` over the numpy
-``_lane_encode``), which the host ``strips.micw_compress`` writes
-containers with.  ``mic_tpu``'s native C++ loops are not copied: its
-tests pin them to the numpy ones.  The ncount header is read and written
-by the port's numpy copies in ``..ops.fse``.  The copies here are pinned
-to the originals by ``tests/test_torch_host_format.py``,
-``tests/test_torch_rans_encode.py`` and ``tests/test_torch_scan_decode.py``.
+count (``mict_encode`` / ``mict_encode_alias`` over ``_lane_encode``),
+which the host ``strips.micw_compress`` writes containers with.  As in
+``mic_tpu`` with its library built, the three host hot spots run the C++
+tier (``..native``): ``_norm_and_header`` (normalization + ncount
+header), ``_lane_encode`` (the L-lane rANS encode) and ``mict_parse``'s
+ncount reader.  Their numpy twins (``_norm_and_header_numpy``,
+``_lane_encode_numpy``, ``..ops.fse.read_ncount``) run only where the
+native call returns ``None`` for a reason of the data, as ``mic_tpu``'s
+do, for lane encodes past the C++ loop's shapes (``_lane_encode``), and
+in the tests.  The copies here are pinned to the originals by
+``tests/test_torch_host_format.py``, ``tests/test_torch_rans_encode.py``,
+``tests/test_torch_scan_decode.py`` and ``tests/test_torch_native.py``.
 
 Stream layout (magic 0xFF 0x57 'W'; FF 41 adds the escape fields)::
 
@@ -32,6 +37,7 @@ import struct
 
 import numpy as np
 
+from ..native import lane_encode_native, normalize_write_count_native, read_ncount_native
 from ..ops.fse import (
     DEFAULT_TABLE_LOG,
     IncompressibleError,
@@ -268,7 +274,16 @@ def mict_parse(blob: bytes):
     if is_alias:
         n_esc, esc_val = struct.unpack_from("<IH", blob, 12)
         hdr = 18
-    norm, symbol_len, table_log, consumed = read_ncount(blob[hdr:])
+    body = blob[hdr:]
+    # The native reader returns None on an invalid header: the Python
+    # reader then raises its error, as in mic_tpu.  Its int32 norm widens
+    # to the Python reader's int64, so the tables built from it are too.
+    nat = read_ncount_native(body)
+    if nat is not None:
+        norm, symbol_len, table_log, consumed = nat
+        norm = norm.astype(np.int64)
+    else:
+        norm, symbol_len, table_log, consumed = read_ncount(body)
     if table_log != tl_hdr:
         raise ValueError("MICT: header tableLog mismatch")
     pos = hdr + consumed
@@ -341,19 +356,46 @@ def mict_encode(
 
 
 def _norm_and_header(counts, n, tl, sl):
-    """normalize_count + write_count: (norm, ncount header bytes), the
-    same bytes as ``mic_tpu``'s native and numpy pairs."""
+    """normalize_count + write_count: (norm, ncount header bytes) from
+    the C++ tier; where it needs the retry it leaves to its caller
+    (``None``), the numpy pair, which then raises, as in ``mic_tpu``."""
+    nat = normalize_write_count_native(counts, n, tl, sl)
+    if nat is not None:
+        return nat
+    return _norm_and_header_numpy(counts, n, tl, sl)
+
+
+def _norm_and_header_numpy(counts, n, tl, sl):
+    """The numpy twin of ``_norm_and_header``: the same bytes."""
     norm = normalize_count(counts, n, tl, sl)
     if int(np.abs(norm).sum()) != (1 << tl):  # reference validateNorm
         raise ValueError("normalize: table does not sum to 1<<tableLog")
     return norm, write_count(norm, sl, tl)
 
 
+# mic_lane_encode's shapes (micfse.cpp:1264): it refuses more lanes or a
+# larger tableLog, and so does mic_tpu's encode with its library built.
+NATIVE_MAX_LANES, NATIVE_MAX_TABLE_LOG = 4096, 15
+
+
 def _lane_encode(sym_i64, n, L, tl, freq_of, cumul_of, slot_of=None):
     """Reverse lane-interleaved rANS encode shared by the standard and
     alias paths (the slot written is cumul + j, or slot_of[cumul + j]
-    with the alias permutation).  Returns (states u64[L], words u16) in
-    decoder order (step ascending, lane ascending)."""
+    with the alias permutation), on the C++ tier (``mic_lane_encode``).
+    Returns (states u64[L], words u16) in decoder order (step ascending,
+    lane ascending).  Streams past the C++ loop's shapes (more than
+    ``NATIVE_MAX_LANES`` lanes, tableLog 16), which the port's host
+    encoder writes for the scan tier as ``mic_tpu``'s numpy tier does,
+    take the numpy twin."""
+    if L > NATIVE_MAX_LANES or tl > NATIVE_MAX_TABLE_LOG:
+        return _lane_encode_numpy(sym_i64, n, L, tl, freq_of, cumul_of, slot_of)
+    states, words = lane_encode_native(np.asarray(sym_i64[:n], dtype=np.uint16), int(L),
+                                       int(tl), freq_of, cumul_of, slot_of)
+    return states.astype(np.uint64), words
+
+
+def _lane_encode_numpy(sym_i64, n, L, tl, freq_of, cumul_of, slot_of=None):
+    """The numpy twin of ``_lane_encode``: the same states and words."""
     n_steps = (n + L - 1) // L
     states = np.full(L, RANS_L, dtype=np.uint64)
     # Renorm bound: emit while x >= freq << (32 - tl)  (single-word renorm).

@@ -4,24 +4,25 @@ Counterpart of ``mic_tpu.tpu.ingest``, with the same entry points and an
 added ``device``.  A reference blob decodes to pixels, the pixels are
 re-encoded as MICW, and the containers are staged for repeated device
 decode (``MicwDecodePlan``): an archive migration, or a training data
-path that ingests each image once and decodes it many times.
+path that ingests each image once and decodes it many times.  The
+reference decode, in ``mic_tpu``'s order:
 
-* ``entropy="device"`` decodes the reference blob's entropy stage with
-  the tANS kernel (``ref_decode.py``), for the avg and grad pipelines
-  (kind 0 and 1);
-* ``entropy="native"`` is the Python tier, ``models/single_frame.py`` and
-  ``parallel/strips.decompress_parallel_strips``: what ``mic_tpu`` runs
-  when its C++ tier (``libmicfse``) is not built.  Unlike that tier,
-  which decodes every frame as avg, it honours ``kind``, as the C++ tier
-  does: 1 (grad), 2 (med) and 3 (zz).
+* ``entropy="device"`` with kind 0 or 1 (avg, grad) decodes the blob's
+  entropy stage with the tANS kernel (``ref_decode.py``);
+* ``entropy="native"`` (the default), and kinds 2 and 3 (med, zz) under
+  ``"device"``, run the C++ tier (``..native``): a PICS container through
+  the threaded ``decompress_strips_native`` (as avg, whatever ``kind``
+  says, as in ``mic_tpu``), a frame through
+  ``decompress_frame_native(kind)``;
+* ``entropy="python"`` runs the Python tier, ``models/single_frame.py``
+  and ``parallel/strips.decompress_parallel_strips``: what ``mic_tpu``
+  runs when its library is not built.  The port always has its library
+  (a failed build raises), so that state has a name here; unlike
+  ``mic_tpu``'s Python tier, which decodes every frame as avg, it honours
+  ``kind`` as the C++ tier does: 1 (grad), 2 (med) and 3 (zz), through
+  the fused Delta+RLE decode of ``ops/deltarle.py``.
 
-Frames of kinds 2 and 3 take the Python tier under either ``entropy``
-(``mic_tpu`` sends them to its C++ tier, never to the device): the fused
-Delta+RLE decode of ``ops/deltarle.py`` with the med / zz predictor,
-which equals ``libmicfse``'s ``decompress_frame_native(kind=2 / 3)``
-(pinned where the library is built).  A PICS container decodes as avg
-whatever ``kind`` says, as in ``mic_tpu``'s host tiers.  The re-encode is
-the port's ``micw_compress_device`` on ``device``: with
+The re-encode is the port's ``micw_compress_device`` on ``device``: with
 ``device_encode=True`` the zzd predictor, standard entropy (what
 ``mic_tpu``'s ``pallas_enc.micw_compress_device`` writes), otherwise the
 trial set ``auto-fast`` with ``target_entropy`` (what ``mic_tpu``'s host
@@ -35,6 +36,7 @@ import time
 
 import numpy as np
 
+from .. import native
 from ..models.single_frame import decompress_single_frame, decompress_single_frame_grad
 from ..ops.deltarle import med_delta_rle_decompress, zz_delta_rle_decompress
 from ..ops.fse_codec import fse_decompress_auto
@@ -49,7 +51,7 @@ __all__ = [
     "ingest_plan",
 ]
 
-_HOST_FRAME = {
+_PYTHON_FRAME = {
     0: decompress_single_frame,
     1: decompress_single_frame_grad,
     2: lambda blob, w, h: med_delta_rle_decompress(fse_decompress_auto(blob), w, h),
@@ -60,9 +62,9 @@ _HOST_FRAME = {
 def _decode_reference(blob: bytes, width: int, height: int, kind: int, device,
                       entropy: str = "native"):
     """Decode a reference-format blob to (pixels, width, height)."""
-    if kind not in _HOST_FRAME:
+    if kind not in _PYTHON_FRAME:
         raise ValueError(f"ingest: invalid predictor kind {kind!r} (0 avg, 1 grad, 2 med, 3 zz)")
-    if entropy not in ("native", "device"):
+    if entropy not in ("native", "device", "python"):
         raise ValueError(f"ingest: unknown entropy tier {entropy!r}")
     if entropy == "device" and kind in (0, 1):
         from .ref_decode import decompress_frames_device, decompress_pics_device
@@ -72,10 +74,14 @@ def _decode_reference(blob: bytes, width: int, height: int, kind: int, device,
             return decompress_pics_device(blob, device, kind=kname)
         (px,) = decompress_frames_device([blob], [(width, height)], device, kind=kname)
         return px, width, height
+    if entropy == "python":
+        if blob[:4] == PICS_MAGIC:
+            px, w, h = decompress_parallel_strips(blob)
+            return np.asarray(px), w, h
+        return np.asarray(_PYTHON_FRAME[kind](blob, width, height)), width, height
     if blob[:4] == PICS_MAGIC:
-        px, w, h = decompress_parallel_strips(blob)
-        return np.asarray(px), w, h
-    return np.asarray(_HOST_FRAME[kind](blob, width, height)), width, height
+        return native.decompress_strips_native(blob)
+    return native.decompress_frame_native(blob, width, height, kind), width, height
 
 
 def transcode_frame(
@@ -86,7 +92,8 @@ def transcode_frame(
     """Reference single-frame blob (or PICS container) -> MICW.  ``kind``
     is the predictor the frame was encoded with (0 = avg, 1 = grad, 2 =
     med, 3 = zz);
-    ``entropy`` selects the reference decode ("native" or "device");
+    ``entropy`` selects the reference decode ("native", "device" or
+    "python");
     ``target_entropy`` the MICW strip stream family ("standard" FF 57,
     "alias" FF 41 or "best"; ignored with ``device_encode``)."""
     px, w, h = _decode_reference(blob, width, height, kind, device, entropy=entropy)

@@ -395,7 +395,8 @@ def stage_encode_batch(streams, *, max_table_log: int = 12, on_error: str = "rai
                        alias: bool = False) -> StagedEncode | None:
     """Histogram, normalization, ncount header, (alias) fold plan and
     rank streams of every stream, and the kernel operands of the whole
-    batch.  Streams that raise a sentinel error are skipped with
+    batch; the normalization and header are the C++ tier's
+    (``device_rans._norm_and_header``), as in ``mic_tpu``.  Streams that raise a sentinel error are skipped with
     ``on_error="none"``; returns None when none is left.  The host half
     of :func:`mict_encode_device_batch`, public only so that tests and
     ``chip_smoke.py`` can time it and build kernel operands with it."""

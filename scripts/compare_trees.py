@@ -3,12 +3,13 @@
 on one card, each run in a process of its own, in the order other, this,
 this, other.
 
-    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,3,4,5,6,8,10] [--reps N]
+    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,3,4,5,6,8,10,14] [--reps N]
 
 ``DIR`` is an unpacked copy of another commit (for example the parent:
 ``git archive HEAD | tar -x -C build/parent``).  Each run imports the
 ``chip_smoke.py`` and ``mic_tpu_torch`` of its own tree, builds that
-tree's kernels, and runs the phases with that tree's functions, so both
+tree's kernels (and its C++ host tier, where it has one), and runs the
+phases with that tree's functions, so both
 sides are measured by the same code as far as the trees share it:
 
 * ``2r``: each r-mode bucket of phase 5's batch through its one-bucket
@@ -25,13 +26,24 @@ sides are measured by the same code as far as the trees share it:
   their wrappers, with the per-stream table widths where the tree's
   staging has them (the main path's call), and ns a step of the launch;
 * ``3``: phase 3's plan (``MicwDecodePlan`` over ``chip_smoke.BATCH``):
-  verified, then ms and GB/s per ``plan.run()`` (CUDA events, mean of
-  ``--reps``) and the device busy time of one run (torch.profiler);
+  its staging seconds, verified, then ms and GB/s per ``plan.run()``
+  (CUDA events, mean of ``--reps``) and the device busy time of one run
+  (torch.profiler);
 * ``4``, ``5``, ``6``, ``8``, ``10``: the tree's own phase function
   (encode path, r-mode plan, post path, RGB / WSI containers, scan tier),
   which verifies its outputs and prints its times (phase 4: its total
   line, with the profiled ``kernel_ms``); a tree without the phase says
-  so.
+  so;
+* ``14``: the host tier on phase 12's 2048x2048 CT mosaic, with what
+  both trees have: the mosaic's MIC1 (2 / 4 / 8 states, rANS8) and PICS
+  (4 and 8 states, 8 strips) written by the tree's writers in spawned
+  processes (host seconds a writer), ``decode_frame`` (``tier="auto"``)
+  of each MIC1 and ingest's default reference decode of each PICS (host
+  seconds of the least of ``--reps`` calls, at most 3, one where a call
+  takes over a second; pixels verified),
+  and ``ingest_plan(..., device_encode=True)`` at its default tier on the
+  six blobs with its ``decode_s`` / ``encode_s`` / ``stage_s``.  A tree
+  before the C++ host tier runs its Python tier under those names.
 
 Prints the card's name and power limit, then each run's timing lines
 (``ms per``, ``GB/s``, the profiler's idle share) under its tree's label.
@@ -48,15 +60,16 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper", "p-wrapper", "e-wrapper",
-        "encode path: ", "scan tier: ", "profile: ")
+        "encode path: ", "scan tier: ", "profile: ", "stage_s", "host 14: ")
 
 RUN = """
 import sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
-from mic_tpu_torch._build import kernel_library
+from mic_tpu_torch import _build
 dev = torch.device("cuda", 0)
-kernel_library()
+_build.kernel_library()
+getattr(_build, "host_library", lambda: None)()  # set-up, as the kernels' (a tree may lack it)
 phases = {phases!r}
 if "2r" in phases:
     from mic_tpu_torch import MicwDecodePlan
@@ -127,7 +140,11 @@ if "3" in phases:
         bw, bh, _n, sh, _m, _g, _l, strips = micw_parse(blobs[k])
         nbytes += 2 * sum(min(sh, bh - i * sh) * bw for i, st in enumerate(strips)
                           if st[5] not in (1, 5))  # raw and constant strips: the host's
+    import time
+    t0 = time.perf_counter()
     plan = MicwDecodePlan([blobs[k] for k in names], dev)
+    torch.cuda.synchronize()
+    print(f"phase 3: stage_s={{time.perf_counter() - t0:.3f}}")
     mism = plan.verify_batch(plan.run(), [raws[k] for k in names])
     ms = cs._cuda_ms(plan.run, {reps})
     _o, wall, by_name, span = cs._profiled(plan.run)
@@ -149,6 +166,55 @@ if "10" in phases:
         cs._scan_phase(dev, *cs._scan_batch())
     else:
         print("scan tier: phase 10 is not in this tree")
+if "14" in phases:
+    import multiprocessing
+    import time
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    from mic_tpu_torch import ingest_plan
+    from mic_tpu_torch.models import single_frame as sf
+    from mic_tpu_torch.tpu import ingest
+    from mic_tpu_torch.utils.io import read_mic1
+    copies = cs.MOSAIC_COPIES
+    jobs = [("mic1", (k, copies)) for k in ("2s", "4s", "8s", "rans8")] + [
+        ("pics", (n, copies)) for n in (4, 8)]
+    with ProcessPoolExecutor(max_workers=len(jobs),
+                             mp_context=multiprocessing.get_context("spawn")) as ex:
+        written = dict(zip(jobs, ex.map(cs._writer_job, jobs)))
+    flat = cs._mosaic(copies).ravel()
+    side = 512 * copies
+    mb = flat.nbytes / 1e6
+    for job, (label, blob, n_in, sec) in written.items():
+        print(f"host 14: writer {{label}}: {{sec:.3f}} host s, {{n_in / sec / 1e6:.3f}} MB/s")
+    reps = min({reps}, 3)
+    blobs = []
+    for (kind, arg), (label, blob, _n, _s) in written.items():
+        if kind == "mic1":
+            blob = read_mic1(blob)[3]
+            fn = lambda: sf.decode_frame(blob, side, side)
+            what = "decode_frame(tier='auto')"
+        else:
+            fn = lambda: ingest._decode_reference(blob, 0, 0, 0, dev)[0]
+            what = "ingest's default reference decode"
+        blobs.append(blob)
+        best = float("inf")
+        for _ in range(reps):  # a call over a second is not repeated
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+            if best > 1.0:
+                break
+        assert np.array_equal(np.asarray(out), flat), label
+        print(f"host 14: {{what}} {{label}}: {{best:.4f}} host s, {{mb / best:.3f}} MB/s")
+    timings = {{}}
+    t0 = time.perf_counter()
+    plan = ingest_plan(blobs, [(side, side)] * 4 + [None] * 2, dev, device_encode=True,
+                       timings=timings)
+    wall = time.perf_counter() - t0
+    mism = plan.verify_batch(plan.run(), [flat] * len(blobs))
+    assert not mism, mism
+    print(f"host 14: ingest_plan(device_encode=True) default tier: {{wall:.3f}} s, "
+          + " ".join(f"{{k}}={{v:.3f}}" for k, v in timings.items()))
 """
 
 

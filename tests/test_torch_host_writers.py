@@ -189,12 +189,12 @@ def test_scratch_and_single_frame_decoders():
         assert blob == r.compress(px, n_states=n)
         assert np.array_equal(s.decompress(blob), r.decompress(blob))
     blob = single_frame.compress_single_frame_grad(px, 64, 64, mv)
-    for tier in ("auto", "python"):
+    for tier in ("auto", "native", "python"):  # auto and native: the C++ tier
         assert np.array_equal(single_frame.decode_frame(blob, 64, 64, "grad", tier), px)
-    with pytest.raises(ValueError, match="native"):
-        single_frame.decode_frame(blob, 64, 64, "grad", "native")
-    with pytest.raises(ValueError):
-        single_frame.decode_frame(blob, 64, 64, "med")
+    with pytest.raises(ValueError, match="python tier"):
+        single_frame.decode_frame(blob, 64, 64, "med", "python")
+    with pytest.raises(ValueError, match="native tier"):
+        single_frame.decode_frame(blob, 64, 64, "gradient")
     res = single_frame.compress_residual_frame(px, mv)
     assert np.array_equal(single_frame.decompress_residual_frame(res),
                           ref_sf.decompress_residual_frame(res))

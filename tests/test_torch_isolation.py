@@ -1,14 +1,16 @@
 """The port imports nothing of mic_tpu, and its copies of mic_tpu.ops are
 pinned to the originals.
 
-* ``import mic_tpu_torch``, ``import chip_smoke`` and the import of each
-  module of the port that the package does not load itself load no
-  module of ``mic_tpu`` and no jax (a fresh interpreter), and no source
-  of the port names ``mic_tpu`` or jax in an import;
-* ``mic_tpu_torch.ops.fse`` against ``mic_tpu.ops.fse`` (and the C++ pair
-  of ``mic_tpu.native`` where it is built): histograms, tableLog choice,
-  normalization, and the ncount header written and read back at tableLogs
-  5-16, byte for byte;
+* ``import mic_tpu_torch``, ``import chip_smoke``, ``import
+  mic_tpu_torch.native`` and the import of each module of the port that
+  the package does not load itself load no module of ``mic_tpu`` and no
+  jax (a fresh interpreter, with ``CXX`` naming no compiler: no import
+  builds the C++ host tier), and no source of the port names ``mic_tpu``
+  or jax in an import;
+* ``mic_tpu_torch.ops.fse`` against ``mic_tpu.ops.fse``, the port's C++
+  pair (``mic_tpu_torch.native``) and the C++ pair of ``mic_tpu.native``
+  where it is built: histograms, tableLog choice, normalization, and the
+  ncount header written and read back at tableLogs 5-16, byte for byte;
 * ``mic_tpu_torch.ops.predictors`` and ``.rle`` against
   ``mic_tpu.ops.predictors`` / ``.rle`` on seeded images and streams,
   both sides (the decode side serves the reference formats), and the
@@ -26,6 +28,7 @@ pinned to the originals.
 Tolerance 0: these define the bytes of the format.
 """
 
+import os
 import re
 import subprocess
 import sys
@@ -53,6 +56,7 @@ ROOT = Path(__file__).resolve().parent.parent
                                     "mic_tpu_torch.tpu.scan_decode",
                                     "mic_tpu_torch.tpu.decode",
                                     "mic_tpu_torch.tpu.mesh", "mic_tpu_torch.dryrun",
+                                    "mic_tpu_torch.native",
                                     "mic_tpu_torch.utils.dicom",
                                     "mic_tpu_torch.parallel.strips_adaptive",
                                     "mic_tpu_torch.models.wavelet_pipeline, "
@@ -63,8 +67,9 @@ def test_import_loads_no_mic_tpu(module):
             "bad = [m for m in sys.modules if m == 'mic_tpu' or m.startswith('mic_tpu.') "
             "or m == 'jax' or m.startswith('jax.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
+    env = {**os.environ, "CXX": str(ROOT / "build" / "no-such-compiler")}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, env=env)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -106,8 +111,11 @@ def test_histogram_and_table_log_match():
 @pytest.mark.parametrize("table_log", list(range(5, 17)))
 def test_normalize_and_ncount_round_trip(table_log):
     """normalize_count, write_count and read_ncount at every tableLog,
-    against mic_tpu.ops.fse and, where built, mic_tpu.native."""
+    against mic_tpu.ops.fse, the port's C++ pair and, where built,
+    mic_tpu.native."""
     from mic_tpu import native
+
+    from mic_tpu_torch import native as port_native
 
     checked = 0
     for data in _histograms():
@@ -131,6 +139,10 @@ def test_normalize_and_ncount_round_trip(table_log):
         ref_back = ref_fse.read_ncount(hdr + b"\0" * 8)
         assert np.array_equal(back[0], ref_back[0]) and back[1:] == ref_back[1:]
         assert np.array_equal(back[0], want) and back[1:3] == (sl, table_log)
+        nat = port_native.normalize_write_count_native(counts, n, table_log, sl)
+        assert nat is not None and np.array_equal(nat[0], got) and nat[1] == hdr
+        nat_back = port_native.read_ncount_native(hdr + b"\0" * 8)
+        assert np.array_equal(nat_back[0], back[0]) and nat_back[1:] == back[1:]
         if native.available():
             nat = native.normalize_write_count_native(counts, n, table_log, sl)
             assert nat is not None and np.array_equal(nat[0], got) and nat[1] == hdr
