@@ -65,9 +65,16 @@ Phases (any failure exits non-zero; nothing is caught):
    seconds, decode GB/s over ``plan.run()``, the launch alone (CUDA
    events), the launch counts and a torch.profiler breakdown of one
    ``plan.run()`` by device kernel; the plan's timed runner
-   (``make_timed_runner``): ``runner(1)`` must count 0 mismatches, and
-   ``runner(RUNNER_REPS)``'s GB/s by CUDA events is printed beside
-   ``plan.run()``'s.  Then a 110,208 x 8 pdd image, encoded
+   (``make_timed_runner``): ``runner(1)`` must count 0 mismatches; its
+   compare kernel (``csrc/verify.cu``, ``verify.count_mismatches``) must
+   equal its plain twin on one run's outputs, clean and with 1000 pixels
+   flipped in a copy of the largest bucket's output (totals and the
+   flips' count), each timed by CUDA events; then ``RUNNER_PAIRS`` turns
+   of one ``plan.run()`` and one ``runner(1)`` by their own CUDA events
+   (runner(1) minus a run, medians), and ``RUNNER_BLOCKS`` turns of
+   ``RUNNER_REPS`` runs back to back and ``runner(RUNNER_REPS)``, whose GB/s
+   is printed beside theirs and the median ``plan.run()``'s and which must
+   make one compare launch a run.  Then a 110,208 x 8 pdd image, encoded
    on the card, whose row leaves no room for the kernel's column carry:
    its plan must run the bucket unfused, in one launch, and decode it.
 4. Encode path: ``MicwEncodePlan`` (what ``micw_compress_device_many``
@@ -174,10 +181,9 @@ Phases (any failure exits non-zero; nothing is caught):
    staging seconds, its blocks, shared memory a block and blocks an SM;
    then ``SCAN_REPS`` pairs of ``plan.run()`` and the launch alone,
    interleaved in one loop, each timed by its own CUDA events: the least,
-   median and most ms of each and the run's GB/s; and whether
-   torch.profiler's trace holds the launch; the plan's timed runner as in
-   phase 3.  Then the graft entry's tiny 64-lane batch
-   (``dryrun.tiny_micw_batch``) through ``decode_strip_batch`` against its
+   median and most ms of each and the run's GB/s; the plan's timed
+   runner as in phase 3; a torch.profiler breakdown of one run.  Then the
+   graft entry's tiny 64-lane batch (``dryrun.tiny_micw_batch``) through ``decode_strip_batch`` against its
    pixels, ``mict_decode_device`` on one 64-lane stream against the host
    decoder, and ``compress_multi_frame_device(lanes=64)`` on
    ``series_dev_ind.raw`` (three 512x512 frames), decoded and verified;
@@ -278,6 +284,10 @@ Phases (any failure exits non-zero; nothing is caught):
    67 T/s, the H100 SXM's memory and CUDA-core rates), then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
+Every torch.profiler window (phases 3-8, 10) must hold one trace record
+for each launch the port's wrappers counted in it, kernel by kernel
+(``_profiled``), or the run fails.
+
 Imports neither jax nor anything of mic_tpu.
 """
 
@@ -375,6 +385,8 @@ KERNELS = {
     # no Pallas kernel: it replaces mic_tpu's scan tier, plain XLA (the
     # lax.scan of decode_strip_batch_impl's rans_one and its subst_one)
     "rans_decode_lanes": ("mic_tpu_torch/csrc/rans_lanes.cu", "mic_tpu/tpu/strips.py:762"),
+    # the compare inside mic_tpu's timed runner (XLA-fused there), and its probe
+    "count_mismatches": ("mic_tpu_torch/csrc/verify.cu", "mic_tpu/tpu/strips.py:2296-2306"),
 }
 # The bound of a kernel's work: the larger of its bytes (every input read
 # once, every output written once) over the H100 SXM's 3.35 TB/s and its
@@ -416,6 +428,8 @@ DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): 
 LANES_LAUNCHES_PER_RUN = 1  # lanes-kernel launches per MicwDecodePlan.run(): all scan buckets
 SCAN_REPS = 20  # phase 10's timed pairs of plan.run() and the lanes launch alone
 RUNNER_REPS = 20  # runs a timed runner makes in phases 3 and 10
+RUNNER_PAIRS = 9  # turns of one plan.run() and one runner(1) in phases 3 and 10
+RUNNER_BLOCKS = 5  # turns of RUNNER_REPS plan.run() back to back and runner(RUNNER_REPS)
 MESH_DRYRUN = (2, 8)  # phase 11's dry runs, shards on the visible cards round-robin
 MESH_SHARDS = (1, 2, 4)  # phase 11's full-width shard counts on one card
 MESH_REPS = 256  # phase 11's CT_dev replicas, at 128 lanes (phase 2's) and at 64 (phase 10's)
@@ -430,6 +444,7 @@ NATIVE_REPS = 3  # phase 14's calls of each timed native decode and write (the l
 CLI_PAIRINGS = [(e, p) for p in ("auto-fast", "auto-r") for e in ("standard", "alias", "best")]
 POST_FRONT_ENDS = ("rans_decode_packed", "rans_decode", "rans_decode_alias")  # phase 6's launch
 ENTROPY_KERNELS = ("rans_", "groups_kernel")  # profiler names of the entropy kernels
+TEARDOWN_SYNCS = 10  # synchronises after a profiler session, for CUPTI's finalise (_profiled)
 
 
 def _clock(t_start: float, phase: int) -> None:
@@ -452,21 +467,83 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _port_kernels() -> dict:
+    """Kernel names in torch.profiler's trace -> the port's wrappers that
+    launch those kernels (each adds one to its ``.launches`` a launch)."""
+    from mic_tpu_torch.tpu import kernels, verify
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu import scan_decode as sd
+    from mic_tpu_torch.tpu import tans_decode as td
+
+    return {
+        ("direct_groups_kernel",): (rd.rans_decode_zzd, rd.rans_decode_alias,
+                                    rd.rans_decode_packed, rd.rans_decode,
+                                    rd.rans_decode_direct_groups),
+        ("rle_groups_kernel",): (rd.rans_decode_rle, rd.rans_decode_rle_alias,
+                                 rd.rans_decode_rle_groups),
+        ("rans_enc_kernel",): (renc.rans_encode, renc.rans_encode_alias),
+        ("tans_groups_kernel",): (td.tans_decode, td.tans_decode_groups),
+        ("ycocgr_fwd_kernel",): (kernels.ycocgr_forward,),
+        ("ycocgr_inv_kernel",): (kernels.ycocgr_inverse,),
+        ("wt53_fwd_kernel",): (kernels.wt53_rows_forward,),
+        ("wt53_inv_kernel",): (kernels.wt53_rows_inverse,),
+        ("lanes_groups_kernel", "lanes_wide_kernel"): (sd.rans_decode_lanes,
+                                                       sd.rans_decode_lanes_groups),
+        ("mismatch_groups_kernel",): (verify.count_mismatches,),
+    }
+
+
+def _finish_cupti_teardown() -> None:
+    """CUDA calls that let kineto's finalise of CUPTI, requested at the
+    end of a profiler session under ``TEARDOWN_CUPTI=1``, complete before
+    the next session starts (a finalise that lands inside a session takes
+    its records) or the process exits (it would hang there)."""
+    import torch
+
+    for _ in range(TEARDOWN_SYNCS):
+        torch.cuda.synchronize()
+        time.sleep(0.001)
+
+
 def _profiled(fn, records: list | None = None):
     """Run ``fn()`` under torch.profiler; returns (result, wall ms, device
-    ms by kernel name, device span ms).  The name dict is empty when the
-    profiler recorded no device events.  ``records``, when a list,
-    receives (name, start us from the first, duration us) per device
-    event."""
+    ms by kernel name, device span ms).  The trace must hold one record
+    of each launch the port's wrappers counted during ``fn()`` (their
+    ``.launches``), kernel by kernel: a missing or extra record raises.
+    Kineto drops every device record whose timestamp falls outside its
+    session, and while CUPTI stays initialised from one session to the
+    next the device timestamps of a process older than a minute come
+    out shifted by up to milliseconds: a short window then loses its
+    first records or all of them (``scripts/profiler_records.py``).  So
+    kineto finalises CUPTI after each session (``TEARDOWN_CUPTI=1``) and
+    the next one initialises it afresh (``_finish_cupti_teardown``).
+    ``records``, when a list, receives (name, start us from the first,
+    duration us) per device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    os.environ["TEARDOWN_CUPTI"] = "1"
+    port = _port_kernels()
+    before = {k: sum(w.launches for w in ws) for k, ws in port.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    _finish_cupti_teardown()
+    counts = {}
+    for names, ws in port.items():
+        launched = sum(w.launches for w in ws) - before[names]
+        held = sum(1 for e in events if any(n in e.name for n in names))
+        if launched or held:
+            counts[names[0]] = (launched, held)
+    print(f"profile records: port launches and their trace records {counts}")
+    lost = {k: v for k, v in counts.items() if v[0] != v[1]}
+    if lost:
+        raise AssertionError(f"torch.profiler's trace does not hold one record a port launch "
+                             f"(kernel: launches, records): {lost}")
     by_name: dict[str, float] = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -482,10 +559,6 @@ def _profiled(fn, records: list | None = None):
 def _profile(plan) -> None:
     """Device time of one ``plan.run()`` by kernel, from torch.profiler."""
     _out, wall_ms, by_name, span = _profiled(plan.run)
-    if not by_name:
-        print(f"profile: wall_ms={wall_ms:.3f}; no device events recorded "
-              "(device breakdown not measured)")
-        return
     busy = sum(by_name.values())
     print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
           f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
@@ -804,8 +877,6 @@ def _encode_phase(dev):
               f"equal_to_fixture={not bad}")
         if bad:
             raise AssertionError(f"encode {name}: containers {bad[:10]} differ from the fixture")
-        if not by_name:
-            print(f"encode {name}: no device events recorded (kernel ms not measured)")
         for k, v in (("bytes", n_bytes), ("cand_s", cand_s), ("enc_s", enc_s),
                      ("sel_s", sel_s), ("kernel_ms", kernel_ms), ("stage_s", stage_s)):
             tot[k] += v
@@ -994,23 +1065,14 @@ def _post_phase(dev, blobs, expected, names):
           f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
           f"({timed_bytes} bytes)")
     _out, wall_ms, by_name, span = _profiled(plan.run)
-    if not by_name:
-        print(f"profile: wall_ms={wall_ms:.3f}; no device events recorded "
-              "(device breakdown not measured)")
-    else:
-        busy = sum(by_name.values())
-        ents = [v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS)]
-        ent = sum(ents)
-        # torch.profiler may drop a long process's records (PERF.md section 7)
-        split = (f"entropy_kernels_ms={ent:.3f} ({100 * ent / busy:.1f}% of busy) "
-                 f"post_torch_ops_ms={busy - ent:.3f}" if ents else
-                 "entropy_kernels_ms not measured (the trace holds no record of the direct "
-                 "kernel's launch; device_busy_ms lacks it)")
-        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
-              f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
-              f"{split} device_kernel_names={len(by_name)}")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
+    busy = sum(by_name.values())
+    ent = sum(v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS))
+    print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+          f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
+          f"entropy_kernels_ms={ent:.3f} ({100 * ent / busy:.1f}% of busy) "
+          f"post_torch_ops_ms={busy - ent:.3f} device_kernel_names={len(by_name)}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
     # Wall time of each post bucket alone (host clock around a synchronised
     # call), to split the phase between the bucket kinds.
     for key, b in plan.buckets.items():
@@ -1385,21 +1447,12 @@ def _ref_phase(dev):
     print(f"reference path: one launch {run_ms:.3f} ms against {alone_ms:.3f} ms for the "
           f"groups alone, one after another; {run_ms * 1e6 / longest:.1f} ns per step of the "
           f"longest chain ({longest} steps)")
-    # torch.profiler's view of one run.  Its idle share counts only when
-    # the trace holds one kernel record per launch; otherwise the records
-    # it has are listed and the idle share is not measured.
+    # torch.profiler's view of one run (its record of the launch checked)
     records = []
     _out, wall_ms, by_name, span = _profiled(plan.run, records)
-    n_tans = sum(1 for name, _t, _d in records if "tans_groups_kernel" in name)
-    if n_tans == plan.stats["launches"]:
-        busy = sum(by_name.values())
-        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
-              f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
-              f"tans_groups_kernel_records={n_tans} of {plan.stats['launches']} launch")
-    else:
-        print(f"profile: one plan.run(): wall_ms={wall_ms:.3f}; the trace holds "
-              f"{n_tans} tans_groups_kernel records for {plan.stats['launches']} launch: "
-              "idle share not measured")
+    busy = sum(by_name.values())
+    print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+          f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f}")
     for name, t_us, dur_us in records:
         print(f"profile record: {name[:60]} start_us={t_us:.3f} dur_us={dur_us:.3f}")
     del plan, _out
@@ -1491,11 +1544,59 @@ def _counted(what, fn, wrappers):
     return out, counts
 
 
-def _timed_runner(what, plan, expected, timed_bytes, run_gbs: str) -> None:
-    """The plan's timed runner (``MicwDecodePlan.make_timed_runner``):
-    ``runner(1)`` must count 0 mismatching pixels, then ``runner(RUNNER_REPS)``
-    by CUDA events, its GB/s printed beside the phase's ``plan.run()``."""
+def _flipped_copy(packing, outs, n: int):
+    """``outs`` with the largest compared bucket's output replaced by a
+    copy with ``n`` distinct pixels flipped (bit 0), each below its row's
+    valid length; returns (outputs, the count of flipped pixels)."""
+    import numpy as np
     import torch
+
+    g = max((i for i, e in enumerate(packing.expected) if e is not None),
+            key=lambda i: int(packing.expected[i][1][packing.expected[i][2].long()].sum()))
+    _exp, valid, rowmap = (t.cpu().numpy() for t in packing.expected[g])
+    rng = np.random.default_rng(18)
+    rows = rng.integers(0, packing.rows[g], 4 * n)
+    lens = valid[rowmap[rows]]
+    keep = lens > 0
+    cols = (rng.random(keep.sum()) * lens[keep]).astype(np.int64)
+    pairs = np.unique(np.stack([rows[keep], cols], axis=1), axis=0)[:n]
+    bad = outs[g].clone()
+    r, c = (torch.from_numpy(a).to(bad.device) for a in pairs.T)
+    bad[r, c] ^= 1
+    return [bad if i == g else o for i, o in enumerate(outs)], len(pairs)
+
+
+def _compare_work(packing):
+    """(bytes, operations) of one compare: each compared output pixel read
+    once, each distinct expected pixel below its row's valid length once,
+    the valid lengths and row maps, the probe's pixels, the two totals
+    written; a compare and an add a pixel."""
+    n_bytes, n_px = 16 + 2 * 8 * len(packing.rows), 0
+    for staged in packing.expected:
+        if staged is None:
+            continue
+        _exp, valid, rowmap = staged
+        v = int(valid[rowmap.long()].sum())
+        n_px += v
+        n_bytes += 2 * v + 2 * int(valid.sum()) + 4 * (valid.numel() + rowmap.numel())
+    return n_bytes, 2 * n_px
+
+
+def _timed_runner(what, plan, expected, timed_bytes, report) -> int:
+    """The plan's timed runner (``MicwDecodePlan.make_timed_runner``):
+    ``runner(1)`` must count 0 mismatching pixels; then the compare kernel
+    (``verify.count_mismatches``) against its plain twin on one run's
+    outputs, clean and with flips injected into a copy of one bucket's
+    output (equal totals and the flips' count, or it raises), each timed
+    by CUDA events; ``RUNNER_PAIRS`` turns of one ``plan.run()`` and one
+    ``runner(1)``, each between its own events (runner(1) minus a run,
+    medians); then ``RUNNER_BLOCKS`` turns of ``RUNNER_REPS`` runs back
+    to back and ``runner(RUNNER_REPS)``, its GB/s beside theirs and beside
+    the median ``plan.run()``'s.  Returns the compare kernel's launches in
+    the ``runner(RUNNER_REPS)`` calls (one a run)."""
+    import torch
+
+    from mic_tpu_torch.tpu import verify
 
     t0 = time.perf_counter()
     runner = plan.make_timed_runner(expected)
@@ -1506,22 +1607,87 @@ def _timed_runner(what, plan, expected, timed_bytes, run_gbs: str) -> None:
     first = int(runner(1)[0])
     if first:
         raise AssertionError(f"{what}: the timed runner's first run has {first} mismatches")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    runner(1)  # one run and the compare
-    ev[1].record()
-    mism, probe = runner(RUNNER_REPS)
-    ev[2].record()
+    packing = runner.packing
+    outs = list(plan.run().values())
+    flipped, n_flips = _flipped_copy(packing, outs, 1000)
+    for label, o, want in (("clean", outs, 0), ("flipped", flipped, n_flips)):
+        got = torch.zeros(2, dtype=torch.int64, device=plan.device)
+        plain = torch.zeros(2, dtype=torch.int64, device=plan.device)
+        verify.count_mismatches(packing, o, got)
+        verify.count_mismatches_plain(packing, o, plain)
+        got, plain = got.tolist(), plain.tolist()
+        print(f"{what}: compare kernel vs plain, {label} outputs: kernel {got} plain {plain} "
+              f"(mismatches, probe); {want} flipped pixels")
+        if got != plain or got[0] != want:
+            raise AssertionError(f"{what}: compare kernel {got} != plain {plain} or != {want} "
+                                 f"mismatches ({label})")
+    acc = torch.zeros(2, dtype=torch.int64, device=plan.device)
+    ms = _cuda_ms(lambda: verify.count_mismatches(packing, outs, acc), 10)
+    plain_ms = _cuda_ms(lambda: verify.count_mismatches_plain(packing, outs, acc), 2)
+    n_bytes, n_ops = _compare_work(packing)
+    r = report["count_mismatches"]
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["bytes"] += n_bytes
+    r["ops"] += n_ops
+    print(f"{what}: compare kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{n_bytes / MEM_BPS * 1e3:.3f} ms ({n_bytes} bytes; {len(packing.blocks)} compare "
+          f"blocks, {len(packing.parts)} launch)")
+    del outs, flipped
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(RUNNER_PAIRS)]
+    for e0, e1, e2 in ev:
+        e0.record()
+        plan.run()
+        e1.record()
+        runner(1)  # one run and the compare
+        e2.record()
+    # RUNNER_REPS runs back to back, plain and through the runner, in turns
+    # (plain first in even turns, the runner first in odd ones)
+    verify.count_mismatches.launches = 0
+    found, plain_ev, runner_ev = [], [], []
+
+    def plain_runs():
+        for _ in range(RUNNER_REPS):
+            plan.run()
+
+    for i in range(RUNNER_BLOCKS):
+        for name in (("plain", "runner") if i % 2 == 0 else ("runner", "plain")):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            if name == "plain":
+                plain_runs()
+            else:
+                found.append(runner(RUNNER_REPS))
+            e[1].record()
+            (plain_ev if name == "plain" else runner_ev).append(e)
     torch.cuda.synchronize()
-    one_ms = ev[0].elapsed_time(ev[1])
-    ms = ev[1].elapsed_time(ev[2]) / RUNNER_REPS
-    print(f"{what}: timed runner built in {build_s:.3f} s; runner(1) mismatches=0, "
-          f"{one_ms:.3f} ms (one run and the compare); "
-          f"runner({RUNNER_REPS}) {ms:.3f} ms a run by CUDA events, "
-          f"{timed_bytes / (ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels (plan.run(): "
-          f"{run_gbs} GB/s), mismatches={int(mism)} probe={int(probe)}")
-    if int(mism):
-        raise AssertionError(f"{what}: runner({RUNNER_REPS}) counted {int(mism)} mismatches")
+    launches = verify.count_mismatches.launches
+    med, bmed = RUNNER_PAIRS // 2, RUNNER_BLOCKS // 2
+    run_ms = sorted(e0.elapsed_time(e1) for e0, e1, _e2 in ev)
+    one_ms = sorted(e1.elapsed_time(e2) for _e0, e1, e2 in ev)
+    runs_ms = sorted(e0.elapsed_time(e1) / RUNNER_REPS for e0, e1 in plain_ev)
+    ms = sorted(e0.elapsed_time(e1) / RUNNER_REPS for e0, e1 in runner_ev)
+    gbs, run_gbs, runs_gbs = (timed_bytes / (t / 1e3) / 1e9
+                              for t in (ms[bmed], run_ms[med], runs_ms[bmed]))
+    mism = [int(m) for m, _p in found]
+    print(f"{what}: timed runner built in {build_s:.3f} s; runner(1) mismatches=0; "
+          f"{RUNNER_PAIRS} turns by CUDA events: plan.run() {run_ms[0]:.3f} / {run_ms[med]:.3f} / "
+          f"{run_ms[-1]:.3f} ms, runner(1) {one_ms[0]:.3f} / {one_ms[med]:.3f} / "
+          f"{one_ms[-1]:.3f} ms (least / median / most); runner(1) minus one plan.run() "
+          f"{one_ms[med] - run_ms[med]:.3f} ms (medians)")
+    print(f"{what}: {RUNNER_BLOCKS} turns of {RUNNER_REPS} plan.run() back to back and "
+          f"runner({RUNNER_REPS}): {runs_ms[0]:.3f} / {runs_ms[bmed]:.3f} / {runs_ms[-1]:.3f} ms "
+          f"and {ms[0]:.3f} / {ms[bmed]:.3f} / {ms[-1]:.3f} ms a run (least / median / most); "
+          f"runner({RUNNER_REPS}) {gbs:.3f} GB/s of decoded u16 pixels against {runs_gbs:.3f} "
+          f"back to back ({100 * (gbs / runs_gbs - 1):+.2f} %) and plan.run()'s median "
+          f"{run_gbs:.3f} in the turns above ({100 * (gbs / run_gbs - 1):+.2f} %); "
+          f"mismatches={mism} probe={int(found[0][1])}; compare launches {launches}")
+    if any(mism):
+        raise AssertionError(f"{what}: runner({RUNNER_REPS}) counted {mism} mismatches")
+    if launches != RUNNER_BLOCKS * RUNNER_REPS * len(packing.parts):
+        raise AssertionError(f"{what}: {RUNNER_BLOCKS} runner({RUNNER_REPS}) calls made {launches} "
+                             f"compare launches, expected one a run")
+    return launches
 
 
 def _timed_rgb_decode(what, blobs, dev, n_bytes) -> None:
@@ -1543,19 +1709,9 @@ def _timed_rgb_decode(what, blobs, dev, n_bytes) -> None:
           f"(staged; CUDA events), {n_bytes / (ms / 1e3) / 1e9:.3f} GB/s of RGB bytes out "
           f"({n_bytes} bytes)")
     _out, wall_ms, by_name, span = _profiled(lambda: rgb_device._run(metas, plan))
-    if not by_name:
-        print(f"profile {what}: wall_ms={wall_ms:.3f}; no device events recorded "
-              "(device breakdown not measured)")
-        return
     busy = sum(by_name.values())
     ent = sum(v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS))
     ycc = sum(v for k, v in by_name.items() if "ycocgr" in k)
-    if not ent:
-        # Seen inside this long run, not in a process of its own
-        # (scripts/profile_rgb_decode.py): the trace lacks the region's
-        # first records.
-        print(f"profile {what}: the trace holds no entropy-kernel record for "
-              f"{len(plan.buckets)} launches: incomplete, the split below is not the whole run")
     print(f"profile {what}: wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
           f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
           f"entropy_kernels_ms={ent:.3f} ycocgr_kernel_ms={ycc:.3f} "
@@ -1924,8 +2080,9 @@ def _lanes_kernels_vs_plain(dev, report, blobs) -> None:
     print(f"phase 2, lanes half: {time.perf_counter() - t_half:.3f} s wall")
 
 
-def _scan_phase(dev, blobs, expected, names):
-    """Phase 10: the scan-tier decode; returns the run's launch counts."""
+def _scan_phase(dev, blobs, expected, names, report):
+    """Phase 10: the scan-tier decode; returns the run's launch counts
+    (the compare kernel's of its timed runner among them)."""
     import numpy as np
     import torch
 
@@ -2021,14 +2178,14 @@ def _scan_phase(dev, blobs, expected, names):
         raise AssertionError(f"timed scan runs: {timed_mism} mismatches, {grp.launches} "
                              f"launches, {post_batch.calls} post_batch calls")
     del timed, out
-    _timed_runner("scan tier", plan, expected, timed_bytes,
-                  f"{gbs[0]:.3f} / {gbs[1]:.3f} / {gbs[2]:.3f}")
-    # torch.profiler only to see whether its trace keeps the launch's record
+    launches["count_mismatches"] = _timed_runner("scan tier", plan, expected, timed_bytes,
+                                                 report)
     _out, wall_ms, by_name, span = _profiled(plan.run)
-    lanes_ms = sum(v for k, v in by_name.items() if "lanes_groups_kernel" in k)
-    print(f"profile (not used for the split above): one plan.run() wall_ms={wall_ms:.3f}, "
-          f"{len(by_name)} device kernel names, the lanes launch "
-          f"{'recorded, %.3f ms' % lanes_ms if lanes_ms else 'not recorded'}")
+    busy = sum(by_name.values())
+    lanes_ms = sum(v for k, v in by_name.items() if "lanes_" in k)
+    print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+          f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
+          f"lanes_kernel_ms={lanes_ms:.3f} device_kernel_names={len(by_name)}")
     del plan, decoded, outs
 
     # The graft entry's step on its tiny 64-lane batch.
@@ -3320,8 +3477,8 @@ def main() -> int:
         raise AssertionError(f"timed decode runs: {timed_mism} mismatches, "
                              f"{merged.launches} launches")
     del last
-    _timed_runner("decode path", plan, expected, timed_bytes,
-                  f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f}")
+    launches["count_mismatches"] = _timed_runner("decode path", plan, expected, timed_bytes,
+                                                 report)
 
     _profile(plan)
     del plan, decoded
@@ -3362,7 +3519,9 @@ def main() -> int:
 
     # --- 10. L-lane (scan-tier) decode --------------------------------------------
     _clock(t_start, 10)
-    launches.update(_scan_phase(dev, scan_blobs, scan_expected, scan_names))
+    scan = _scan_phase(dev, scan_blobs, scan_expected, scan_names, report)
+    launches["count_mismatches"] += scan.pop("count_mismatches")
+    launches.update(scan)
 
     # --- 11. multi-device ------------------------------------------------------
     _clock(t_start, 11)

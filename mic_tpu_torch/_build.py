@@ -72,6 +72,9 @@ _SIGNATURES = {
     "mic_ycocgr": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
     # x, out, rows, n, inverse, stream
     "mic_wt53_rows": [_P, _P, _L, _I, _I, _P],
+    # groups, blocks, n_cmp, outs, strides, widths (host arrays), n_groups,
+    # acc, stream
+    "mic_mismatch_groups": [_P, _P, _I, _P, _P, _P, _I, _P, _P],
 }
 
 
@@ -87,17 +90,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(defines: tuple = ()) -> Path:
-    """Where the library for the current sources, flags and ``defines``
-    lives."""
-    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+def library_path(defines: tuple = (), link: tuple = ()) -> Path:
+    """Where the library for the current sources, flags, ``defines`` and
+    ``link`` flags lives."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines, *link)).encode())
     for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmic_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build(defines: tuple = ()) -> Path:
+def build(defines: tuple = (), link: tuple = ()) -> Path:
     """Compile the sources if their library is missing; returns its path.
     ``defines`` are extra ``-DNAME=value`` flags (a library of its own:
     ``scripts/tans_design_points.py``, ``scripts/rle_design_points.py``,
@@ -105,8 +108,10 @@ def build(defines: tuple = ()) -> Path:
     ``scripts/lanes_design_points.py``
     build the kernels' other forms with them).  nvcc's output (ptxas
     registers, shared memory and spills per kernel) is kept beside the
-    library with the suffix ``.log``."""
-    lib = library_path(defines)
+    library with the suffix ``.log``.  ``link`` are extra flags of the
+    link step (``scripts/profiler_records.py`` builds a library with
+    ``-cudart shared``)."""
+    lib = library_path(defines, link)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -119,10 +124,10 @@ def build(defines: tuple = ()) -> Path:
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
         outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
-        link = [nvcc, *ARCH, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+        cmd = [nvcc, *ARCH, *link, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
         if all(rc == 0 for _c, _o, rc in outs):
-            res = subprocess.run(link, capture_output=True, text=True)
-            outs.append((link, res.stdout + res.stderr, res.returncode))
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            outs.append((cmd, res.stdout + res.stderr, res.returncode))
         for cmd, out, rc in outs:
             if rc != 0:
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
@@ -132,9 +137,9 @@ def build(defines: tuple = ()) -> Path:
 
 
 @functools.cache
-def kernel_library(defines: tuple = ()) -> ctypes.CDLL:
+def kernel_library(defines: tuple = (), link: tuple = ()) -> ctypes.CDLL:
     """The built kernel library with its C entry points declared."""
-    lib = ctypes.CDLL(str(build(defines)))
+    lib = ctypes.CDLL(str(build(defines, link)))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -111,6 +111,7 @@ from .scan_decode import (
     rans_decode_lanes,
     rans_decode_lanes_groups,
 )
+from .verify import MismatchPacking, bucket_mismatches_plain, count_mismatches, expected_rows
 
 __all__ = [
     "micw_parse",
@@ -985,41 +986,19 @@ class MicwDecodePlan:
                     segs.setdefault(k, {})[idx] = seg
         return host, segs
 
-    def _expected_rows(self, rows: dict, n_rows: int):
-        """A bucket's first ``n_rows`` expected rows on the plan's device:
-        (int16 [n_rows, cols] bit-views, rows padded to the bucket's widest
-        segment; None where every row is that wide, else the bool mask of
-        each row's valid pixels)."""
-        cols = max(len(s) for s in rows.values())
-        exp = np.zeros((n_rows, cols), np.uint16)
-        valid = np.zeros((n_rows, 1), np.int64)
-        for i, s in rows.items():
-            if i < n_rows:
-                exp[i, : len(s)] = s
-                valid[i, 0] = len(s)
-        exp_d = torch.from_numpy(exp.view(np.int16)).to(self.device)
-        if (valid == cols).all():
-            return exp_d, None
-        return exp_d, torch.from_numpy(np.arange(cols)[None, :] < valid).to(self.device)
-
-    @staticmethod
-    def _count(out: torch.Tensor, exp: torch.Tensor, mask) -> torch.Tensor:
-        """Mismatching pixels of a bucket's output against its expected
-        rows, within ``mask`` where there is one (0-d, on the device)."""
-        ne = out[:, : exp.shape[1]] != exp
-        if mask is not None:
-            ne &= mask
-        return ne.sum()
-
     def _mismatches(self, decoded: dict, expected_by_blob: dict) -> int:
         """Count of decoded pixels that differ from ``expected_by_blob``
         ({blob index: pixels in image order}).  Bucket outputs compare on
-        the device against expected arrays of their own shape (rows of
-        other blobs masked out); raw strips compare on the host."""
+        their device against their expected rows (rows of other blobs have
+        valid length 0) by :func:`verify.bucket_mismatches_plain`; raw
+        strips compare on the host."""
         host, segs = self._segments(expected_by_blob)
         total = torch.zeros((), dtype=torch.int64, device=self.device)
         for k, rows in segs.items():
-            total += self._count(decoded[k], *self._expected_rows(rows, decoded[k].shape[0]))
+            exp, valid = expected_rows(rows, decoded[k].shape[0])
+            total += bucket_mismatches_plain(
+                decoded[k], torch.from_numpy(exp.view(np.int16)).to(self.device),
+                torch.from_numpy(valid).to(self.device))
         return host + int(total)
 
     def make_timed_runner(self, expected_per_blob):
@@ -1029,16 +1008,20 @@ class MicwDecodePlan:
 
         At build time the expected pixels (``expected_per_blob``, blob
         order) are staged on the plan's device once per bucket, rows padded
-        to the bucket's widest segment with a mask of each row's valid
-        pixels (none where every row is full); where
-        the batch replicates one blob (the same blob and expected objects
-        throughout) one period of rows is copied and tiled on the device.
-        Raw and constant strips are checked once, on the host.
-        ``runner(n)`` calls :meth:`run` ``n`` times on the current stream,
-        counts the first run's mismatching pixels on the device, adds each
-        run's ``out[0, :8]`` (u16 values) of every bucket to a probe, and
-        returns (mismatches, probe) as 0-d int64 device tensors, with no
-        host sync: the caller times it with CUDA events and reads both.
+        to the bucket's widest segment, with each row's valid length
+        (:func:`verify.expected_rows`) and a map from the bucket's rows to
+        them: the strips of one blob object checked against one expected
+        object are staged once however often the batch repeats the pair
+        (``mic_tpu`` stages one period where the whole batch repeats one
+        blob).  Raw and constant strips are checked once, on the host.
+        ``runner(n)`` calls :meth:`run` ``n`` times on the current stream;
+        after each run one :func:`verify.count_mismatches` call (on the card
+        one launch of ``csrc/verify.cu``) adds each bucket's ``out[0, :8]``
+        (u16 values) to a probe and, after the first, the mismatching pixels
+        of every bucket to a count.  It returns (mismatches, probe) as 0-d int64
+        device tensors, with no host sync: the caller times it with CUDA
+        events and reads both.  ``runner.packing`` is the
+        :class:`verify.MismatchPacking` it compares with.
 
         Returns None where ``mic_tpu``'s does: its one case here is a raw
         or constant strip whose pixels differ from the expected (the port
@@ -1046,32 +1029,37 @@ class MicwDecodePlan:
         host, segs = self._segments(dict(enumerate(expected_per_blob)))
         if host:
             return None
-        k_rep = 1
-        if (len(self.blobs) > 1 and all(b is self.blobs[0] for b in self.blobs[1:])
-                and all(e is expected_per_blob[0] for e in expected_per_blob[1:])):
-            k_rep = len(self.blobs)
-        staged = {}
-        for k, rows in segs.items():
-            S = self.buckets[k].n
-            period = S // k_rep if S % k_rep == 0 else S
-            exp, mask = self._expected_rows(rows, period)
-            staged[k] = (exp.repeat(S // period, 1),
-                         None if mask is None else mask.repeat(S // period, 1))
+        # a row's source: (blob object, expected object, first image row)
+        source = {k: [None] * b.n for k, b in self.buckets.items()}
+        for bi, (blob, exp) in enumerate(zip(self.blobs, expected_per_blob)):
+            for y0, _sh, k, idx in self._strip_rows(bi):
+                if k != "raw":
+                    source[k][idx] = (id(blob), id(exp), y0)
+        staged = []
+        for k, b in self.buckets.items():
+            if k not in segs:
+                staged.append(None)
+                continue
+            distinct, rows = {}, {}
+            rowmap = np.empty(b.n, np.int32)
+            for idx, src in enumerate(source[k]):
+                if src not in distinct:
+                    distinct[src] = len(distinct)
+                    if idx in segs[k]:
+                        rows[distinct[src]] = segs[k][idx]
+                rowmap[idx] = distinct[src]
+            staged.append((*expected_rows(rows, len(distinct)), rowmap))
+        packing = MismatchPacking([b.n for b in self.buckets.values()], staged, self.device)
 
         def runner(n: int):
-            mism = torch.zeros((), dtype=torch.int64, device=self.device)
-            probe = torch.zeros((), dtype=torch.int64, device=self.device)
+            acc = torch.zeros(2, dtype=torch.int64, device=self.device)
             for i in range(n):
                 outs = self.run()
-                if outs:
-                    firsts = torch.cat([out[0, :8] for out in outs.values()])
-                    probe += (firsts.to(torch.int64) & 0xFFFF).sum()
-                if i == 0:
-                    for k, (exp, mask) in staged.items():
-                        mism += self._count(outs[k], exp, mask)
+                count_mismatches(packing, outs.values(), acc, compare=i == 0)
                 del outs  # free this run's outputs before the next run allocates its own
-            return mism, probe
+            return acc[0], acc[1]
 
+        runner.packing = packing
         return runner
 
     def verify_batch(self, decoded: dict, expected_per_blob) -> int:

@@ -15,9 +15,10 @@ milliseconds split into entropy kernels, the YCoCg-R kernel and the torch
 ops around them, the span and the idle share, then the kernels by time;
 and the CUDA-event milliseconds per decode for comparison.
 
-``chip_smoke.py`` prints the same split from inside its long run, where
-torch.profiler has been seen to drop the first records of a profiled
-region; this script is the clean reading.  Needs an NVIDIA GPU and nvcc.
+``chip_smoke.py`` prints the same split from inside its long run, with
+the same ``_profiled`` (which holds each window to one trace record a
+counted launch); this script repeats it alone.  Needs an NVIDIA GPU and
+nvcc.
 Imports neither jax nor anything of mic_tpu.
 """
 

@@ -54,6 +54,7 @@ ROOT = Path(__file__).resolve().parent.parent
                                     "mic_tpu_torch.cli", "mic_tpu_torch.tpu.kernels",
                                     "mic_tpu_torch.tpu.wsi_device",
                                     "mic_tpu_torch.tpu.scan_decode",
+                                    "mic_tpu_torch.tpu.verify",
                                     "mic_tpu_torch.tpu.decode",
                                     "mic_tpu_torch.tpu.mesh", "mic_tpu_torch.dryrun",
                                     "mic_tpu_torch.native",
