@@ -28,7 +28,14 @@ Phases (any failure exits non-zero; nothing is caught):
    (``rans_decode_direct_groups`` with the plan's packing, one launch),
    with its blocks, shared memory a block and blocks an SM, and the tl 15
    plan's launch once more with its tables read from device memory (the
-   form tl 16 takes).
+   form tl 16 takes).  Post stage: ``csrc/post.cu`` (one launch of
+   ``post.post_decode_groups`` with the plan's ``PostPacking``) against its
+   plain twin ``post.post_batch`` on every post bucket of phase 6's batch,
+   of phase 8's tile batch (``tissue_dev.mwr3`` x64: escaped zz and avg
+   planes) and of CT_dev_1strip_tl15 x32, whole arrays, on the entropy
+   launch's symbols and on a copy with ``POST_FLIPS`` symbols a bucket
+   XORed with random words (damaged streams); with ms, plain ms, the bound
+   and the launch's blocks.
    Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
@@ -115,9 +122,11 @@ Phases (any failure exits non-zero; nothing is caught):
    ``plan.run()`` must be exactly ``DIRECT_LAUNCHES_PER_RUN`` (1) launch of
    the direct kernel, and it must hold every post bucket's entropy stage:
    the packed, two-table and FF 41 symbols-out front ends each counted
-   once.  Prints staging seconds, decode GB/s over ``plan.run()``, the
+   once; and exactly ``POST_LAUNCHES_PER_RUN`` (1) launch of the post
+   kernel, with ``post_batch.calls`` 0 (the plain twin never runs on the
+   card).  Prints staging seconds, decode GB/s over ``plan.run()``, the
    launch counts, the launch's blocks, and a profiler breakdown that
-   splits the entropy kernels from the post path's torch ops.
+   splits the entropy kernels, the post kernel and the other ops.
 7. Reference-format decode: ``fse_decompress_device_batch`` over an
    archive batch of the in-repo reference fixtures' entropy streams
    (MR MIC1 payloads at 2, 4 and 8 states and FF 08 x64, CT_pics8 strips
@@ -154,7 +163,8 @@ Phases (any failure exits non-zero; nothing is caught):
    batch through ``micwr_decode_many``: ``tissue_dev.mwr3`` x64 (the
    "auto" planes: escaped zz and avg strips through the post path) and the
    same image under ``predictor="auto-r"``, encoded here, x64 (the
-   r-kernels), every byte verified; ``micwr_compress`` must reproduce
+   r-kernels), every byte verified, the post kernel's launches counted
+   (at least one); ``micwr_compress`` must reproduce
    ``tissue_dev.mwr3``.  Then the device-format MIC2 fixtures
    ``series_dev_{ind,tmp}.mic2``: decoded 16 times each against their
    ``.raw`` and re-encoded byte for byte.  The YCoCg-R wrappers, the
@@ -387,6 +397,10 @@ KERNELS = {
     "rans_decode_lanes": ("mic_tpu_torch/csrc/rans_lanes.cu", "mic_tpu/tpu/strips.py:762"),
     # the compare inside mic_tpu's timed runner (XLA-fused there), and its probe
     "count_mismatches": ("mic_tpu_torch/csrc/verify.cu", "mic_tpu/tpu/strips.py:2296-2306"),
+    # no Pallas kernel: it replaces mic_tpu's post program, plain XLA
+    # (_micw_post_batch over pipeline.py's expand, parse and inverses)
+    "post_decode_groups": ("mic_tpu_torch/csrc/post.cu",
+                           "mic_tpu/tpu/strips.py:1829, mic_tpu/tpu/pipeline.py:114-350"),
 }
 # The bound of a kernel's work: the larger of its bytes (every input read
 # once, every output written once) over the H100 SXM's 3.35 TB/s and its
@@ -413,7 +427,10 @@ KERNELS = {
 # escape select and the store: 24), plus in its fused form the inverse's
 # unzigzag and sum per pixel as the direct kernel's rows count them
 # (lanes_inverse, 4: zzd's row prefix, vdd's column add), plus pdd's
-# column carry on its row prefix (lanes_column, 2: the add and the mask).
+# column carry on its row prefix (lanes_column, 2: the add and the mask);
+# the post kernel per output pixel (the expand's walk test and source
+# select, the parse's delim compare and both marker hypotheses, the rank
+# store, the inverse's unzigzag, add and mask, zz's segmented step: 16).
 MEM_BPS, CORE_OPS = 3.35e12, 67e12
 OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18,
                    "rans_decode_direct_groups": 2, "rans_decode_packed": 9,
@@ -421,11 +438,14 @@ OPS_PER_ELEMENT = {"rans_decode_zzd": 13, "rans_decode_alias": 18,
                    "rans_encode": 12, "rans_encode_alias": 20, "tans_decode": 24,
                    "ycocgr_forward": 5, "ycocgr_inverse": 5,
                    "wt53_rows_forward": 8, "wt53_rows_inverse": 8, "rans_decode_lanes": 24,
-                   "lanes_inverse": 4, "lanes_column": 2}
+                   "lanes_inverse": 4, "lanes_column": 2, "post_decode_groups": 16}
 TILE = 256  # phase 8's tile edge and the slide's margin
 RLE_LAUNCHES_PER_RUN = 1  # r-kernel launches per MicwDecodePlan.run(): all r-buckets at once
 DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): all direct buckets
 LANES_LAUNCHES_PER_RUN = 1  # lanes-kernel launches per MicwDecodePlan.run(): all scan buckets
+POST_LAUNCHES_PER_RUN = 1  # post-kernel launches per MicwDecodePlan.run(): all post buckets
+POST_FLIPS = 64  # symbols of each bucket's entropy output XORed in phase 2's damaged compare
+POST_KERNEL = "post_groups_kernel"  # the post kernel's profiler name
 SCAN_REPS = 20  # phase 10's timed pairs of plan.run() and the lanes launch alone
 RUNNER_REPS = 20  # runs a timed runner makes in phases 3 and 10
 RUNNER_PAIRS = 9  # turns of one plan.run() and one runner(1) in phases 3 and 10
@@ -470,7 +490,7 @@ def _cuda_ms(fn, reps: int) -> float:
 def _port_kernels() -> dict:
     """Kernel names in torch.profiler's trace -> the port's wrappers that
     launch those kernels (each adds one to its ``.launches`` a launch)."""
-    from mic_tpu_torch.tpu import kernels, verify
+    from mic_tpu_torch.tpu import kernels, post, verify
     from mic_tpu_torch.tpu import rans_decode as rd
     from mic_tpu_torch.tpu import rans_encode as renc
     from mic_tpu_torch.tpu import scan_decode as sd
@@ -491,6 +511,7 @@ def _port_kernels() -> dict:
         ("lanes_groups_kernel", "lanes_wide_kernel"): (sd.rans_decode_lanes,
                                                        sd.rans_decode_lanes_groups),
         ("mismatch_groups_kernel",): (verify.count_mismatches,),
+        (POST_KERNEL,): (post.post_decode_groups,),
     }
 
 
@@ -583,6 +604,15 @@ def _max_abs_err(got, want) -> int:
 
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                for g, w in zip(got, want))
+
+
+def _kernel_split(by_name) -> tuple[float, float]:
+    """(entropy kernels' ms, the post kernel's ms) of a profile's device
+    time by kernel name."""
+    post = sum(v for k, v in by_name.items() if POST_KERNEL in k)
+    ent = sum(v for k, v in by_name.items()
+              if POST_KERNEL not in k and any(e in k for e in ENTROPY_KERNELS))
+    return ent, post
 
 
 def _account(r, name, inputs, outputs, ms, plain_ms) -> None:
@@ -1014,12 +1044,108 @@ def _post_kernels_vs_plain(dev, report, blobs) -> None:
     del plans
 
 
+def _entropy_outputs(plan) -> dict:
+    """A plan's entropy launches alone (direct and lanes kernels, with its
+    packings): {bucket key: output} for its post stage."""
+    from mic_tpu_torch.tpu import rans_decode as rd
+    from mic_tpu_torch.tpu import scan_decode as sd
+
+    outs = dict(zip(plan._direct_keys, rd.rans_decode_direct_groups(plan._direct_groups,
+                                                                    plan.direct_packing)))
+    outs.update(zip(plan._scan_keys, sd.rans_decode_lanes_groups(plan._scan_groups,
+                                                                 plan.scan_packing)))
+    return outs
+
+
+def _flipped_groups(groups, n: int, seed: int):
+    """Post groups whose entropy outputs are copies with ``n`` symbols each
+    XORed with a random nonzero 16-bit word (damaged streams)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for ent, meta, kw in groups:
+        bad = ent.clone()
+        flat = bad.view(-1)
+        at = torch.from_numpy(rng.integers(0, flat.numel(), n)).to(flat.device)
+        word = rng.integers(1, 1 << 16, n).astype(np.uint16).view(np.int16)
+        flat[at] ^= torch.from_numpy(word).to(flat.device)
+        out.append((bad, meta, kw))
+    return out
+
+
+def _post_stage_vs_plain(dev, report, post_blobs) -> None:
+    """Phase 2, post stage: ``csrc/post.cu`` (one launch of
+    ``post_decode_groups`` with the plan's packing) against its plain twin
+    ``post_batch`` on every post bucket of phase 6's batch, phase 8's tile
+    batch and CT_dev_1strip_tl15 x32, on the entropy launch's symbols and
+    on a copy with ``POST_FLIPS`` symbols a bucket flipped; the report
+    takes phase 6's and phase 8's clean launches."""
+    import torch
+
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import post, rgb_device
+
+    name = "post_decode_groups"
+    tiles = [(TESTDATA / "tissue_dev.mwr3").read_bytes()] * 64
+    plans = [("phase-6-batch", MicwDecodePlan(post_blobs, dev)),
+             ("phase-8-tile-batch", rgb_device._stage(tiles, dev)[1]),
+             ("CT_dev_1strip_tl15x32", MicwDecodePlan([CT_TL15.read_bytes()] * 32, dev))]
+    r = report[name]
+    for seed, (tag, plan) in enumerate(plans):
+        pk = plan.post_packing
+        outs = _entropy_outputs(plan)
+        clean = [(outs[k], *g) for k, g in zip(plan._post_keys, plan._post_groups)]
+        kinds: dict[str, int] = {}
+        for _e, meta, kw in clean:
+            kinds[kw["predictor"]] = kinds.get(kw["predictor"], 0) + meta.shape[0]
+        for form, groups in (("clean", clean), ("flipped", _flipped_groups(clean, POST_FLIPS,
+                                                                           19 + seed))):
+            got = post.post_decode_groups(groups, pk)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = [post.post_batch(e, m[:, 0], m[:, 1], m[:, 2], **kw) for e, m, kw in groups]
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = _max_abs_err(got, want)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name} {tag} {form}: kernel != post_batch "
+                                     f"(max abs err {err})")
+            ms = _cuda_ms(lambda: post.post_decode_groups(groups, pk), 10)
+            inputs = [t for e, m, _kw in groups for t in (e, m)]
+            n_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *got))
+            pixels = sum(o.numel() for o in got)
+            bound_ms = max(n_bytes / MEM_BPS, OPS_PER_ELEMENT[name] * pixels / CORE_OPS) * 1e3
+            print(f"kernel-vs-plain {name} {tag} {form}: {len(groups)} buckets, "
+                  f"{len(pk.blocks)} blocks of one strip {kinds}, {pk.smem_bytes} bytes of avg "
+                  f"ring a block, {len(pk.parts)} launch(es); equal=True max_abs_err={err} "
+                  f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+                  f"({n_bytes} bytes, {pixels} pixels)")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if form == "clean" and tag != "CT_dev_1strip_tl15x32":
+                _account(r, name, inputs, got, ms, plain_ms)
+            del got, want
+        if tag != "CT_dev_1strip_tl15x32":  # each bucket alone: where the launch's time goes
+            for e, m, kw in clean:
+                one = [(e, m, kw)]
+                one_pk = post.PostPacking([(m, kw)], dev)
+                ms = _cuda_ms(lambda: post.post_decode_groups(one, one_pk), 5)
+                print(f"post kernel {tag} bucket alone: {kw['predictor']} {m.shape[0]} strips of "
+                      f"{kw['width']}x{kw['strip_h']} (max_tokens {kw['max_tokens']}, "
+                      f"max_runs {kw['max_runs']}) kernel_ms={ms:.3f}")
+        del outs, clean
+    del plans
+
+
 def _post_phase(dev, blobs, expected, names):
     """Phase 6: the post-path decode; returns the run's launch counts."""
     import numpy as np
     import torch
 
     from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import post
     from mic_tpu_torch.tpu import rans_decode as rd
 
     timed_bytes = _entropy_bytes(blobs)
@@ -1030,12 +1156,15 @@ def _post_phase(dev, blobs, expected, names):
     merged = rd.rans_decode_direct_groups
     merged.launches = 0
     merged.family_launches = dict.fromkeys(merged.family_launches, 0)
+    post.post_decode_groups.launches = 0
+    post.post_batch.calls = 0
     t0 = time.perf_counter()
     decoded = plan.run()
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
     # rows 6 and 7 count the merged launches that held their front end
-    launches = {"rans_decode_direct_groups": merged.launches, **merged.family_launches}
+    launches = {"rans_decode_direct_groups": merged.launches, **merged.family_launches,
+                "post_decode_groups": post.post_decode_groups.launches}
     kinds = {}
     for key, b in plan.buckets.items():
         kind = f"{key[1]}:{key[2]}" if key[0] == "post" else f"fused:{key[0]}"
@@ -1060,17 +1189,30 @@ def _post_phase(dev, blobs, expected, names):
             or not set(post_keys) <= set(plan._direct_keys)):
         raise AssertionError(f"the post path's entropy stage is not the plan's one launch: "
                              f"{launches}")
+    pk = plan.post_packing
+    print(f"post path: {launches['post_decode_groups']} post-kernel launch(es) per plan.run() "
+          f"for {len(plan._post_keys)} post buckets (design: {POST_LAUNCHES_PER_RUN}), "
+          f"{len(pk.blocks)} blocks of one strip, {pk.smem_bytes} bytes of avg ring a block; "
+          f"{post.post_batch.calls} post_batch calls")
+    if (launches["post_decode_groups"] != POST_LAUNCHES_PER_RUN or post.post_batch.calls
+            or set(plan._post_keys) != set(post_keys)):
+        raise AssertionError(f"the post stage is not the plan's one post-kernel launch: "
+                             f"{launches}, {post.post_batch.calls} post_batch calls")
     run_ms = _cuda_ms(plan.run, 3)
     print(f"post path: {run_ms:.3f} ms per plan.run(), "
           f"{timed_bytes / (run_ms / 1e3) / 1e9:.3f} GB/s of decoded u16 pixels "
-          f"({timed_bytes} bytes)")
+          f"({timed_bytes} bytes); {post.post_decode_groups.launches} post-kernel launches and "
+          f"{post.post_batch.calls} post_batch calls in 5 runs")
+    if post.post_decode_groups.launches != 5 * POST_LAUNCHES_PER_RUN or post.post_batch.calls:
+        raise AssertionError("timed post-path runs: not one post-kernel launch a run")
     _out, wall_ms, by_name, span = _profiled(plan.run)
     busy = sum(by_name.values())
-    ent = sum(v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS))
+    ent, post_ms = _kernel_split(by_name)
     print(f"profile: one plan.run(): wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
           f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
           f"entropy_kernels_ms={ent:.3f} ({100 * ent / busy:.1f}% of busy) "
-          f"post_torch_ops_ms={busy - ent:.3f} device_kernel_names={len(by_name)}")
+          f"post_kernel_ms={post_ms:.3f} ({100 * post_ms / busy:.1f}% of busy) "
+          f"other_ops_ms={busy - ent - post_ms:.3f} device_kernel_names={len(by_name)}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile: {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:110]}")
     # Wall time of each post bucket alone (host clock around a synchronised
@@ -1710,12 +1852,13 @@ def _timed_rgb_decode(what, blobs, dev, n_bytes) -> None:
           f"({n_bytes} bytes)")
     _out, wall_ms, by_name, span = _profiled(lambda: rgb_device._run(metas, plan))
     busy = sum(by_name.values())
-    ent = sum(v for k, v in by_name.items() if any(e in k for e in ENTROPY_KERNELS))
+    ent, post_ms = _kernel_split(by_name)
     ycc = sum(v for k, v in by_name.items() if "ycocgr" in k)
     print(f"profile {what}: wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
           f"device_span_ms={span:.3f} idle_share_of_span={1 - busy / span:.3f} "
-          f"entropy_kernels_ms={ent:.3f} ycocgr_kernel_ms={ycc:.3f} "
-          f"assemble_and_other_torch_ops_ms={busy - ent - ycc:.3f} "
+          f"entropy_kernels_ms={ent:.3f} post_kernel_ms={post_ms:.3f} "
+          f"ycocgr_kernel_ms={ycc:.3f} "
+          f"assemble_and_other_torch_ops_ms={busy - ent - post_ms - ycc:.3f} "
           f"device_kernel_names={len(by_name)}")
     for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"profile: {kms:8.3f} ms {100 * kms / busy:5.1f}%  {name[:110]}")
@@ -1739,6 +1882,7 @@ def _rgb_wsi_phase(dev, slide):
     )
     from mic_tpu_torch.ops.pyramid import downsample2x_rgb
     from mic_tpu_torch.tpu import kernels as K
+    from mic_tpu_torch.tpu import post
     from mic_tpu_torch.tpu import rans_decode as rd
     from mic_tpu_torch.tpu import rans_encode as renc
     from mic_tpu_torch.tpu import rgb_device, wsi_device
@@ -1831,7 +1975,7 @@ def _rgb_wsi_phase(dev, slide):
     t0 = time.perf_counter()
     outs, counts = _counted("micwr_decode_many", lambda: micwr_decode_many(batch, dev),
                             (K.ycocgr_inverse, rd.rans_decode_direct_groups,
-                             rd.rans_decode_rle_groups))
+                             rd.rans_decode_rle_groups, post.post_decode_groups))
     call_s = time.perf_counter() - t0
     add(counts)
     check(f"micwr_decode_many tissue_dev.mwr3 x64 + auto-r x64 ({call_s:.3f} s, staging included)",
@@ -3386,6 +3530,7 @@ def main() -> int:
     _rle_kernels_vs_plain(dev, report)
     post_blobs, post_expected, post_names = _post_batch(dev)
     _post_kernels_vs_plain(dev, report, post_blobs)
+    _post_stage_vs_plain(dev, report, post_blobs)
     scan_blobs, scan_expected, scan_names = _scan_batch()
     _lanes_kernels_vs_plain(dev, report, scan_blobs)
     _tans_kernels_vs_plain(dev, report)
@@ -3503,7 +3648,8 @@ def main() -> int:
     # --- 6. post-path decode -----------------------------------------------------
     _clock(t_start, 6)
     post_launches = _post_phase(dev, post_blobs, post_expected, post_names)
-    launches.update({k: post_launches[k] for k in ("rans_decode_packed", "rans_decode")})
+    launches.update({k: post_launches[k] for k in ("rans_decode_packed", "rans_decode",
+                                                   "post_decode_groups")})
 
     # --- 7. reference-format decode ---------------------------------------------
     _clock(t_start, 7)

@@ -75,6 +75,9 @@ _SIGNATURES = {
     # groups, blocks, n_cmp, outs, strides, widths (host arrays), n_groups,
     # acc, stream
     "mic_mismatch_groups": [_P, _P, _I, _P, _P, _P, _I, _P, _P],
+    # groups, blocks, n_blocks, ents, cols (host arrays), n_groups, out, runs,
+    # flags, smem_bytes, stream
+    "mic_post_groups": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P],
 }
 
 

@@ -42,6 +42,7 @@ from . import rans_decode as rd
 from . import rans_encode as renc
 from . import scan_decode as sd
 from . import tans_decode as td
+from .post import PostPacking
 
 __all__ = [
     "make_strip_mesh",
@@ -175,7 +176,8 @@ def decode_strips_sharded(mesh, *arrays, **static) -> list[torch.Tensor]:
     size), ``static`` its keyword parameters.  Each shard is
     ``scan_decode.decode_strip_batch`` on its device: the lanes kernel
     (``rans_decode_lanes_groups``), the direct inverse fused where
-    ``fused_strip_fits``, else then ``post.post_batch``.  Returns int16
+    ``fused_strip_fits``, else then the post kernel (``post.PostPacking``
+    staged a shard, ``post.post_decode_groups``, one launch).  Returns int16
     [S / n, width * strip_h] a shard."""
     if len(arrays) != 11:
         raise TypeError(f"decode_strips_sharded: expected 11 operands, got {len(arrays)}")
@@ -186,10 +188,12 @@ def decode_strips_sharded(mesh, *arrays, **static) -> list[torch.Tensor]:
         ops = _upload(host + ((post[0],) if post else ()), dev)
         group = (sd.rans_decode_lanes, tuple(ops[:10]), kw)
         packing = sd.LanesPacking([group]) if dev.type == "cuda" else None
+        post_packing = None
         if post is not None:
             post = (ops[10], post[1])  # the meta on the shard's device
+            post_packing = PostPacking([post], dev)
         return lambda: sd.strip_batch_post(sd.rans_decode_lanes_groups([group], packing)[0],
-                                           post)
+                                           post, post_packing)
     return _run(mesh, arrays, stage)
 
 

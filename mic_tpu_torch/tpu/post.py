@@ -1,25 +1,49 @@
-"""The post path of MICW decode: what follows a symbols-out entropy kernel
-for the strips the fused kernels do not take.
+"""The post stage of MICW decode: what follows a symbols-out entropy
+kernel for the strips the fused kernels do not take.
 
 Counterpart of ``mic_tpu.tpu.pipeline`` (the SoA-RLE expand, the escape
 parse and the predictor inverses) and of ``mic_tpu.tpu.strips``'
-``_post_one_strip`` / ``_micw_post_batch``.  The JAX package computes
-these in plain XLA, so here they are plain torch ops, batched over the
-strips of a bucket (a leading axis where JAX vmaps), on whatever device
-their input lies.  Each function equals its original on every honest
-stream; on a damaged one it stays in bounds (every gather is clamped)
-and gives the same output on the CPU and on the card.
+``_post_one_strip`` / ``_micw_post_batch``, which the JAX package runs as
+one jitted XLA program a bucket.  Here that program is one hand-written
+CUDA launch for every post bucket of a plan, ``csrc/post.cu``:
 
-Values are int64 tensors holding the u16 symbols; the batch entry point
-:func:`post_batch` takes the entropy kernels' int16 bit-view output and
-returns int16 bit-views of the u16 pixels, [S, width * strip_h].
+* :class:`PostPacking` — the post stage of a list of buckets, laid out
+  once (a plan builds it with its other packings): per bucket its table
+  entries (``meta``, int64 [S, 3]: n_tokens, n_runs, n_same) and static
+  arguments, the descriptors, the blocks (a block a strip, avg strips
+  first), the output and scratch sizes and the avg ring's shared memory;
+* :func:`post_decode_groups` — the entropy outputs of those buckets
+  through ``post_groups_kernel`` on the card, one launch for up to
+  ``MAX_GROUPS`` buckets (``.launches`` counts them), or through
+  :func:`post_batch` bucket by bucket on the CPU; :func:`post_decode` is
+  the one-bucket call.
+
+:func:`post_batch` is the kernel's plain twin: the functions below in
+plain torch ops, batched over the strips of a bucket (a leading axis
+where JAX vmaps), on whatever device their input lies.  Each function
+equals its original on every honest stream; on a damaged one it stays in
+bounds (every gather is clamped), and the kernel keeps the same clamps,
+so both give the same output.  ``post_batch.calls`` counts the twin's
+calls; a CUDA tensor never takes it.
+
+Values are int64 tensors holding the u16 symbols; the batch entry points
+take the entropy kernels' int16 bit-view output and return int16
+bit-views of the u16 pixels, [S, width * strip_h].
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .verify import _on
+
 __all__ = [
+    "MAX_GROUPS",
+    "PREDICTORS",
+    "PostPacking",
+    "post_decode",
+    "post_decode_groups",
     "rle_expand",
     "soa_rle_expand",
     "parse_escaped",
@@ -308,3 +332,200 @@ def post_batch(ent: torch.Tensor, n_tokens, n_runs, n_same, *, width: int, strip
 
 
 post_batch.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel: csrc/post.cu's post_groups_kernel over every post bucket
+# ---------------------------------------------------------------------------
+
+PREDICTORS = ("zzd", "vdd", "pdd", "zzr", "vdr", "pdr", "zz", "avg")  # post.cu: Pred
+MAX_GROUPS = 128  # buckets a launch (post.cu: kMaxGroups)
+RING_BYTES_MAX = 232448 - 16384  # the avg ring's shared memory a block (post.cu keeps ~10 KB)
+_RUN_BYTES = 16  # a run in the runs scratch (post.cu: Run)
+_KWARGS = ("width", "strip_h", "max_runs", "max_tokens", "mid_count", "delim", "predictor")
+_GROUP_DESC = np.dtype([("meta", "<u8"), ("out_off", "<i8"), ("runs_off", "<i8"),
+                        ("flags_off", "<i8"), ("width", "<i4"), ("strip_h", "<i4"),
+                        ("max_runs", "<i4"), ("max_tokens", "<i4"), ("mid", "<i4"),
+                        ("delim", "<i4"), ("pred", "<i4"), ("pad", "<i4")])
+_COST = {"avg": 0, "zz": 1}  # block order: the longest chains first
+
+
+def _static(kw) -> dict:
+    """``kw`` as :func:`post_batch`'s keyword arguments, checked: raises
+    ValueError for a missing or extra key, a predictor the kernel does
+    not know or a size it does not take."""
+    if set(kw) != set(_KWARGS):
+        raise ValueError(f"post arguments must be {_KWARGS}, got {sorted(kw)}")
+    if kw["predictor"] not in PREDICTORS:
+        raise ValueError(f"unknown predictor {kw['predictor']!r} (the kernel takes {PREDICTORS})")
+    ints = {k: kw[k] for k in _KWARGS[:-1]}
+    if not all(isinstance(v, (int, np.integer)) for v in ints.values()):
+        raise ValueError(f"post arguments must be ints, got {ints}")
+    lo = 2 if kw["predictor"] in ("zz", "avg") else 1  # tokens[1:] holds one at least
+    if (kw["width"] < 1 or kw["strip_h"] < 1 or kw["width"] * kw["strip_h"] >= 1 << 31
+            or not 1 <= kw["max_runs"] < 1 << 31 or not lo <= kw["max_tokens"] < 1 << 31
+            or not -(1 << 31) <= min(kw["mid_count"], kw["delim"])
+            or max(kw["mid_count"], kw["delim"]) >= 1 << 31):
+        raise ValueError(f"post arguments out of the kernel's range: {ints}")
+    return {k: (v if k == "predictor" else int(v)) for k, v in kw.items()}
+
+
+class PostPacking:
+    """The post stage of several buckets, laid out for
+    ``post_groups_kernel``.
+
+    ``groups`` is a list of ``(meta, kw)``: a bucket's table entries
+    (int64 [S, 3] on ``device``, contiguous: n_tokens, n_runs, n_same a
+    strip) and :func:`post_batch`'s keyword arguments.  ``desc`` holds the
+    groups' descriptors (``_GROUP_DESC``: output, runs-scratch and
+    flags-scratch offsets and the static arguments), ``blocks`` (int32
+    [n, 2]: group, strip) a block a strip, ``parts`` the (first group,
+    end group, first block, end block) of each launch, ``MAX_GROUPS``
+    buckets a launch, the avg strips' blocks first in a launch, then zz,
+    then the rest, group numbers counted from the part's first.
+    ``out_total`` (elements), ``runs_total`` (runs) and ``flags_total``
+    (bytes) size the output and the scratch; ``smem_bytes`` is the avg
+    ring (4 steps x 2 bytes a row of the tallest avg strip).  On a CUDA
+    device the descriptors and blocks go to the card here, in one copy
+    from pinned memory, queued on the current stream.  Raises
+    ValueError for what the kernel does not take."""
+
+    def __init__(self, groups, device):
+        self.device = torch.device(device)
+        self.metas, self.kws, self.rows = [], [], []
+        self.desc = np.zeros(len(groups), _GROUP_DESC)
+        out_total = runs_total = flags_total = h_avg = 0
+        for g, (meta, kw) in enumerate(groups):
+            kw = _static(kw)
+            if (meta.dtype != torch.int64 or meta.dim() != 2 or meta.shape[1] != 3
+                    or meta.shape[0] < 1 or not meta.is_contiguous() or not _on(meta, self.device)):
+                raise ValueError(f"group {g}: meta must be int64 [S, 3], contiguous, on "
+                                 f"{self.device}, got {meta.dtype} {tuple(meta.shape)} on "
+                                 f"{meta.device}")
+            S, pred = meta.shape[0], kw["predictor"]
+            need = kw["width"] * kw["strip_h"]
+            self.metas.append(meta)
+            self.kws.append(kw)
+            self.rows.append(S)
+            self.desc[g] = (0, out_total, runs_total, flags_total, kw["width"], kw["strip_h"],
+                            kw["max_runs"], kw["max_tokens"], kw["mid_count"], kw["delim"],
+                            PREDICTORS.index(pred), 0)
+            out_total += S * need
+            if pred not in ("zzd", "vdd", "pdd"):
+                runs_total += S * kw["max_runs"]
+            if pred in ("zz", "avg"):
+                flags_total += S * need
+            if pred == "avg":
+                h_avg = max(h_avg, kw["strip_h"])
+        self.out_total, self.runs_total, self.flags_total = out_total, runs_total, flags_total
+        self.smem_bytes = 8 * h_avg
+        if self.smem_bytes > RING_BYTES_MAX:
+            raise ValueError(f"an avg strip of {h_avg} rows needs a {self.smem_bytes}-byte ring; "
+                             f"the kernel takes {RING_BYTES_MAX} bytes")
+        blocks, self.parts = [], []
+        for g0 in range(0, len(self.rows), MAX_GROUPS):
+            g1, b0 = min(g0 + MAX_GROUPS, len(self.rows)), sum(len(b) for b in blocks)
+            for g in sorted(range(g0, g1), key=lambda g: _COST.get(self.kws[g]["predictor"], 2)):
+                blocks.append(np.stack([np.full(self.rows[g], g - g0), np.arange(self.rows[g])],
+                                       axis=1).astype(np.int32))
+            self.parts.append((g0, g1, b0, sum(len(b) for b in blocks)))
+        self.blocks = np.concatenate(blocks) if blocks else np.zeros((0, 2), np.int32)
+        if self.device.type == "cuda":
+            self._upload()
+
+    def _upload(self) -> None:
+        """Descriptors (the meta pointers filled in) and blocks to the card:
+        one device buffer, filled by one non-blocking copy from pinned
+        memory."""
+        self.desc["meta"] = [m.data_ptr() for m in self.metas]
+        gbytes, bbytes = self.desc.nbytes, self.blocks.nbytes
+        b_at = -(-gbytes // 16) * 16
+        buf = torch.empty(b_at + bbytes, dtype=torch.uint8, device=self.device)
+        host = torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
+        raw = host.numpy()
+        raw[:gbytes] = self.desc.view(np.uint8)
+        raw[b_at:] = self.blocks.view(np.uint8).reshape(-1)
+        buf.copy_(host, non_blocking=True)
+        self._buf, self._host = buf, host  # the pinned source lives until the copy has run
+        self.gdesc_ptr = buf.data_ptr()
+        self.bdesc_ptr = buf.data_ptr() + b_at
+
+    def holds(self, groups) -> bool:
+        """Whether ``groups`` ([(ent, meta, kw)]) are the buckets this
+        packing was built for: the same meta tensors and arguments."""
+        return len(groups) == len(self.metas) and all(
+            m is pm and kw == pkw for (_e, m, kw), pm, pkw in zip(groups, self.metas, self.kws))
+
+
+def _entropy_rows(ent: torch.Tensor, S: int, device: torch.device, g: int) -> torch.Tensor:
+    """A group's entropy output as int16 [S, cols]; raises ValueError unless
+    it is int16, [S, ...], contiguous and on ``device``."""
+    if (ent.dtype != torch.int16 or ent.dim() < 2 or ent.shape[0] != S or ent.numel() == 0
+            or not _on(ent, device)):
+        raise ValueError(f"group {g}: expected the entropy output int16 [{S}, ...] on {device}, "
+                         f"got {ent.dtype} {tuple(ent.shape)} on {ent.device}")
+    if not ent.is_contiguous():
+        raise ValueError(f"group {g}: the entropy output must be contiguous "
+                         f"(strides {ent.stride()})")
+    return ent.view(S, -1)
+
+
+def post_decode_groups(groups, packing: PostPacking | None = None) -> list[torch.Tensor]:
+    """The post stage of several buckets in one launch: ``groups`` is a
+    list of ``(ent, meta, kw)``, each bucket's entropy output (int16 [S,
+    ...], contiguous: the symbols-out kernels' bit-views), its table
+    entries and :func:`post_batch`'s keyword arguments; returns one int16
+    [S, width * strip_h] output per group, equal to :func:`post_batch`'s.
+    ``packing`` is a :class:`PostPacking` built earlier for these buckets
+    (a plan builds it once); without it one is built here.  CPU tensors
+    take :func:`post_batch` group by group; CUDA tensors launch
+    ``post_groups_kernel`` of ``csrc/post.cu``, once per ``MAX_GROUPS``
+    buckets, or raise.  ``.launches`` counts the launches."""
+    if not groups:
+        return []
+    if packing is None:
+        packing = PostPacking([(m, kw) for _e, m, kw in groups], groups[0][0].device)
+    elif not packing.holds(groups):
+        raise ValueError("packing was built for other groups")
+    ents = [_entropy_rows(e, S, packing.device, g)
+            for g, ((e, _m, _kw), S) in enumerate(zip(groups, packing.rows))]
+    if packing.device.type == "cpu":
+        return [post_batch(e, m[:, 0], m[:, 1], m[:, 2], **kw)
+                for e, m, kw in zip(ents, packing.metas, packing.kws)]
+    if packing.device.type != "cuda":
+        raise ValueError(f"unsupported device {packing.device}")
+    from .._build import kernel_library
+
+    lib = kernel_library()
+    dev = packing.device
+    out = torch.empty(packing.out_total, dtype=torch.int16, device=dev)
+    scratch = torch.empty(_RUN_BYTES * packing.runs_total + packing.flags_total + 16,
+                          dtype=torch.uint8, device=dev)
+    ptrs = np.array([e.data_ptr() for e in ents], np.uint64)
+    cols = np.array([e.shape[1] for e in ents], np.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for g0, g1, b0, b1 in packing.parts:
+            rc = lib.mic_post_groups(
+                packing.gdesc_ptr + g0 * _GROUP_DESC.itemsize, packing.bdesc_ptr + b0 * 8,
+                b1 - b0, ptrs.ctypes.data + 8 * g0, cols.ctypes.data + 4 * g0, g1 - g0,
+                out.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + _RUN_BYTES * packing.runs_total, packing.smem_bytes, stream)
+            if rc != 0:
+                raise RuntimeError(f"mic_post_groups launch failed: CUDA error {rc}")
+            post_decode_groups.launches += 1
+    outs, off = [], 0
+    for S, kw in zip(packing.rows, packing.kws):
+        need = kw["width"] * kw["strip_h"]
+        outs.append(out[off:off + S * need].view(S, need))
+        off += S * need
+    return outs
+
+
+post_decode_groups.launches = 0
+
+
+def post_decode(ent: torch.Tensor, meta: torch.Tensor, **kw) -> torch.Tensor:
+    """One bucket's post stage: :func:`post_decode_groups` of ``[(ent,
+    meta, kw)]`` (one launch on the card, :func:`post_batch` on the CPU)."""
+    return post_decode_groups([(ent, meta, kw)])[0]

@@ -16,10 +16,11 @@ table lookups, ``rans_one``; the escape substitution, ``subst_one``; then
 * :func:`rans_decode_lanes` — one bucket through the kernel of
   ``csrc/rans_lanes.cu`` on the card, its plain twin
   :func:`rans_decode_lanes_plain` on the CPU: int16 [S, steps * L]
-  symbols in stream order (step, then lane), the layout
-  ``post.post_batch`` reads, or with ``inverse`` zzd / vdd / pdd the
-  pixels, [S, width * strip_h], ``_post_one_strip``'s direct branch fused
-  (the warp form of the kernel, strips of up to ``WARP_LANES`` lanes);
+  symbols in stream order (step, then lane), the layout the post stage
+  (``post.post_decode_groups``) reads, or with ``inverse`` zzd / vdd /
+  pdd the pixels, [S, width * strip_h], ``_post_one_strip``'s direct
+  branch fused (the warp form of the kernel, strips of up to
+  ``WARP_LANES`` lanes);
 * :class:`LanesPacking` / :func:`rans_decode_lanes_groups` — every scan
   bucket of a plan in one launch (one a form: the warp form up to
   ``WARP_LANES`` lanes, the block form, symbols out, past it);
@@ -27,7 +28,8 @@ table lookups, ``rans_one``; the escape substitution, ``subst_one``; then
 * :func:`decode_strip_batch` — ``decode_strip_batch_impl`` on its own
   operands (:func:`build_strip_batch`, a copy of ``mic_tpu``'s): the
   direct predictors fused, every other one through the lanes kernel and
-  then ``post.post_batch``; its host half
+  then the post kernel (``post.post_decode_groups``, one launch; its
+  plain twin ``post.post_batch`` on the CPU); its host half
   :func:`strip_batch_host` and its post stage :func:`strip_batch_post`
   are what ``tpu/mesh.py``'s ``decode_strips_sharded`` stages per shard.
 
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from .device_rans import slot_tables
-from .post import _DIRECT_INVERSE, post_batch
+from .post import _DIRECT_INVERSE, PostPacking, post_decode_groups
 from .rans_decode import _U32, _as_i16, _check, _Packing, _round8, _u
 
 __all__ = [
@@ -580,7 +582,7 @@ def strip_batch_host(init_states, words, tab_sym, tab_freq, tab_bias, counts, n_
     static arguments: (the lanes kernel's ten numpy operands, its keyword
     arguments, the post stage), the inverse fused where
     :func:`fused_strip_fits`, else the post stage (int64 [S, 3] n_tokens,
-    n_runs, n_same, and ``post.post_batch``'s keyword arguments); None
+    n_runs, n_same, and the post stage's keyword arguments); None
     when fused."""
     init_states = np.asarray(init_states, np.uint32)
     S, TS = np.shape(tab_sym)
@@ -600,14 +602,15 @@ def strip_batch_host(init_states, words, tab_sym, tab_freq, tab_bias, counts, n_
         mid_count=mid_count, delim=delim, predictor=predictor))
 
 
-def strip_batch_post(out: torch.Tensor, post) -> torch.Tensor:
+def strip_batch_post(out: torch.Tensor, post, packing: PostPacking | None = None) -> torch.Tensor:
     """The post stage of :func:`strip_batch_host` on the lanes kernel's
-    output (``post`` with its meta on the output's device), or the output
-    itself when fused."""
+    output (``post`` with its meta on the output's device): one launch of
+    the post kernel (``post.post_decode_groups``, with ``packing`` where one
+    was built for ``[post]``), or the output itself when fused."""
     if post is None:
         return out
     meta, kw = post
-    return post_batch(out, meta[:, 0], meta[:, 1], meta[:, 2], **kw)
+    return post_decode_groups([(out, meta, kw)], packing)[0]
 
 
 def decode_strip_batch(init_states, words, tab_sym, tab_freq, tab_bias, counts, n_tokens,
@@ -621,9 +624,9 @@ def decode_strip_batch(init_states, words, tab_sym, tab_freq, tab_bias, counts, 
     table entries [S], esc_vals [S], esc_sides u16 [S, E]) and static
     arguments.  The direct predictors (zzd, vdd, pdd) take the lanes
     kernel with their inverse fused where :func:`fused_strip_fits`; every
-    other batch the lanes kernel (escapes substituted), then
-    ``post.post_batch``.  Returns int16 [S, width * strip_h] (bit-view of
-    the u16 pixels)."""
+    other batch the lanes kernel (escapes substituted), then the post
+    kernel (:func:`strip_batch_post`).  Returns int16 [S, width *
+    strip_h] (bit-view of the u16 pixels)."""
     arrays, kw, post = strip_batch_host(
         init_states, words, tab_sym, tab_freq, tab_bias, counts, n_tokens, n_runs, n_same,
         esc_vals, esc_sides, table_log=table_log, n_steps=n_steps, width=width,

@@ -33,14 +33,13 @@ alphabet <= 4096).  Those buckets are keyed on (entropy family,
 predictor, padded step count, geometry and, for the r-modes, the
 container's FLAG_RDENSE).  Every other strip takes the post path: a
 symbols-out entropy stage in the direct kernel's launch (packed tables,
-two tables, or the alias front end with ``fused=False``) and then
-``post.post_batch``, keyed on
-(entropy form, predictor, padded step count, width, strip height and the
-post constants mid / delim), as ``mic_tpu`` keys its post groups.  The
-second (column) prefix sum of pdd runs in the direct kernel (``pdd_ws``),
-except on a row too wide for the kernel's column carry, where it is a
-plain ``torch.cumsum`` as pdr's is on the r-kernel's output, as
-``mic_tpu`` leaves both to XLA.  Raw and constant strips are copied on the
+two tables, or the alias front end with ``fused=False``) and then the
+post stage, keyed on (entropy form, predictor, padded step count, width,
+strip height and the post constants mid / delim), as ``mic_tpu`` keys
+its post groups.  The second (column) prefix sum of pdd runs in the
+direct kernel (``pdd_ws``), except on a row too wide for the kernel's
+column carry, where it is a plain ``torch.cumsum`` as pdr's is on the
+r-kernel's output, as ``mic_tpu`` leaves both to XLA.  Raw and constant strips are copied on the
 host.
 
 Strips with lanes != 128 and FF 41 strips with tableLog > 12 take the
@@ -50,7 +49,11 @@ FF 57 and FF 41 strips and tableLogs mix in such a bucket.  A zzd, vdd
 or pdd bucket whose width is a multiple of its lanes, of up to
 ``scan_decode.WARP_LANES`` lanes, runs its inverse in the kernel
 (``scan_decode.fused_strip_fits``); every other scan bucket takes the
-kernel's symbols and then ``post.post_batch``.  A strip whose table entry
+kernel's symbols and then the post stage.  The post stage of every post
+bucket of a plan (the SoA-RLE expand, the escape parse and the zz / avg /
+direct inverses) is one launch of ``csrc/post.cu``
+(``post.post_decode_groups``, ``post.PostPacking``), ``post.post_batch``
+its plain twin, which only CPU tensors take.  A strip whose table entry
 claims more runs than symbols, or more pixels (zz, avg: tokens) than its
 strip can hold, raises ``ValueError``.
 
@@ -82,7 +85,7 @@ from ..ops.predictors import (
 )
 from ..ops.rle import soa_encode, soa_expand
 from .device_rans import ALIAS_MAX_KEPT, mict_decode_numpy, mict_encode, mict_parse
-from .post import post_batch
+from .post import PostPacking, post_decode, post_decode_groups
 from .rans_decode import (
     MID_DIRECT,
     DirectPacking,
@@ -833,10 +836,9 @@ class _Bucket:
         """The bucket's result from its launch's output: the post path, or
         pdd's rows (the kernel summed the columns) or the column prefix sum
         (pdr, and pdd with ``pdd_ws`` 0), or the output as it is."""
-        out = out.reshape(self.n, -1)
         if self.post is not None:
-            m = self.meta
-            return post_batch(out, m[:, 0], m[:, 1], m[:, 2], **self.post)
+            return post_decode(out, self.meta, **self.post)
+        out = out.reshape(self.n, -1)
         if self.geom is None:
             return out
         w, sh = self.geom
@@ -932,14 +934,23 @@ class MicwDecodePlan:
         self._scan_groups = [self.buckets[k].launch for k in self._scan_keys]
         self.scan_packing = (LanesPacking(self._scan_groups)
                              if self._scan_groups and cuda else None)
+        # Every post bucket's post stage (the post path's and the unfused
+        # scan buckets') as one launch of the post kernel.
+        self._post_keys = [k for k, b in self.buckets.items() if b.post is not None]
+        self._post_groups = [(self.buckets[k].meta, self.buckets[k].post)
+                             for k in self._post_keys]
+        self.post_packing = (PostPacking(self._post_groups, self.device)
+                             if self._post_groups else None)
         self._gather = None  # assemble_device's copy lists, built at its first call
 
     def run(self) -> dict:
         """Launch every bucket (the direct buckets and the post buckets'
         entropy stages together, one launch, the r-mode buckets together,
         one launch, and the scan buckets together, one launch a form of
-        the lanes kernel), then the post buckets' and the unfused scan
-        buckets' torch ops; returns
+        the lanes kernel), then the post stage of the post buckets and the
+        unfused scan buckets together, one launch of ``csrc/post.cu``
+        (``post.post_decode_groups``; ``post.post_batch`` is its plain twin,
+        which only CPU tensors take); returns
         {bucket key: int16 [S, cols] device tensor} (bit-views of the u16
         pixels)."""
         outs = dict(zip(self._direct_keys, rans_decode_direct_groups(self._direct_groups,
@@ -948,7 +959,10 @@ class MicwDecodePlan:
                                                                self.rle_packing)))
         outs.update(zip(self._scan_keys, rans_decode_lanes_groups(self._scan_groups,
                                                                   self.scan_packing)))
-        return {k: b.finish(outs[k]) for k, b in self.buckets.items()}
+        done = dict(zip(self._post_keys, post_decode_groups(
+            [(outs[k], *g) for k, g in zip(self._post_keys, self._post_groups)],
+            self.post_packing)))
+        return {k: done[k] if k in done else b.finish(outs[k]) for k, b in self.buckets.items()}
 
     def _strip_rows(self, bi: int):
         """(y0, rows, key, index) of every strip of blob ``bi``."""

@@ -15,8 +15,9 @@ macros into libraries of their own and times each on the same operands:
   LPT <= 16 still caps it);
 * ``block``: every strip in the block form (a block a strip, a thread a
   lane, two named barriers a step; ``warp_lanes=0``), symbols out; and
-  ``block+post``, that launch followed by the ``post.post_batch`` the plan
-  would run on its symbols: what a bucket past ``WARP_LANES`` costs.
+  ``block+post``, that launch followed by the post kernel
+  (``post.post_decode``) the plan would run on its symbols: what a bucket
+  past ``WARP_LANES`` costs.
 
 Operands: CT_dev encoded by the port's host encoder at 64, 128, 256 and
 512 lanes (zzd, FF 57: one scan bucket of 4 strips, replicated to 132 strips,
@@ -82,15 +83,16 @@ def main() -> int:
               f"memory a warp-form block)", flush=True)
 
     def block_post(label, group, want, kw, chain, lib):
-        """The block form's launch, then post_batch on its symbols."""
+        """The block form's launch, then the post kernel on its symbols."""
         pk = sd.LanesPacking([group], warp_lanes=0)
-        n = torch.zeros(group[1][0].shape[0], dtype=torch.int64, device=dev)
+        meta = torch.zeros((group[1][0].shape[0], 3), dtype=torch.int64, device=dev)
+        post_kw = dict(width=kw["width"], strip_h=kw["strip_h"], max_runs=128, max_tokens=128,
+                       mid_count=0, delim=0, predictor=kw["inverse"])
+        post_pk = post.PostPacking([(meta, post_kw)], dev)
 
         def run():
             (sym,) = sd._lanes_launch(pk, lib)
-            return post.post_batch(sym, n, n, n, width=kw["width"], strip_h=kw["strip_h"],
-                                   max_runs=128, max_tokens=128, mid_count=0, delim=0,
-                                   predictor=kw["inverse"])
+            return post.post_decode_groups([(sym, meta, post_kw)], post_pk)[0]
 
         if not torch.equal(run(), want):
             raise AssertionError(f"{label} block+post: pixels differ from the plain twin's")
@@ -98,7 +100,7 @@ def main() -> int:
         summary["design_points"].append({"case": label, "form": "block+post", "ms": ms,
                                          "ns_per_step": ms * 1e6 / chain})
         print(f"{label:34s} {'block+post':14s} {ms:8.3f} ms {ms * 1e6 / chain:8.1f} ns a step "
-              f"(the block form's launch, then post_batch)", flush=True)
+              f"(the block form's launch, then the post kernel)", flush=True)
 
     ct = np.fromfile(cs.TESTDATA / "CT_dev.raw", dtype="<u2")
     for lanes in LANES:

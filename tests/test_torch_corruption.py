@@ -7,8 +7,10 @@ CPU without an index error reads nothing out of bounds on the card
 either; the ``cuda`` test checks kernel == plain on the same streams.
 A corrupted stream may decode to garbage (the format has no checksum)
 or raise ValueError / NotImplementedError at parse or table build.  The
-post path's torch ops clamp every gather, and the ``cuda`` test holds the
-whole plan on the card against the same plan on the CPU.  The MWR3 and
+post stage clamps every gather (the kernel of ``csrc/post.cu`` as its
+plain twin ``post.post_batch`` does), and the ``cuda`` test holds the
+whole plan on the card, one post-kernel launch a plan with post buckets,
+against the same plan on the CPU.  The MWR3 and
 W3D1 containers add their own headers: truncated or damaged ones raise
 ValueError, and a damaged plane stream decodes to garbage of the right
 shape or raises, as above.  Needs no jax.
@@ -30,6 +32,7 @@ from mic_tpu_torch import (
     w3d_decompress_region,
 )
 from mic_tpu_torch.tpu import device_rans as dr
+from mic_tpu_torch.tpu import post
 from mic_tpu_torch.tpu import rans_decode as rd
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -165,7 +168,7 @@ def test_cuda_corrupt_streams_match_plain():
              rd.rans_decode_rle_alias: rd.rans_decode_rle_alias_plain,
              rd.rans_decode_packed: rd.rans_decode_packed_plain,
              rd.rans_decode: rd.rans_decode_plain}
-    checked = 0
+    checked = posted = 0
     for name, kind in CASES:
         blob = _corrupt(name, kind)
         try:
@@ -177,8 +180,15 @@ def test_cuda_corrupt_streams_match_plain():
             torch.cuda.synchronize()
             assert torch.equal(got, plain[b.fn](*b.ops, **b.kwargs)), (name, kind)
             checked += 1
-        # The post path's torch ops: the same garbage on the card as on the CPU.
-        got, want = plan.run(), MicwDecodePlan([blob], torch.device("cpu")).run()
+        # The post kernel: the same garbage on the card as its plain twin on
+        # the CPU, through one launch of csrc/post.cu (post_batch not called).
+        launches, calls = post.post_decode_groups.launches, post.post_batch.calls
+        got = plan.run()
+        torch.cuda.synchronize()
+        assert post.post_decode_groups.launches - launches == (1 if plan._post_keys else 0)
+        assert post.post_batch.calls == calls
+        posted += bool(plan._post_keys)
+        want = MicwDecodePlan([blob], torch.device("cpu")).run()
         for k in want:
             assert torch.equal(got[k].cpu(), want[k]), (name, kind, k)
-    assert checked
+    assert checked and posted

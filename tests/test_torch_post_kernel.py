@@ -1,0 +1,425 @@
+"""The post kernel, ``csrc/post.cu``, and its wrappers in ``tpu/post.py``.
+
+* :func:`post.post_decode_groups` / :func:`post.post_decode` on CPU
+  tensors equal :func:`post.post_batch` (which they call), count no
+  launch, and raise ValueError on an operand the kernel does not take;
+* :class:`post.PostPacking`'s descriptors, blocks, parts and sizes for a
+  mixed batch of the post path's kinds (phase 6 of ``chip_smoke.py`` in
+  small: the avg fixture, escaped zz in both entropy families, escaped
+  avg, direct modes at a width that is not a multiple of 128, r-modes,
+  a scan bucket);
+* the plan's post stage on the CPU, bucket by bucket, against
+  ``mic_tpu``'s ``_micw_post_batch`` on the same symbols;
+* ``csrc/post.cu`` itself, built by the host C++ compiler against
+  ``tests/cuda_emu/cuda_runtime.h`` (a block as 256 threads with real
+  barriers and warp exchanges) and run against ``post_batch`` on those
+  buckets, clean and with damaged symbols, and on seeded random operands
+  and table entries (damaged streams of every kind);
+* the ``cuda`` test: the kernel on the card against ``post_batch`` on
+  every post bucket of the fixtures, clean and damaged, one launch a call.
+
+Tolerance 0: a lossless codec.  The module needs no jax at import (the
+``ref`` fixture imports it), so the ``cuda`` test runs on a machine with
+a GPU and no jax:
+``python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_post_kernel.py``.
+"""
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from mic_tpu_torch import _build
+from mic_tpu_torch.tpu import post
+from mic_tpu_torch.tpu import rans_decode as rd
+from mic_tpu_torch.tpu import scan_decode as sd
+from mic_tpu_torch.tpu import strips as st
+
+ROOT = Path(__file__).resolve().parent.parent
+TESTDATA = ROOT / "web" / "testdata"
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """mic_tpu's post program (needs jax)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from mic_tpu.tpu import strips
+
+    return SimpleNamespace(jnp=jnp, st=strips)
+
+
+def _blobs():
+    """Phase 6's kinds in small: the avg fixture x2 (two 256 x 128 strips
+    each), CT_dev at tl 13 (the two-table front end: zzd, vdd and pdd
+    strips of 512 x 128), then crops of CT_dev encoded by the port's host encoder: escaped zz
+    standard and alias and escaped avg (160 x 96, the top left corner: noisier
+    crops of these sizes are stored raw), zzd and vdd at width 200
+    and zzr and pdr at width 100 (not multiples of 128), zz at 32 lanes (a
+    scan bucket)."""
+    ct = np.fromfile(TESTDATA / "CT_dev.raw", dtype="<u2").reshape(512, 512)
+
+    def crop(y, x, h, w, pred, ent="standard", strips=1, lanes=128):
+        c = np.ascontiguousarray(ct[y:y + h, x:x + w])
+        return st.micw_compress(c.ravel(), w, h, int(c.max()), num_strips=strips,
+                                predictor=pred, entropy=ent, lanes=lanes)
+
+    mr = (TESTDATA / "MR_dev_auto.micw").read_bytes()
+    return [mr, mr, (ROOT / "tests" / "data" / "torch_port" / "CT_dev_tl13.micw").read_bytes(),
+            crop(0, 0, 96, 160, "zz", strips=3), crop(0, 0, 96, 160, "zz", "alias", strips=3),
+            crop(0, 0, 96, 160, "avg", strips=3), crop(260, 150, 16, 200, "zzd"),
+            crop(260, 150, 16, 200, "vdd"), crop(300, 200, 24, 100, "zzr"),
+            crop(300, 200, 24, 100, "pdr"), crop(300, 150, 96, 130, "zz", strips=2, lanes=32)]
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """A CPU plan over :func:`_blobs` and its post groups [(ent, meta, kw)]
+    on the entropy twins' symbols."""
+    plan = st.MicwDecodePlan(_blobs(), CPU)
+    outs = dict(zip(plan._direct_keys, rd.rans_decode_direct_groups(plan._direct_groups)))
+    outs.update(zip(plan._scan_keys, sd.rans_decode_lanes_groups(plan._scan_groups)))
+    groups = [(outs[k], *g) for k, g in zip(plan._post_keys, plan._post_groups)]
+    return plan, groups
+
+
+def _twin(groups):
+    return [post.post_batch(e, m[:, 0], m[:, 1], m[:, 2], **kw) for e, m, kw in groups]
+
+
+def _flipped(groups, n, seed):
+    """``groups`` with ``n`` symbols of each entropy output XORed with a
+    random nonzero word."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for e, m, kw in groups:
+        bad = e.clone()
+        flat = bad.view(-1)
+        at = torch.from_numpy(rng.integers(0, flat.numel(), n)).to(flat.device)
+        word = torch.from_numpy(rng.integers(1, 1 << 16, n).astype(np.uint16).view(np.int16))
+        flat[at] ^= word.to(flat.device)
+        out.append((bad, m, kw))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the wrappers on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_wrappers_take_post_batch_and_count_no_launch(mixed, monkeypatch):
+    plan, groups = mixed
+
+    def no_library(*_a, **_k):
+        raise AssertionError("the CPU path must not build or load the kernel library")
+
+    monkeypatch.setattr(_build, "kernel_library", no_library)
+    launches, calls = post.post_decode_groups.launches, post.post_batch.calls
+    got = post.post_decode_groups(groups, plan.post_packing)
+    assert post.post_batch.calls - calls == len(groups)
+    want = _twin(groups)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for (e, m, kw), w in zip(groups, want):
+        assert torch.equal(post.post_decode(e, m, **kw), w)
+    assert post.post_decode_groups.launches == launches
+    assert post.post_decode_groups([]) == []
+
+
+def test_plan_runs_post_stage_through_the_groups_wrapper(mixed):
+    """``MicwDecodePlan.run`` hands every post bucket to one
+    ``post_decode_groups`` call (``post_batch`` once a bucket on the CPU),
+    and a bucket alone takes ``post_decode``."""
+    plan, groups = mixed
+    kinds = {kw["predictor"] for _e, _m, kw in groups}
+    assert kinds == {"avg", "zz", "zzd", "vdd", "pdd", "zzr", "pdr"}
+    assert any(k[0] == "scan" for k in plan._post_keys)
+    calls = post.post_batch.calls
+    decoded = plan.run()
+    assert post.post_batch.calls - calls == len(plan._post_keys)
+    for k, w in zip(plan._post_keys, _twin(groups)):
+        assert torch.equal(decoded[k], w)
+        assert torch.equal(plan.buckets[k](), w)
+    want = [st.micw_decompress_host(b)[0] for b in plan.blobs]
+    assert plan.verify_batch(decoded, want) == 0
+
+
+def _bad_operand(groups, fault):
+    """``groups``' first bucket with one operand made wrong."""
+    (e, m, kw), rest = groups[0], groups[1:]
+    if fault == "dtype":
+        e = e.to(torch.int32)
+    elif fault == "rows":
+        e = e[1:]
+    elif fault == "non_contiguous":
+        e = e.reshape(e.shape[0], -1)[:, ::2]
+    elif fault == "predictor":
+        kw = dict(kw, predictor="med")
+    elif fault == "missing_argument":
+        kw = {k: v for k, v in kw.items() if k != "delim"}
+    elif fault == "max_tokens":
+        kw = dict(kw, max_tokens=1)
+    elif fault == "meta_dtype":
+        m = m.to(torch.int32)
+    elif fault == "meta_shape":
+        m = m[:, :2].contiguous()
+    return [(e, m, kw)] + rest
+
+
+@pytest.mark.parametrize("fault", ["dtype", "rows", "non_contiguous", "predictor",
+                                   "missing_argument", "max_tokens", "meta_dtype", "meta_shape"])
+def test_bad_operands_raise(mixed, fault):
+    _plan, groups = mixed
+    avg = [g for g in groups if g[2]["predictor"] == "avg"]
+    bad = _bad_operand(avg, fault)
+    with pytest.raises(ValueError):
+        post.post_decode_groups(bad)
+    e, m, kw = bad[0]
+    with pytest.raises(ValueError):
+        post.post_decode(e, m, **kw)
+
+
+def test_packing_for_other_groups_raises(mixed):
+    plan, groups = mixed
+    with pytest.raises(ValueError, match="other groups"):
+        post.post_decode_groups(groups[1:], plan.post_packing)
+    e, m, kw = groups[0]
+    with pytest.raises(ValueError, match="other groups"):
+        post.post_decode_groups([(e, m.clone(), kw)] + groups[1:], plan.post_packing)
+
+
+def test_avg_ring_past_a_block_raises():
+    meta = torch.zeros((1, 3), dtype=torch.int64)
+    kw = dict(width=4, strip_h=post.RING_BYTES_MAX // 8 + 1, max_runs=128, max_tokens=128,
+              mid_count=127, delim=255, predictor="avg")
+    with pytest.raises(ValueError, match="ring"):
+        post.PostPacking([(meta, kw)], CPU)
+    post.PostPacking([(meta, dict(kw, strip_h=post.RING_BYTES_MAX // 8))], CPU)
+
+
+def test_module_imports_and_runs_without_nvcc():
+    """``tpu/post.py`` (the wrapper of ``csrc/post.cu``) imports, packs and
+    runs its CPU path in a fresh interpreter with no nvcc and no CUDA
+    toolkit in sight, and builds no kernel library."""
+    code = ("import torch, mic_tpu_torch._build as b; from mic_tpu_torch.tpu import post; "
+            "m = torch.zeros((1, 3), dtype=torch.int64); "
+            "kw = dict(width=4, strip_h=2, max_runs=128, max_tokens=128, mid_count=0, "
+            "delim=0, predictor='zzd'); "
+            "(o,) = post.post_decode_groups([(torch.ones((1, 128), dtype=torch.int16), m, kw)]); "
+            "assert o.shape == (1, 8) and post.post_decode_groups.launches == 0; "
+            "print(b.kernel_library.cache_info().currsize)")
+    env = {**os.environ, "PATH": "/usr/bin:/bin",
+           "CUDA_HOME": str(ROOT / "build" / "no-such-cuda")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert res.returncode == 0 and res.stdout.strip() == "0", res.stdout + res.stderr
+
+
+# ---------------------------------------------------------------------------
+# the packing
+# ---------------------------------------------------------------------------
+
+
+def test_packing_descriptors_for_a_mixed_batch(mixed):
+    plan, groups = mixed
+    pk = plan.post_packing
+    assert len(pk.desc) == len(groups) and pk.rows == [m.shape[0] for _e, m, _k in groups]
+    out = runs = flags = 0
+    for d, (_e, m, kw), key in zip(pk.desc, groups, plan._post_keys):
+        S, pred = m.shape[0], kw["predictor"]
+        need = kw["width"] * kw["strip_h"]
+        assert plan.buckets[key].post == kw and (key[2] if key[0] == "post" else key[3]) == pred
+        assert (int(d["out_off"]), int(d["runs_off"]), int(d["flags_off"])) == (out, runs, flags)
+        assert [int(d[f]) for f in ("width", "strip_h", "max_runs", "max_tokens", "mid",
+                                    "delim")] == [kw[k] for k in post._KWARGS[:-1]]
+        assert post.PREDICTORS[int(d["pred"])] == pred and int(d["meta"]) == 0  # on the CPU
+        out += S * need
+        runs += 0 if pred in ("zzd", "vdd", "pdd") else S * kw["max_runs"]
+        flags += S * need if pred in ("zz", "avg") else 0
+    assert (pk.out_total, pk.runs_total, pk.flags_total) == (out, runs, flags)
+    h_avg = max(kw["strip_h"] for _e, _m, kw in groups if kw["predictor"] == "avg")
+    assert pk.smem_bytes == 8 * h_avg == 8 * 128  # the avg fixture's 128-row strips
+    assert [m.shape[0] for _e, m, kw in groups if kw["width"] == 256] == [4]  # x2 replicas
+    # a block a strip, each once; avg strips first, then zz, then the rest
+    assert pk.parts == [(0, len(groups), 0, sum(pk.rows))]
+    assert sorted(map(tuple, pk.blocks.tolist())) == [(g, s) for g, S in enumerate(pk.rows)
+                                                      for s in range(S)]
+    order = [post._COST.get(groups[g][2]["predictor"], 2) for g in pk.blocks[:, 0]]
+    assert order == sorted(order) and order[0] == 0
+
+
+def test_packing_splits_launches_past_max_groups():
+    """More than ``MAX_GROUPS`` buckets: a launch a ``MAX_GROUPS``, group
+    numbers counted from the launch's first."""
+    kw = dict(width=3, strip_h=2, max_runs=128, max_tokens=128, mid_count=0, delim=0,
+              predictor="zzd")
+    n = post.MAX_GROUPS + 3
+    metas = [torch.zeros((1 + g % 2, 3), dtype=torch.int64) for g in range(n)]
+    pk = post.PostPacking([(m, kw) for m in metas], CPU)
+    rows = [1 + g % 2 for g in range(n)]
+    first = sum(rows[:post.MAX_GROUPS])
+    assert pk.parts == [(0, post.MAX_GROUPS, 0, first), (post.MAX_GROUPS, n, first, sum(rows))]
+    assert pk.blocks[first:, 0].tolist() == [0, 1, 1, 2]
+    assert pk.runs_total == pk.flags_total == pk.smem_bytes == 0
+
+
+# ---------------------------------------------------------------------------
+# against mic_tpu
+# ---------------------------------------------------------------------------
+
+
+def test_plan_post_buckets_match_mic_tpu(ref, mixed):
+    """Each post bucket's CPU output equals ``mic_tpu``'s
+    ``_micw_post_batch`` on the same symbols (padded to the strip for the
+    direct modes, as ``mic_tpu``'s plan pads them)."""
+    _plan, groups = mixed
+    got = post.post_decode_groups(groups)
+    for (e, m, kw), g in zip(groups, got):
+        syms = e.reshape(e.shape[0], -1).numpy().view(np.uint16)
+        need = kw["width"] * kw["strip_h"]
+        if kw["predictor"] in ("zzd", "vdd", "pdd") and syms.shape[1] < need:
+            syms = np.pad(syms, ((0, 0), (0, need - syms.shape[1])))
+        n_tok, n_runs, n_same = (ref.jnp.asarray(m[:, i].numpy().astype(np.int32))
+                                 for i in range(3))
+        want = np.asarray(ref.st._micw_post_batch(ref.jnp.asarray(syms), n_tok, n_runs, n_same,
+                                                  **kw))
+        assert np.array_equal(g.numpy().view(np.uint16), want.reshape(g.shape)), kw
+
+
+# ---------------------------------------------------------------------------
+# csrc/post.cu on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """``csrc/post.cu`` built by the host compiler against the CPU stand-in
+    of ``tests/cuda_emu``; its ``mic_post_groups`` entry point, declared."""
+    src = (ROOT / "mic_tpu_torch" / "csrc" / "post.cu").read_text()
+    src, n_ext = re.subn(r"extern __shared__ (\w+) (\w+)\[\];",
+                         r"\1* \2 = emu_dynamic_shared<\1>();", src)
+    src, n_launch = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]+>>>\(",
+                            r"emu_launch(\1, \2, \3, \4, ", src)
+    assert (n_ext, n_launch) == (1, 1)
+    tmp = tmp_path_factory.mktemp("post_emu")
+    (tmp / "post_emu.cpp").write_text(src)
+    lib_path = tmp / "libpost_emu.so"
+    cmd = [_build.host_compiler(), "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+           "-Wno-unknown-pragmas", f"-I{ROOT / 'tests' / 'cuda_emu'}", "-o", str(lib_path),
+           str(tmp / "post_emu.cpp")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mic_post_groups.argtypes = _build._SIGNATURES["mic_post_groups"]
+    lib.mic_post_groups.restype = ctypes.c_int
+    return lib
+
+
+def _emulated_groups(lib, groups):
+    """``groups`` through the emulated kernel, laid out by
+    ``PostPacking`` as the card's launch is."""
+    pk = post.PostPacking([(m, kw) for _e, m, kw in groups], CPU)
+    desc = pk.desc.copy()
+    desc["meta"] = [m.data_ptr() for m in pk.metas]
+    blocks = np.ascontiguousarray(pk.blocks)
+    ents = [e.contiguous().view(e.shape[0], -1) for e, _m, _kw in groups]
+    out = np.zeros(pk.out_total, np.int16)
+    runs = np.full(16 * pk.runs_total + 16, 0xA5, np.uint8)  # garbage, as on the card
+    flags = np.full(pk.flags_total + 16, 0xA5, np.uint8)
+    ptrs = np.array([e.data_ptr() for e in ents], np.uint64)
+    cols = np.array([e.shape[1] for e in ents], np.int32)
+    for g0, g1, b0, b1 in pk.parts:
+        rc = lib.mic_post_groups(desc.ctypes.data + g0 * desc.itemsize,
+                                 blocks.ctypes.data + b0 * 8, b1 - b0, ptrs.ctypes.data + 8 * g0,
+                                 cols.ctypes.data + 4 * g0, g1 - g0, out.ctypes.data,
+                                 runs.ctypes.data, flags.ctypes.data, pk.smem_bytes, None)
+        assert rc == 0
+    res, off = [], 0
+    for S, kw in zip(pk.rows, pk.kws):
+        need = kw["width"] * kw["strip_h"]
+        res.append(torch.from_numpy(out[off:off + S * need].reshape(S, need).copy()))
+        off += S * need
+    return res
+
+
+@pytest.mark.parametrize("flips", [0, 50])
+def test_post_cu_emulated_matches_post_batch(emulated, mixed, flips):
+    """Every post bucket of :func:`_blobs` of strips up to 16,384 pixels
+    (the larger fixtures' strips take seconds: a block's barriers are slow
+    on the CPU; the CT crops and the random cases stand in for them)."""
+    _plan, groups = mixed
+    groups = [g for g in groups if g[2]["width"] * g[2]["strip_h"] <= 16384]
+    if flips:
+        groups = _flipped(groups, flips, flips)
+    for (_e, _m, kw), g, w in zip(groups, _emulated_groups(emulated, groups), _twin(groups)):
+        assert torch.equal(g, w), (kw, int((g != w).sum()))
+
+
+def _random_group(rng):
+    """A bucket of seeded random symbols, table entries and static
+    arguments: honest and damaged streams of every kind alike."""
+    pred = post.PREDICTORS[rng.integers(0, len(post.PREDICTORS))]
+    w = int(rng.choice([1, 5, 33, 64, 100]))
+    h = int(rng.choice([1, 2, 7, 300] if pred == "avg" else [1, 3, 17, 40]))
+    S, C = int(rng.integers(1, 3)), int(rng.choice([128, 256, 1024]))
+    delim = int(rng.choice([1, 4, 2047, 65535, 70000]))
+    syms = np.where(rng.random((S, C)) < 0.3, rng.integers(0, 1 << 16, (S, C)),
+                    rng.integers(0, int(rng.choice([5, 40])), (S, C)))
+    if rng.random() < 0.5:
+        syms = np.where(rng.random((S, C)) < 0.2, delim & 0xFFFF, syms)
+    max_runs = int(rng.choice([1, 128, 2048]))
+    max_tokens = int(rng.choice([2, 128, w * h + 7, 2 * w * h + 300]))
+    meta = np.stack([rng.integers(-5, 3 * max_tokens + 10, S),
+                     rng.integers(-5, 2 * max_runs + 10, S),
+                     rng.integers(-3, C + 10, S)], axis=1).astype(np.int64)
+    if rng.random() < 0.2:
+        meta[:, 1] = rng.integers(0, 1 << 32, S)
+    kw = dict(width=w, strip_h=h, max_runs=max_runs, max_tokens=max_tokens,
+              mid_count=int(rng.choice([0, 3, 127, 16383])), delim=delim, predictor=pred)
+    return (torch.from_numpy(syms.astype(np.uint16).view(np.int16).copy()),
+            torch.from_numpy(meta), kw)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_post_cu_emulated_random_operands(emulated, seed):
+    rng = np.random.default_rng(1900 + seed)
+    groups = [_random_group(rng) for _ in range(8)]
+    for (_e, _m, kw), g, w in zip(groups, _emulated_groups(emulated, groups), _twin(groups)):
+        assert torch.equal(g, w), (kw, int((g != w).sum()))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_post_batch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    plan = st.MicwDecodePlan(_blobs() + [(ROOT / "tests" / "data" / "torch_port"
+                                          / "CT_dev_tl13.micw").read_bytes()], dev)
+    outs = dict(zip(plan._direct_keys, rd.rans_decode_direct_groups(plan._direct_groups,
+                                                                    plan.direct_packing)))
+    outs.update(zip(plan._scan_keys, sd.rans_decode_lanes_groups(plan._scan_groups,
+                                                                 plan.scan_packing)))
+    clean = [(outs[k], *g) for k, g in zip(plan._post_keys, plan._post_groups)]
+    for groups in (clean, _flipped(clean, 3, 1), _flipped(clean, 50, 2)):
+        launches = post.post_decode_groups.launches
+        got = post.post_decode_groups(groups, plan.post_packing)
+        torch.cuda.synchronize()
+        assert post.post_decode_groups.launches == launches + 1
+        for (_e, _m, kw), g, w in zip(groups, got, _twin(groups)):
+            assert torch.equal(g, w), kw
+    calls = post.post_batch.calls
+    decoded = plan.run()
+    assert post.post_batch.calls == calls
+    assert plan.verify_batch(decoded, [st.micw_decompress_host(b)[0] for b in plan.blobs]) == 0
