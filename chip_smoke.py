@@ -1119,8 +1119,8 @@ def _post_stage_vs_plain(dev, report, post_blobs) -> None:
             pixels = sum(o.numel() for o in got)
             bound_ms = max(n_bytes / MEM_BPS, OPS_PER_ELEMENT[name] * pixels / CORE_OPS) * 1e3
             print(f"kernel-vs-plain {name} {tag} {form}: {len(groups)} buckets, "
-                  f"{len(pk.blocks)} blocks of one strip {kinds}, {pk.smem_bytes} bytes of avg "
-                  f"ring a block, {len(pk.parts)} launch(es); equal=True max_abs_err={err} "
+                  f"{len(pk.blocks)} blocks of one strip {kinds}, {len(pk.parts)} launch(es); "
+                  f"equal=True max_abs_err={err} "
                   f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
                   f"({n_bytes} bytes, {pixels} pixels)")
             r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -1136,6 +1136,9 @@ def _post_stage_vs_plain(dev, report, post_blobs) -> None:
                       f"{kw['width']}x{kw['strip_h']} (max_tokens {kw['max_tokens']}, "
                       f"max_runs {kw['max_runs']}) kernel_ms={ms:.3f}")
         del outs, clean
+    smem, per_sm, regs = post._launch_shape()
+    print(f"post kernel launch shape: {smem} bytes of shared memory a block, {per_sm} blocks an "
+          f"SM, {regs} registers a thread (a block a strip)")
     del plans
 
 
@@ -1192,8 +1195,7 @@ def _post_phase(dev, blobs, expected, names):
     pk = plan.post_packing
     print(f"post path: {launches['post_decode_groups']} post-kernel launch(es) per plan.run() "
           f"for {len(plan._post_keys)} post buckets (design: {POST_LAUNCHES_PER_RUN}), "
-          f"{len(pk.blocks)} blocks of one strip, {pk.smem_bytes} bytes of avg ring a block; "
-          f"{post.post_batch.calls} post_batch calls")
+          f"{len(pk.blocks)} blocks of one strip; {post.post_batch.calls} post_batch calls")
     if (launches["post_decode_groups"] != POST_LAUNCHES_PER_RUN or post.post_batch.calls
             or set(plan._post_keys) != set(post_keys)):
         raise AssertionError(f"the post stage is not the plan's one post-kernel launch: "

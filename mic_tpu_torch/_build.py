@@ -76,8 +76,10 @@ _SIGNATURES = {
     # acc, stream
     "mic_mismatch_groups": [_P, _P, _I, _P, _P, _P, _I, _P, _P],
     # groups, blocks, n_blocks, ents, cols (host arrays), n_groups, out, runs,
-    # flags, smem_bytes, stream
-    "mic_post_groups": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P],
+    # flags, stream
+    "mic_post_groups": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
+    # out (int[3]: shared bytes a block, blocks an SM, registers a thread)
+    "mic_post_shape": [_P],
 }
 
 

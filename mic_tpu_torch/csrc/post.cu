@@ -26,49 +26,64 @@
 // outputs masked to 16 bits.
 //
 // What bounds it on this card.  The bytes are the symbols in and the
-// pixels out (phase 6 of chip_smoke.py: ~80 M pixels, near 0.1 ms at
-// 3.35 TB/s).  Against them stand serial chains: the avg inverse is
-// 2(h - 1) + w dependent wavefront steps a strip (510 for a 256 x 128
-// strip), and the expand and the parse are scans over a strip's runs and
-// tokens.  The twin ran these as a loop of torch launches on the host (510
-// steps of several launches each for one avg bucket).  Here the chains
-// stay inside a block:
+// pixels out (phase 6 of chip_smoke.py: ~72 M pixels, near 0.1 ms at
+// 3.35 TB/s).  Against them stand a strip's serial chains (the escape
+// parse's marker recurrence, the avg recurrence's (h - 1) + w / 8 steps)
+// and the latency of a block's loads: this kernel's first form had a
+// thread walk a contiguous span of ~257 tokens, so every warp load or
+// store touched 32 lines, at 48 registers and 5 blocks an SM.  Here a warp
+// works on 32 neighbouring positions at every instruction, a thread
+// issues its independent loads together, and 4 blocks of 64 registers
+// share an SM (scripts/post_design_points.py times the other forms); the
+// expand and the parse, about 3/4 of phase 6's launch, issue ~100 warp
+// instructions a word of 32 tokens (locating each token's run, the word's
+// ballots and map, the ranked store):
 //
 // 1. A block per strip, kThreads threads; the blocks of avg strips come
 //    first in the launch (their chains are the longest), then zz, then
 //    the rest (post.py: PostPacking orders them).
-// 2. The runs: each thread takes a contiguous span of the strip's valid
-//    runs, sums its lengths, literal lengths and same-run count, one block
-//    scan gives each span its starts, and a second walk writes each run's
-//    start and its token source (a same-run value, or the offset of its
-//    literals in the stream) to a scratch in device memory (16 bytes a run).
-// 3. The tokens: a thread takes a contiguous span of positions, finds its
-//    first position's run by a binary search over the run starts and walks
-//    forward from there (the starts never decrease, so the last run whose
-//    start is <= a position is the twin's binary-search answer).
-// 4. The escape parse: marker[j] = delim[j] && !marker[j - 1], and j is a
-//    token start where marker[j - 1] is false.  A span's effect is a map of
-//    its incoming marker bit to (outgoing bit, token starts); a thread
-//    walks its span once for both incoming bits, one block scan composes
-//    the maps, a second walk writes each token start's pixel (the next
-//    token for a marker) at its rank into the strip's output row, in
-//    place, and its raw flag into a byte scratch.  Ranks past the count of
-//    token starts take position 0's pixel, as the twin's zeroed scatter
-//    does.
-// 5. The inverses, in place on the output row: the row prefix (zzd, pdd's
+// 2. The runs: a thread a run, kThreads runs a round, a warp-shuffle scan
+//    of the lengths and one shared-memory pass across the warps give each
+//    run its first token and its token source (a same-run value, or the
+//    offset of its literals in the stream), in shared memory (up to
+//    kRunsSmem runs a strip; more go to the device scratch).
+// 3. A token: each thread keeps a cursor into the runs that only moves
+//    forward, since the positions a thread asks for never decrease (the
+//    last run whose start is <= a position is the twin's binary-search
+//    answer; zero-length runs and runs on one start resolve to the last of
+//    them).  A thread locates several tokens, then issues their literal
+//    reads together: 32 neighbouring symbols a warp each.
+// 4. The escape parse, kWords words of 32 positions a warp, kChunk
+//    positions a chunk.  A ballot gives a word's delim bits; the marker
+//    recurrence m[j] = delim[j] && !m[j - 1] is resolved in the word from
+//    the parity of the delim run ending at j, for both values of the bit
+//    that comes in (a word without delims skips it); the words' maps
+//    (incoming bit -> outgoing bit, token starts) are composed over a
+//    warp's words, and one shared-memory pass across the warps gives each
+//    warp its incoming bit and rank and the chunk its carry.  The token
+//    starts' ranks are popcounts, so neighbouring token starts store their
+//    pixels (the next token for a marker) at neighbouring ranks of the
+//    strip's output row; the raw flags are a bit a pixel in shared memory
+//    (device scratch past kFlagBits pixels).  Ranks past the count of
+//    token starts take position 0's pixel and flag, as the twin's zeroed
+//    scatter gives.
+// 5. The inverses, in place on the output row.  The row prefix (zzd, pdd's
 //    first pass, zz's segmented form restarting at every raw pixel) a warp
-//    a row, 32 pixels a round through a shuffle ladder; the column prefix
-//    (vdd, pdd's second pass) a thread a column; avg a thread a row (a
-//    thread takes several rows when strip_h exceeds the block): at step k
-//    row i does column j = k - 2i, "left" is its own value of step k - 1
-//    and "top" row i - 1's of step k - 2, both from a ring of 4 steps x
-//    strip_h values in shared memory, one barrier a step.
+//    a row, 4 neighbouring pixels a lane, one shuffle ladder a 128-pixel
+//    round, the next round's loads in flight; the column prefix (vdd, pdd's
+//    second pass) a thread a column, 8 rows' loads at once.  avg a thread a
+//    row, bands of kThreads rows: at step K row i takes its 8 columns of
+//    block K - i, left from its own last value, top (row i - 1's block of
+//    the step before) by shuffles from the lane below, for a warp's first
+//    row from the upper warp's ring, one barrier a step; a window of
+//    kAvgWin steps loads the row's columns as 16-byte loads where the rows
+//    are aligned (8 two-byte loads where not), the next window's in flight,
+//    with their 32 flag bits by a funnel shift.
 //
-// Shared memory: the two scan buffers (10 KB) and the avg ring, 8 bytes a
-// row of the launch's tallest avg strip (post.py refuses a ring past the
-// block's 227 KB).  Device scratch, made by the wrapper: the runs (16
-// bytes a run of max_runs a strip) and the raw flags (a byte a pixel of
-// the zz / avg strips).
+// Shared memory, static: the runs (12 bytes a run) or the avg rings, the
+// flag bits, the scans' warp totals.  Device scratch, made by the wrapper:
+// the runs of strips past kRunsSmem runs (16 bytes a run of max_runs a
+// strip) and the flag bits of strips past kFlagBits pixels.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (mic_tpu_torch/_build.py).  The C entry point returns
@@ -77,13 +92,52 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Forms for scripts/post_design_points.py.  MIC_POST_STAGE: 0 the runs
+// only (no output), 1 through the expand and the parse (the parsed
+// values, or the symbols / tokens of the direct and r-modes, no inverse),
+// 2 everything, 3 everything but the expand and the parse (the inverses
+// on whatever the output rows hold: a time, not an output).
+// MIC_POST_WORDS: words a warp takes a chunk of the parse (and tokens a
+// thread a round of the r-modes' expand).  MIC_POST_RUNS_SMEM /
+// MIC_POST_FLAG_BITS: the most runs / pixels of a strip whose runs / flag
+// bits stay in shared memory (0: device scratch always).
+// MIC_POST_MIN_BLOCKS: __launch_bounds__' blocks an SM.  MIC_POST_AVG_WIN:
+// avg steps a window.
+#ifndef MIC_POST_STAGE
+#define MIC_POST_STAGE 2
+#endif
+#ifndef MIC_POST_WORDS
+#define MIC_POST_WORDS 8
+#endif
+#ifndef MIC_POST_RUNS_SMEM
+#define MIC_POST_RUNS_SMEM 1024
+#endif
+#ifndef MIC_POST_FLAG_BITS
+#define MIC_POST_FLAG_BITS 65536
+#endif
+#ifndef MIC_POST_MIN_BLOCKS
+#define MIC_POST_MIN_BLOCKS 4
+#endif
+#ifndef MIC_POST_AVG_WIN
+#define MIC_POST_AVG_WIN 4
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroups = 128;           // buckets a launch (post.py: MAX_GROUPS)
-constexpr long long kSameTag = 1LL << 62;  // Run::info of a same-run: kSameTag + value
+constexpr long long kSameTag = 1LL << 62;  // a run's source for a same-run: kSameTag + value
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kIntMax = 0x7fffffff;
+constexpr int kWords = MIC_POST_WORDS;
+constexpr int kChunk = kThreads * kWords;  // parse positions a chunk
+constexpr int kRunsSmem = MIC_POST_RUNS_SMEM;
+constexpr int kFlagBits = MIC_POST_FLAG_BITS;
+constexpr int kAvgWin = MIC_POST_AVG_WIN;  // avg steps a window (8 columns a step)
+constexpr int kAvgBytes = kWarps * 2 * 16;  // the warps' rings: two steps of 8 pixels
+constexpr int kRunsBytes = kRunsSmem * 12;
+constexpr int kPoolBytes = kRunsBytes > kAvgBytes ? kRunsBytes : kAvgBytes;
 
 // post.py: PREDICTORS
 enum Pred { kZzd = 0, kVdd, kPdd, kZzr, kVdr, kPdr, kZz, kAvg };
@@ -92,8 +146,8 @@ enum Pred { kZzd = 0, kVdd, kPdd, kZzr, kVdr, kPdr, kZz, kAvg };
 struct Group {
   const long long* meta;  // [S, 3]: n_tokens, n_runs, n_same (the table entries)
   long long out_off;      // its output's first element in out
-  long long runs_off;     // its first Run in the runs scratch (max_runs a strip)
-  long long flags_off;    // its first byte in the flags scratch (zz / avg: a byte a pixel)
+  long long runs_off;     // its first run in the runs scratch (max_runs a strip)
+  long long flags_off;    // its first word in the flags scratch (zz / avg: a bit a pixel)
   int width, strip_h, max_runs, max_tokens, mid, delim, pred, pad;
 };
 
@@ -103,160 +157,180 @@ struct Ents {
   int cols[kMaxGroups];
 };
 
-// A run of the SoA-RLE stream: its first token and where its tokens come
-// from (kSameTag + the same-run value, or the literal offset: token i of
-// the run is syms[clamp(info + i)]).
-struct Run {
-  long long start, info;
-};
-
-struct RunSum {
-  long long len, lit;
-  int same;
-};
-
-// The escape parse's map of a span: incoming marker bit b -> (out[b],
-// token starts cnt[b]).
+// The escape parse's map of a stretch of positions: incoming marker bit
+// b -> (out[b], token starts cnt[b]).
 struct Fn {
   int out0, cnt0, out1, cnt1;
 };
-
-__device__ __forceinline__ RunSum add(const RunSum& a, const RunSum& b) {
-  return {a.len + b.len, a.lit + b.lit, a.same + b.same};
-}
 
 __device__ __forceinline__ Fn compose(const Fn& a, const Fn& b) {  // a, then b
   return {a.out0 ? b.out1 : b.out0, a.cnt0 + (a.out0 ? b.cnt1 : b.cnt0),
           a.out1 ? b.out1 : b.out0, a.cnt1 + (a.out1 ? b.cnt1 : b.cnt0)};
 }
 
-struct AddOp {
-  __device__ RunSum operator()(const RunSum& a, const RunSum& b) const { return add(a, b); }
-};
-struct ComposeOp {
-  __device__ Fn operator()(const Fn& a, const Fn& b) const { return compose(a, b); }
-};
-
-// Exclusive scan of one value a thread, in thread order (Hillis-Steele
-// over buf); *total gets the whole block's.  Every thread calls it.
-template <class T, class Op>
-__device__ T block_exclusive_scan(T x, T identity, Op op, T* buf, T* total) {
-  const int t = threadIdx.x;
-  buf[t] = x;
-  __syncthreads();
-  for (int off = 1; off < kThreads; off <<= 1) {
-    T y = buf[t];
-    if (t >= off) y = op(buf[t - off], y);
-    __syncthreads();
-    buf[t] = y;
-    __syncthreads();
-  }
-  const T ex = t > 0 ? buf[t - 1] : identity;
-  *total = buf[kThreads - 1];
-  __syncthreads();  // buf is free for the next scan
-  return ex;
-}
-
 __device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+
 __device__ __forceinline__ unsigned unzig(unsigned v) { return (v >> 1) ^ (0u - (v & 1u)); }
 
-// A thread's contiguous span [lo, hi) of n items.
-__device__ __forceinline__ void span_of(long long n, long long* lo, long long* hi) {
-  const long long per = (n + kThreads - 1) / kThreads;
-  *lo = per * threadIdx.x < n ? per * threadIdx.x : n;
-  *hi = *lo + per < n ? *lo + per : n;
+__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+
+// The first n lanes of a word (n may be <= 0 or > 32).
+__device__ __forceinline__ unsigned first_lanes(int n) {
+  return n <= 0 ? 0u : (n >= 32 ? kFull : lanes_below(n));
 }
 
-// The expanded token at nondecreasing positions: seek() once, then at().
-struct Walk {
+// The expanded token at positions that never decrease for the calling
+// thread.  A run has its first token (clamped to kIntMax, which no
+// position reaches) and its source (kSameTag + value, or the literal
+// offset: token i of the run is syms[clamp(source + i)]).
+struct Tokens {
   const uint16_t* syms;
   long long cols;
-  const Run* runs;
+  const int* start;
+  const long long* source;
   int n_valid;  // runs that count: min(max(n_runs, 0), max_runs)
   long long n_tok;
   int rid;
 
-  // The last run whose start is <= i (run 0 where none is): the twin's
-  // branch-free binary search, whose predicate is monotone here.
-  __device__ void seek(long long i) {
-    int lo = 0;
-    if (n_valid > 0)
-      for (int step = 1 << (31 - __clz(n_valid)); step; step >>= 1)
-        if (lo + step <= n_valid && runs[lo + step - 1].start <= i) lo += step;
-    rid = lo > 0 ? lo - 1 : 0;
+  // Token i without its load: the symbol to read (>= 0), or -1 with *v
+  // the token (a same-run value, or 0 past the expand's count).  Callers
+  // locate several tokens, then issue their loads together.
+  __device__ int locate(long long i, unsigned* v) {
+    *v = 0;
+    if (i >= n_tok) return -1;
+    while (rid + 1 < n_valid && start[rid + 1] <= i) ++rid;
+    const long long src = source[rid];
+    if (src >= kSameTag) {
+      *v = (unsigned)(src - kSameTag);
+      return -1;
+    }
+    return (int)clampll(src + i, 0, cols - 1);
   }
 
   __device__ unsigned at(long long i) {
-    if (i >= n_tok) return 0;
-    while (rid + 1 < n_valid && runs[rid + 1].start <= i) ++rid;
-    const long long info = runs[rid].info;
-    if (info >= kSameTag) return (unsigned)(info - kSameTag);
-    return syms[clampll(info + i, 0, cols - 1)];
+    unsigned v;
+    const int k = locate(i, &v);
+    return k < 0 ? v : syms[k];
   }
 };
 
-// The strip's runs into its scratch; returns the expand's token count.
+// The strip's runs into start / source, a thread a run; returns the
+// expand's token count.  wsum: 4 * kWarps values of shared memory.
 __device__ long long build_runs(const uint16_t* syms, long long cols, long long n_runs,
-                                long long n_same, int mid, int max_runs, Run* runs,
-                                RunSum* buf) {
-  const int n_valid = (int)clampll(n_runs, 0, max_runs);
-  long long r0, r1;
-  span_of(n_valid, &r0, &r1);
-  RunSum mine = {0, 0, 0};
-  for (long long r = r0; r < r1; ++r) {
-    const int c = syms[r < cols ? r : cols - 1];
-    const bool same = c <= mid;
-    const long long len = same ? c : c - mid;
-    mine.len += len;
-    mine.lit += same ? 0 : len;
-    mine.same += same;
-  }
-  RunSum total;
-  const RunSum pre = block_exclusive_scan(mine, RunSum{0, 0, 0}, AddOp(), buf, &total);
+                                long long n_same, int mid, int n_valid, int* start,
+                                long long* source, long long* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long lit_base = n_runs + n_same;
-  long long out_start = pre.len, lit_start = pre.lit;
-  long long same_rank = pre.same;
-  for (long long r = r0; r < r1; ++r) {
-    const int c = syms[r < cols ? r : cols - 1];
-    const bool same = c <= mid;
-    const long long len = same ? c : c - mid;
-    long long info;
-    if (same) {
-      info = kSameTag + syms[clampll(n_runs + same_rank, 0, cols - 1)];
-      ++same_rank;
-    } else {
-      info = lit_base + lit_start - out_start;
-      lit_start += len;
+  long long len_carry = 0, same_len_carry = 0, same_carry = 0;
+  for (int r0 = 0, round = 0; r0 < n_valid; r0 += kThreads, ++round) {
+    const int r = r0 + threadIdx.x;
+    long long len = 0, sp = 0;  // sp: a same-run's length + 1 << 32 (a round's sums fit)
+    bool same = false;
+    if (r < n_valid) {
+      const int c = syms[r < cols ? r : cols - 1];
+      same = c <= mid;
+      len = same ? c : (long long)c - mid;
+      sp = same ? c + (1LL << 32) : 0;
     }
-    runs[r] = Run{out_start, info};
-    out_start += len;
+    long long a = len, b = sp;  // inclusive warp scans
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long ua = __shfl_up_sync(kFull, a, off), ub = __shfl_up_sync(kFull, b, off);
+      if (lane >= off) {
+        a += ua;
+        b += ub;
+      }
+    }
+    long long* buf = wsum + (round & 1) * 2 * kWarps;  // two rounds' buffers: one barrier a round
+    if (lane == 31) {
+      buf[warp] = a;
+      buf[kWarps + warp] = b;
+    }
+    __syncthreads();
+    long long pa = 0, pb = 0, ta = 0, tb = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      const long long xa = buf[v], xb = buf[kWarps + v];
+      if (v < warp) {
+        pa += xa;
+        pb += xb;
+      }
+      ta += xa;
+      tb += xb;
+    }
+    if (r < n_valid) {
+      const long long first = len_carry + pa + a - len;
+      const long long ex = pb + b - sp;  // this round's same-runs before r
+      start[r] = first < kIntMax ? (int)first : kIntMax;
+      source[r] = same ? kSameTag + syms[clampll(n_runs + same_carry + (ex >> 32), 0, cols - 1)]
+                       : lit_base - (same_len_carry + (ex & 0xffffffffLL));
+    }
+    len_carry += ta;
+    same_len_carry += tb & 0xffffffffLL;
+    same_carry += tb >> 32;
   }
-  __syncthreads();  // the runs, for every thread's walk
-  return total.len;
+  __syncthreads();  // the runs, for every thread's cursor
+  return len_carry;
 }
 
-// Row prefix of the unzigzagged symbols, mod 2^16, a warp a row (zzd,
-// pdd's first pass).  src holds src_len symbols (0 past them).
-__device__ void row_prefix(const uint16_t* src, long long src_len, uint16_t* dst, int w, int h) {
+__device__ __forceinline__ unsigned flag_at(const unsigned* fw, long long p) {
+  return (fw[p >> 5] >> (p & 31)) & 1u;
+}
+
+// The row prefix, mod 2^16, a warp a row, kPer neighbouring pixels a lane
+// (32 * kPer a round): each lane sums its pixels, one shuffle ladder over
+// the lanes' sums gives each lane its carry in.  Without kRaw (zzd, pdd's
+// first pass) over the unzigzagged symbols (src_len of them, 0 past);
+// with kRaw (zz) a segmented prefix over (raw flag, raw ? value :
+// unzigzag(value)) that restarts at every raw pixel (fw: the flag bits).
+template <bool kRaw>
+__device__ void row_scan(const uint16_t* src, long long src_len, uint16_t* dst,
+                         const unsigned* fw, int w, int h) {
+  constexpr int kPer = 4;
   const int lane = threadIdx.x & 31;
   for (int y = threadIdx.x >> 5; y < h; y += kWarps) {
-    unsigned carry = 0;
     const long long base = (long long)y * w;
-    for (int x0 = 0; x0 < w; x0 += 32) {
-      const int x = x0 + lane;
-      const long long p = base + x;
-      unsigned a = unzig(x < w && p < src_len ? src[p] : 0u);
+    unsigned carry = 0, v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int x = kPer * lane + i;
+      v[i] = x < w && base + x < src_len ? src[base + x] : 0u;
+    }
+    for (int x0 = 0; x0 < w; x0 += 32 * kPer) {
+      const int xl = x0 + kPer * lane;
+      unsigned a[kPer], acc = 0, seen = 0, raw_before = 0;  // raw_before: bit i, a raw pixel <= i
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const bool raw = kRaw && xl + i < w && flag_at(fw, base + xl + i);
+        acc = raw ? v[i] : acc + unzig(v[i]);
+        seen |= raw;
+        raw_before |= seen << i;
+        a[i] = acc;
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {  // the next round's, in flight during the ladder
+        const int x = xl + 32 * kPer + i;
+        v[i] = x < w && base + x < src_len ? src[base + x] : 0u;
+      }
+      unsigned sum = acc, fixed = seen;  // inclusive over the lanes; fixed: sum is absolute
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const unsigned u = __shfl_up_sync(kFull, a, off);
-        if (lane >= off) a += u;
+        const unsigned us = __shfl_up_sync(kFull, sum, off);
+        const unsigned uf = __shfl_up_sync(kFull, fixed, off);
+        if (lane >= off) {
+          if (!fixed) sum += us;
+          fixed |= uf;
+        }
       }
-      a += carry;
-      if (x < w) dst[p] = (uint16_t)a;
-      carry = __shfl_sync(kFull, a, 31);
+      const unsigned ps = __shfl_up_sync(kFull, sum, 1), pf = __shfl_up_sync(kFull, fixed, 1);
+      const unsigned in = lane == 0 ? carry : (pf ? ps : carry + ps);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (xl + i < w) dst[base + xl + i] = (uint16_t)((raw_before >> i) & 1u ? a[i] : in + a[i]);
+      carry = __shfl_sync(kFull, fixed ? sum : carry + sum, 31);
     }
   }
 }
@@ -267,12 +341,19 @@ __device__ void col_prefix(const uint16_t* src, long long src_len, uint16_t* dst
                            bool unzigzag) {
   for (int c = threadIdx.x; c < w; c += kThreads) {
     unsigned acc = 0;
-#pragma unroll 4
-    for (int y = 0; y < h; ++y) {
-      const long long p = (long long)y * w + c;
-      const unsigned v = p < src_len ? src[p] : 0u;
-      acc += unzigzag ? unzig(v) : v;
-      dst[p] = (uint16_t)acc;
+    for (int y0 = 0; y0 < h; y0 += 8) {  // 8 rows' loads in flight, then their sums
+      unsigned v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long p = (long long)(y0 + i) * w + c;
+        v[i] = y0 + i < h && p < src_len ? src[p] : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (y0 + i >= h) break;
+        acc += unzigzag ? unzig(v[i]) : v[i];
+        dst[(long long)(y0 + i) * w + c] = (uint16_t)acc;
+      }
     }
   }
 }
@@ -284,79 +365,250 @@ __device__ void direct_inverse(int pred, const uint16_t* src, long long src_len,
     col_prefix(src, src_len, dst, w, h, true);
     return;
   }
-  row_prefix(src, src_len, dst, w, h);
+  row_scan<false>(src, src_len, dst, nullptr, w, h);
   if (pred == kPdd) {
     __syncthreads();
     col_prefix(dst, (long long)w * h, dst, w, h, false);
   }
 }
 
-// zz: the left-delta inverse, restarting at each raw pixel, a warp a row;
-// a segmented prefix over (raw flag, raw ? value : unzigzag(value)).
-__device__ void zz_rows(uint16_t* o, const uint8_t* fl, int w, int h) {
-  const int lane = threadIdx.x & 31;
-  for (int y = threadIdx.x >> 5; y < h; y += kWarps) {
-    unsigned carry = 0;
-    const long long base = (long long)y * w;
-    for (int x0 = 0; x0 < w; x0 += 32) {
-      const int x = x0 + lane;
-      const long long p = base + x;
-      const unsigned v = x < w ? o[p] : 0u;
-      unsigned f = x < w ? fl[p] : 0u;
-      unsigned a = f ? v : unzig(v);
+// The marker bit of `lane` in a word whose delim bits are D, the bit
+// before the word being c: 1 at the even offsets of each delim run from
+// its first lane; for the run that starts the word, m[0] = !c, alternating.
+__device__ __forceinline__ unsigned marker_bit(unsigned D, int lane, unsigned c) {
+  if (!((D >> lane) & 1u)) return 0;
+  const unsigned below = ~D & lanes_below(lane);
+  if (below) return ((lane - (32 - __clz((int)below))) & 1) ^ 1u;
+  return ((unsigned)lane & 1u) ^ 1u ^ c;
+}
+
+// The escape parse of tokens[1:] (n of them valid, mp in all) into o's
+// first `need` pixels and their raw bits fw (zeroed); every thread of the
+// block calls it.  s_fn: 2 * kWarps maps of shared memory.
+__device__ void parse(Tokens tk, int mp, long long n, int delim, long long need, uint16_t* o,
+                      unsigned* fw, Fn* s_fn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_par = (int)clampll(n, 0, mp);
+  unsigned mk = 0;     // the marker bit before the chunk
+  long long rank = 0;  // token starts before the chunk
+  for (int c0 = 0, chunk = 0; c0 < n_par && rank < need; c0 += kChunk, ++chunk) {
+    const int seg = c0 + warp * 32 * kWords;  // this warp's positions of the chunk
+    unsigned t[kWords], m0[kWords], m1[kWords], extra = 0;
+    int at[kWords], at_x = -1;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned ua = __shfl_up_sync(kFull, a, off);
-        const unsigned uf = __shfl_up_sync(kFull, f, off);
-        if (lane >= off) {
-          if (!f) a += ua;
-          f |= uf;
-        }
-      }
-      const unsigned res = f ? a : carry + a;
-      if (x < w) o[p] = (uint16_t)res;
-      carry = __shfl_sync(kFull, res, 31);
+    for (int k = 0; k < kWords; ++k) {  // tokens[1:][j] (a valid one's next too)
+      const int j = seg + 32 * k + lane;
+      at[k] = j < mp && j <= n_par ? tk.locate(j + 1, &t[k]) : (t[k] = 0, -1);
     }
-  }
-}
-
-// avg: the avg(left, top) inverse along wavefronts k = 2i + j.
-__device__ void avg_rows(uint16_t* o, const uint8_t* fl, int w, int h, int thr, uint16_t* ring) {
-  const int K = 2 * (h - 1) + w;
-  for (int k = 0; k < K; ++k) {
-    uint16_t* cur = ring + (k & 3) * h;
-    const uint16_t* prev = ring + ((k + 3) & 3) * h;   // step k - 1
-    const uint16_t* prev2 = ring + ((k + 2) & 3) * h;  // step k - 2
-    for (int i = threadIdx.x; i < h; i += kThreads) {
-      const int j = k - 2 * i;
-      if (j < 0 || j >= w) continue;
-      const long long p = (long long)i * w + j;
-      const int v = o[p];
-      int val = v;
-      if (!fl[p]) {
-        int pred;
-        if (i == 0) {
-          pred = j == 0 ? 0 : prev[i];
-        } else {
-          const int top = prev2[i - 1];
-          pred = j == 0 ? top : (prev[i] + top) >> 1;
-        }
-        val = (pred + v - thr) & 0xFFFF;
+    const int jx = seg + 32 * kWords;  // lane 31's next: the token after the warp's last word
+    if (lane == 31 && jx < mp && jx <= n_par) at_x = tk.locate(jx + 1, &extra);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k)  // the literal reads, all in flight
+      if (at[k] >= 0) t[k] = tk.syms[at[k]];
+    if (at_x >= 0) extra = tk.syms[at_x];
+    Fn f = {0, 0, 1, 0};
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const int j = seg + 32 * k + lane;
+      const unsigned D = __ballot_sync(kFull, j < n_par && t[k] == (unsigned)delim);
+      m0[k] = m1[k] = 0;
+      if (D) {  // the marker recurrence (most words hold no delim)
+        m0[k] = __ballot_sync(kFull, marker_bit(D, lane, 0));
+        const unsigned nd = ~D;
+        m1[k] = m0[k] ^ ((nd & (0u - nd)) - 1u);  // flipped on the delim run that starts the word
       }
-      cur[i] = (uint16_t)val;
-      o[p] = (uint16_t)val;
+      const unsigned V = first_lanes(n_par - (seg + 32 * k));
+      f = compose(f, Fn{(int)(m0[k] >> 31), __popc(V & ~(m0[k] << 1)), (int)(m1[k] >> 31),
+                        __popc(V & ~((m1[k] << 1) | 1u))});
     }
+    Fn* buf = s_fn + (chunk & 1) * kWarps;  // two chunks' buffers: one barrier a chunk
+    if (lane == 0) buf[warp] = f;
     __syncthreads();
+    unsigned c = mk, cin = 0;
+    long long rb = rank, rin = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      if (v == warp) {  // this warp's carry in
+        cin = c;
+        rin = rb;
+      }
+      const Fn g = buf[v];
+      rb += c ? g.cnt1 : g.cnt0;
+      c = c ? g.out1 : g.out0;
+    }
+    mk = c;  // the chunk's carry out
+    rank = rb;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const int j = seg + 32 * k + lane;
+      const unsigned M = cin ? m1[k] : m0[k];
+      const unsigned TS = first_lanes(n_par - (seg + 32 * k)) & ~((M << 1) | cin);
+      const long long r = rin + __popc(TS & lanes_below(lane));
+      const bool store = ((TS >> lane) & 1u) && r < need;
+      if (m0[k] | m1[k]) {  // markers: their pixel is the next token
+        // lane l takes lane l + 1's token, lane 31 the next word's first (or extra)
+        const unsigned give = lane == 0 && k + 1 < kWords ? t[k + 1 < kWords ? k + 1 : k] : t[k];
+        unsigned nxt = __shfl_sync(kFull, give, (lane + 1) & 31);
+        if (lane == 31 && k + 1 == kWords) nxt = extra;
+        if (j + 1 >= mp) nxt = t[k];  // the next token, clipped to tokens[1:]'s last
+        const unsigned mark = (M >> lane) & 1u;
+        if (store) {
+          o[r] = (uint16_t)(mark ? nxt : t[k]);
+          if (mark) atomicOr(&fw[r >> 5], 1u << (r & 31));
+        }
+      } else if (store) {
+        o[r] = (uint16_t)t[k];
+      }
+      rin += __popc(TS);
+      cin = M >> 31;
+    }
+  }
+  if (rank < need) {  // the rest take position 0's pixel
+    tk.rid = 0;
+    const unsigned t0 = tk.at(1);
+    const unsigned t1 = tk.at((mp > 1 ? 1 : 0) + 1);
+    const bool mark0 = n > 0 && t0 == (unsigned)delim;
+    for (long long r = rank + threadIdx.x; r < need; r += kThreads) {
+      o[r] = (uint16_t)(mark0 ? t1 : t0);
+      if (mark0) atomicOr(&fw[r >> 5], 1u << (r & 31));
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Eight pixels of a row from column c (a multiple of 8), two a word, 0
+// past w: one 16-byte access where the rows are 16-byte aligned, else
+// eight.
+__device__ __forceinline__ uint4 load8(const uint16_t* row, int c, int w, bool aligned) {
+  if (aligned) return *(const uint4*)(row + c);
+  unsigned x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const unsigned lo = c + 2 * e < w ? row[c + 2 * e] : 0u;
+    x[e] = lo | (c + 2 * e + 1 < w ? row[c + 2 * e + 1] : 0u) << 16;
+  }
+  return uint4{x[0], x[1], x[2], x[3]};
+}
+
+__device__ __forceinline__ void store8(uint16_t* row, int c, int w, bool aligned, uint4 v) {
+  if (aligned) {
+    *(uint4*)(row + c) = v;
+    return;
+  }
+  const unsigned x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c + e < w) row[c + e] = (uint16_t)(x[e >> 1] >> (16 * (e & 1)));
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ uint4 shfl_up4(uint4 v) {
+  return uint4{__shfl_up_sync(kFull, v.x, 1), __shfl_up_sync(kFull, v.y, 1),
+               __shfl_up_sync(kFull, v.z, 1), __shfl_up_sync(kFull, v.w, 1)};
+}
+
+// avg: the avg(left, top) inverse, a thread a row, a band of kThreads rows
+// at a time.  At step K a row i takes its block of 8 columns P = K - i, so
+// a row's top (row i - 1, block P) came a step earlier: from the lane
+// below by shuffles, for a warp's first row from the upper warp's ring
+// (pool: kAvgBytes), one barrier a step; (h - 1) + w / 8 steps.  A window
+// of kAvgWin steps loads the row's 8 * kAvgWin columns at once (the next
+// window's in flight) and its flag bits, and stores them at its end.
+__device__ void avg_rows(uint16_t* o, const unsigned* fw, int w, int h, int thr,
+                         unsigned char* pool) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint4* ring = (uint4*)pool;  // [kWarps][2]: lane 31's block of the last two steps
+  const long long n_words = ((long long)w * h + 31) >> 5;
+  const bool aligned = (w & 7) == 0 && ((uintptr_t)o & 15) == 0;
+  const int blocks = (w + 7) >> 3;
+  for (int b0 = 0; b0 < h; b0 += kThreads) {
+    const int hb = imin(kThreads, h - b0);
+    const int steps = hb - 1 + blocks;
+    const int rel = warp * 32 + lane;  // this lane's band row
+    const bool mine = rel < hb;
+    uint16_t* row = o + (long long)(b0 + rel) * w;
+    const uint16_t* above = o + (long long)(b0 - 1) * w;  // the row above the band (b0 > 0)
+    unsigned left = 0;                // the row's last value
+    uint4 done = {0, 0, 0, 0}, cur[kAvgWin], nxt[kAvgWin];
+#pragma unroll
+    for (int s = 0; s < kAvgWin; ++s) {
+      const int P = s - rel;
+      nxt[s] = mine && P >= 0 && P < blocks ? load8(row, 8 * P, w, aligned) : uint4{0, 0, 0, 0};
+    }
+    for (int K0 = 0; K0 < steps; K0 += kAvgWin) {
+      unsigned fl = 0;  // the window's raw bits, column 8 * (K0 - rel) on
+#pragma unroll
+      for (int s = 0; s < kAvgWin; ++s) {
+        cur[s] = nxt[s];
+        const int P = K0 + kAvgWin + s - rel;
+        nxt[s] = mine && P >= 0 && P < blocks ? load8(row, 8 * P, w, aligned) : uint4{0, 0, 0, 0};
+      }
+      const int c0 = 8 * (K0 - rel), ca = c0 > 0 ? c0 : 0;
+      if (mine && ca < w && ca < c0 + 8 * kAvgWin) {
+        const long long pa = (long long)(b0 + rel) * w + ca, wa = pa >> 5;
+        const unsigned hi = wa + 1 < n_words ? fw[wa + 1] : 0u;
+        fl = __funnelshift_r(fw[wa], hi, (unsigned)(pa & 31)) << (ca - c0);
+      }
+#pragma unroll
+      for (int s = 0; s < kAvgWin; ++s) {
+        const int K = K0 + s, P = K - rel;
+        if (K >= steps) break;
+        uint4 top = shfl_up4(done);  // row above, block P, from the lane below
+        if (lane == 0) {
+          if (warp) top = ring[(warp - 1) * 2 + ((K - 1) & 1)];
+          else if (b0 > 0 && P >= 0 && P < blocks) top = load8(above, 8 * P, w, aligned);
+        }
+        if (mine && P >= 0 && P < blocks) {
+          unsigned out[4];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int j = 8 * P + e;
+            const int v = (word_of(cur[s], e >> 1) >> (16 * (e & 1))) & 0xFFFF;
+            unsigned val = 0;
+            if (j < w) {
+              if ((fl >> (8 * s + e)) & 1u) {
+                val = (unsigned)v;
+              } else {
+                const int t = (word_of(top, e >> 1) >> (16 * (e & 1))) & 0xFFFF;
+                int pred;
+                if (b0 + rel == 0)
+                  pred = j == 0 ? 0 : (int)left;
+                else
+                  pred = j == 0 ? t : ((int)left + t) >> 1;
+                val = (unsigned)((pred + v - thr) & 0xFFFF);
+              }
+              left = val;
+            }
+            if (e & 1)
+              out[e >> 1] |= val << 16;
+            else
+              out[e >> 1] = val;
+          }
+          done = uint4{out[0], out[1], out[2], out[3]};
+          cur[s] = done;
+        }
+        if (lane == 31) ring[warp * 2 + (K & 1)] = done;
+        __syncthreads();
+      }
+#pragma unroll
+      for (int s = 0; s < kAvgWin; ++s) {  // the window's results back to the row
+        const int P = K0 + s - rel;
+        if (mine && P >= 0 && P < blocks) store8(row, 8 * P, w, aligned, cur[s]);
+      }
+    }
+    __syncthreads();  // the band's last row, for the next band's top
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, MIC_POST_MIN_BLOCKS)
 post_groups_kernel(const Group* __restrict__ groups, const int2* __restrict__ blocks,
-                   const __grid_constant__ Ents ents, uint16_t* out, Run* runs, uint8_t* flags) {
-  __shared__ RunSum run_buf[kThreads];
-  __shared__ Fn fn_buf[kThreads];
-  __shared__ unsigned s_first[2];
-  extern __shared__ uint16_t ring[];
+                   const __grid_constant__ Ents ents, uint16_t* out, unsigned char* runs,
+                   unsigned* flags) {
+  __shared__ __align__(16) unsigned char s_pool[kPoolBytes];  // the runs, then avg's rings
+  __shared__ unsigned s_flags[kFlagBits > 0 ? kFlagBits / 32 : 1];
+  __shared__ long long s_sum[4 * kWarps];
+  __shared__ Fn s_fn[2 * kWarps];
 
   const int2 b = blocks[blockIdx.x];
   const Group g = groups[b.x];
@@ -368,86 +620,67 @@ post_groups_kernel(const Group* __restrict__ groups, const int2* __restrict__ bl
   uint16_t* o = out + g.out_off + (size_t)s * (size_t)need;
 
   if (g.pred <= kPdd) {
+    if (MIC_POST_STAGE == 0) return;
+    if (MIC_POST_STAGE == 1) {
+      for (long long i = threadIdx.x; i < need; i += kThreads) o[i] = i < cols ? syms[i] : 0;
+      return;
+    }
     direct_inverse(g.pred, syms, cols, o, w, h);
     return;
   }
 
   const long long* m = g.meta + 3LL * s;
   const long long n_tokens = m[0], n_runs = m[1], n_same = m[2];
-  Run* rr = runs + g.runs_off + (size_t)s * (size_t)g.max_runs;
-  Walk wk = {syms, cols, rr, (int)clampll(n_runs, 0, g.max_runs), 0, 0};
-  wk.n_tok = build_runs(syms, cols, n_runs, n_same, g.mid, g.max_runs, rr, run_buf);
+  const int n_valid = (int)clampll(n_runs, 0, g.max_runs);
+  long long* source = (long long*)s_pool;
+  int* start = (int*)(s_pool + 8 * kRunsSmem);
+  if (n_valid > kRunsSmem) {  // the scratch's strip: max_runs sources, then max_runs starts
+    source = (long long*)(runs + 16 * (g.runs_off + (long long)s * g.max_runs));
+    start = (int*)(source + g.max_runs);
+  }
+  unsigned* fw = nullptr;
+  if (g.pred >= kZz) {
+    fw = need <= kFlagBits ? s_flags : flags + g.flags_off + (long long)s * ((need + 31) >> 5);
+    for (long long i = threadIdx.x; i < (need + 31) >> 5; i += kThreads) fw[i] = 0;
+  }
+  const long long n_tok = build_runs(syms, cols, n_runs, n_same, g.mid, n_valid, start, source,
+                                     s_sum);
+  if (MIC_POST_STAGE == 0) return;
+  Tokens tk = {syms, cols, start, source, n_valid, n_tok, 0};
 
   if (g.pred <= kPdr) {  // zzr / vdr / pdr: tokens[:need] (0 past max_tokens), then inverse
-    long long i0, i1;
-    span_of(need, &i0, &i1);
-    if (i0 < i1) wk.seek(i0);
-    for (long long i = i0; i < i1; ++i) o[i] = (uint16_t)(i < g.max_tokens ? wk.at(i) : 0u);
+    for (long long i0 = threadIdx.x; i0 < need && MIC_POST_STAGE != 3;
+         i0 += (long long)kThreads * kWords) {
+      unsigned v[kWords];
+      int at[kWords];
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {  // kWords tokens located, then their loads together
+        const long long i = i0 + (long long)k * kThreads;
+        at[k] = i < need && i < g.max_tokens ? tk.locate(i, &v[k]) : (v[k] = 0, -1);
+      }
+#pragma unroll
+      for (int k = 0; k < kWords; ++k)
+        if (at[k] >= 0) v[k] = syms[at[k]];
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        const long long i = i0 + (long long)k * kThreads;
+        if (i < need) o[i] = (uint16_t)v[k];
+      }
+    }
+    if (MIC_POST_STAGE == 1) return;
     __syncthreads();
     direct_inverse(g.pred - kZzr, o, need, o, w, h);
     return;
   }
 
   // zz / avg: the escape parse of tokens[1:], n_tokens - 1 of them valid.
-  uint8_t* fl = flags + g.flags_off + (size_t)s * (size_t)need;
-  const int mp = g.max_tokens - 1;  // tokens[1:]'s length
-  const long long n = n_tokens - 1;
-  const int delim = g.delim;
-  long long j0, j1;
-  span_of(clampll(n, 0, mp), &j0, &j1);
-  Fn mine = {0, 0, 1, 0};
-  if (j0 < j1) {
-    wk.seek(j0 + 1);
-    int m0 = 0, m1 = 1, c0 = 0, c1 = 0;
-    for (long long j = j0; j < j1; ++j) {
-      const bool d = wk.at(j + 1) == (unsigned)delim;
-      c0 += !m0;
-      m0 = d && !m0;
-      c1 += !m1;
-      m1 = d && !m1;
-    }
-    mine = {m0, c0, m1, c1};
-  }
-  Fn total;
-  const Fn pre = block_exclusive_scan(mine, Fn{0, 0, 1, 0}, ComposeOp(), fn_buf, &total);
-  long long rank = pre.cnt0;
-  if (j0 < j1 && rank < need) {
-    bool mk = pre.out0;
-    wk.seek(j0 + 1);
-    unsigned tc = wk.at(j0 + 1);
-    for (long long j = j0; j < j1; ++j) {
-      const unsigned tn = wk.at((j + 1 < mp ? j + 1 : mp - 1) + 1);  // the next token, clipped
-      const bool ts = !mk;
-      const bool mark = ts && tc == (unsigned)delim;
-      if (ts) {
-        o[rank] = (uint16_t)(mark ? tn : tc);
-        fl[rank] = mark;
-        if (++rank >= need) break;
-      }
-      mk = mark;
-      tc = tn;
-    }
-  }
-  if (total.cnt0 < need) {  // the rest take position 0's pixel
-    if (threadIdx.x == 0) {
-      wk.seek(1);
-      const unsigned t0 = wk.at(1);
-      const unsigned t1 = wk.at((mp > 1 ? 1 : 0) + 1);
-      const bool mark0 = n > 0 && t0 == (unsigned)delim;
-      s_first[0] = mark0 ? t1 : t0;
-      s_first[1] = mark0;
-    }
-    __syncthreads();
-    for (long long r = total.cnt0 + threadIdx.x; r < need; r += kThreads) {
-      o[r] = (uint16_t)s_first[0];
-      fl[r] = (uint8_t)s_first[1];
-    }
-  }
+  if (MIC_POST_STAGE != 3) parse(tk, g.max_tokens - 1, n_tokens - 1, g.delim, need, o, fw, s_fn);
+  if (MIC_POST_STAGE == 1) return;
   __syncthreads();
   if (g.pred == kZz)
-    zz_rows(o, fl, w, h);
+    row_scan<true>(o, need, o, fw, w, h);
   else
-    avg_rows(o, fl, w, h, g.delim >> 1, ring);
+    avg_rows(o, fw, w, h, g.delim >> 1, s_pool);
 }
 
 }  // namespace
@@ -458,28 +691,35 @@ extern "C" {
 // (int2 [n_blocks]: group, strip) on the device; ents and cols host
 // arrays of n_groups entropy outputs (int16 [S, cols], contiguous) and
 // their column counts; out the flat output buffer the groups' out_off
-// index; runs and flags the scratch; smem_bytes the avg ring's dynamic
-// shared memory.  Returns cudaErrorInvalidValue for sizes the kernel
-// does not take, else the launch's error (cudaGetLastError()).
+// index; runs and flags the scratch.  Returns cudaErrorInvalidValue for
+// sizes the kernel does not take, else the launch's error
+// (cudaGetLastError()).
 int mic_post_groups(const void* groups, const void* blocks, int n_blocks,
                     const void* const* ents, const int* cols, int n_groups, void* out,
-                    void* runs, void* flags, int smem_bytes, void* stream) {
-  if (n_groups < 1 || n_groups > kMaxGroups || n_blocks < 1 || smem_bytes < 0)
-    return (int)cudaErrorInvalidValue;
+                    void* runs, void* flags, void* stream) {
+  if (n_groups < 1 || n_groups > kMaxGroups || n_blocks < 1) return (int)cudaErrorInvalidValue;
   Ents e = {};
   for (int i = 0; i < n_groups; ++i) {
     e.p[i] = (const uint16_t*)ents[i];
     e.cols[i] = cols[i];
   }
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        post_groups_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  post_groups_kernel<<<n_blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const Group*)groups, (const int2*)blocks, e, (uint16_t*)out, (Run*)runs,
-      (uint8_t*)flags);
+  post_groups_kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const Group*)groups, (const int2*)blocks, e, (uint16_t*)out, (unsigned char*)runs,
+      (unsigned*)flags);
   return (int)cudaGetLastError();
+}
+
+// The launch's shape: out[0] shared bytes a block, out[1] blocks resident
+// an SM, out[2] registers a thread.  Returns the first CUDA error, else
+// cudaSuccess.
+int mic_post_shape(int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, post_groups_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = (int)fa.sharedSizeBytes;
+  out[2] = fa.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], post_groups_kernel, kThreads,
+                                                          0);
 }
 
 }  // extern "C"

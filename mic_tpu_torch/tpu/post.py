@@ -11,7 +11,7 @@ CUDA launch for every post bucket of a plan, ``csrc/post.cu``:
   once (a plan builds it with its other packings): per bucket its table
   entries (``meta``, int64 [S, 3]: n_tokens, n_runs, n_same) and static
   arguments, the descriptors, the blocks (a block a strip, avg strips
-  first), the output and scratch sizes and the avg ring's shared memory;
+  first), the output and scratch sizes;
 * :func:`post_decode_groups` — the entropy outputs of those buckets
   through ``post_groups_kernel`` on the card, one launch for up to
   ``MAX_GROUPS`` buckets (``.launches`` counts them), or through
@@ -340,8 +340,7 @@ post_batch.calls = 0
 
 PREDICTORS = ("zzd", "vdd", "pdd", "zzr", "vdr", "pdr", "zz", "avg")  # post.cu: Pred
 MAX_GROUPS = 128  # buckets a launch (post.cu: kMaxGroups)
-RING_BYTES_MAX = 232448 - 16384  # the avg ring's shared memory a block (post.cu keeps ~10 KB)
-_RUN_BYTES = 16  # a run in the runs scratch (post.cu: Run)
+_RUN_BYTES = 16  # a run in the runs scratch (post.cu: its source and its start)
 _KWARGS = ("width", "strip_h", "max_runs", "max_tokens", "mid_count", "delim", "predictor")
 _GROUP_DESC = np.dtype([("meta", "<u8"), ("out_off", "<i8"), ("runs_off", "<i8"),
                         ("flags_off", "<i8"), ("width", "<i4"), ("strip_h", "<i4"),
@@ -383,9 +382,11 @@ class PostPacking:
     end group, first block, end block) of each launch, ``MAX_GROUPS``
     buckets a launch, the avg strips' blocks first in a launch, then zz,
     then the rest, group numbers counted from the part's first.
-    ``out_total`` (elements), ``runs_total`` (runs) and ``flags_total``
-    (bytes) size the output and the scratch; ``smem_bytes`` is the avg
-    ring (4 steps x 2 bytes a row of the tallest avg strip).  On a CUDA
+    ``out_total`` (elements), ``runs_total`` (runs: ``max_runs`` a strip
+    of the expanding modes, which the kernel uses where a strip's runs
+    outgrow its shared memory) and ``flags_total`` (32-bit words: a bit a
+    pixel of the zz / avg strips, used past the kernel's shared flag
+    bits) size the output and the scratch.  On a CUDA
     device the descriptors and blocks go to the card here, in one copy
     from pinned memory, queued on the current stream.  Raises
     ValueError for what the kernel does not take."""
@@ -394,7 +395,7 @@ class PostPacking:
         self.device = torch.device(device)
         self.metas, self.kws, self.rows = [], [], []
         self.desc = np.zeros(len(groups), _GROUP_DESC)
-        out_total = runs_total = flags_total = h_avg = 0
+        out_total = runs_total = flags_total = 0
         for g, (meta, kw) in enumerate(groups):
             kw = _static(kw)
             if (meta.dtype != torch.int64 or meta.dim() != 2 or meta.shape[1] != 3
@@ -414,14 +415,8 @@ class PostPacking:
             if pred not in ("zzd", "vdd", "pdd"):
                 runs_total += S * kw["max_runs"]
             if pred in ("zz", "avg"):
-                flags_total += S * need
-            if pred == "avg":
-                h_avg = max(h_avg, kw["strip_h"])
+                flags_total += S * -(-need // 32)
         self.out_total, self.runs_total, self.flags_total = out_total, runs_total, flags_total
-        self.smem_bytes = 8 * h_avg
-        if self.smem_bytes > RING_BYTES_MAX:
-            raise ValueError(f"an avg strip of {h_avg} rows needs a {self.smem_bytes}-byte ring; "
-                             f"the kernel takes {RING_BYTES_MAX} bytes")
         blocks, self.parts = [], []
         for g0 in range(0, len(self.rows), MAX_GROUPS):
             g1, b0 = min(g0 + MAX_GROUPS, len(self.rows)), sum(len(b) for b in blocks)
@@ -494,12 +489,24 @@ def post_decode_groups(groups, packing: PostPacking | None = None) -> list[torch
                 for e, m, kw in zip(ents, packing.metas, packing.kws)]
     if packing.device.type != "cuda":
         raise ValueError(f"unsupported device {packing.device}")
-    from .._build import kernel_library
+    outs = _post_launch(packing, ents)
+    post_decode_groups.launches += len(packing.parts)
+    return outs
 
-    lib = kernel_library()
+
+def _post_launch(packing: PostPacking, ents, lib=None) -> list[torch.Tensor]:
+    """``post_groups_kernel`` over ``packing``'s parts on the entropy
+    outputs ``ents`` (int16 [S, cols] on the card, checked by the caller),
+    from ``lib`` (a library of another form:
+    ``scripts/post_design_points.py``) or the kernel library; counts no
+    launch.  Returns one int16 [S, width * strip_h] view a group."""
+    if lib is None:
+        from .._build import kernel_library
+
+        lib = kernel_library()
     dev = packing.device
     out = torch.empty(packing.out_total, dtype=torch.int16, device=dev)
-    scratch = torch.empty(_RUN_BYTES * packing.runs_total + packing.flags_total + 16,
+    scratch = torch.empty(_RUN_BYTES * packing.runs_total + 4 * packing.flags_total + 16,
                           dtype=torch.uint8, device=dev)
     ptrs = np.array([e.data_ptr() for e in ents], np.uint64)
     cols = np.array([e.shape[1] for e in ents], np.int32)
@@ -510,16 +517,32 @@ def post_decode_groups(groups, packing: PostPacking | None = None) -> list[torch
                 packing.gdesc_ptr + g0 * _GROUP_DESC.itemsize, packing.bdesc_ptr + b0 * 8,
                 b1 - b0, ptrs.ctypes.data + 8 * g0, cols.ctypes.data + 4 * g0, g1 - g0,
                 out.data_ptr(), scratch.data_ptr(),
-                scratch.data_ptr() + _RUN_BYTES * packing.runs_total, packing.smem_bytes, stream)
+                scratch.data_ptr() + _RUN_BYTES * packing.runs_total, stream)
             if rc != 0:
                 raise RuntimeError(f"mic_post_groups launch failed: CUDA error {rc}")
-            post_decode_groups.launches += 1
     outs, off = [], 0
     for S, kw in zip(packing.rows, packing.kws):
         need = kw["width"] * kw["strip_h"]
         outs.append(out[off:off + S * need].view(S, need))
         off += S * need
     return outs
+
+
+def _launch_shape(lib=None) -> tuple[int, int, int]:
+    """The kernel's launch (of ``lib``, or the kernel library): (shared
+    memory bytes a block, blocks resident an SM, registers a thread), from
+    the CUDA occupancy query."""
+    import ctypes
+
+    if lib is None:
+        from .._build import kernel_library
+
+        lib = kernel_library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.mic_post_shape(out)
+    if rc != 0:
+        raise RuntimeError(f"mic_post_shape failed: CUDA error {rc}")
+    return tuple(out)
 
 
 post_decode_groups.launches = 0

@@ -3,7 +3,7 @@
 on one card, each run in a process of its own, in the order other, this,
 this, other.
 
-    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,3,4,5,6,8,10,14] [--reps N]
+    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,2post,3,4,5,6,8,10,14] [--reps N]
 
 ``DIR`` is an unpacked copy of another commit (for example the parent:
 ``git archive HEAD | tar -x -C build/parent``).  Each run imports the
@@ -25,6 +25,12 @@ sides are measured by the same code as far as the trees share it:
   x128's 1536 candidate streams of 512 steps, PERF.md row 3) through
   their wrappers, with the per-stream table widths where the tree's
   staging has them (the main path's call), and ns a step of the launch;
+* ``2post``: the post kernel alone, one ``post.post_decode_groups`` call
+  with the plan's packing on the entropy launches' symbols of phase 6's
+  batch and of phase 8's tile batch (``tissue_dev.mwr3`` x64; PERF.md row
+  13), milliseconds from CUDA events around ``--reps`` calls queued
+  behind a spinning kernel (``torch.cuda._sleep``), so the host's time to
+  launch is not counted, after a warm-up;
 * ``3``: phase 3's plan (``MicwDecodePlan`` over ``chip_smoke.BATCH``):
   its staging seconds, verified, then ms and GB/s per ``plan.run()``
   (CUDA events, mean of ``--reps``) and the device busy time of one run
@@ -60,6 +66,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper", "p-wrapper", "e-wrapper",
+        "post-launch",
         "encode path: ", "scan tier: ", "profile: ", "stage_s", "host 14: ")
 
 RUN = """
@@ -128,6 +135,27 @@ if "2e" in phases:
         ms = cs._cuda_ms(lambda: fn(*ops, **kw), {reps})
         print(f"e-wrapper {{fn.__name__}}: {{ms:.3f}} ms per call, {{ms * 1e6 / staged.steps:.1f}} "
               f"ns a step of the launch, {{ops[0].shape[0]}} streams x {{staged.steps}} steps")
+if "2post" in phases:
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import post, rgb_device
+    tiles = [(cs.TESTDATA / "tissue_dev.mwr3").read_bytes()] * 64
+    for label, plan in (("phase 6", MicwDecodePlan(cs._post_batch(dev)[0], dev)),
+                        ("phase 8 tiles", rgb_device._stage(tiles, dev)[1])):
+        outs = cs._entropy_outputs(plan)
+        groups = [(outs[k], *g) for k, g in zip(plan._post_keys, plan._post_groups)]
+        pk = plan.post_packing
+        post.post_decode_groups(groups, pk)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for _ in range({reps}):
+            post.post_decode_groups(groups, pk)
+        end.record()
+        torch.cuda.synchronize()
+        print(f"post-launch {{label}}: {{start.elapsed_time(end) / {reps}:.3f}} ms per "
+              f"post_decode_groups call, device time ({{len(pk.blocks)}} strips)")
+        del plan, outs, groups
 if "3" in phases:
     import numpy as np
     from mic_tpu_torch import MicwDecodePlan

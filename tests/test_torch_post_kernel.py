@@ -196,12 +196,17 @@ def test_packing_for_other_groups_raises(mixed):
 
 
 def test_avg_ring_past_a_block_raises():
+    """The avg inverse takes bands of 256 rows, so no strip height outgrows
+    a block's shared memory (the first form's ring of 8 bytes a row
+    refused strips past 27,008 rows); a strip of 2^31 pixels or more is
+    past the kernel's range and raises."""
     meta = torch.zeros((1, 3), dtype=torch.int64)
-    kw = dict(width=4, strip_h=post.RING_BYTES_MAX // 8 + 1, max_runs=128, max_tokens=128,
-              mid_count=127, delim=255, predictor="avg")
-    with pytest.raises(ValueError, match="ring"):
-        post.PostPacking([(meta, kw)], CPU)
-    post.PostPacking([(meta, dict(kw, strip_h=post.RING_BYTES_MAX // 8))], CPU)
+    kw = dict(width=4, strip_h=27009, max_runs=128, max_tokens=128, mid_count=127, delim=255,
+              predictor="avg")
+    pk = post.PostPacking([(meta, kw)], CPU)
+    assert pk.flags_total == -(-4 * 27009 // 32)
+    with pytest.raises(ValueError, match="range"):
+        post.PostPacking([(meta, dict(kw, strip_h=1 << 29))], CPU)
 
 
 def test_module_imports_and_runs_without_nvcc():
@@ -242,10 +247,8 @@ def test_packing_descriptors_for_a_mixed_batch(mixed):
         assert post.PREDICTORS[int(d["pred"])] == pred and int(d["meta"]) == 0  # on the CPU
         out += S * need
         runs += 0 if pred in ("zzd", "vdd", "pdd") else S * kw["max_runs"]
-        flags += S * need if pred in ("zz", "avg") else 0
+        flags += S * -(-need // 32) if pred in ("zz", "avg") else 0  # a bit a pixel, in words
     assert (pk.out_total, pk.runs_total, pk.flags_total) == (out, runs, flags)
-    h_avg = max(kw["strip_h"] for _e, _m, kw in groups if kw["predictor"] == "avg")
-    assert pk.smem_bytes == 8 * h_avg == 8 * 128  # the avg fixture's 128-row strips
     assert [m.shape[0] for _e, m, kw in groups if kw["width"] == 256] == [4]  # x2 replicas
     # a block a strip, each once; avg strips first, then zz, then the rest
     assert pk.parts == [(0, len(groups), 0, sum(pk.rows))]
@@ -267,7 +270,7 @@ def test_packing_splits_launches_past_max_groups():
     first = sum(rows[:post.MAX_GROUPS])
     assert pk.parts == [(0, post.MAX_GROUPS, 0, first), (post.MAX_GROUPS, n, first, sum(rows))]
     assert pk.blocks[first:, 0].tolist() == [0, 1, 1, 2]
-    assert pk.runs_total == pk.flags_total == pk.smem_bytes == 0
+    assert pk.runs_total == pk.flags_total == 0
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +306,9 @@ def emulated(tmp_path_factory):
     """``csrc/post.cu`` built by the host compiler against the CPU stand-in
     of ``tests/cuda_emu``; its ``mic_post_groups`` entry point, declared."""
     src = (ROOT / "mic_tpu_torch" / "csrc" / "post.cu").read_text()
-    src, n_ext = re.subn(r"extern __shared__ (\w+) (\w+)\[\];",
-                         r"\1* \2 = emu_dynamic_shared<\1>();", src)
     src, n_launch = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]+>>>\(",
                             r"emu_launch(\1, \2, \3, \4, ", src)
-    assert (n_ext, n_launch) == (1, 1)
+    assert n_launch == 1 and "extern __shared__" not in src  # the kernel's shared memory is static
     tmp = tmp_path_factory.mktemp("post_emu")
     (tmp / "post_emu.cpp").write_text(src)
     lib_path = tmp / "libpost_emu.so"
@@ -332,14 +333,14 @@ def _emulated_groups(lib, groups):
     ents = [e.contiguous().view(e.shape[0], -1) for e, _m, _kw in groups]
     out = np.zeros(pk.out_total, np.int16)
     runs = np.full(16 * pk.runs_total + 16, 0xA5, np.uint8)  # garbage, as on the card
-    flags = np.full(pk.flags_total + 16, 0xA5, np.uint8)
+    flags = np.full(pk.flags_total + 4, 0xA5A5A5A5, np.uint32)
     ptrs = np.array([e.data_ptr() for e in ents], np.uint64)
     cols = np.array([e.shape[1] for e in ents], np.int32)
     for g0, g1, b0, b1 in pk.parts:
         rc = lib.mic_post_groups(desc.ctypes.data + g0 * desc.itemsize,
                                  blocks.ctypes.data + b0 * 8, b1 - b0, ptrs.ctypes.data + 8 * g0,
                                  cols.ctypes.data + 4 * g0, g1 - g0, out.ctypes.data,
-                                 runs.ctypes.data, flags.ctypes.data, pk.smem_bytes, None)
+                                 runs.ctypes.data, flags.ctypes.data, None)
         assert rc == 0
     res, off = [], 0
     for S, kw in zip(pk.rows, pk.kws):
@@ -393,6 +394,110 @@ def test_post_cu_emulated_random_operands(emulated, seed):
     groups = [_random_group(rng) for _ in range(8)]
     for (_e, _m, kw), g, w in zip(groups, _emulated_groups(emulated, groups), _twin(groups)):
         assert torch.equal(g, w), (kw, int((g != w).sum()))
+
+
+# The kernel's parse takes CHUNK positions of tokens[1:] at a time (8 words
+# of 32 a warp, 8 warps), its expand stages RUNS_SMEM runs in shared memory
+# (post.cu: kChunk, kRunsSmem); the cases below put their edges there.
+CHUNK, RUNS_SMEM = 2048, 1024
+_MID, _DELIM = 127, 4095
+
+
+def _soa_symbols(tokens, segments, rng):
+    """The SoA-RLE stream of ``tokens`` cut into ``segments``: ("same", n[,
+    value]) a same-run (n <= _MID tokens, all equal; n may be 0, then with
+    its value given), ("lit", n) a literal run.  Returns (symbols padded to
+    a multiple of 128 with noise, n_runs, n_same, n_tokens)."""
+    counts, values, lits, at = [], [], [], 0
+    for kind, n, *val in segments:
+        if kind == "same":
+            v = int(tokens[at]) if n else val[0]
+            assert n <= _MID and all(int(x) == v for x in tokens[at:at + n])
+            counts.append(n)
+            values.append(v)
+        else:
+            assert n > 0
+            counts.append(_MID + n)
+            lits += [int(x) for x in tokens[at:at + n]]
+        at += n
+    assert at == len(tokens)
+    syms = counts + values + lits
+    pad = -len(syms) % 128 + 128
+    return (np.array(syms + rng.integers(0, 1 << 16, pad).tolist(), np.uint16), len(counts),
+            len(values), at)
+
+
+def _lits(n, step=100):
+    return [("lit", min(step, n - a)) for a in range(0, n, step)]
+
+
+def _edge_case(case, rng):
+    """(tokens, segments, width, strip_h) of a chunk-edge case: token 0 is
+    the strip's maxValue word, tokens[1:] the escaped stream."""
+    w, h = 64, 64
+    if case == "many_runs":  # past RUNS_SMEM runs: the runs in device scratch
+        segs, n = [], 0
+        while len(segs) < RUNS_SMEM + 300:
+            segs.append(("same", int(rng.integers(1, 4))) if len(segs) % 2
+                        else ("lit", int(rng.integers(1, 3))))
+            n += segs[-1][1]
+        body = rng.integers(0, 4000, n)
+        at = 0
+        for kind, k in segs:  # a same-run's tokens equal, one a delim now and then
+            if kind == "same":
+                body[at:at + k] = _DELIM if rng.random() < 0.2 else body[at]
+            at += k
+        return body, segs, w, h
+    n = {"delim_run_straddles": 4400, "same_run_straddles": 4400, "zero_length_runs": 4400,
+         "need_mid_chunk": 5000, "fewer_starts": 2500, "marker_at_the_end": CHUNK + 2}[case]
+    body = rng.integers(0, 4000, n)  # tokens[0:] with token 0 the maxValue word
+    if case == "delim_run_straddles":  # odd and even delim runs across chunk, warp, word edges
+        for a, b in ((2044, 2054), (4094, 4101), (251, 260), (2079, 2082)):
+            body[a:b] = _DELIM
+        return body, _lits(n), 256, 16  # rows of two 128-pixel rounds of the row scan
+    if case == "same_run_straddles":  # delim and value same-runs across the chunk edges
+        body[2031:2071] = _DELIM
+        body[4091:4102] = 7
+        segs = _lits(2031) + [("same", 40)] + _lits(4091 - 2071) + [("same", 11)]
+        return body, segs + _lits(n - 4102), 200, 20  # a round and a part a row
+    if case == "zero_length_runs":  # zero-length runs where tokens[1:] crosses CHUNK
+        segs = ([("same", 0, 9)] + _lits(CHUNK + 1) + [("same", 0, 5), ("same", 0, _DELIM)]
+                + _lits(n - CHUNK - 1) + [("same", 0, 3)])
+        body[CHUNK - 2:CHUNK + 1] = _DELIM
+        return body, segs, w, h
+    if case == "need_mid_chunk":  # tokens past the strip's pixels: the parse stops mid-chunk
+        body[2995:3003] = _DELIM
+        return body, _lits(n), 60, 50
+    if case == "marker_at_the_end":  # tokens[1:]'s last, at CHUNK, a marker: its pixel itself
+        body[-1] = _DELIM
+        return body, _lits(n), w, h
+    assert case == "fewer_starts"  # fewer token starts than pixels, position 0 a marker
+    body[1] = _DELIM
+    body[2040:2050] = _DELIM
+    return body, _lits(n), w, h
+
+
+@pytest.mark.parametrize("case", ["delim_run_straddles", "same_run_straddles",
+                                  "zero_length_runs", "need_mid_chunk", "fewer_starts",
+                                  "marker_at_the_end", "many_runs"])
+def test_post_cu_emulated_chunk_edges(emulated, case):
+    """Streams whose delim runs, literal and same-runs, zero-length runs,
+    last needed token, last token or runs cross the kernel's chunk edges,
+    in zz and avg strips (and zzr for ``many_runs``), emulated against
+    ``post_batch``."""
+    rng = np.random.default_rng(2000 + len(case))
+    body, segs, w, h = _edge_case(case, rng)
+    syms, n_runs, n_same, n_tok = _soa_symbols(body, segs, rng)
+    meta = torch.tensor([[n_tok, n_runs, n_same]], dtype=torch.int64)
+    ent = torch.from_numpy(syms.view(np.int16).copy())[None]
+    preds = ("zz", "avg", "zzr") if case == "many_runs" else ("zz", "avg")
+    # the stream fills tokens[] to its end where its last token is the case
+    max_tokens = n_tok if case == "marker_at_the_end" else 128 * -(-(n_tok + 1) // 128)
+    groups = [(ent, meta, dict(width=w, strip_h=h, max_runs=128 * -(-(n_runs + 1) // 128),
+                               max_tokens=max_tokens, mid_count=_MID, delim=_DELIM,
+                               predictor=p)) for p in preds]
+    for (_e, _m, kw), g, want in zip(groups, _emulated_groups(emulated, groups), _twin(groups)):
+        assert torch.equal(g, want), (case, kw["predictor"], int((g != want).sum()))
 
 
 # ---------------------------------------------------------------------------
