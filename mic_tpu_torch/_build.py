@@ -27,6 +27,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from . import trace
+
 __all__ = ["build", "host_build", "host_compiler", "host_library", "host_program", "kernel_library"]
 
 _PKG = Path(__file__).resolve().parent
@@ -38,6 +40,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # mic_tpu/native/Makefile's flags (its plain -O3 build: the PGO pass needs
 # the reference corpus)
 HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread")
+_BUILT: set[Path] = set()  # the libraries and programs this process compiled
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -138,17 +141,23 @@ def build(defines: tuple = (), link: tuple = ()) -> Path:
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
         lib.with_suffix(".log").write_text("".join(out for _c, out, _rc in outs))
         os.replace(os.path.join(tmp, "lib.so"), lib)  # atomic: a loader sees all or nothing
+    _BUILT.add(lib)
     return lib
 
 
 @functools.cache
 def kernel_library(defines: tuple = (), link: tuple = ()) -> ctypes.CDLL:
-    """The built kernel library with its C entry points declared."""
-    lib = ctypes.CDLL(str(build(defines, link)))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
+    """The built kernel library with its C entry points declared; traced,
+    a span ``lib.load`` (``built``: whether nvcc ran)."""
+    with trace.span("lib.load", library="kernels") as sp:
+        path = build(defines, link)
+        lib = ctypes.CDLL(str(path))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        if sp is not None:
+            sp.attrs["built"] = path in _BUILT
     return lib
 
 
@@ -216,6 +225,7 @@ def _host_build(source: str, name: str, flags: tuple) -> Path:
         log = _run_checked([cxx, *flags, "-o", target, str(_NATIVE / source)])
         out.with_name(out.name + ".log").write_text(f"{cxx} {' '.join(flags)}\n{log}")
         os.replace(target, out)  # atomic: a loader sees all or nothing
+    _BUILT.add(out)
     return out
 
 
@@ -235,10 +245,15 @@ def host_program() -> Path:
 @functools.cache
 def host_library() -> ctypes.CDLL:
     """The host tier's library, built at first use, with every C entry
-    point declared.  Raises ``RuntimeError`` where it cannot be built."""
-    lib = ctypes.CDLL(str(host_build()))
-    for name, (res, args) in _HOST_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = res
-        fn.argtypes = args
+    point declared.  Raises ``RuntimeError`` where it cannot be built.
+    Traced, a span ``lib.load`` (``built``: whether the compiler ran)."""
+    with trace.span("lib.load", library="host") as sp:
+        path = host_build()
+        lib = ctypes.CDLL(str(path))
+        for name, (res, args) in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = res
+            fn.argtypes = args
+        if sp is not None:
+            sp.attrs["built"] = path in _BUILT
     return lib

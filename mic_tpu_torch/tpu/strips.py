@@ -74,6 +74,7 @@ import struct
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.fse import IncompressibleError, UseRLEError
 from ..ops.predictors import (
     _interleave_escapes,
@@ -504,7 +505,8 @@ def micw_compress(pixels, width: int, height: int, max_value: int, num_strips: i
 
         return _strip_select(candidates, strip_px, len(trials), entropy, enc)
 
-    results = [encode_strip(s) for s in range(actual)]
+    with trace.span("encode"):
+        results = [encode_strip(s) for s in range(actual)]
     return _micw_container(width, height, strip_h, max_value, predictor, band,
                            [r[0] for r in results], [r[1] for r in results], lanes)
 
@@ -741,47 +743,53 @@ class _Bucket:
             self._init_post(key, entries, device)
             return
         if key[0] == "scan":
-            built = build_lane_tables([e[0] for e in entries], min_steps=key[2])
-            self.fn = rans_decode_lanes
-            self.ops = lane_tensors(built[:10], device)
-            self.kwargs = dict(steps=built[10])
-            lanes, pred, width, strip_h = key[1], key[3], key[4], key[5]
-            if fused_strip_fits(lanes, pred, width, bool((built[8] >= 0).any())):
+            with trace.span("plan.tables"):
+                built = build_lane_tables([e[0] for e in entries], min_steps=key[2])
+                self.fn = rans_decode_lanes
+                self.kwargs = dict(steps=built[10])
+                lanes, pred, width, strip_h = key[1], key[3], key[4], key[5]
+                fused = fused_strip_fits(lanes, pred, width, bool((built[8] >= 0).any()))
+            with trace.span("plan.upload"):
+                self.ops = lane_tensors(built[:10], device)
+            if fused:
                 # the direct inverse in the lanes kernel: no post stage
                 self.kwargs.update(inverse=pred, width=width, strip_h=strip_h)
                 return
             self._set_post(entries, *key[3:], device)
             return
         kind, steps = key[0], key[1]
-        S = len(entries)
-        parsed = [e[0] for e in entries]
-        ws = np.zeros((S, 128), np.uint32)
-        ws[:] = np.array([e[1] for e in entries], np.uint32)[:, None] // 128
-        pred = kind.lstrip("a")
-        self.geom = (key[2], key[3]) if pred in ("pdd", "pdr") else None
-        self.pdd_ws = key[2] // 128 if pred == "pdd" else 0
-        vdd_ws = key[2] // 128 if pred in ("vdd", "vdr") else 0
-        rle = {}
-        if pred in _RLE_DIRECT_PREDS:
-            maxr, out_rows = _rle_sizing([e[2] for e in entries], pred, key[2], key[3])
-            steps = max(steps, maxr // 128)
-            counts = np.array([[e[2][3], e[2][4]] for e in entries], np.uint32)
-            runs = tuple(np.repeat(counts[:, i:i + 1], 128, axis=1) for i in (0, 1))
-            rle = dict(out_rows=out_rows, maxr=maxr, dense=key[4])
-        if kind.startswith("a"):
-            built = build_alias_bucket_tables(parsed, min_steps=steps)
-            esc = any(len(p[7][1]) for p in parsed)
-            self.fn = rans_decode_rle_alias if rle else rans_decode_alias
-            self.ops = to_device(built[:9] + (ws,) + (runs if rle else ()), device)
-            self.kwargs = dict(steps=built[10], vdd_ws=vdd_ws, esc=esc, **rle)
-        else:
-            tl = max(max(p[1] for p in parsed), 7)
-            built = build_packed_tables(parsed, tl, min_steps=steps)
-            if built is None:  # _strip_bucket rejects what the builder would
-                raise RuntimeError(f"micw: packed tables refused bucket {key}")
-            self.fn = rans_decode_rle if rle else rans_decode_zzd
-            self.ops = to_device(built[:6] + (ws,) + (runs if rle else ()), device)
-            self.kwargs = dict(steps=built[7], vdd_ws=vdd_ws, **rle)
+        with trace.span("plan.tables"):
+            S = len(entries)
+            parsed = [e[0] for e in entries]
+            ws = np.zeros((S, 128), np.uint32)
+            ws[:] = np.array([e[1] for e in entries], np.uint32)[:, None] // 128
+            pred = kind.lstrip("a")
+            self.geom = (key[2], key[3]) if pred in ("pdd", "pdr") else None
+            self.pdd_ws = key[2] // 128 if pred == "pdd" else 0
+            vdd_ws = key[2] // 128 if pred in ("vdd", "vdr") else 0
+            rle = {}
+            if pred in _RLE_DIRECT_PREDS:
+                maxr, out_rows = _rle_sizing([e[2] for e in entries], pred, key[2], key[3])
+                steps = max(steps, maxr // 128)
+                counts = np.array([[e[2][3], e[2][4]] for e in entries], np.uint32)
+                runs = tuple(np.repeat(counts[:, i:i + 1], 128, axis=1) for i in (0, 1))
+                rle = dict(out_rows=out_rows, maxr=maxr, dense=key[4])
+            if kind.startswith("a"):
+                built = build_alias_bucket_tables(parsed, min_steps=steps)
+                esc = any(len(p[7][1]) for p in parsed)
+                self.fn = rans_decode_rle_alias if rle else rans_decode_alias
+                host = built[:9] + (ws,) + (runs if rle else ())
+                self.kwargs = dict(steps=built[10], vdd_ws=vdd_ws, esc=esc, **rle)
+            else:
+                tl = max(max(p[1] for p in parsed), 7)
+                built = build_packed_tables(parsed, tl, min_steps=steps)
+                if built is None:  # _strip_bucket rejects what the tables would
+                    raise RuntimeError(f"micw: packed tables refused bucket {key}")
+                self.fn = rans_decode_rle if rle else rans_decode_zzd
+                host = built[:6] + (ws,) + (runs if rle else ())
+                self.kwargs = dict(steps=built[7], vdd_ws=vdd_ws, **rle)
+        with trace.span("plan.upload"):
+            self.ops = to_device(host, device)
         if self.pdd_ws and not direct_strip_fits(*self.launch):
             # A row too wide for the column carry beside the ring and
             # tables: the kernel's row prefix, the column sum in finish.
@@ -790,31 +798,36 @@ class _Bucket:
     def _init_post(self, key, entries, device):
         form, pred, steps, width, strip_h, mid, delim = key[1:]
         parsed = [e[0] for e in entries]
-        if form == "alias":
-            built = build_alias_bucket_tables(parsed, min_steps=steps)
-            ws = np.zeros((self.n, 128), np.uint32)  # read only by the fused form
-            self.fn = rans_decode_alias
-            self.ops = to_device(built[:9] + (ws,), device)
-            self.kwargs = dict(steps=built[10], fused=False,
-                               esc=any(len(p[7][1]) for p in parsed))
-        else:
-            tl = max(max(p[1] for p in parsed), 7)  # the Pallas sweeps' floor
-            if form == "packed":
-                built = build_packed_tables(parsed, tl, min_steps=steps)
-                self.fn = rans_decode_packed
+        with trace.span("plan.tables"):
+            if form == "alias":
+                built = build_alias_bucket_tables(parsed, min_steps=steps)
+                ws = np.zeros((self.n, 128), np.uint32)  # read only by the fused form
+                self.fn = rans_decode_alias
+                host = built[:9] + (ws,)
+                self.kwargs = dict(steps=built[10], fused=False,
+                                   esc=any(len(p[7][1]) for p in parsed))
             else:
-                built = build_pallas_tables(parsed, tl, min_steps=steps)
-                self.fn = rans_decode
-            self.ops = to_device(built[:6], device)
-            self.kwargs = dict(steps=built[7])
+                tl = max(max(p[1] for p in parsed), 7)  # the Pallas sweeps' floor
+                if form == "packed":
+                    built = build_packed_tables(parsed, tl, min_steps=steps)
+                    self.fn = rans_decode_packed
+                else:
+                    built = build_pallas_tables(parsed, tl, min_steps=steps)
+                    self.fn = rans_decode
+                host = built[:6]
+                self.kwargs = dict(steps=built[7])
+        with trace.span("plan.upload"):
+            self.ops = to_device(host, device)
         self._set_post(entries, pred, width, strip_h, mid, delim, device)
 
     def _set_post(self, entries, pred, width, strip_h, mid, delim, device):
         """The post stage's arguments and the strips' table entries."""
-        table = [e[2] for e in entries]
-        max_runs, max_tokens = _post_sizing(table, pred, width, strip_h)
-        meta = torch.tensor([[t[2], t[3], t[4]] for t in table], dtype=torch.int64)
-        self.meta = meta.to(device)
+        with trace.span("plan.tables"):
+            table = [e[2] for e in entries]
+            max_runs, max_tokens = _post_sizing(table, pred, width, strip_h)
+            meta = torch.tensor([[t[2], t[3], t[4]] for t in table], dtype=torch.int64)
+        with trace.span("plan.upload"):
+            self.meta = meta.to(device)
         self.post = dict(width=width, strip_h=strip_h, max_runs=max_runs,
                          max_tokens=max_tokens, mid_count=mid, delim=delim, predictor=pred)
 
@@ -866,6 +879,39 @@ def _fit_columns(out: torch.Tensor, w: int, need: int) -> torch.Tensor:
     return torch.cat([out, grown], dim=1)
 
 
+def _route(key, bucket) -> str:
+    """The route of a bucket's strips, as the counters ``strips.<route>``
+    name it: ``direct``, ``rle``, ``post`` (an entropy kernel, then the
+    post kernel), ``scan_fused`` or ``scan_post``."""
+    if key[0] == "scan":
+        return "scan_post" if bucket.post is not None else "scan_fused"
+    if bucket.post is not None:
+        return "post"
+    return "rle" if bucket.fn in _RLE_FNS else "direct"
+
+
+def _work_bytes(buckets: dict, sizes: dict) -> dict:
+    """The bytes each kernel of a plan's run must move, set by the format
+    and not by any kernel's operands: for each strip its MICT stream read
+    once and its pixels (2 bytes each) written once, or, for a strip whose
+    symbols go on to the post stage, its symbols (2 bytes each) written
+    once by the entropy kernel and read once by the post kernel, which
+    writes the pixels.  ``sizes`` holds each bucket's MICT bytes, pixels
+    and symbols.  Keys: the kernels the plan runs, of ``direct``, ``rle``,
+    ``lanes`` and ``post``."""
+    work: dict[str, int] = {}
+    for k, b in buckets.items():
+        mict, pixels, symbols = sizes[k]
+        kernel = ("lanes" if b.fn is rans_decode_lanes
+                  else "rle" if b.fn in _RLE_FNS else "direct")
+        if b.post is None:
+            work[kernel] = work.get(kernel, 0) + mict + 2 * pixels
+        else:
+            work[kernel] = work.get(kernel, 0) + mict + 2 * symbols
+            work["post"] = work.get("post", 0) + 2 * symbols + 2 * pixels
+    return work
+
+
 class MicwDecodePlan:
     """A staged decode of a fixed batch of MICW blobs on ``device``.
 
@@ -885,6 +931,13 @@ class MicwDecodePlan:
     """
 
     def __init__(self, blobs, device, scan: bool = False):
+        with trace.span("plan.stage") as sp:
+            self._stage(blobs, device, scan)
+            if sp is not None:
+                sp.attrs.update(strips=sum(len(k) for k in self.keys_per_blob),
+                                buckets=len(self.buckets))
+
+    def _stage(self, blobs, device, scan: bool):
         self.device = torch.device(device)
         self.blobs = list(blobs)
         self.metas = []  # (width, height, num_strips, strip_h) per blob
@@ -895,53 +948,74 @@ class MicwDecodePlan:
         # each distinct container and strip once.
         parse_memo: dict[int, tuple] = {}
         mict_memo: dict[int, tuple] = {}
-        for blob in self.blobs:
-            parsed_c = parse_memo.get(id(blob))
-            if parsed_c is None:
-                parsed_c = parse_memo[id(blob)] = micw_parse(blob)
-            width, height, num_strips, strip_h, mv, gpred, _lanes, strips = parsed_c
-            dense = bool(blob[22] & FLAG_RDENSE)
-            self.metas.append((width, height, num_strips, strip_h))
-            keys = []
-            for st in strips:
-                pred = strip_predictor(gpred, st[5])
-                if pred is None:
-                    self.raw_strips.append(st)
-                    keys.append(("raw", len(self.raw_strips) - 1))
-                    continue
-                p = mict_memo.get(id(st[0]))
-                if p is None:
-                    p = mict_memo[id(st[0])] = mict_parse(st[0])
-                bk = _strip_bucket(p, st, pred, width, strip_h, dense, mv, scan)
-                bucket = entries.setdefault(bk, [])
-                keys.append((bk, len(bucket)))
-                bucket.append((p, width, st))
-            self.keys_per_blob.append(keys)
+        sizes: dict[tuple, list] = {}  # per bucket: MICT bytes, pixels, symbols
+        with trace.span("plan.parse"):
+            for blob in self.blobs:
+                parsed_c = parse_memo.get(id(blob))
+                if parsed_c is None:
+                    parsed_c = parse_memo[id(blob)] = micw_parse(blob)
+                width, height, num_strips, strip_h, mv, gpred, _lanes, strips = parsed_c
+                dense = bool(blob[22] & FLAG_RDENSE)
+                self.metas.append((width, height, num_strips, strip_h))
+                keys = []
+                for i, st in enumerate(strips):
+                    pred = strip_predictor(gpred, st[5])
+                    if pred is None:
+                        self.raw_strips.append(st)
+                        keys.append(("raw", len(self.raw_strips) - 1))
+                        continue
+                    p = mict_memo.get(id(st[0]))
+                    if p is None:
+                        p = mict_memo[id(st[0])] = mict_parse(st[0])
+                    bk = _strip_bucket(p, st, pred, width, strip_h, dense, mv, scan)
+                    bucket = entries.setdefault(bk, [])
+                    keys.append((bk, len(bucket)))
+                    bucket.append((p, width, st))
+                    size = sizes.get(bk)
+                    if size is None:
+                        size = sizes[bk] = [0, 0, 0]
+                    size[0] += len(st[0])
+                    size[1] += width * min(strip_h, height - i * strip_h)
+                    size[2] += p[2]
+                self.keys_per_blob.append(keys)
         self.buckets = {k: _Bucket(k, e, self.device) for k, e in entries.items()}
         cuda = self.device.type == "cuda"
-        # The direct buckets and the post buckets' entropy stages run as
-        # one launch of the direct kernel, the r-mode buckets as one of the
-        # r-kernel, the scan buckets' entropy stages as one of the lanes
-        # kernel.
-        self._direct_keys = [k for k, b in self.buckets.items() if b.fn in _DIRECT_FNS]
-        self._direct_groups = [self.buckets[k].launch for k in self._direct_keys]
-        self.direct_packing = (DirectPacking(self._direct_groups)
-                               if self._direct_groups and cuda else None)
-        self._rle_keys = [k for k, b in self.buckets.items() if b.fn in _RLE_FNS]
-        self._rle_groups = [self.buckets[k].launch for k in self._rle_keys]
-        self.rle_packing = RlePacking(self._rle_groups) if self._rle_groups and cuda else None
-        self._scan_keys = [k for k, b in self.buckets.items() if b.fn is rans_decode_lanes]
-        self._scan_groups = [self.buckets[k].launch for k in self._scan_keys]
-        self.scan_packing = (LanesPacking(self._scan_groups)
-                             if self._scan_groups and cuda else None)
-        # Every post bucket's post stage (the post path's and the unfused
-        # scan buckets') as one launch of the post kernel.
-        self._post_keys = [k for k, b in self.buckets.items() if b.post is not None]
-        self._post_groups = [(self.buckets[k].meta, self.buckets[k].post)
-                             for k in self._post_keys]
-        self.post_packing = (PostPacking(self._post_groups, self.device)
-                             if self._post_groups else None)
+        with trace.span("plan.upload"):  # the packings, from the buckets' launches
+            # The direct buckets and the post buckets' entropy stages run as
+            # one launch of the direct kernel, the r-mode buckets as one of
+            # the r-kernel, the scan buckets' entropy stages as one of the
+            # lanes kernel.
+            self._direct_keys = [k for k, b in self.buckets.items() if b.fn in _DIRECT_FNS]
+            self._direct_groups = [self.buckets[k].launch for k in self._direct_keys]
+            self._rle_keys = [k for k, b in self.buckets.items() if b.fn in _RLE_FNS]
+            self._rle_groups = [self.buckets[k].launch for k in self._rle_keys]
+            self._scan_keys = [k for k, b in self.buckets.items() if b.fn is rans_decode_lanes]
+            self._scan_groups = [self.buckets[k].launch for k in self._scan_keys]
+            # Every post bucket's post stage (the post path's and the
+            # unfused scan buckets') as one launch of the post kernel.
+            self._post_keys = [k for k, b in self.buckets.items() if b.post is not None]
+            self._post_groups = [(self.buckets[k].meta, self.buckets[k].post)
+                                 for k in self._post_keys]
+            self.direct_packing = (DirectPacking(self._direct_groups)
+                                   if self._direct_groups and cuda else None)
+            self.rle_packing = (RlePacking(self._rle_groups)
+                                if self._rle_groups and cuda else None)
+            self.scan_packing = (LanesPacking(self._scan_groups)
+                                 if self._scan_groups and cuda else None)
+            self.post_packing = (PostPacking(self._post_groups, self.device)
+                                 if self._post_groups else None)
+        self.work_bytes = _work_bytes(self.buckets, sizes)
+        # each kernel's launches a run on the card (none on the CPU)
+        self._launches = {
+            "direct": int(self.direct_packing is not None),
+            "rle": int(self.rle_packing is not None),
+            "lanes": self.scan_packing.n_launches if self.scan_packing else 0,
+            "post": len(self.post_packing.parts) if self.post_packing and cuda else 0}
         self._gather = None  # assemble_device's copy lists, built at its first call
+        for k, b in self.buckets.items():
+            trace.count(f"strips.{_route(k, b)}", b.n)
+        for st in self.raw_strips:
+            trace.count("strips.const" if st[5] == STRIP_MODE_CONST else "strips.raw")
 
     def run(self) -> dict:
         """Launch every bucket (the direct buckets and the post buckets'
@@ -952,17 +1026,44 @@ class MicwDecodePlan:
         (``post.post_decode_groups``; ``post.post_batch`` is its plain twin,
         which only CPU tensors take); returns
         {bucket key: int16 [S, cols] device tensor} (bit-views of the u16
-        pixels)."""
-        outs = dict(zip(self._direct_keys, rans_decode_direct_groups(self._direct_groups,
-                                                                     self.direct_packing)))
-        outs.update(zip(self._rle_keys, rans_decode_rle_groups(self._rle_groups,
-                                                               self.rle_packing)))
-        outs.update(zip(self._scan_keys, rans_decode_lanes_groups(self._scan_groups,
-                                                                  self.scan_packing)))
-        done = dict(zip(self._post_keys, post_decode_groups(
-            [(outs[k], *g) for k, g in zip(self._post_keys, self._post_groups)],
-            self.post_packing)))
-        return {k: done[k] if k in done else b.finish(outs[k]) for k, b in self.buckets.items()}
+        pixels).  Traced, each kernel's call is a span ``run.<kernel>``
+        (its ``launches`` on the card an attribute) and adds the kernel's
+        ``work_bytes`` to the counter ``work_bytes.<kernel>``."""
+        with trace.span("plan.run"):
+            outs = {}
+            if self._direct_keys:
+                with trace.span("run.direct") as sp:
+                    outs.update(zip(self._direct_keys, rans_decode_direct_groups(
+                        self._direct_groups, self.direct_packing)))
+                    if sp is not None:
+                        sp.attrs["launches"] = self._launches["direct"]
+                trace.count("work_bytes.direct", self.work_bytes["direct"])
+            if self._rle_keys:
+                with trace.span("run.rle") as sp:
+                    outs.update(zip(self._rle_keys, rans_decode_rle_groups(
+                        self._rle_groups, self.rle_packing)))
+                    if sp is not None:
+                        sp.attrs["launches"] = self._launches["rle"]
+                trace.count("work_bytes.rle", self.work_bytes["rle"])
+            if self._scan_keys:
+                with trace.span("run.lanes") as sp:
+                    outs.update(zip(self._scan_keys, rans_decode_lanes_groups(
+                        self._scan_groups, self.scan_packing)))
+                    if sp is not None:
+                        sp.attrs["launches"] = self._launches["lanes"]
+                trace.count("work_bytes.lanes", self.work_bytes["lanes"])
+            done = {}
+            if self._post_keys:
+                with trace.span("run.post") as sp:
+                    done = dict(zip(self._post_keys, post_decode_groups(
+                        [(outs[k], *g) for k, g in zip(self._post_keys, self._post_groups)],
+                        self.post_packing)))
+                    if sp is not None:
+                        sp.attrs["launches"] = self._launches["post"]
+                trace.count("work_bytes.post", self.work_bytes["post"])
+            with trace.span("run.finish"):
+                return {k: done[k] if k in done else b.finish(outs[k])
+                        for k, b in self.buckets.items()}
 
     def _strip_rows(self, bi: int):
         """(y0, rows, key, index) of every strip of blob ``bi``."""
@@ -1146,32 +1247,37 @@ class MicwDecodePlan:
         gathered from each bucket's output with one indexed copy, raw and
         constant strips are uploaded once per plan, and banded containers
         are un-banded with torch reshapes."""
-        if self._gather is None:
-            self._gather = self._gather_plan(decoded)
-        raw_dev, total, copies = self._gather
-        flat = torch.empty(total, dtype=torch.int16, device=self.device)
-        for k, g, src_index, dst_index in copies:
-            src = raw_dev if k == "raw" else decoded[k].reshape(-1)
-            blocks = src[: src.numel() // g * g].view(-1, g).index_select(0, src_index)
-            flat[: total // g * g].view(-1, g).index_copy_(0, dst_index, blocks)
-        results, base = [], 0
-        for bi, blob in enumerate(self.blobs):
-            width, height = self.metas[bi][:2]
-            px = flat[base : base + width * height]
-            base += width * height
-            info = micw_band_info(blob)
-            if info is not None:
-                ow, oh = info
-                px = px.view(ow // width, oh, width).permute(1, 0, 2).reshape(-1)
-                width, height = ow, oh
-            results.append((px, width, height))
-        return results
+        with trace.span("plan.assemble"):
+            if self._gather is None:
+                with trace.span("assemble.gather_plan"):
+                    self._gather = self._gather_plan(decoded)
+                trace.count("assemble.gather_plans")
+            raw_dev, total, copies = self._gather
+            flat = torch.empty(total, dtype=torch.int16, device=self.device)
+            with trace.span("assemble.gathers"):
+                for k, g, src_index, dst_index in copies:
+                    src = raw_dev if k == "raw" else decoded[k].reshape(-1)
+                    blocks = src[: src.numel() // g * g].view(-1, g).index_select(0, src_index)
+                    flat[: total // g * g].view(-1, g).index_copy_(0, dst_index, blocks)
+            with trace.span("assemble.images", images=len(self.blobs)):
+                results, base = [], 0
+                for bi, blob in enumerate(self.blobs):
+                    width, height = self.metas[bi][:2]
+                    px = flat[base : base + width * height]
+                    base += width * height
+                    info = micw_band_info(blob)
+                    if info is not None:
+                        ow, oh = info
+                        px = px.view(ow // width, oh, width).permute(1, 0, 2).reshape(-1)
+                        width, height = ow, oh
+                    results.append((px, width, height))
+            return results
 
 
 def micw_decode_many(blobs, device):
     """Decode a batch of MICW images on ``device`` (one plan: a launch of
-    the direct kernel, one of the r-kernel, one of the lanes kernel, the
-    post buckets' and unfused scan buckets' torch ops).
+    the direct kernel, one of the r-kernel, one of the lanes kernel, one
+    of the post kernel for the post buckets and unfused scan buckets).
     Images may differ in size and statistics.  Returns a list of (pixels
     u16, width, height), blob order."""
     plan = MicwDecodePlan(blobs, device)

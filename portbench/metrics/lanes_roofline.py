@@ -1,0 +1,12 @@
+"""lanes_roofline: the lanes kernel's (``lanes_groups_kernel`` and
+``lanes_wide_kernel``) share of its roofline over the program-traced
+stretch: the program's counter ``work_bytes.lanes`` (each strip's MICT
+stream read once and its pixels, or its symbols for the post kernel,
+written once) at the card's published memory bandwidth, over the
+kernel's device seconds in the same stretch, in %."""
+
+from portbench.programtrace import kernel_roofline
+
+
+def read(ctx):
+    return kernel_roofline(ctx, "lanes")
