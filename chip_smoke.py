@@ -2113,7 +2113,9 @@ def _lanes_shape(packing) -> str:
         parts.append(f"block form: {len(packing.blocks)} blocks of {packing.threads} threads "
                      f"({packing.lpt} lanes a thread at most), {smem} bytes of shared memory a "
                      f"block, {occ} blocks an SM, {regs} registers a thread")
-    return "; ".join(parts) + "; every table read from device memory"
+    buckets = int(packing.desc["alias"].sum())
+    return "; ".join(parts) + (f"; the FF 41 strips of {buckets} group(s) read bucket tables "
+                               f"from shared memory, every other table from device memory")
 
 
 def _symbols_out(groups):

@@ -14,6 +14,9 @@
 //
 //   slot = x & mask; sym = tsym[slot]; (f, b) = (tf, tb)[slot]
 //   x' = f * (x >> tl) + b                       (u32, wrapping)
+//
+// (for an FF 41 strip of the warp form the same sym, f and b from its
+// alias layout's 128 buckets, below)
 //   active = t * L + lane < count
 //   need = x' < 2^16 && active
 //   x' = need ? x' << 16 | words[min(cursor + rank(need), W - 1)] : x'
@@ -53,11 +56,21 @@
 //    reads leave it), and the inverse takes the rows: unzigzag, the row
 //    prefix as U warp scans side by side, the column carry in shared
 //    memory (each thread owns its columns: no sync).  The inverse is a
-//    group field read at run time: one code path per lane count and table
-//    form (two tables, tsym and tfb = freq << 16 | bias, where a group's
-//    freq and bias fit 16 bits, else three).  Tables are read from device
-//    memory through L1 (staging them in shared memory measured slower:
-//    PERF.md has the numbers).
+//    group field read at run time: one code path per lane count and front
+//    end, chosen per strip.  An FF 41 strip whose group carries bucket
+//    tables (tpu/scan_decode.py:build_lane_operands) reads its alias
+//    layout's 128 buckets, 16 bytes each (alias_bucket_words), copied to
+//    its team's shared memory in the wait of the ring's first chunks:
+//      bkt = min(slot >> (tl - 7), 127); off = slot & (2^(tl-7) - 1)
+//      off < t[bkt] ? (p, fp, sbp + off) : (a, fa, sba + off - t)
+//    2 KB a strip at every tableLog 7-17, so a lookup is one 16-byte
+//    shared read and a few selects where the slot tables (2^tl slots,
+//    24 KB a strip at tl 12) were random reads through L1 and L2.  FF 57
+//    strips (and an FF 41 strip without a bucket table) read the slot
+//    tables from device memory through L1: two, tsym and tfb = freq << 16
+//    | bias, where a group's freq and bias fit 16 bits, else three
+//    (staging the slot tables in shared memory measured slower: 112 KB
+//    blocks halve the blocks an SM; PERF.md has the numbers).
 // 2. The block form (lanes_wide_kernel), symbols out, for strips past
 //    WARP_LANES (up to 16,384 lanes): a block a strip, a thread a lane up
 //    to 1024 threads (lanes j * 1024 + tid past that), one exclusive block
@@ -67,7 +80,8 @@
 //    follows it.
 //
 // Operands stay in their strip: the slot is masked to the strip's table
-// (the host checks every table's span), the word and escape indices clip
+// (the host checks every table's span), the bucket index clips to 127,
+// the word and escape indices clip
 // to their rows, the ring and window copy only inside each row's padded
 // stride (a multiple of 8 u16, so every copy is 16 bytes).
 //
@@ -97,6 +111,10 @@ constexpr int kTeams = 4;          // strips (warps) a block of the warp form
 constexpr int kSlots = 8;          // ring slots
 constexpr int kLead = 6;           // chunks loaded ahead of the window's first
 constexpr int kEscWindow = 1024;   // escape side-stream values held a strip
+constexpr int kBuckets = 128;      // an alias layout's buckets (16 bytes each)
+constexpr int kBucketBytes = 16 * kBuckets;
+// warp_strip's front ends: the slot tables (two or three), or the buckets
+constexpr int kTwoTables = 0, kThreeTables = 1, kAliasBuckets = 2;
 static_assert(kLead + 2 <= kSlots, "a load must not overwrite a chunk still read");
 static_assert(MIC_LANES_U == 1 || MIC_LANES_U == 2 || MIC_LANES_U == 4 || MIC_LANES_U == 8,
               "U is 1, 2, 4 or 8");
@@ -106,6 +124,8 @@ static_assert(MIC_LANES_U == 1 || MIC_LANES_U == 2 || MIC_LANES_U == 4 || MIC_LA
 // inv: 0 symbols out (out_steps = steps), 1 zzd, 2 vdd, 3 pdd (out_steps =
 // width * strip_h / L, ws = width / L).  W and E are the clip bounds of the
 // word and escape indices, wstride and estride the rows' padded strides.
+// alias: some strip has a bucket table (aoff[s] >= 0), and every team of
+// the group holds kBucketBytes for one; abk and aoff are null otherwise.
 struct LaneGroup {
   const uint32_t* init;     // [S, L] initial states
   const uint16_t* words;    // [S, wstride] renorm words, zero past each stream
@@ -117,11 +137,14 @@ struct LaneGroup {
   const int32_t* counts;    // [S] symbols
   const int32_t* escv;      // [S] escape value, -1 for none
   const uint16_t* esides;   // [S, estride] escape side streams
+  const uint4* abk;         // [M, 128] FF 41 strips' alias buckets
+  const int32_t* aoff;      // [S] a strip's bucket table in abk, -1 for none
   int64_t off;
   int32_t lanes, W, E, steps, form, inv, out_steps, ws, width, wstride, estride, esc;
-  int32_t pad[2];  // 144 bytes
+  int32_t alias;
+  int32_t pad;  // 160 bytes
 };
-static_assert(sizeof(LaneGroup) == 144, "tpu/scan_decode.py:_LANE_GROUP_DESC");
+static_assert(sizeof(LaneGroup) == 160, "tpu/scan_decode.py:_LANE_GROUP_DESC");
 
 // The warp form's dynamic shared memory, addressed by byte offsets.
 extern __shared__ __align__(16) uint8_t smem_b[];
@@ -222,25 +245,28 @@ __device__ __forceinline__ void st_lanes(uint16_t* p, const uint32_t (&v)[LPT]) 
 
 // The shared-memory layout of one strip of the warp form, in bytes from
 // its team's offset (tpu/scan_decode.py:_team_bytes counts the same): the
-// word ring (kSlots chunks of C u16), the escape window (kEscWindow u16,
-// groups with escapes), the column carry (width u16, rounded up to 16
-// bytes; vdd and pdd).
+// bucket table (kBucketBytes, groups with bucket tables), the word ring
+// (kSlots chunks of C u16), the escape window (kEscWindow u16, groups with
+// escapes), the column carry (width u16, rounded up to 16 bytes; vdd and
+// pdd).
 __device__ __forceinline__ int ring_chunk(int L) { return L > 64 ? L : 64; }
 
-// One strip of the warp form.  FORM1: three tables (freq and bias apart);
-// a template argument, so the two-table step carries no predicated third
-// read.
-template <int LPT, bool FORM1>
+// One strip of the warp form.  FRONT: kTwoTables, kThreeTables (freq and
+// bias apart) or kAliasBuckets; a template argument, so each step carries
+// only its own front end's reads.
+template <int LPT, int FRONT>
 __device__ __forceinline__ void warp_strip(const LaneGroup& g, int s, int sm,
                                            uint16_t* __restrict__ out) {
   constexpr int U = MIC_LANES_U * LPT <= 16 ? MIC_LANES_U : 16 / LPT;
-  constexpr int form = FORM1;
+  constexpr bool form = FRONT == kThreeTables;
   const int ln = threadIdx.x & 31;
   const int L = g.lanes, W = g.W, E = g.E, inv = g.inv;
   const int lane0 = ln * LPT;               // the thread's first lane
   const bool valid = LPT > 1 || lane0 < L;  // false only for the spare threads of L < 32
   const int tl = g.tls[s];
   const uint32_t mask = (1u << tl) - 1u;
+  const uint32_t ksh = (uint32_t)max(tl - 7, 0);  // a bucket's slots: 2^ksh (tl >= 7 here)
+  const uint32_t kmask = (1u << ksh) - 1u;
   const long long count = g.counts[s];
   const int escv = g.escv[s];
   const bool esc = g.esc && escv >= 0;
@@ -252,7 +278,8 @@ __device__ __forceinline__ void warp_strip(const LaneGroup& g, int s, int sm,
   const uint16_t* erow = g.esides + (long long)s * g.estride;
   const int C = ring_chunk(L);  // a power of two
   const int cshift = 31 - __clz(C);
-  uint16_t* ring = reinterpret_cast<uint16_t*>(smem_b + sm);
+  uint4* bk = reinterpret_cast<uint4*>(smem_b + sm);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem_b + sm + (g.alias ? kBucketBytes : 0));
   uint16_t* ewin = ring + kSlots * C;
   uint16_t* carry = ewin + (g.esc ? kEscWindow : 0);
   const int ring_mask = kSlots * C - 1;
@@ -261,8 +288,12 @@ __device__ __forceinline__ void warp_strip(const LaneGroup& g, int s, int sm,
 #pragma unroll
   for (int k = 0; k < LPT; ++k) x[k] = valid ? g.init[(long long)s * L + lane0 + k] : 0u;
 
-  // Chunks 0..kLead of the words, the escape window's first values, the
-  // column carry at 0; waited for before the first step.
+  // The bucket table, chunks 0..kLead of the words, the escape window's
+  // first values, the column carry at 0; waited for before the first step.
+  if (FRONT == kAliasBuckets) {
+    const uint4* src = g.abk + (long long)g.aoff[s] * kBuckets;
+    for (int i = ln; i < kBuckets; i += 32) cp_async16(bk + i, src + i);
+  }
   const int last = (W - 1) >> cshift;  // every word read lies in chunks 0..last
   int next = min(kLead + 1, last + 1);
 #if MIC_LANES_RING
@@ -302,10 +333,21 @@ __device__ __forceinline__ void warp_strip(const LaneGroup& g, int s, int sm,
 #pragma unroll
       for (int k = 0; k < LPT; ++k) {
         const uint32_t slot = x[k] & mask;
-        const uint32_t fb = __ldg(tfb + slot);
-        const uint32_t b = form ? __ldg(tb + slot) : fb & 0xFFFFu;
-        const uint32_t sy = __ldg(tsym + slot);
-        const uint32_t f = form ? fb : fb >> 16;
+        uint32_t f, b, sy;
+        if constexpr (FRONT == kAliasBuckets) {  // scan_decode.alias_bucket_words' fields
+          const uint4 q = bk[min(slot >> ksh, (uint32_t)(kBuckets - 1))];
+          const uint32_t off = slot & kmask;
+          const bool is_p = off < (q.x >> 18);
+          const uint32_t bw = is_p ? q.y : q.w;
+          f = (is_p ? q.x : q.z) & 0x3FFFFu;
+          b = (bw + off) & 0x1FFFFu;
+          sy = (bw >> 17) | ((q.z >> (is_p ? 3 : 4)) & 0x8000u);
+        } else {
+          const uint32_t fb = __ldg(tfb + slot);
+          b = form ? __ldg(tb + slot) : fb & 0xFFFFu;
+          sy = __ldg(tsym + slot);
+          f = form ? fb : fb >> 16;
+        }
         v[u][k] = valid ? sy : 0u;
         xn[k] = f * (x[k] >> tl) + b;
         const bool act = lane0 + k < rem;  // never for a spare thread: rem <= L
@@ -435,18 +477,23 @@ __device__ __forceinline__ void warp_strip(const LaneGroup& g, int s, int sm,
 #endif
 }
 
+// A strip's front end: its bucket table where it has one, else its
+// group's slot-table form.
 template <int LPT>
 __device__ __forceinline__ void warp_strip_any(const LaneGroup& g, int3 d, uint16_t* out) {
-  if (g.form)
-    warp_strip<LPT, true>(g, d.y, d.z, out);
+  if (g.alias && g.aoff[d.y] >= 0)
+    warp_strip<LPT, kAliasBuckets>(g, d.y, d.z, out);
+  else if (g.form)
+    warp_strip<LPT, kThreeTables>(g, d.y, d.z, out);
   else
-    warp_strip<LPT, false>(g, d.y, d.z, out);
+    warp_strip<LPT, kTwoTables>(g, d.y, d.z, out);
 }
 
 // The warp form: team i of block b decodes the strip of teams[b * 4 + i]
 // = (group or -1, strip, shared byte offset).  No block barrier: a team's
-// warp syncs only itself.
-__global__ void __launch_bounds__(kTeams * 32)
+// warp syncs only itself.  4 blocks an SM at least (128 registers a
+// thread at most), the residency every front end keeps.
+__global__ void __launch_bounds__(kTeams * 32, 4)
 lanes_groups_kernel(const LaneGroup* __restrict__ groups, const int3* __restrict__ teams,
                     uint16_t* __restrict__ out) {
   const int3 d = teams[blockIdx.x * kTeams + (threadIdx.x >> 5)];

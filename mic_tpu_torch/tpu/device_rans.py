@@ -236,7 +236,14 @@ def alias_construct(norm: np.ndarray, table_log: int):
 def alias_slot_tables(norm: np.ndarray, table_log: int):
     """Slot-indexed (sym, freq, bias) decode tables of an alias-mapped
     stream, in the layout device_tables returns for standard streams."""
-    al = alias_construct(norm, table_log)
+    sym, freq_slot, bias_slot = alias_slot_expand(alias_construct(norm, table_log), table_log)
+    freqs, cumul = encode_tables(norm, table_log)
+    return sym, freq_slot, bias_slot, freqs, cumul
+
+
+def alias_slot_expand(al: dict, table_log: int):
+    """The (sym, freq, bias) slot tables of :func:`alias_slot_tables` from
+    an alias layout ``al`` (:func:`alias_construct`'s dict) built once."""
     M = 1 << table_log
     K = M >> 7
     off = np.tile(np.arange(K, dtype=np.int64), 128)
@@ -247,8 +254,7 @@ def alias_slot_tables(norm: np.ndarray, table_log: int):
     bias_slot = np.where(
         is_p, al["sbp"][bkt] + off, al["sba"][bkt] + off - al["t"][bkt]
     ).astype(np.uint32)
-    freqs, cumul = encode_tables(norm, table_log)
-    return sym, freq_slot, bias_slot, freqs, cumul
+    return sym, freq_slot, bias_slot
 
 
 def slot_tables(norm: np.ndarray, table_log: int, alias: bool):

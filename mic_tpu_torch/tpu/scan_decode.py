@@ -13,6 +13,10 @@ table lookups, ``rans_one``; the escape substitution, ``subst_one``; then
   its longest, FF 57 strips' escape value -1.  The slot tables are flat,
   each strip's at its own tableLog (``toff``, ``tls``), so tableLogs mix
   in a bucket and replicas of one stream share one table;
+  :func:`build_lane_operands` adds the FF 41 strips' 128-bucket alias
+  tables (:func:`alias_bucket_words`, 2 KB a strip at any tableLog),
+  which the kernel's warp form reads from shared memory in place of the
+  slot tables;
 * :func:`rans_decode_lanes` — one bucket through the kernel of
   ``csrc/rans_lanes.cu`` on the card, its plain twin
   :func:`rans_decode_lanes_plain` on the CPU: int16 [S, steps * L]
@@ -46,7 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .device_rans import slot_tables
+from .device_rans import alias_construct, alias_slot_expand, slot_tables
 from .post import _DIRECT_INVERSE, PostPacking, post_decode_groups
 from .rans_decode import _U32, _as_i16, _check, _Packing, _round8, _u
 
@@ -54,6 +58,8 @@ __all__ = [
     "LANES_MAX",
     "WARP_LANES",
     "build_lane_tables",
+    "build_lane_operands",
+    "alias_bucket_words",
     "lane_tensors",
     "rans_decode_lanes",
     "rans_decode_lanes_plain",
@@ -80,16 +86,21 @@ _ESC_WINDOW = 1024  # csrc/rans_lanes.cu:kEscWindow, escape values a strip holds
 _MAX_BLOCK_BYTES = 232448  # the H100's opt-in shared memory a block (no static use)
 _INVERSES = {"zzd": 1, "vdd": 2, "pdd": 3}  # LaneGroup::inv; 0: symbols out
 _LANES_KW = {"steps", "inverse", "width", "strip_h"}
+_ALIAS_BUCKETS = 128  # device_rans.alias_construct's buckets a layout
+_ALIAS_TABLE_LOG_MIN = 7  # device_rans.alias_construct's floor: a bucket holds 2^(tl-7) slots
+_BUCKET_BYTES = 16 * _ALIAS_BUCKETS  # csrc/rans_lanes.cu:kBucketBytes, a strip's bucket table
 # One bucket's descriptor (csrc/rans_lanes.cu:LaneGroup): the operand
 # pointers (init, words, tsym, tfb | tf, tb | tfb, toff, tls, counts, escv,
-# esides; words and esides with rows padded to 8 values), the element
-# offset of its output, and (lanes, W, E, steps, form, inv, out_steps, ws,
-# width, wstride, estride, esc); form 0: tfb = freq << 16 | bias, 1: tf
-# and tb; inv 0 symbols out, 1 zzd, 2 vdd, 3 pdd; ws = width / lanes; esc:
-# a strip of the group has escapes; 8 bytes of padding (144 bytes a
-# group).
-_LANE_GROUP_DESC = np.dtype([("ptr", "<u8", (10,)), ("off", "<i8"), ("arg", "<i4", (12,)),
-                             ("pad", "<i4", (2,))])
+# esides, abk, aoff; words and esides with rows padded to 8 values; abk
+# and aoff 0 for a group without bucket tables), the element offset of its
+# output, and (lanes, W, E, steps, form, inv, out_steps, ws, width,
+# wstride, estride, esc); form 0: tfb = freq << 16 | bias, 1: tf and tb;
+# inv 0 symbols out, 1 zzd, 2 vdd, 3 pdd; ws = width / lanes; esc: a strip
+# of the group has escapes; alias: a strip of the group reads bucket
+# tables (its teams hold them in shared memory); 4 bytes of padding (160
+# bytes a group).
+_LANE_GROUP_DESC = np.dtype([("ptr", "<u8", (12,)), ("off", "<i8"), ("arg", "<i4", (12,)),
+                             ("alias", "<i4"), ("pad", "<i4")])
 
 
 def _round16(n: int) -> int:
@@ -105,6 +116,20 @@ def build_lane_tables(parsed, min_steps: int = 0):
     escv is the escape value of an FF 41 strip with escapes, else -1;
     steps is the longest strip's step count, at least ``min_steps`` and 1.
     Strips that are one parsed object share a table."""
+    built = build_lane_operands(parsed, min_steps)
+    return built[:10] + built[12:]
+
+
+def build_lane_operands(parsed, min_steps: int = 0):
+    """:func:`build_lane_tables`' ten arrays, then the bucket tables of
+    the FF 41 strips, then steps: (init, words, tsym, tf, tb, toff, tls,
+    counts, escv, esides, abk u32 [M, 128, 4], aoff i32 [S], steps).  An
+    FF 41 strip (alias magic, with escapes or without) of at most
+    ``WARP_LANES`` lanes, which the kernel's warp form takes, has its
+    alias layout's :func:`alias_bucket_words` at ``abk[aoff[s]]``; every
+    other strip has aoff -1 and reads the slot tables.  One
+    ``alias_construct`` gives an FF 41 strip both its slot tables and its
+    bucket table; strips that are one parsed object share their tables."""
     S = len(parsed)
     L = parsed[0][0]
     if any(p[0] != L for p in parsed):
@@ -118,36 +143,68 @@ def build_lane_tables(parsed, min_steps: int = 0):
     escv = np.full(S, -1, np.int32)
     esides = np.zeros((S, E), np.uint16)
     toff = np.zeros(S, np.int32)
+    aoff = np.full(S, -1, np.int32)
     tls = np.array([p[1] for p in parsed], np.int32)
-    tables, at, seen = [], 0, {}
+    tables, buckets, at, seen = [], [], 0, {}
     for i, p in enumerate(parsed):
         _L, tl, _count, states, wrds, norm, _sl, alias = p
         if id(p) not in seen:
-            seen[id(p)] = at
-            tables.append(slot_tables(norm, tl, alias)[:3])
+            if alias is not None and L <= WARP_LANES:
+                al = alias_construct(norm, tl)
+                tables.append(alias_slot_expand(al, tl))
+                seen[id(p)] = (at, len(buckets))
+                buckets.append(alias_bucket_words(al))
+            else:
+                tables.append(slot_tables(norm, tl, alias)[:3])
+                seen[id(p)] = (at, -1)
             at += 1 << tl
-        toff[i] = seen[id(p)]
+        toff[i], aoff[i] = seen[id(p)]
         init[i] = states
         words[i, : len(wrds)] = wrds
         if alias is not None and len(alias[1]):
             escv[i] = alias[0]
             esides[i, : len(alias[1])] = alias[1]
     tsym, tf, tb = (np.concatenate([t[k] for t in tables]) for k in range(3))
+    abk = np.stack(buckets) if buckets else np.zeros((0, _ALIAS_BUCKETS, 4), np.uint32)
     return (init, words, tsym.astype(np.uint16), tf.astype(np.uint32), tb.astype(np.uint32),
-            toff, tls, counts.astype(np.int32), escv, esides, steps)
+            toff, tls, counts.astype(np.int32), escv, esides, abk, aoff, steps)
+
+
+def alias_bucket_words(al: dict) -> np.ndarray:
+    """An FF 41 alias layout (``device_rans.alias_construct``'s dict) as
+    the lanes kernel's bucket table: u32 [128, 4], 16 bytes a bucket,
+    (fp | t << 18, sbp | (p & 0x7FFF) << 17, fa | (p >> 15) << 18 | (a >>
+    15) << 19, ((sba - t) mod 2^17) | (a & 0x7FFF) << 17).  Slot ``slot``
+    of a tableLog-tl stream lies in bucket slot >> (tl - 7) at off = slot
+    & (2^(tl-7) - 1): off < t reads the primary (p, fp, bias sbp + off),
+    else the alias (a, fa, bias sba + off - t, the low 17 bits of the
+    field plus off).  The fields hold every tableLog 7-17: t <= 1024,
+    fp, fa <= 2^17, sbp, sba < 2^17, p and a 16 bits."""
+    p, a, t, fp, fa, sbp, sba = (np.asarray(al[k], np.uint32)
+                                 for k in ("p", "a", "t", "fp", "fa", "sbp", "sba"))
+    words = np.empty((_ALIAS_BUCKETS, 4), np.uint32)
+    words[:, 0] = fp | t << 18
+    words[:, 1] = sbp | (p & 0x7FFF) << 17
+    words[:, 2] = fa | (p >> 15) << 18 | (a >> 15) << 19
+    words[:, 3] = ((sba - t) & 0x1FFFF) | (a & 0x7FFF) << 17
+    return words
 
 
 def lane_tensors(arrays, device) -> tuple[torch.Tensor, ...]:
-    """:func:`build_lane_tables`' ten arrays as the wrappers' operands on
-    ``device``: int32 bit-views of the 32-bit arrays, int16 of the u16
-    ones."""
+    """:func:`build_lane_tables`' ten arrays (or :func:`build_lane_operands`'
+    twelve) as the wrappers' operands on ``device``: int32 bit-views of
+    the 32-bit arrays, int16 of the u16 ones."""
     view = {2: np.int16, 4: np.int32}
     return tuple(torch.from_numpy(np.ascontiguousarray(a).view(view[a.dtype.itemsize]))
                  .to(device) for a in arrays)
 
 
-def _lanes_operands(init, words, tsym, tf, tb, toff, tls, counts, escv, esides, steps):
-    """Checks one bucket's operands; returns (S, L, W, E, N)."""
+def _lanes_operands(ops, steps):
+    """Checks one bucket's operands, ten or twelve (the bucket tables abk
+    and aoff last); returns (S, L, W, E, N)."""
+    if len(ops) not in (10, 12):
+        raise ValueError(f"expected 10 operands, or 12 with abk and aoff, got {len(ops)}")
+    init, words, tsym, tf, tb, toff, tls, counts, escv, esides = ops[:10]
     if not isinstance(init, torch.Tensor) or init.dim() != 2:
         raise ValueError("init: expected an int32 [S, L] tensor")
     S, L = init.shape
@@ -169,16 +226,34 @@ def _lanes_operands(init, words, tsym, tf, tb, toff, tls, counts, escv, esides, 
     for name, t in (("toff", toff), ("tls", tls), ("counts", counts), ("escv", escv)):
         _check(name, t, (S,), dev)
     _check("esides", esides, (S, E), dev, torch.int16)
+    if len(ops) == 12:
+        abk, aoff = ops[10:]
+        if not isinstance(abk, torch.Tensor) or abk.dim() != 3:
+            raise ValueError("abk: expected an int32 [M, 128, 4] tensor")
+        _check("abk", abk, (abk.shape[0], _ALIAS_BUCKETS, 4), dev)
+        _check("aoff", aoff, (S,), dev)
     return S, L, W, E, N
 
 
-def _table_spans(toff: np.ndarray, tls: np.ndarray, N: int) -> None:
-    """Every strip's table lies inside the flat tables."""
+def _table_spans(ops, N: int) -> np.ndarray | None:
+    """Every strip's slot table lies inside the flat tables, and every
+    bucket table inside abk, at a tableLog that buckets hold (7-17).
+    Returns aoff on the host (None for ten operands)."""
+    toff, tls = ops[5].cpu().numpy(), ops[6].cpu().numpy()
     if ((tls < 0) | (tls > _TABLE_LOG_MAX)).any():
         raise ValueError(f"tls: tableLogs must be in [0, {_TABLE_LOG_MAX}]")
     end = toff.astype(np.int64) + (np.int64(1) << tls.astype(np.int64))
     if (toff < 0).any() or (end > N).any():
         raise ValueError(f"toff: a strip's table leaves the {N} table slots")
+    if len(ops) == 10:
+        return None
+    aoff = ops[11].cpu().numpy()
+    if ((aoff < -1) | (aoff >= ops[10].shape[0])).any():
+        raise ValueError(f"aoff: a strip's bucket table leaves the {ops[10].shape[0]} in abk")
+    if (tls[aoff >= 0] < _ALIAS_TABLE_LOG_MIN).any():
+        raise ValueError(f"aoff: bucket tables hold tableLogs {_ALIAS_TABLE_LOG_MIN}-"
+                         f"{_TABLE_LOG_MAX}")
+    return aoff
 
 
 def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -219,18 +294,21 @@ def _inverse_plain(syms: torch.Tensor, inverse, width: int, strip_h: int) -> tor
     return _as_i16(_DIRECT_INVERSE[inverse](u, width, strip_h))
 
 
-def rans_decode_lanes_plain(init, words, tsym, tf, tb, toff, tls, counts, escv, esides, *,
-                            steps: int, inverse=None, width: int = 0,
+def rans_decode_lanes_plain(init, words, tsym, tf, tb, toff, tls, counts, escv, esides,
+                            abk=None, aoff=None, *, steps: int, inverse=None, width: int = 0,
                             strip_h: int = 0) -> torch.Tensor:
     """Plain-PyTorch twin of the lanes kernel (any device): ``rans_one``
     and ``subst_one`` of ``decode_strip_batch_impl``, step for step, u32
     held in int64, then for an ``inverse`` (zzd, vdd, pdd) its direct
     branch of ``_post_one_strip`` as ``post.post_batch`` runs it.  Same
-    operands and output as :func:`rans_decode_lanes`."""
+    operands and output as :func:`rans_decode_lanes`; the bucket tables
+    are checked and not read: the slot tables are the reference."""
     ops = (init, words, tsym, tf, tb, toff, tls, counts, escv, esides)
-    S, L, W, E, N = _lanes_operands(*ops, steps)
+    if abk is not None or aoff is not None:
+        ops += (abk, aoff)
+    S, L, W, E, N = _lanes_operands(ops, steps)
     _lanes_kwargs(L, steps, inverse, width, strip_h)
-    _table_spans(toff.cpu().numpy(), tls.cpu().numpy(), N)
+    _table_spans(ops, N)
     dev = init.device
     x = _u(init)
     tl = tls.to(torch.int64)[:, None]
@@ -262,23 +340,25 @@ def rans_decode_lanes_plain(init, words, tsym, tf, tb, toff, tls, counts, escv, 
     return out if inverse is None else _inverse_plain(out, inverse, width, strip_h)
 
 
-def _team_bytes(L: int, esc: bool, inv: int, width: int) -> int:
+def _team_bytes(L: int, esc: bool, inv: int, width: int, alias: bool = False) -> int:
     """Shared bytes of one strip of the warp form (csrc/rans_lanes.cu's
-    layout): the word ring, the escape window, the column carry."""
-    return (2 * _RING_SLOTS * max(L, 64) + (2 * _ESC_WINDOW if esc else 0)
-            + (_round16(2 * width) if inv >= 2 else 0))
+    layout): the bucket table (``alias``: a strip of the group has one),
+    the word ring, the escape window, the column carry."""
+    return ((_BUCKET_BYTES if alias else 0) + 2 * _RING_SLOTS * max(L, 64)
+            + (2 * _ESC_WINDOW if esc else 0) + (_round16(2 * width) if inv >= 2 else 0))
 
 
-def fused_strip_fits(lanes: int, inverse: str, width: int, esc: bool) -> bool:
+def fused_strip_fits(lanes: int, inverse: str, width: int, esc: bool,
+                     alias: bool = False) -> bool:
     """Whether a strip of ``lanes`` lanes and ``width`` pixels a row can
     run the lanes kernel with the ``inverse`` (zzd, vdd, pdd) fused: the
     warp form takes its lanes (``WARP_LANES``), its rows are whole steps
-    (width a multiple of the lanes) and its shared memory (ring, escape
-    window if ``esc``, column carry) fits a block.  A plan routes a scan
-    bucket by this, on every device alike; where it is False the bucket
-    runs symbols out and ``post.post_batch``."""
+    (width a multiple of the lanes) and its shared memory (bucket table if
+    ``alias``, ring, escape window if ``esc``, column carry) fits a block.
+    A plan routes a scan bucket by this, on every device alike; where it
+    is False the bucket runs symbols out and ``post.post_batch``."""
     return (inverse in _INVERSES and lanes <= WARP_LANES and width % lanes == 0
-            and _team_bytes(lanes, esc, _INVERSES[inverse], width) <= _MAX_BLOCK_BYTES)
+            and _team_bytes(lanes, esc, _INVERSES[inverse], width, alias) <= _MAX_BLOCK_BYTES)
 
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
@@ -316,10 +396,13 @@ class LanesPacking(_Packing):
     strip's, a thread a lane up to 1024, at least a warp) and ``lpt``
     (lanes a thread); a fused group there raises.  ``n_launches`` is 1 or
     2.  A group whose tables all fit 16 bits takes the two-table form
-    (tsym and tfb = tf << 16 | tb), else three tables.  The packing holds
-    the groups' tensors, the two-table groups' tfb and the padded copies
-    of rows whose length is not a multiple of 8: it is valid for those
-    tensors as they were when it was built."""
+    (tsym and tfb = tf << 16 | tb), else three tables; in the warp form a
+    strip with a bucket table (twelve operands, ``aoff`` >= 0) reads it
+    instead, from its team's shared memory (``_BUCKET_BYTES`` more for each
+    strip of such a group).  The packing holds the groups' tensors, the
+    two-table groups' tfb and the padded copies of rows whose length is
+    not a multiple of 8: it is valid for those tensors as they were when
+    it was built."""
 
     def __init__(self, groups, *, warp_lanes: int = WARP_LANES):
         if not groups:
@@ -339,13 +422,12 @@ class LanesPacking(_Packing):
                 raise ValueError(f"rans_decode_lanes takes steps, inverse, width and strip_h, "
                                  f"got {sorted(kw)}")
             steps = kw["steps"]
-            S, L, W, E, N = _lanes_operands(*ops, steps)
+            S, L, W, E, N = _lanes_operands(ops, steps)
             inv, out_steps, ws = _lanes_kwargs(L, steps, kw.get("inverse"),
                                                kw.get("width", 0), kw.get("strip_h", 0))
             if ops[0].device != dev:
                 raise ValueError(f"group {g} on {ops[0].device}, group 0 on {dev}")
-            toff, tls = ops[5].cpu().numpy(), ops[6].cpu().numpy()
-            _table_spans(toff, tls, N)
+            aoff = _table_spans(ops, N)
             tf, tb = ops[3], ops[4]
             form = int(bool(((tf >> 16) | (tb >> 16)).any()))
             tfb = tf if form else (tf << 16) | tb
@@ -353,14 +435,20 @@ class LanesPacking(_Packing):
             self._keep += [tfb, words, esides]
             esc = bool((ops[8] >= 0).any())
             ptrs = [ops[0], words, ops[2], tfb, tb if form else tfb, *ops[5:9], esides]
+            # the block form reads no bucket table
+            alias = L <= warp_lanes and aoff is not None and bool((aoff >= 0).any())
+            if alias:
+                abk = ops[10] if ops[10].data_ptr() % 16 == 0 else ops[10].clone()
+                self._keep.append(abk)
+                ptrs += [abk, ops[11]]
             width = kw.get("width", 0)
-            desc[g] = ([t.data_ptr() for t in ptrs], out_at,
+            desc[g] = ([t.data_ptr() for t in ptrs] + [0] * (12 - len(ptrs)), out_at,
                        (L, W, E, steps, form, inv, out_steps, ws, width, words.shape[1],
-                        esides.shape[1], int(esc)), (0, 0))
+                        esides.shape[1], int(esc)), int(alias), 0)
             strips = (np.full(S, g), np.arange(S), np.full(S, out_steps))
             if L <= warp_lanes:
                 team_rows.append(strips)
-                team_bytes.append(_team_bytes(L, esc, inv, width))
+                team_bytes.append(_team_bytes(L, esc, inv, width, alias))
             else:
                 if inv:
                     raise ValueError(f"group {g}: the {kw['inverse']} inverse needs the warp "
@@ -461,8 +549,8 @@ def _launch_shape(packing: LanesPacking, wide: bool = False, lib=None) -> tuple[
     return tuple(out)
 
 
-def rans_decode_lanes(init, words, tsym, tf, tb, toff, tls, counts, escv, esides, *,
-                      steps: int, inverse=None, width: int = 0,
+def rans_decode_lanes(init, words, tsym, tf, tb, toff, tls, counts, escv, esides, abk=None,
+                      aoff=None, *, steps: int, inverse=None, width: int = 0,
                       strip_h: int = 0) -> torch.Tensor:
     """L-lane rANS decode of the S strips of one bucket, escapes
     substituted.  Symbols out (``inverse`` None): int16 [S, steps * L]
@@ -474,12 +562,17 @@ def rans_decode_lanes(init, words, tsym, tf, tb, toff, tls, counts, escv, esides
     (zero-padded or cut to width * strip_h, then the inverse).
 
     Operands are :func:`lane_tensors` of :func:`build_lane_tables`' first
-    ten arrays.  CPU tensors take :func:`rans_decode_lanes_plain`; CUDA
-    tensors launch the kernel of ``csrc/rans_lanes.cu`` for this one bucket
-    (a packing built for the call; strips past ``WARP_LANES`` lanes in its
-    block form, which has no inverse).  ``.launches`` counts the
+    ten arrays, or of :func:`build_lane_operands`' first twelve (``abk``
+    and ``aoff``: the FF 41 strips' bucket tables, which the warp form
+    reads in place of their slot tables).  CPU tensors take
+    :func:`rans_decode_lanes_plain`; CUDA tensors launch the kernel of
+    ``csrc/rans_lanes.cu`` for this one bucket (a packing built for the
+    call; strips past ``WARP_LANES`` lanes in its block form, which has no
+    inverse and reads the slot tables).  ``.launches`` counts the
     launches."""
     ops = (init, words, tsym, tf, tb, toff, tls, counts, escv, esides)
+    if abk is not None or aoff is not None:
+        ops += (abk, aoff)
     kw = dict(steps=steps)
     if inverse is not None or width or strip_h:
         kw.update(inverse=inverse, width=width, strip_h=strip_h)

@@ -45,7 +45,11 @@ host.
 Strips with lanes != 128 and FF 41 strips with tableLog > 12 take the
 scan tier, as in ``mic_tpu``: the L-lane lanes kernel, keyed on ("scan",
 lanes, padded step count, predictor, width, strip height, mid, delim);
-FF 57 and FF 41 strips and tableLogs mix in such a bucket.  A zzd, vdd
+FF 57 and FF 41 strips and tableLogs mix in such a bucket (its FF 41
+strips of up to ``scan_decode.WARP_LANES`` lanes also carry their
+128-bucket alias tables, ``scan_decode.build_lane_operands``, which the
+kernel reads in place of their slot tables; the staging counter
+``strips.scan_alias_buckets`` counts them).  A zzd, vdd
 or pdd bucket whose width is a multiple of its lanes, of up to
 ``scan_decode.WARP_LANES`` lanes, runs its inverse in the kernel
 (``scan_decode.fused_strip_fits``); every other scan bucket takes the
@@ -109,7 +113,7 @@ from .rans_decode import (
 from .scan_decode import (
     LANES_MAX,
     LanesPacking,
-    build_lane_tables,
+    build_lane_operands,
     fused_strip_fits,
     lane_tensors,
     rans_decode_lanes,
@@ -739,18 +743,21 @@ class _Bucket:
         self.n = len(entries)
         self.geom = self.post = None
         self.pdd_ws = 0
+        self.alias_strips = 0  # strips whose bucket tables the lanes kernel reads
         if key[0] == "post":
             self._init_post(key, entries, device)
             return
         if key[0] == "scan":
             with trace.span("plan.tables"):
-                built = build_lane_tables([e[0] for e in entries], min_steps=key[2])
+                built = build_lane_operands([e[0] for e in entries], min_steps=key[2])
                 self.fn = rans_decode_lanes
-                self.kwargs = dict(steps=built[10])
+                self.kwargs = dict(steps=built[12])
+                self.alias_strips = int((built[11] >= 0).sum())
                 lanes, pred, width, strip_h = key[1], key[3], key[4], key[5]
-                fused = fused_strip_fits(lanes, pred, width, bool((built[8] >= 0).any()))
+                fused = fused_strip_fits(lanes, pred, width, bool((built[8] >= 0).any()),
+                                         self.alias_strips > 0)
             with trace.span("plan.upload"):
-                self.ops = lane_tensors(built[:10], device)
+                self.ops = lane_tensors(built[:12], device)
             if fused:
                 # the direct inverse in the lanes kernel: no post stage
                 self.kwargs.update(inverse=pred, width=width, strip_h=strip_h)
@@ -1014,6 +1021,8 @@ class MicwDecodePlan:
         self._gather = None  # assemble_device's copy lists, built at its first call
         for k, b in self.buckets.items():
             trace.count(f"strips.{_route(k, b)}", b.n)
+            if k[0] == "scan":
+                trace.count("strips.scan_alias_buckets", b.alias_strips)
         for st in self.raw_strips:
             trace.count("strips.const" if st[5] == STRIP_MODE_CONST else "strips.raw")
 

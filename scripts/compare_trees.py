@@ -3,7 +3,7 @@
 on one card, each run in a process of its own, in the order other, this,
 this, other.
 
-    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,2post,3,4,5,6,8,10,14] [--reps N]
+    python3 scripts/compare_trees.py DIR [--phases 2r,2d,2p,2e,2post,2l,3,4,5,6,8,10,14] [--reps N]
 
 ``DIR`` is an unpacked copy of another commit (for example the parent:
 ``git archive HEAD | tar -x -C build/parent``).  Each run imports the
@@ -31,6 +31,12 @@ sides are measured by the same code as far as the trees share it:
   13), milliseconds from CUDA events around ``--reps`` calls queued
   behind a spinning kernel (``torch.cuda._sleep``), so the host's time to
   launch is not counted, after a warm-up;
+* ``2l``: the lanes kernel alone on each scan bucket of phase 10's batch
+  (``chip_smoke._scan_batch``; its 32- and 256-lane buckets hold FF 57
+  strips only, its 128-lane ones FF 41 only, its 64-lane ones both), one
+  packing a bucket in the warp form (with the bucket's inverse) and in
+  the block form (symbols out), CUDA events, mean of ``--reps`` after a
+  warm-up, with ns a step of the bucket's chain;
 * ``3``: phase 3's plan (``MicwDecodePlan`` over ``chip_smoke.BATCH``):
   its staging seconds, verified, then ms and GB/s per ``plan.run()``
   (CUDA events, mean of ``--reps``) and the device busy time of one run
@@ -66,7 +72,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 KEEP = (" ms per ", "GB/s", "idle_share", "r-wrapper", "d-wrapper", "p-wrapper", "e-wrapper",
-        "post-launch",
+        "post-launch", "l-bucket",
         "encode path: ", "scan tier: ", "profile: ", "stage_s", "host 14: ")
 
 RUN = """
@@ -156,6 +162,21 @@ if "2post" in phases:
         print(f"post-launch {{label}}: {{start.elapsed_time(end) / {reps}:.3f}} ms per "
               f"post_decode_groups call, device time ({{len(pk.blocks)}} strips)")
         del plan, outs, groups
+if "2l" in phases:
+    from mic_tpu_torch import MicwDecodePlan
+    from mic_tpu_torch.tpu import scan_decode as sd
+    plan = MicwDecodePlan(cs._scan_batch()[0], dev)
+    for k in plan._scan_keys:
+        b = plan.buckets[k]
+        tls = sorted({{int(t) for t in b.ops[6].cpu()}})
+        steps = b.kwargs["steps"]
+        for form, warp_lanes, kw in (("warp", sd.WARP_LANES, b.kwargs),
+                                     ("block", 0, {{"steps": steps}})):
+            pk = sd.LanesPacking([(b.fn, b.ops, kw)], warp_lanes=warp_lanes)
+            ms = cs._cuda_ms(lambda: sd._lanes_launch(pk), {reps})
+            print(f"l-bucket {{k[1]}} lanes {{k[3]}} x{{b.n}} tl {{tls}} {{form}}: {{ms:.3f}} ms, "
+                  f"{{ms * 1e6 / steps:.1f}} ns a step")
+    del plan
 if "3" in phases:
     import numpy as np
     from mic_tpu_torch import MicwDecodePlan
@@ -191,7 +212,9 @@ if "8" in phases:
     cs._rgb_wsi_phase(dev, cs._slide()[0])
 if "10" in phases:
     if hasattr(cs, "_scan_phase"):
-        cs._scan_phase(dev, *cs._scan_batch())
+        report = {{name: {{"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}}
+                  for name in cs.KERNELS}}
+        cs._scan_phase(dev, *cs._scan_batch(), report)
     else:
         print("scan tier: phase 10 is not in this tree")
 if "14" in phases:

@@ -176,7 +176,8 @@ def test_plan_routing_and_packing(ref):
             at += pk.team_bytes[g]
         assert at <= pk.smem_bytes
     L, inv, width, esc = (int(pk.desc["arg"][0][i]) for i in (0, 5, 8, 11))
-    assert pk.team_bytes[0] == sd._team_bytes(L, bool(esc), inv, width)
+    assert pk.team_bytes[0] == sd._team_bytes(L, bool(esc), inv, width,
+                                              bool(pk.desc["alias"][0]))
     assert sd._team_bytes(64, True, 3, 512) == 16 * 64 + 2048 + 1024
     assert pk.smem_bytes == max(sum(pk.team_bytes[g] for g, *_r in b if g >= 0)
                                 for b in pk.teams)
@@ -227,3 +228,31 @@ def test_cuda_fused_kernel_matches_plain(cuda, lanes):
             (got,) = sd._lanes_launch(pk)
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), sym), (pred, warp_lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 32, 64, 512])
+def test_cuda_fused_bucket_front_end_matches_plain(cuda, lanes):
+    """The FF 41 strips through their bucket tables (``build_lane_operands``,
+    FF 57 strips in the same bucket through their slot tables), fused with
+    each inverse and symbols out, against the plain twin; the plan's
+    bucket counter names the FF 41 strips."""
+    width = max(256, lanes)
+    img = _image(lanes + 1, 10, width)
+    for pred in MODES:
+        parsed, _s = _strip_streams(img, pred, 4, lanes, tl=12)
+        built = sd.build_lane_operands(parsed)
+        assert (built[11] >= 0).sum() == len(parsed) // 2  # the FF 41 half
+        ops = sd.lane_tensors(built[:12], CPU)
+        steps = built[12]
+        ops_d = tuple(t.to(cuda) for t in ops)
+        for strip_h in (4, 8):
+            want = sd.rans_decode_lanes_plain(*ops, steps=steps, inverse=pred, width=width,
+                                              strip_h=strip_h)
+            got = sd.rans_decode_lanes(*ops_d, steps=steps, inverse=pred, width=width,
+                                       strip_h=strip_h)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (pred, strip_h)
+        got = sd.rans_decode_lanes(*ops_d, steps=steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), sd.rans_decode_lanes_plain(*ops, steps=steps)), pred

@@ -265,6 +265,150 @@ def test_build_lane_tables_mirrors_build_strip_batch(ref):
     assert list(escv[:S] >= 0) == [True, False, False]
 
 
+def _bucket_slots(abk, tl):
+    """Every slot of a tableLog-``tl`` stream through its bucket table
+    (u32 [128, 4]) as ``csrc/rans_lanes.cu``'s bucket front end reads it:
+    (sym, freq, bias) a slot, numpy u32 arithmetic."""
+    slot = np.arange(1 << tl, dtype=np.uint32)
+    q = abk[np.minimum(slot >> np.uint32(tl - 7), 127)]
+    off = slot & np.uint32((1 << (tl - 7)) - 1)
+    is_p = off < (q[:, 0] >> 18)
+    bw = np.where(is_p, q[:, 1], q[:, 3])
+    freq = np.where(is_p, q[:, 0], q[:, 2]) & np.uint32(0x3FFFF)
+    bias = (bw + off) & np.uint32(0x1FFFF)
+    sym = (bw >> 17) | ((q[:, 2] >> np.where(is_p, 3, 4).astype(np.uint32)) & np.uint32(0x8000))
+    return sym, freq, bias
+
+
+def _alias_layout(syms, tl):
+    """``syms``' FF 41 norm at exactly ``tl`` and its alias layout, the
+    kept values lowered by 64 until the layout exists (as
+    :func:`encode_at` does; below tableLog 8 also until the table holds
+    them)."""
+    counts, _mx, sl = dr.histogram(syms)
+    counts = np.asarray(counts[:sl], np.int64)
+    kept = min(int((counts > 0).sum()), dr.ALIAS_MAX_KEPT)
+    while True:
+        _vals, counts2, sl2, _esc = dr._alias_plan(counts, sl, kept)
+        try:
+            norm, _hdr = dr._norm_and_header(counts2, len(syms), tl, sl2)
+            return norm, dr.alias_construct(norm, tl)
+        except (dr.AliasInfeasible, ValueError):
+            kept -= 64
+
+
+def _same_slots(got, want):
+    return all(np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("tl", list(range(7, 18)))
+def test_alias_bucket_words_decode_every_slot(tl):
+    """Alias norms at every tableLog the scan tier's FF 41 streams take
+    (7-17): each slot decoded through ``alias_bucket_words`` equals
+    ``alias_slot_tables``' (sym, freq, bias), symbols past 2^15 and a
+    symbol holding most of the table included; at tableLog 17 the fields
+    reach their widths (t 1024, fp, sbp, sba past 2^16, one symbol of
+    all 2^17 slots)."""
+    rng = np.random.default_rng(tl)
+    layouts = []
+    for base, p in ((0, 0.02), (32700, 0.01), (65000, 0.8)):
+        syms = np.minimum(base + rng.geometric(p, 1 << 17), 65535).astype(np.uint16)
+        syms[:50] = 65535
+        layouts.append(_alias_layout(syms, tl))
+    one = np.zeros(40001, np.int64)
+    one[40000] = 1 << tl  # one symbol: every bucket full of it
+    layouts.append((one, dr.alias_construct(one, tl)))
+    if tl >= 9:  # 127 small symbols, each a bucket's primary, the large one their alias
+        spread = np.zeros(65536, np.int64)
+        spread[:127] = (1 << (tl - 7)) * 2 // 5
+        spread[65535] = (1 << tl) - spread[:127].sum()
+        layouts.append((spread, dr.alias_construct(spread, tl)))
+    for norm, al in layouts:
+        words = sd.alias_bucket_words(al)
+        assert words.shape == (128, 4) and words.dtype == np.uint32
+        assert _same_slots(_bucket_slots(words, tl), dr.alias_slot_tables(norm, tl)[:3])
+    if tl == 17:
+        al, one_al, spread_al = (layouts[i][1] for i in (2, 3, 4))
+        assert al["t"].max() == 1024 and al["fp"].max() >= 1 << 16
+        assert al["sbp"].max() >= 1 << 16 and spread_al["sba"].max() >= 1 << 16
+        assert spread_al["a"].max() == 65535 and one_al["fp"].max() == 1 << 17
+
+
+def test_bucket_tables_of_the_ct_slice():
+    """The CT slice of the benchmark at 8 lanes, FF 41 (its four strips at
+    tableLog 12): ``build_lane_operands`` gives each strip a bucket table
+    whose every slot equals its slot tables and ``alias_slot_tables``; a
+    repeated parse shares its tables, FF 57 strips and strips past
+    ``WARP_LANES`` lanes have none."""
+    px = np.fromfile(ROOT / "portbench" / "data" / "CT_512_512_image.raw", dtype="<u2")
+    blob = st.micw_compress(px, 512, 512, int(px.max()), lanes=8, predictor="auto-fast",
+                            entropy="alias")
+    parsed = [dr.mict_parse(s[0]) for s in st.micw_parse(blob)[7]]
+    assert {(p[0], p[1], p[7] is not None) for p in parsed} == {(8, 12, True)}
+    built = sd.build_lane_operands(parsed + parsed[:1])
+    assert built[12] == sd.build_lane_tables(parsed)[10] == 65536 // 8
+    abk, aoff, toff = built[10], built[11], built[5]
+    assert abk.shape == (4, 128, 4) and list(aoff) == [0, 1, 2, 3, 0]
+    for i, p in enumerate(parsed):
+        tl = p[1]
+        slots = slice(toff[i], toff[i] + (1 << tl))
+        got = _bucket_slots(abk[aoff[i]], tl)
+        assert _same_slots(got, dr.alias_slot_tables(p[5], tl)[:3])
+        assert _same_slots(got, (built[2][slots], built[3][slots], built[4][slots]))
+    data = np.minimum(np.random.default_rng(1).geometric(0.02, 3000), 700).astype(np.uint16)
+    std = dr.mict_parse(dr.mict_encode(data, lanes=8, table_log=11, max_table_log=11))
+    mixed = sd.build_lane_operands([std, parsed[0]])
+    assert list(mixed[11]) == [-1, 0] and mixed[10].shape == (1, 128, 4)
+    wide = [dr.mict_parse(encode_at(dr, data, 11, 1024))]
+    assert list(sd.build_lane_operands(wide)[11]) == [-1]
+    assert sd.build_lane_operands(wide)[10].shape == (0, 128, 4)
+
+
+def test_packing_reads_bucket_tables():
+    """A bucket mixing FF 41 and FF 57 strips with its bucket tables: the
+    twelve operands decode as the ten through the plain twin; the warp
+    form's descriptor names abk and aoff and each team holds a bucket
+    table; the block form and a group with none do not; a bucket table
+    past abk, or at a tableLog under 7, is refused."""
+    rng = np.random.default_rng(9)
+    blobs = []
+    for tl in (11, 12, 14):
+        data = (np.abs(rng.standard_normal(6000)) * 300).astype(np.uint16)
+        blobs += [encode_at(dr, data, tl, 32, alias=False), encode_at(dr, data, tl, 32)]
+    parsed = [dr.mict_parse(b) for b in blobs]
+    built = sd.build_lane_operands(parsed)
+    steps = built[12]
+    ops = sd.lane_tensors(built[:12], CPU)
+    assert list(built[11]) == [-1, 0, -1, 1, -1, 2]
+    want = sd.rans_decode_lanes(*ops[:10], steps=steps)
+    assert torch.equal(sd.rans_decode_lanes(*ops, steps=steps), want)
+    for row, b, p in zip(want.numpy().view(np.uint16), blobs, parsed):
+        assert np.array_equal(row[: p[2]], dr.mict_decode_numpy(b))
+    pk = sd.LanesPacking([(sd.rans_decode_lanes, ops, {"steps": steps})])
+    assert sd._LANE_GROUP_DESC.itemsize == 160
+    assert pk.desc["alias"][0] == 1 and pk.desc["ptr"][0][11] == ops[11].data_ptr()
+    assert pk.team_bytes == [sd._team_bytes(32, True, 0, 0, True)]
+    assert pk.team_bytes[0] == 2048 + 2 * 8 * 64 + 2048
+    for plain in (sd.LanesPacking([(sd.rans_decode_lanes, ops[:10], {"steps": steps})]),
+                  sd.LanesPacking([(sd.rans_decode_lanes, ops, {"steps": steps})],
+                                  warp_lanes=0)):
+        assert plain.desc["alias"][0] == 0 and not plain.desc["ptr"][0][10:].any()
+    no_alias = (*ops[:11], torch.full_like(ops[11], -1))
+    assert sd.LanesPacking([(sd.rans_decode_lanes, no_alias, {"steps": steps})]) \
+        .desc["alias"][0] == 0
+    assert not sd.fused_strip_fits(512, "pdd", 110592, True, True)
+    assert sd.fused_strip_fits(512, "pdd", 110592, True, False)
+    for bad, match in ((torch.full_like(ops[11], 3), "aoff"),
+                       (torch.tensor([-1, 0, -1, 1, -1, 2], dtype=torch.int32), None)):
+        tls = ops[6] if match else torch.full_like(ops[6], 6)
+        args = (*ops[:6], tls, *ops[7:11], bad)
+        with pytest.raises(ValueError, match="aoff"):
+            sd.rans_decode_lanes(*args, steps=steps)
+    with pytest.raises(TypeError, match="aoff"):
+        sd.rans_decode_lanes(*ops[:10], ops[10], steps=steps)
+
+
 def _lanes_ops(blobs):
     parsed = [dr.mict_parse(b) for b in blobs]
     built = sd.build_lane_tables(parsed)
@@ -539,9 +683,11 @@ KINDS = ["words", "states", "count_up", "count_down", "n_words_down", "escapes",
 def _scan_fixture(name):
     if name == "lanes64":
         px = _smooth(9, 96, 128, spikes=0.03)
-        from mic_tpu_torch.tpu.strips import micw_compress
-
-        return micw_compress(px, 128, 96, 4095, lanes=64, predictor="auto", entropy="best")
+        return st.micw_compress(px, 128, 96, 4095, lanes=64, predictor="auto", entropy="best")
+    if name == "alias8":  # a 128 x 256 crop of CT_dev, 8 lanes, FF 41
+        px = np.ascontiguousarray(_ct().reshape(512, 512)[:256, 384:]).ravel()
+        return st.micw_compress(px, 128, 256, int(px.max()), lanes=8, predictor="auto-fast",
+                                entropy="alias")
     return ALIAS_FIXTURES[14][0].read_bytes()
 
 
@@ -572,7 +718,7 @@ def _corrupt(blob: bytes, kind: str) -> bytes:
     return bytes(blob)
 
 
-SCAN_CASES = [(n, k) for n in ("lanes64", "alias_tl14") for k in KINDS]
+SCAN_CASES = [(n, k) for n in ("lanes64", "alias_tl14", "alias8") for k in KINDS]
 
 
 @pytest.mark.parametrize("name,kind", SCAN_CASES)
@@ -648,6 +794,66 @@ def test_cuda_lanes_kernel_matches_plain(lanes):
     got = sd.rans_decode_lanes(*(t.to(dev) for t in wide), steps=steps)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), sd.rans_decode_lanes_plain(*wide, steps=steps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 32, 64, 512])
+def test_cuda_bucket_front_end_matches_plain(lanes):
+    """FF 41 strips through their bucket tables at tableLogs 12-17, one
+    without escapes, FF 57 strips of tableLogs 12-16 through their slot
+    tables in the same bucket: the kernel equals the plain twin (which
+    reads the slot tables) bit for bit, through the wrapper and a
+    packing.  No stream holds tableLog 17 (its states would leave the
+    16-bit renormalisation's range), so that strip is an alias norm at 17
+    with random states, words and escapes: garbage both decode alike."""
+    dev = _cuda()
+    rng = np.random.default_rng(lanes + 3)
+    blobs = []
+    for tl in (12, 13, 14, 15, 16):
+        data = (np.abs(rng.standard_normal(12 * lanes + 3000)) * 300).astype(np.uint16)
+        blobs += [encode_at(dr, data, tl, lanes, alias=False), encode_at(dr, data, tl, lanes)]
+    blobs.append(encode_at(dr, (np.arange(9000) * 7 % 100).astype(np.uint16), 12, lanes))
+    parsed = [dr.mict_parse(b) for b in blobs]
+    assert not len(parsed[-1][7][1]) and all(len(p[7][1]) for p in parsed[1:-1:2])
+    norm, _al = _alias_layout(data, 17)
+    n = len(data)
+    parsed.append((lanes, 17, n, rng.integers(1 << 16, 1 << 32, lanes, dtype=np.uint32),
+                   rng.integers(0, 1 << 16, n // 2, dtype=np.uint16), norm, len(norm),
+                   (int(np.flatnonzero(norm)[-1]), rng.integers(0, 1 << 16, 300, np.uint16))))
+    built = sd.build_lane_operands(parsed)
+    assert list(built[11] >= 0) == [p[7] is not None for p in parsed]
+    ops = sd.lane_tensors(built[:12], CPU)
+    steps = built[12]
+    want = sd.rans_decode_lanes_plain(*ops, steps=steps)
+    for row, b, p in zip(want.numpy().view(np.uint16), blobs, parsed):
+        assert np.array_equal(row[: p[2]], dr.mict_decode_numpy(b))
+    ops_d = tuple(t.to(dev) for t in ops)
+    got = sd.rans_decode_lanes(*ops_d, steps=steps)
+    pk = sd.LanesPacking([(sd.rans_decode_lanes, ops_d, {"steps": steps})])
+    (grouped,) = sd._lanes_launch(pk)
+    torch.cuda.synchronize()
+    assert pk.desc["alias"][0] == 1
+    assert torch.equal(got.cpu(), want) and torch.equal(grouped.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind", SCAN_CASES)
+def test_cuda_corrupt_scan_stream_matches_cpu(name, kind):
+    """``test_corrupt_scan_stream_stays_in_bounds``' damaged containers on
+    the card (bucket tables for their FF 41 strips): every bucket equals
+    the CPU plan's (the plain twin) bit for bit."""
+    dev = _cuda()
+    blob = _corrupt(_scan_fixture(name), kind)
+    try:
+        want = MicwDecodePlan([blob], CPU).run()
+    except ValueError:
+        return  # rejected at parse or table build, on every device alike
+    plan = MicwDecodePlan([blob], dev)
+    got = plan.run()
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
 
 
 @pytest.mark.cuda

@@ -255,7 +255,7 @@ def test_staging_parts_lie_inside_plan_stage(traced, name):
 # the staging's work, by the part of plan.stage that must hold each call
 STAGING_WORK = {
     "plan.parse": ("micw_parse", "mict_parse", "_strip_bucket"),
-    "plan.tables": ("build_lane_tables", "build_alias_bucket_tables", "build_packed_tables",
+    "plan.tables": ("build_lane_operands", "build_alias_bucket_tables", "build_packed_tables",
                     "build_pallas_tables", "_rle_sizing", "_post_sizing"),
     "plan.upload": ("lane_tensors", "to_device", "DirectPacking", "RlePacking",
                     "LanesPacking", "PostPacking"),
@@ -305,7 +305,11 @@ def test_staging_parts_cover_plan_stage(ct, monkeypatch, tracing, part):
 @pytest.mark.parametrize("which", ["study", "one"])
 def test_strip_counters_match_the_buckets(traced, which):
     plan = traced.study if which == "study" else traced.plan
-    counts = (traced.staged if which == "study" else traced.one)[1]
+    counts = dict((traced.staged if which == "study" else traced.one)[1])
+    # not a route: the scan strips that read their bucket tables (every
+    # strip of this FF 41 container at 8 lanes)
+    assert counts.pop("strips.scan_alias_buckets") == counts["strips.scan_fused"] == sum(
+        b.alias_strips for b in plan.buckets.values())
     strips = {k: v for k, v in counts.items() if k.startswith("strips.")}
     assert sum(strips.values()) == sum(len(k) for k in plan.keys_per_blob)
     want: dict = {}
@@ -317,6 +321,19 @@ def test_strip_counters_match_the_buckets(traced, which):
         r = "strips.const" if st[5] == S.STRIP_MODE_CONST else "strips.raw"
         want[r] = want.get(r, 0) + 1
     assert strips == want
+
+
+def test_bucket_counter_reads_zero_for_ff57_strips(ct, tracing):
+    """``strips.scan_alias_buckets`` counts only FF 41 strips: a scan plan
+    of the slice's FF 57 container at 8 lanes reads 0."""
+    crop = np.ascontiguousarray(ct.px.reshape(512, 512)[200:264, 128:384]).ravel()
+    blob = S.micw_compress(crop, 256, 64, int(crop.max()), lanes=8, predictor="auto-fast",
+                           entropy="standard")
+    plan = S.MicwDecodePlan([blob], "cpu", scan=True)
+    _spans, counts = trace.take()
+    assert counts["strips.scan_alias_buckets"] == 0
+    assert counts.get("strips.scan_fused", 0) + counts.get("strips.scan_post", 0) == sum(
+        b.n for b in plan.buckets.values())
 
 
 def _strip_table(blob):
