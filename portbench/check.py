@@ -1,6 +1,6 @@
 """The comparison that decides ``correct``.
 
-MICW is lossless, so the answer to a request is known before it is
+The codec is lossless, so the answer to a request is known before it is
 made: every image of the study, pixel for pixel, as the benchmark
 generated it.  Two numbers are compared, each with the limit 0:
 
@@ -9,7 +9,8 @@ generated it.  Two numbers are compared, each with the limit 0:
   that differ from the generated slice; an image that is missing, of the
   wrong size, or beyond the study's count counts all its pixels;
 - ``blob_pixels_wrong``: the pixels of every container of the pool that
-  the plain reference (``reference.py``) decodes to anything else than the
+  the request path's plain reference decoder (its ``reference_decode``,
+  independent of the program) decodes to anything else than the
   generated slice; a container it cannot decode counts all its pixels.
   So the containers the program staged hold the images by themselves.
 
@@ -19,6 +20,9 @@ request was kept, so that every study is judged.
 The control is the reference put in the program's place with the
 configuration's guarantee broken: each pixel's lowest bit cleared, a
 15-bit decode of 16-bit data.
+
+The lossless formats differ by request path, so the decoder is the
+path's; nothing here knows a format.
 """
 
 from __future__ import annotations
@@ -27,8 +31,6 @@ import struct
 import sys
 
 import numpy as np
-
-from . import reference
 
 LIMITS = {"pixels_wrong": 0, "blob_pixels_wrong": 0, "studies_unchecked": 0}
 CHUNK = 256  # images compared in one device operation
@@ -104,13 +106,14 @@ def compare_requests(kept, studies, pool_dev, width: int, height: int):
     return total, failed, unchecked
 
 
-def blob_pixels_wrong(blobs, pool: np.ndarray, width: int, height: int) -> int:
-    """Pixels that the plain reference decodes wrong over the pool's
-    containers (a container it cannot decode: all its pixels)."""
+def blob_pixels_wrong(blobs, pool: np.ndarray, width: int, height: int, decode) -> int:
+    """Pixels that the plain reference ``decode`` (blob -> (u16 [h * w], w,
+    h)) decodes wrong over the pool's containers (a container it cannot
+    decode: all its pixels)."""
     wrong = 0
     for blob, px in zip(blobs, pool):
         try:
-            got, w, h = reference.decode_micw(blob)
+            got, w, h = decode(blob)
         except (ValueError, IndexError, KeyError, struct.error) as e:
             print(f"check: a container the reference cannot decode: {e}", file=sys.stderr)
             wrong += px.size
@@ -119,15 +122,15 @@ def blob_pixels_wrong(blobs, pool: np.ndarray, width: int, height: int) -> int:
     return wrong
 
 
-def control_answers(blobs, studies, device):
-    """The control: the reference in the program's place, each pixel's
-    lowest bit cleared; one answer a study, as the program's (pixels,
-    width, height) lists."""
+def control_answers(blobs, studies, device, decode):
+    """The control: the plain reference ``decode`` in the program's place,
+    each pixel's lowest bit cleared; one answer a study, as the program's
+    (pixels, width, height) lists."""
     import torch
 
     decoded = []
     for blob in blobs:
-        px, w, h = reference.decode_micw(blob)
+        px, w, h = decode(blob)
         decoded.append((torch.from_numpy((px & 0xFFFE).view(np.int16)).to(device), w, h))
     return [(k, [decoded[int(j)] for j in idx]) for k, idx in enumerate(studies)]
 

@@ -18,7 +18,12 @@ guards:
 
 It adds a host sleep of ``PAD_S`` inside the session before and after the
 traced work: one window in about seventy lost one record of a thousand
-launches without it.
+launches without it.  Inside those, it launches ``MARKERS`` one-element
+kernels on an idle card before and after the work, which put the card's
+records on the host's wall clock (``time.time_ns()``, the clock of the
+program's spans): kineto's clock for them is off by up to hundreds of
+microseconds in some profiler sessions and drifts within one on an H100
+machine (``clock_offsets``, ``on_host_clock``).
 
 It records device activity only: the CPU side of the profiler records
 every torch operator, and a request that gathers a study of two thousand
@@ -31,9 +36,12 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
+
 TEARDOWN_SYNCS = 10  # synchronises after the session, for CUPTI's finalise
 PAD_S = 0.1  # host sleep inside the session before and after the traced work
 NAME_CHARS = 120  # characters of a kernel name kept in the breakdown
+MARKERS = 10  # marker launches before and after the traced work, for the clocks
 
 
 class LostRecords(AssertionError):
@@ -80,14 +88,100 @@ def _finish_cupti_teardown() -> None:
         time.sleep(0.001)
 
 
-def profiled(fn):
-    """Run ``fn()`` under torch.profiler on the card, or as it is on the
-    CPU (no trace there)."""
+def profiled(fn, device):
+    """``fn()`` under torch.profiler on the card, with ``MARKERS`` marker
+    launches on ``device`` before and after it: (result, records [(name,
+    start ns, end ns)] on the host's wall clock sorted by start, without
+    the markers; the trace clock's error (ns) left at the markers before
+    and after once the records are placed by the markers before: about
+    0, and the drift over the work).  The trace's clock for the card's
+    records differs from the host's by an amount that changes between
+    profiler sessions and drifts within one, so each session measures it
+    with the markers.  On the CPU: (``fn()``, [], None), no trace.
+    Raises ``LostRecords`` where the trace does not hold one record a
+    counted port launch."""
     import torch
 
     if not torch.cuda.is_available():
-        return fn(), []
-    return _profiled(fn)
+        return fn(), [], None
+    return _placed(fn, device)
+
+
+def _placed(fn, device):
+    """``profiled`` on the card: the session, the markers and the records
+    placed on the wall clock."""
+    import torch
+
+    x = torch.zeros(1, device=device)
+
+    def marked():
+        first = _markers(x, MARKERS)
+        out = fn()
+        return first, out, _markers(x, MARKERS)
+
+    (first, out, last), spans = _profiled(marked)
+    raw = [(name, round(1e9 * s), round(1e9 * e)) for name, s, e in spans]
+    # the trace's seconds from its start, on the wall clock as the markers
+    # before the work put them (the first records: the card is idle then),
+    # in whole ns; the markers measure what is left
+    shifts = sorted((t0 + t1) // 2 - r[1] for r, (t0, t1) in zip(raw, first))
+    shift = shifts[len(shifts) // 2] if shifts else 0
+    at, off, records = clock_offsets([(n, s + shift, e + shift) for n, s, e in raw], first, last)
+    return out, sorted(on_host_clock(records, at, off), key=lambda r: r[1]), off
+
+
+def _markers(x, n: int) -> list[tuple[int, int]]:
+    """``n`` launches of a one-element kernel (``x.neg_()``), each on an
+    idle card: the host's wall clock (ns) before and after each launch
+    call."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize(x.device)
+        t0 = time.time_ns()
+        x.neg_()
+        out.append((t0, time.time_ns()))
+    torch.cuda.synchronize(x.device)
+    return out
+
+
+def clock_offsets(records, before, after):
+    """The trace clock's error against the host's (ns) at the markers
+    before and after the traced work, and the records without the
+    markers.  A marker's kernel starts on an idle card while its launch
+    call runs, so each marker puts the error at its record's start less
+    the middle of its call (within half the call, ~7 us); the markers
+    are the records named as the first one.  Raises ValueError where the
+    trace does not hold one record a marker."""
+    name = records[0][0] if records else None
+    marks = [r for r in records if r[0] == name]
+    if len(marks) != len(before) + len(after):
+        raise ValueError(f"{len(marks)} marker records for {len(before) + len(after)} markers")
+    err = [r[1] - (t0 + t1) // 2 for r, (t0, t1) in zip(marks, before + after)]
+    k = len(before)
+    at = (int(np.median([r[1] for r in marks[:k]])), int(np.median([r[1] for r in marks[k:]])))
+    off = (float(np.median(err[:k])), float(np.median(err[k:])))
+    return at, off, [r for r in records if r[0] != name]
+
+
+def on_host_clock(records, at, off):
+    """``records`` with the trace clock's error taken out: each moved by
+    the error at its start, interpolated linearly between the two
+    markers' (``clock_offsets``), so that its length stays the card's."""
+    slope = (off[1] - off[0]) / (at[1] - at[0]) if at[1] != at[0] else 0.0
+    out = []
+    for name, s, e in records:
+        d = round(off[0] + slope * (s - at[0]))
+        out.append((name, s - d, e - d))
+    return out
+
+
+def in_seconds(records) -> list[tuple[str, float, float]]:
+    """Records [(name, start ns, end ns)] as seconds from the first start,
+    for ``summarize``."""
+    base = records[0][1] if records else 0
+    return [(name, 1e-9 * (s - base), 1e-9 * (e - base)) for name, s, e in records]
 
 
 def _profiled(fn):

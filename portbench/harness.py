@@ -3,29 +3,36 @@
 One run serves one cell once.  A cell (an entry of ``workloads`` in
 ``BENCHMARK.json``) names a configuration (``configs/<name>.json``: the
 slices and studies) and a traffic mix (``traffic/<name>.json``: how the
-studies are written and decoded).  Each metric is read by its own reader,
+studies are written and decoded).  The mix names its request path
+(``"path"``, ``micw`` where it names none): ``paths/<name>.py``, the
+program's writer, its staged plan, its two halves of a request and a
+plain decoder of the format.  Each metric is read by its own reader,
 ``metrics/<name>.py``.  Everything is found by name, so a new cell,
-configuration, mix or metric is new files and entries only.
+configuration, mix, path or metric is new files and entries only.
 
 Set-up: the pool of slices is drawn from the configuration and written
-as MICW containers by the program's host encoder; each staged study
-becomes one ``MicwDecodePlan`` of its own containers; every study is
-then served twice.  The window: requests, each one study in a seeded
-order, each ``plan.run()`` then ``plan.assemble_device(...)``, dispatched
-ahead of the card by at most ``in_flight`` requests, timed on the host's
-clock from the first submit to the closing synchronise, with no trace
-and nothing launched but the program's own work.  Each request's latency
-runs from its submit (the host's clock) to a CUDA event recorded after its
-assemble, placed on the host's clock by an event recorded at the window's
-start.  A ``--trace 1`` run serves an untraced stretch for the host's
-share and a traced one (``devtrace.py``) for the card's.  After the
-window, a seeded sample of the answers is compared with the generated
-slices and the pool's containers are decoded by the plain reference
-(``check.py``).
+by the path's ``encode``; each staged study becomes one plan of its own
+containers (the path's ``stage``); every study is then served twice.
+The window: requests, each one study in a seeded order, each the path's
+``launch`` then its ``answer``, dispatched ahead of the card by at most
+``in_flight`` requests, timed on the host's clock from the first submit
+to the closing synchronise, with no trace and nothing launched but the
+program's own work.  Each request's latency runs from its submit (the
+host's clock) to a CUDA event recorded after its answer, placed on the
+host's clock by an event recorded at the window's start.  A
+``--trace 1`` run records the program's own spans and counters through
+set-up, then serves an untraced stretch for the host's share, a stretch
+traced on the card (``devtrace.py``) for the card's, and a stretch traced
+both ways, each request inside the program's ``trace.request``, for the
+program's spans beside the card's records (``programtrace.py``).  After
+the window, a seeded sample of the answers is compared with the
+generated slices and the pool's containers are decoded by the path's
+plain reference (``check.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
 import json
@@ -37,7 +44,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import check, devtrace, roofline, studies
+from . import check, devtrace, programtrace, roofline, studies
 
 ROOT = Path(__file__).resolve().parent
 REPO = ROOT.parent
@@ -46,6 +53,7 @@ WARMUP_ROUNDS = 2  # set-up serves every staged study this many times
 CHECK_SAMPLE = 8  # requests of the window drawn for the comparison, besides each study's last
 TRACE_REQUESTS = 200  # requests of each stretch of a --trace 1 run
 TRACE_TRIES = 2  # traced stretches tried before a run fails on a trace that lost records
+DEFAULT_PATH = "micw"  # the request path of a mix that names none
 
 
 def load_benchmark(path: Path = REPO / "BENCHMARK.json") -> dict:
@@ -60,14 +68,32 @@ def load_traffic(name: str, root: Path = ROOT) -> dict:
     return json.loads((root / "traffic" / f"{name}.json").read_text())
 
 
+def _load_module(kind: str, name: str, root: Path):
+    path = root / kind / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind[:-1]} {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def load_metric(name: str, root: Path = ROOT):
     """The reader of metric ``name``: ``metrics/<name>.py``'s ``read(ctx)``,
     which returns a number or None where it finds nothing to read."""
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}",
-                                                  root / "metrics" / f"{name}.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load_module("metrics", name, root).read
+
+
+def load_path(name: str, root: Path = ROOT):
+    """The request path ``name``: the module ``paths/<name>.py``, with
+    ``encode(pool, config, traffic)`` (the pool's containers, written by
+    the program's writer), ``stage(blobs, device, traffic)`` (one study's
+    plan), ``launch(plan)`` and ``answer(plan, outs)`` (a request's two
+    halves: the answer is [(int16 [w * h] on the device, w, h)] an image)
+    and ``reference_decode(blob)`` (a plain decoder, independent of the
+    program: (u16 [h * w], w, h)).  Raises FileNotFoundError, naming the
+    file, where there is none."""
+    return _load_module("paths", name, root)
 
 
 def find_cell(bench: dict, workload: str) -> dict:
@@ -90,25 +116,28 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def _untraced(_request):
+    return contextlib.nullcontext()
+
+
 class Served:
-    """The staged studies of one run and what serving them needs."""
+    """The staged studies of one run and what serving them needs; the
+    mix's request path (``load_path``) writes, stages and serves them."""
 
     def __init__(self, config: dict, traffic: dict, seed: int, device, root: Path = ROOT):
-        from mic_tpu_torch.tpu.strips import MicwDecodePlan, micw_compress
-
+        self.path = load_path(traffic.get("path", DEFAULT_PATH), root)  # before any set-up
         self.traffic, self.device = traffic, device
         self.width, self.height = config["width"], config["height"]
         self.pool = studies.make_pool(config, root)
-        self.blobs = studies.encode_pool(self.pool, config, traffic, micw_compress)
+        self.blobs = self.path.encode(self.pool, config, traffic)
         self.studies = studies.make_studies(config, seed)
         npx = self.width * self.height
         self.pixel_bytes = [2 * npx * len(s) for s in self.studies]
         self.request_bytes = [roofline.request_bytes([len(self.blobs[j]) for j in s], npx * len(s))
                               for s in self.studies]
         t0 = time.perf_counter()
-        # each slice its own container object, as a study read from storage
-        self.plans = [MicwDecodePlan([bytes(bytearray(self.blobs[j])) for j in s], device,
-                                     scan=traffic["scan"]) for s in self.studies]
+        self.plans = [self.path.stage([self.blobs[j] for j in s], device, traffic)
+                      for s in self.studies]
         self.plan_stage_s = time.perf_counter() - t0
         self.order = studies.request_order(len(self.studies), seed)
         self.cuda = self.device.type == "cuda"
@@ -120,17 +149,21 @@ class Served:
             torch.cuda.synchronize(self.device)
 
     def serve(self, *, seconds: float | None = None, requests: int | None = None,
-              sample: check.Sample | None = None) -> dict:
+              sample: check.Sample | None = None, spans=None) -> dict:
         """Serve requests until ``seconds`` have passed or ``requests`` were
         made, at most ``in_flight`` ahead of the card, then wait for the
-        card.  Returns the requests, their pixel and request bytes, the wall
-        seconds from the first submit to the closing synchronise, the host
-        seconds spent inside the program's calls (in all, and inside
-        ``run()`` alone), and each request's latency in ms, from its submit
-        to the end of its assemble on the card."""
+        card; with ``spans`` (the program's tracer) each request's two
+        calls run inside ``spans.request(i)``, i counting from 0.  Returns
+        the requests, their pixel and request bytes, the wall seconds from
+        the first submit to the closing synchronise, the host seconds spent
+        inside the program's calls (in all, and inside ``launch`` alone),
+        and each request's latency in ms, from its submit to the end of its
+        answer on the card."""
         import torch
 
         depth = self.traffic["in_flight"]
+        launch, answer = self.path.launch, self.path.answer
+        request = _untraced if spans is None else spans.request
         inflight: deque = deque()
         pixel_bytes = request_bytes = n = 0
         in_call = in_run = 0.0
@@ -147,9 +180,10 @@ class Served:
             k = next(self.order)
             plan = self.plans[k]
             t = clock()
-            outs = plan.run()
-            t_run = clock()
-            images = plan.assemble_device(outs)
+            with request(n):
+                outs = launch(plan)
+                t_run = clock()
+                images = answer(plan, outs)
             t_end = clock()
             in_call += t_end - t
             in_run += t_run - t
@@ -193,15 +227,15 @@ def _quiet(fn):
         gc.enable()
 
 
-def _traced(served: Served, n: int, sample: check.Sample):
-    """A traced stretch of ``n`` requests: (the stretch, its device
-    intervals).  A stretch whose trace lost a record of a port launch is
-    served again in a new session, up to ``TRACE_TRIES`` in all; the run
-    fails if the last one lost records too."""
+def _traced(served: Served, stretch):
+    """``stretch()`` under ``devtrace.profiled`` with the garbage collector
+    held off: (its result, the card's records on the wall clock, the trace
+    clock's error).  A stretch whose trace lost a record of a port launch
+    is served again in a new session, up to ``TRACE_TRIES`` in all; the
+    run fails if the last one lost records too."""
     for attempt in range(TRACE_TRIES):
         try:
-            return _quiet(lambda: devtrace.profiled(lambda: served.serve(requests=n,
-                                                                         sample=sample)))
+            return _quiet(lambda: devtrace.profiled(stretch, served.device))
         except devtrace.LostRecords as exc:
             if attempt + 1 == TRACE_TRIES:
                 raise
@@ -218,7 +252,7 @@ def _window_note(w: dict, allocs: int) -> str:
     half = len(ms) // 2
     return (f"portbench: window {w['wall_s']:.3f} s, {w['requests']} requests, "
             f"{w['pixel_bytes'] / w['wall_s'] / 1e9:.3f} GB/s, host in the program "
-            f"{w['dispatch_s']:.3f} s (run() {w['run_s']:.3f}), latency ms mean "
+            f"{w['dispatch_s']:.3f} s (launch {w['run_s']:.3f}), latency ms mean "
             f"{np.mean(ms):.4f} (halves {np.mean(ms[:half]):.4f} / {np.mean(ms[half:]):.4f}), "
             f"device mallocs {allocs}")
 
@@ -246,16 +280,27 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
     """Serve one cell once on ``device``; returns (the result line, the
     numbers compared).  ``t_start`` is the process's first clock reading:
     set-up runs from it to the end of the warm-up.  ``root`` holds the
-    configurations, mixes and readers."""
+    configurations, mixes, paths and readers."""
     import torch
 
     device = torch.device(device)
     cell = find_cell(bench, workload)
     config, traffic = load_config(cell["config"], root), load_traffic(cell["traffic"], root)
-    t_served = time.perf_counter()
-    served = Served(config, traffic, seed, device, root)
-    t_warm = time.perf_counter()
-    served.serve(requests=WARMUP_ROUNDS * len(served.studies))
+    # the program's spans and counters, in a traced run only: from staging
+    # to the end of the warm-up, then in a stretch of their own
+    trace = programtrace.tracer() if traced else None
+    if trace is not None:
+        trace.take()
+        trace.enable()
+    try:
+        t_served = time.perf_counter()
+        served = Served(config, traffic, seed, device, root)
+        t_warm = time.perf_counter()
+        served.serve(requests=WARMUP_ROUNDS * len(served.studies))
+    finally:
+        if trace is not None:
+            setup = trace.take()
+            trace.disable()
     setup_s = time.perf_counter() - t_start
     print(f"portbench: set-up {setup_s:.3f} s: start and load {t_served - t_start:.3f}, pool "
           f"and plans {t_warm - t_served:.3f} (plans {served.plan_stage_s:.3f}), warm-up "
@@ -277,8 +322,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
         n = TRACE_REQUESTS
         ctx["dispatch"] = _quiet(lambda: served.serve(requests=n, sample=sample))
         port = devtrace.port_kernels()
-        stretch, spans = _traced(served, n, sample)
-        summary = devtrace.summarize(spans, port)
+        stretch, records, _off = _traced(served, lambda: served.serve(requests=n, sample=sample))
+        summary = devtrace.summarize(devtrace.in_seconds(records), port)
         ctx["trace"] = {**stretch, **summary, "port": port}
         ctx["card"] = roofline.peaks(dev["kind"])
         attempted = ctx["dispatch"]["requests"] + stretch["requests"]
@@ -286,6 +331,15 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
                    power_limit=power_limit())
         line["breakdown"] = devtrace.breakdown(summary, max(stretch["wall_s"] - summary["span_s"],
                                                          0.0))
+        if trace is not None:
+            program = programtrace.program_stretch(*_traced(
+                served, lambda: programtrace.serve_traced(served, trace, n, sample)))
+            ctx["program"] = programtrace.program_ctx(setup, program)
+            attempted += program["requests"]
+            line["breakdown"].update(programtrace.breakdown(ctx["program"]))
+            print(programtrace.setup_note(ctx["program"]), file=sys.stderr)
+            print(programtrace.stretch_note(ctx["program"], ctx["dispatch"], stretch),
+                  file=sys.stderr)
     dev["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(device)) if served.cuda else 0
     metrics = {}
     for m in cell_metrics(bench, workload, traced):
@@ -302,8 +356,9 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
                                                       served.width, served.height)
     del kept, pool_dev
     numbers = {"pixels_wrong": wrong,
-               "blob_pixels_wrong": check.blob_pixels_wrong(served.blobs, served.pool,
-                                                            served.width, served.height),
+               "blob_pixels_wrong": check.blob_pixels_wrong(
+                   served.blobs, served.pool, served.width, served.height,
+                   served.path.reference_decode),
                "studies_unchecked": unchecked}
     result = {"correct": check.verdict(numbers), "attempted": attempted, "failed": failed,
               "metrics": metrics, "device": dev, **line,

@@ -1,5 +1,6 @@
 """dispatch_ms: host milliseconds a request inside the program's calls
-(``plan.run()`` and ``plan.assemble_device``), without a synchronise,
+(the request path's ``launch`` and ``answer``: on the ``micw`` path
+``plan.run()`` and ``plan.assemble_device``), without a synchronise,
 over an untraced stretch of the trace run."""
 
 

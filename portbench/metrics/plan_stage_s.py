@@ -1,6 +1,6 @@
-"""plan_stage_s: host seconds of building the staged studies'
-``MicwDecodePlan`` objects (container parse, bucket keying, tables,
-packings, copies to the card)."""
+"""plan_stage_s: host seconds of staging the studies' plans, the request
+path's ``stage`` a study (on the ``micw`` path: container parse, bucket
+keying, tables, packings, copies to the card)."""
 
 
 def read(ctx):

@@ -1,13 +1,10 @@
 """run_host_ms: host milliseconds a request of the program's ``plan.run``
-span (``MicwDecodePlan.run()``: its Python and its launches, no
+span (a staged plan's launches: its Python and its launch calls, no
 synchronise) over the program-traced stretch, from the program's own
 tracer (``portbench/programtrace.py``)."""
 
-from portbench.programtrace import span_seconds
+from portbench.programtrace import stretch_ms
 
 
 def read(ctx):
-    p = ctx.get("program")
-    if not p or not p["stretch"]["requests"]:
-        return None
-    return 1e3 * span_seconds(p["stretch"]["spans"], "plan.run") / p["stretch"]["requests"]
+    return stretch_ms(ctx, "plan.run")

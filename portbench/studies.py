@@ -3,11 +3,12 @@ drawn from ``--seed``.
 
 A configuration (``configs/<name>.json``) names one real slice and how to
 vary it; a traffic mix (``traffic/<name>.json``) names how the slices are
-written and decoded.  The configuration's ``pool_seed`` draws its pool of
-distinct slices (shifted, flipped and offset copies of the real one,
-never transposed); from a run's seed this module draws the studies (the
-configuration's study sizes, each study every pool slice in turn, in a
-seeded order) and an endless request order (rounds, each a seeded
+written and decoded (its request path, ``paths/<name>.py``, writes them).
+The configuration's ``pool_seed`` draws its pool of distinct slices
+(shifted, flipped and offset copies of the real one, never transposed);
+from a run's seed this module draws the studies (the configuration's
+study sizes, each study every pool slice in turn, in a seeded order) and
+an endless request order (rounds, each a seeded
 permutation of the studies).  So every seed serves the same slices in
 the same amounts, in another order: the seed changes the order of the
 work, not the work.  It imports nothing of the program.
@@ -90,13 +91,3 @@ def request_order(n_studies: int, seed: int):
 def sample_rng(seed: int) -> np.random.Generator:
     """The generator that picks the requests whose outputs are checked."""
     return streams(seed)[_SAMPLE]
-
-
-def encode_pool(pool: np.ndarray, config: dict, traffic: dict, compress) -> list[bytes]:
-    """Each pool slice written as a MICW container by ``compress`` (the
-    program's host encoder), with the traffic mix's predictor, entropy
-    coder and lanes, and the slice's own maximum as its maxValue."""
-    w, h = config["width"], config["height"]
-    return [compress(px, w, h, int(px.max()), lanes=traffic["lanes"],
-                     predictor=traffic["predictor"], entropy=traffic["entropy"])
-            for px in pool]

@@ -13,7 +13,9 @@ REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
 SMALL = {"ct_512_study": [1, 2], "mr_256_exam": [3, 4]}  # study sizes of the CPU runs
-CPU_SECONDS = 6.0  # a CPU run's window: a few requests of the slowest cell's plain twins
+# a CPU run's window: a few requests of the slowest cell's plain twins, each
+# staged study at least once while other test workers load the CPU
+CPU_SECONDS = 12.0
 
 
 @pytest.fixture

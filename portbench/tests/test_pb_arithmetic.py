@@ -1,5 +1,7 @@
 """The byte, roofline and trace arithmetic on hand-computed cases."""
 
+import types
+
 import pytest
 
 from portbench import devtrace, harness, roofline
@@ -62,8 +64,8 @@ def test_latency_runs_from_submit_to_the_end_of_the_request(monkeypatch):
     times = iter([0.0, 0.0, 1.0, 1.5, 2.0, 2.0, 2.25, 2.5])  # window start, 3 a request, end
     monkeypatch.setattr(harness.time, "perf_counter", lambda: next(times))
     served = harness.Served.__new__(harness.Served)
-    plan = type("Plan", (), {"run": lambda self: {}, "assemble_device": lambda self, d: []})()
-    served.traffic, served.cuda, served.plans = {"in_flight": 2}, False, [plan]
+    served.path = types.SimpleNamespace(launch=lambda plan: {}, answer=lambda plan, outs: [])
+    served.traffic, served.cuda, served.plans = {"in_flight": 2}, False, [object()]
     served.pixel_bytes, served.request_bytes = [100], [60]
     served.order = iter([0, 0])
     w = served.serve(requests=2)

@@ -11,11 +11,9 @@ MR = harness.load_config("mr_256_exam")
 
 @pytest.fixture(scope="module")
 def pool_and_blobs():
-    from mic_tpu_torch.tpu.strips import micw_compress
-
     pool = studies.make_pool({**MR, "pool_slices": 3})
     traffic = harness.load_traffic("ratio")
-    return pool, studies.encode_pool(pool, MR, traffic, micw_compress)
+    return pool, harness.load_path("micw").encode(pool, MR, traffic)
 
 
 def answers(pool, study):
@@ -29,7 +27,7 @@ def test_right_answers_compare_clean(pool_and_blobs):
     pool_dev = torch.from_numpy(pool.view(np.int16))
     kept = [(0, answers(pool, study))]
     assert check.compare_requests(kept, [np.array(study)], pool_dev, 256, 256) == (0, 0, 0)
-    assert check.blob_pixels_wrong(blobs, pool, 256, 256) == 0
+    assert check.blob_pixels_wrong(blobs, pool, 256, 256, reference.decode_micw) == 0
 
 
 def test_one_flipped_pixel_is_not_correct(pool_and_blobs):
@@ -70,16 +68,18 @@ def test_unchecked_study_is_counted(pool_and_blobs):
 def test_a_blob_that_no_longer_decodes_is_not_correct(pool_and_blobs):
     pool, blobs = pool_and_blobs
     cut = blobs[1][:len(blobs[1]) // 2]  # the strip data cut off
-    assert check.blob_pixels_wrong([blobs[0], cut], pool[:2], 256, 256) == 65536
+    assert check.blob_pixels_wrong([blobs[0], cut], pool[:2], 256, 256,
+                                   reference.decode_micw) == 65536
     body = bytearray(blobs[2])
     body[-100] ^= 0x5A  # a damaged word of the last strip's stream
-    assert check.blob_pixels_wrong([bytes(body)], pool[2:], 256, 256) > 0
+    assert check.blob_pixels_wrong([bytes(body)], pool[2:], 256, 256,
+                                   reference.decode_micw) > 0
 
 
 def test_control_is_not_correct(pool_and_blobs):
     pool, blobs = pool_and_blobs
     studies_ = [np.array([0, 1]), np.array([2, 2, 0])]
-    kept = check.control_answers(blobs, studies_, torch.device("cpu"))
+    kept = check.control_answers(blobs, studies_, torch.device("cpu"), reference.decode_micw)
     wrong, failed, unchecked = check.compare_requests(kept, studies_,
                                                       torch.from_numpy(pool.view(np.int16)),
                                                       256, 256)

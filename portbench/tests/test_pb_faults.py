@@ -77,17 +77,17 @@ def control_reading(workload: str, seed: int, device, root=harness.ROOT) -> dict
     cell = harness.find_cell(BENCH, workload)
     config = harness.load_config(cell["config"], root)
     traffic = harness.load_traffic(cell["traffic"], root)
-    from mic_tpu_torch.tpu.strips import micw_compress
-
+    path = harness.load_path(traffic.get("path", harness.DEFAULT_PATH), root)
     pool = studies.make_pool(config, root)
-    blobs = studies.encode_pool(pool, config, traffic, micw_compress)
+    blobs = path.encode(pool, config, traffic)
     staged = studies.make_studies(config, seed)
-    kept = check.control_answers(blobs, staged, device)
+    kept = check.control_answers(blobs, staged, device, path.reference_decode)
     pool_dev = torch.from_numpy(pool.view(np.int16)).to(device)
     wrong, failed, unchecked = check.compare_requests(kept, staged, pool_dev, config["width"],
                                                       config["height"])
     numbers = {"pixels_wrong": wrong, "blob_pixels_wrong": check.blob_pixels_wrong(
-        blobs, pool, config["width"], config["height"]), "studies_unchecked": unchecked}
+        blobs, pool, config["width"], config["height"], path.reference_decode),
+        "studies_unchecked": unchecked}
     return {"numbers": numbers, "correct": check.verdict(numbers), "failed": failed,
             "pixels": sum(len(s) for s in staged) * config["width"] * config["height"]}
 

@@ -4,7 +4,10 @@ plain reference imports nothing of the program, and nothing of it reads
 the JAX package's benchmark folder."""
 
 import ast
+import inspect
 from pathlib import Path
+
+import pytest
 
 from portbench import harness
 
@@ -51,6 +54,17 @@ def test_the_reference_takes_nothing_of_the_program():
         assert tops <= {"__future__", "struct", "json", "pathlib", "numpy"}, (module, tops)
     assert {n.split(".")[0] for n in _imports(PB / "check.py")} <= {
         "__future__", "struct", "sys", "numpy", "torch"}
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in (PB / "paths").glob("*.py")))
+def test_each_paths_reference_takes_nothing_of_the_program(name):
+    """A request path's plain decoder lives in a module that imports
+    nothing of the program (the path itself calls the program)."""
+    decode = harness.load_path(name).reference_decode
+    source = Path(inspect.getsourcefile(decode))
+    assert source.parent == PB or source.parent == PB / "paths", source
+    tops = {n.split(".")[0] for n in _imports(source)}
+    assert "mic_tpu_torch" not in tops and not tops & JAX, (source, tops)
 
 
 def test_nothing_reads_the_jax_benchmarks():

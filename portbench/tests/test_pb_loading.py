@@ -108,9 +108,13 @@ def test_new_files_are_found_without_edits(small_root):
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
-def test_every_cell_runs_on_the_cpu(small_root, workload):
+def test_every_cell_runs_on_the_cpu(small_root, workload, monkeypatch):
+    """An untraced run never turns the program's tracing on."""
+    from mic_tpu_torch import trace
+
+    monkeypatch.setattr(trace, "enable", lambda: pytest.fail("tracing on in an untraced run"))
     result, numbers = harness.run_cell(BENCH, workload, 2**31 + 11, CPU_SECONDS, False, "cpu",
                                        time.perf_counter(), small_root)
     assert result["correct"] and numbers == {k: 0 for k in numbers}
-    assert list(result)[-1] == "compared"
+    assert list(result)[-1] == "compared" and "breakdown" not in result
     assert set(result["metrics"]) == {"decode_GBps", "study_p95_ms", "setup_s"}

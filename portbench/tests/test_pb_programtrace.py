@@ -1,14 +1,13 @@
 """The readers of the program's spans and counters (``programtrace.py``
-and its metrics) on hand-made spans and gaps, the stretch on the CPU
-beside the harness's two, ``programtrace.run_cell`` against
-``harness.run_cell``, and on the card the program's clock against the
-trace's."""
+and its metrics) on hand-made spans and gaps, the trace clock's markers
+(``devtrace.py``), the program's stretch on the CPU beside the harness's
+two, a ``--trace 1`` run on the CPU, and on the card the program's clock
+against the trace's."""
 
 import copy
 import os
 import time
 
-import numpy as np
 import pytest
 import torch
 
@@ -82,7 +81,12 @@ def test_kernel_roofline_reads_its_own_kernel(kernel):
         == pytest.approx(want)
 
 
-@pytest.mark.parametrize("name", programtrace.NEW_METRICS)
+PROGRAM_METRICS = ["stage_parse_s", "stage_tables_s", "stage_upload_s", "run_host_ms",
+                   "assemble_host_ms", "direct_roofline", "rle_roofline", "lanes_roofline",
+                   "post_roofline"]
+
+
+@pytest.mark.parametrize("name", PROGRAM_METRICS)
 def test_reader_finds_nothing_without_the_program(name):
     """A parent without the tracer: no ``program`` in the context."""
     ctx = {"setup_s": 1.0, "plan_stage_s": 0.5, "card": CARD,
@@ -164,19 +168,19 @@ def test_markers_measure_the_trace_clock():
         + [("neg", t0 + 7_000 - 120_000, t0 + 9_000 - 120_000) for t0, _t1 in after]
     work = [("lanes_groups_kernel", 400_000, 450_000)]
     raw = sorted(marks + work, key=lambda r: r[1])
-    at, off, records = programtrace.clock_offsets(raw, before, after)
+    at, off, records = devtrace.clock_offsets(raw, before, after)
     assert off == (-100_000, -120_000) and records == work
     assert at == (-83_000, 897_000)  # the markers' middle records
-    ((name, s, e),) = programtrace.on_host_clock(records, at, off)
+    ((name, s, e),) = devtrace.on_host_clock(records, at, off)
     shift = 100_000 + 20_000 * (400_000 + 83_000) / 980_000
     assert name == "lanes_groups_kernel"
     assert s == pytest.approx(400_000 + shift, abs=1) and e - s == 50_000
     with pytest.raises(ValueError):
-        programtrace.clock_offsets(raw[1:], before, after)
+        devtrace.clock_offsets(raw[1:], before, after)
 
 
 def test_profiled_places_the_records_on_the_wall_clock(monkeypatch):
-    """``devtrace.profiled``'s seconds from the trace's start, placed by the
+    """The profiler session's seconds from the trace's start, placed by the
     markers before the work and corrected by those after: a trace whose
     clock starts at 5 s of the wall clock (ns) and drifts 20 us, linearly,
     between the markers' middles (17 us and 1037 us of its own clock)
@@ -187,7 +191,7 @@ def test_profiled_places_the_records_on_the_wall_clock(monkeypatch):
     last = [(base + 1_000_000 + 10_000 * i, base + 1_000_000 + 10_000 * i + 14_000)
             for i in range(3)]
     marks = iter([first, last])
-    monkeypatch.setattr(programtrace, "_markers", lambda x, n: next(marks))
+    monkeypatch.setattr(devtrace, "_markers", lambda x, n: next(marks))
 
     def fake(fn):
         # each marker's kernel at the middle of its call, the late ones
@@ -198,8 +202,8 @@ def test_profiled_places_the_records_on_the_wall_clock(monkeypatch):
         spans.append(("lanes_groups_kernel", 410_000 / 1e9, 460_000 / 1e9))
         return fn(), sorted(spans, key=lambda sp: sp[1])
 
-    monkeypatch.setattr(devtrace, "profiled", fake)
-    out, records, off = programtrace.profiled(lambda: "done", "cpu")
+    monkeypatch.setattr(devtrace, "_profiled", fake)
+    out, records, off = devtrace._placed(lambda: "done", "cpu")
     assert out == "done" and off[0] == 0 and off[1] == pytest.approx(20_000, abs=1)
     ((name, start, end),) = records
     assert name == "lanes_groups_kernel" and end - start == 50_000
@@ -210,7 +214,8 @@ def test_profiled_places_the_records_on_the_wall_clock(monkeypatch):
 def test_stretch_leaves_the_harness_stretches_alone(small_root):
     """On the CPU: the harness's two stretches, the existing readers and
     devtrace's outputs read the same before and after the program's
-    stretch, which records the program's spans and counters."""
+    stretch, which records the program's spans and counters, each request
+    inside its own ``request`` span."""
     bench = harness.load_benchmark()
     cell = bench["workloads"][0]
     config = harness.load_config(cell["config"], small_root)
@@ -219,21 +224,28 @@ def test_stretch_leaves_the_harness_stretches_alone(small_root):
     sample = check.Sample(studies.sample_rng(3), 2)
     ctx = {"setup_s": 1.0, "plan_stage_s": served.plan_stage_s, "card": CARD}
     ctx["dispatch"] = served.serve(requests=2, sample=sample)
-    stretch, spans = harness._traced(served, 2, sample)
+    stretch, records, off = harness._traced(served, lambda: served.serve(requests=2,
+                                                                         sample=sample))
+    assert records == [] and off is None  # no trace on the CPU
     port = devtrace.port_kernels()
-    summary = devtrace.summarize(spans, port)
+    summary = devtrace.summarize(devtrace.in_seconds(records), port)
     ctx["trace"] = {**stretch, **summary, "port": port}
     names = [m["name"] for m in harness.cell_metrics(bench, cell["name"], True)]
     before = {n: harness.load_metric(n)(ctx) for n in names}
     kept = copy.deepcopy({k: ctx[k] for k in ("dispatch", "trace")})
     b0 = devtrace.breakdown(summary, 0.0)
-    program = programtrace.program_stretch(served, 2)
+    trace = programtrace.tracer()
+    program = programtrace.program_stretch(*harness._traced(
+        served, lambda: programtrace.serve_traced(served, trace, 2)))
     ctx["program"] = programtrace.program_ctx(([], {}), program)
-    assert {n: harness.load_metric(n)(ctx) for n in names} == before
+    assert {n: harness.load_metric(n)(ctx) for n in names
+            if n not in PROGRAM_METRICS} == {n: v for n, v in before.items()
+                                             if n not in PROGRAM_METRICS}
     assert {k: ctx[k] for k in ("dispatch", "trace")} == kept
     assert devtrace.breakdown(summary, 0.0) == b0
     assert program["requests"] == 2 and program["records"] == []
     assert sorted({s.request for s in program["spans"]}) == [0, 1]
+    assert sorted(s.request for s in program["spans"] if s.name == "request") == [0, 1]
     assert {"plan.run", "run.lanes", "plan.assemble", "request"} <= {s.name for s in
                                                                     program["spans"]}
     assert program["counts"]["work_bytes.lanes"] > 0
@@ -241,36 +253,34 @@ def test_stretch_leaves_the_harness_stretches_alone(small_root):
         program["spans"], "plan.assemble") <= program["dispatch_s"]
 
 
-def test_run_cell_is_the_harness_run_with_a_third_stretch(small_root, monkeypatch):
-    """On the CPU: ``programtrace.run_cell`` is ``harness.run_cell`` (its
-    set-up, its two stretches, its metrics, its comparison) with the
-    program's spans through set-up and one more stretch of the same
-    length, served without a sample after the harness's; its line holds
-    the harness's keys and metrics and adds the program's."""
+def test_trace_run_on_the_cpu_reports_the_program_metrics(small_root, monkeypatch, capsys):
+    """On the CPU: a ``--trace 1`` run records the program's spans through
+    set-up and serves a third stretch of the same length, each request in
+    its own span, whose requests count as attempted.  Its line holds each
+    per-layer metric whose reader finds something: the staging parts and
+    the host's two spans; no roofline, since the CPU has no peaks and no
+    trace.  The breakdown names the host's spans and the stretch's note
+    its clock check."""
     monkeypatch.setattr(harness, "TRACE_REQUESTS", 2)
     bench = harness.load_benchmark()
     cell = bench["workloads"][0]["name"]
-    seed = 3_000_000_019
-    plain, _numbers = harness.run_cell(bench, cell, seed, 0.0, True, torch.device("cpu"),
-                                       time.perf_counter(), small_root)
-    line = programtrace.run_cell(bench, cell, seed, "cpu", time.perf_counter(), small_root)
-    staged = len(harness.load_config(bench["workloads"][0]["config"], small_root)
-                 ["study_slices"])
-    assert [tuple(s) for s in line["stretch"]["served"]] == [
-        (harness.WARMUP_ROUNDS * staged, None, False), (2, None, True), (2, None, True),
-        (2, None, False)]
-    assert line["correct"] is True and plain["correct"] is True
-    added = {"setup_spans", "setup_counts", "stretch"}
-    assert set(line) == set(plain) | added
-    assert set(line["metrics"]) == set(plain["metrics"]) | {
-        "stage_parse_s", "stage_tables_s", "stage_upload_s", "run_host_ms", "assemble_host_ms"}
-    assert set(line["breakdown"]) == set(plain["breakdown"]) | {"host_spans", "idle_by_span"}
-    assert line["compared"] == plain["compared"] and line["attempted"] == plain["attempted"]
-    assert harness.Served is not programtrace._Served  # put back
-    setup = dict(line["setup_spans"])
-    assert {"plan.stage", "plan.parse", "plan.tables", "plan.upload", "encode"} <= set(setup)
-    assert sum(v for k, v in line["setup_counts"].items() if k.startswith("strips.")) > 0
-    assert line["stretch"]["requests"] == 2 and line["stretch"]["clock_violations"] == 0
+    line, numbers = harness.run_cell(bench, cell, 3_000_000_019, 0.0, True,
+                                     torch.device("cpu"), time.perf_counter(), small_root)
+    assert line["correct"] is True and numbers == {k: 0 for k in numbers}
+    assert line["attempted"] == 3 * 2
+    names = {m["name"] for m in harness.cell_metrics(bench, cell, True)}
+    new = {"stage_parse_s", "stage_tables_s", "stage_upload_s", "run_host_ms",
+           "assemble_host_ms", "lanes_roofline"}
+    assert new <= names
+    reported = set(line["metrics"])
+    assert reported & new == new - {"lanes_roofline"}
+    assert all(line["metrics"][n]["value"] > 0 for n in new - {"lanes_roofline"})
+    assert {"host_spans", "idle_by_span", "device_ops", "idle_gaps"} <= set(line["breakdown"])
+    assert line["breakdown"]["host_spans"] and line["breakdown"]["idle_by_span"] == []
+    assert list(line)[-1] == "compared"
+    err = capsys.readouterr().err
+    assert "program stretch: clock_violations 0" in err and "program set-up: spans" in err
+    assert not programtrace.tracer().counters()  # tracing is off and taken
 
 
 def _process_age_s() -> float:
@@ -309,7 +319,7 @@ def test_a_span_holds_its_launch_on_the_card():
                 sd.rans_decode_lanes_groups(plan._scan_groups, plan.scan_packing)
                 torch.cuda.synchronize()
 
-        _out, records, off = programtrace.profiled(launch, device)
+        _out, records, off = devtrace.profiled(launch, device)
         (span,), _counts = trace.take()
         anchor = trace.anchor_ns()
     finally:
