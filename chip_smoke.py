@@ -35,7 +35,13 @@ Phases (any failure exits non-zero; nothing is caught):
    planes) and of CT_dev_1strip_tl15 x32, whole arrays, on the entropy
    launch's symbols and on a copy with ``POST_FLIPS`` symbols a bucket
    XORed with random words (damaged streams); with ms, plain ms, the bound
-   and the launch's blocks.
+   and the launch's blocks.  Then its interleaved route (``avg_i``, the
+   instance ``post_groups_kernel<true>``) at a PICS-8 CT study's shape:
+   ``PICS_STUDY`` containers of ``PICS_SLICES`` rolls of ``CT_2s.raw``
+   written by ``compress_parallel_strips_8state`` in 8 strips (4,096 FF 84
+   strips of 512x64), one ``PicsDecodePlan``, its post launch on the
+   plan's tANS outputs against ``post_batch``, clean and damaged, with the
+   instance's launch shape and the slots of its runs scratch.
    Encode: on the operands of CT_dev x128 under
    ``micw_compress_device_many`` (auto-fast; standard, and alias for the
    FF 41 form): 3 candidates x 4 strips x 128 = 1536 streams of 512
@@ -143,7 +149,8 @@ Phases (any failure exits non-zero; nothing is caught):
    alone (ms, and ns per step of its longest chain) beside the one
    launch, and a profiler line.  Then each entry point of
    ``tpu.ref_decode`` once on fewer replicas against the ``.raw`` pixels
-   (MIC3 level 1 against the same call on the CPU), with the host seconds
+   (MIC3 level 1 against the same call on the CPU; the PICS call one
+   tANS and one post launch), with the host seconds
    of the entropy and post stages, and ``ingest_plan(entropy="device",
    device_encode=True)`` on MR_pics4 x16 + MR_4s x16, whose decode plan
    must give back the pixels.
@@ -234,7 +241,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the input; each call's tANS launches counted from 0 beside its
    kernel-routed and host-routed stream counts (the CT streams, tableLog
    14-16, go to the host): the kernel must have launched exactly when a
-   stream was routed to it, and each reader at least once; ms by CUDA
+   stream was routed to it, and each reader at least once; the PICS
+   call's post launches counted from 0 too, one (its plan's); ms by CUDA
    events and GB/s of pixels.  (d) (b)'s MIC1 and PICS blobs through
    ``ingest_plan(..., device_encode=True, entropy="device")``, the plan
    decoded and every strip verified; the encode and direct kernels must
@@ -445,6 +453,7 @@ DIRECT_LAUNCHES_PER_RUN = 1  # direct-kernel launches per MicwDecodePlan.run(): 
 LANES_LAUNCHES_PER_RUN = 1  # lanes-kernel launches per MicwDecodePlan.run(): all scan buckets
 POST_LAUNCHES_PER_RUN = 1  # post-kernel launches per MicwDecodePlan.run(): all post buckets
 POST_FLIPS = 64  # symbols of each bucket's entropy output XORed in phase 2's damaged compare
+PICS_SLICES, PICS_STUDY = 32, 512  # phase 2's PICS-8 CT study: distinct slices, containers
 POST_KERNEL = "post_groups_kernel"  # the post kernel's profiler name
 SCAN_REPS = 20  # phase 10's timed pairs of plan.run() and the lanes launch alone
 RUNNER_REPS = 20  # runs a timed runner makes in phases 3 and 10
@@ -1075,6 +1084,87 @@ def _flipped_groups(groups, n: int, seed: int):
     return out
 
 
+def _post_launch_vs_plain(tag, pk, clean, seed: int, r, account: bool) -> None:
+    """One post launch (``post_decode_groups`` with the packing ``pk``)
+    against ``post_batch`` on the groups ``clean`` ([(entropy output,
+    meta, kw)]) and on a copy with ``POST_FLIPS`` symbols a bucket flipped
+    (``seed``): whole arrays, tolerance 0; prints kernel_ms, plain_ms and
+    bound_ms of each; the clean launch joins the report ``r`` where
+    ``account``."""
+    import torch
+
+    from mic_tpu_torch.tpu import post
+
+    name = "post_decode_groups"
+    kinds: dict[str, int] = {}
+    for _e, meta, kw in clean:
+        kinds[kw["predictor"]] = kinds.get(kw["predictor"], 0) + meta.shape[0]
+    for form, groups in (("clean", clean), ("flipped", _flipped_groups(clean, POST_FLIPS, seed))):
+        got = post.post_decode_groups(groups, pk)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = [post.post_batch(e, m[:, 0], m[:, 1], m[:, 2], **kw) for e, m, kw in groups]
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = _max_abs_err(got, want)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} {tag} {form}: kernel != post_batch "
+                                 f"(max abs err {err})")
+        ms = _cuda_ms(lambda: post.post_decode_groups(groups, pk), 10)
+        inputs = [t for e, m, _kw in groups for t in (e, m)]
+        n_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *got))
+        pixels = sum(o.numel() for o in got)
+        bound_ms = max(n_bytes / MEM_BPS, OPS_PER_ELEMENT[name] * pixels / CORE_OPS) * 1e3
+        print(f"kernel-vs-plain {name} {tag} {form}: {len(groups)} buckets, "
+              f"{len(pk.blocks)} blocks of one strip {kinds}, {len(pk.parts)} launch(es); "
+              f"equal=True max_abs_err={err} "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+              f"({n_bytes} bytes, {pixels} pixels)")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if form == "clean" and account:
+            _account(r, name, inputs, got, ms, plain_ms)
+        del got, want
+
+
+def _avg_i_stage_vs_plain(dev, report) -> None:
+    """Phase 2, the post stage's interleaved route (``avg_i``, the
+    kernel's instance ``post_groups_kernel<true>``) at the shape of a PICS-8
+    CT study: ``PICS_SLICES`` rolls of ``CT_2s.raw`` written by
+    ``compress_parallel_strips_8state`` in 8 strips of 64 rows, each
+    container ``PICS_STUDY // PICS_SLICES`` times, staged as one
+    ``PicsDecodePlan``; its post launch on the plan's tANS outputs against
+    ``post_batch``, clean and damaged; with the instance's launch shape
+    and the runs scratch's slots."""
+    import numpy as np
+
+    from mic_tpu_torch.parallel.strips import compress_parallel_strips_8state
+    from mic_tpu_torch.tpu import post
+    from mic_tpu_torch.tpu.ref_decode import PicsDecodePlan
+
+    ct = _raw_u16("CT_2s").reshape(512, 512)
+    slices = [np.roll(ct, (7 * k, 13 * k), axis=(0, 1)).ravel() for k in range(PICS_SLICES)]
+    blobs = [compress_parallel_strips_8state(px, 512, 512, int(px.max()), num_strips=8)
+             for px in slices]
+    t0 = time.perf_counter()
+    plan = PicsDecodePlan([bytes(blobs[i % PICS_SLICES]) for i in range(PICS_STUDY)], dev)
+    stage_s = time.perf_counter() - t0
+    if plan.host or len(plan._post_rows) != 1:
+        raise AssertionError(f"PICS-8 CT study: {len(plan.host)} host-routed strips, "
+                             f"{len(plan._post_rows)} post buckets (want 0 and 1)")
+    ent = plan.tans.run()
+    clean = [(ent[g][r0:r1], *pg) for (g, r0, r1), pg in zip(plan._post_rows, plan._post_groups)]
+    pk = plan.post_packing
+    print(f"PICS-8 CT study: {PICS_STUDY} containers of 512x512 ({PICS_SLICES} distinct), "
+          f"{len(plan.strips)} strips, staged in {stage_s:.3f} s; avg_i runs scratch "
+          f"{pk.slots} slots of {pk.kws[0]['max_runs']} runs ({16 * pk.runs_total} bytes)")
+    _post_launch_vs_plain("PICS-8-CT-study", pk, clean, 29, report["post_decode_groups"], False)
+    smem, per_sm, regs = post._launch_shape(interleaved=True)
+    print(f"post kernel launch shape, interleaved instance: {smem} bytes of shared memory a "
+          f"block, {per_sm} blocks an SM, {regs} registers a thread")
+    del plan, ent, clean
+
+
 def _post_stage_vs_plain(dev, report, post_blobs) -> None:
     """Phase 2, post stage: ``csrc/post.cu`` (one launch of
     ``post_decode_groups`` with the plan's packing) against its plain twin
@@ -1082,8 +1172,6 @@ def _post_stage_vs_plain(dev, report, post_blobs) -> None:
     batch and CT_dev_1strip_tl15 x32, on the entropy launch's symbols and
     on a copy with ``POST_FLIPS`` symbols a bucket flipped; the report
     takes phase 6's and phase 8's clean launches."""
-    import torch
-
     from mic_tpu_torch import MicwDecodePlan
     from mic_tpu_torch.tpu import post, rgb_device
 
@@ -1097,36 +1185,7 @@ def _post_stage_vs_plain(dev, report, post_blobs) -> None:
         pk = plan.post_packing
         outs = _entropy_outputs(plan)
         clean = [(outs[k], *g) for k, g in zip(plan._post_keys, plan._post_groups)]
-        kinds: dict[str, int] = {}
-        for _e, meta, kw in clean:
-            kinds[kw["predictor"]] = kinds.get(kw["predictor"], 0) + meta.shape[0]
-        for form, groups in (("clean", clean), ("flipped", _flipped_groups(clean, POST_FLIPS,
-                                                                           19 + seed))):
-            got = post.post_decode_groups(groups, pk)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            want = [post.post_batch(e, m[:, 0], m[:, 1], m[:, 2], **kw) for e, m, kw in groups]
-            end.record()
-            torch.cuda.synchronize()
-            plain_ms = start.elapsed_time(end)
-            err = _max_abs_err(got, want)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"{name} {tag} {form}: kernel != post_batch "
-                                     f"(max abs err {err})")
-            ms = _cuda_ms(lambda: post.post_decode_groups(groups, pk), 10)
-            inputs = [t for e, m, _kw in groups for t in (e, m)]
-            n_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *got))
-            pixels = sum(o.numel() for o in got)
-            bound_ms = max(n_bytes / MEM_BPS, OPS_PER_ELEMENT[name] * pixels / CORE_OPS) * 1e3
-            print(f"kernel-vs-plain {name} {tag} {form}: {len(groups)} buckets, "
-                  f"{len(pk.blocks)} blocks of one strip {kinds}, {len(pk.parts)} launch(es); "
-                  f"equal=True max_abs_err={err} "
-                  f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
-                  f"({n_bytes} bytes, {pixels} pixels)")
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if form == "clean" and tag != "CT_dev_1strip_tl15x32":
-                _account(r, name, inputs, got, ms, plain_ms)
-            del got, want
+        _post_launch_vs_plain(tag, pk, clean, 19 + seed, r, tag != "CT_dev_1strip_tl15x32")
         if tag != "CT_dev_1strip_tl15x32":  # each bucket alone: where the launch's time goes
             for e, m, kw in clean:
                 one = [(e, m, kw)]
@@ -1388,6 +1447,7 @@ def _ref_entry_points(dev) -> None:
     from mic_tpu_torch.parallel.strips import pics_strip_blobs
     from mic_tpu_torch.tpu import rans_decode as rd
     from mic_tpu_torch.tpu import rans_encode as renc
+    from mic_tpu_torch.tpu.post import post_decode_groups
     from mic_tpu_torch.tpu.ref_decode import _invert
     from mic_tpu_torch.tpu.tans_decode import tans_decode_groups
     from mic_tpu_torch.utils.io import read_mic1
@@ -1429,9 +1489,12 @@ def _ref_entry_points(dev) -> None:
     names = ["MR_pics4", "MR_pics8", "CT_pics4", "CT_pics8"] * 4
     pics = {n: (TESTDATA / f"{n}.pics").read_bytes() for n in set(names)}
     t0 = time.perf_counter()
-    outs = counted("decompress_pics_device_many",
-                   lambda: decompress_pics_device_many([pics[n] for n in names], dev))
+    outs, launched = _counted("decompress_pics_device_many",
+                              lambda: decompress_pics_device_many([pics[n] for n in names], dev),
+                              (tans_decode_groups, post_decode_groups))
     total_s = time.perf_counter() - t0
+    if launched["post_decode_groups"] != 1:
+        raise AssertionError(f"decompress_pics_device_many: {launched} (one post launch a plan)")
     check(f"decompress_pics_device_many x4 ({len(names)} containers, {total_s:.3f} s)",
           all(np.array_equal(px, raw(n)) for (px, _w, _h), n in zip(outs, names)))
     parsed = [pics_strip_blobs(pics[n]) for n in names]
@@ -2733,26 +2796,25 @@ def _write_all():
 
 
 def _observed_routes(fn):
-    """fn() with tpu.ref_decode's entropy batch call observed: returns
+    """fn() with every entropy plan it stages observed (``TansDecodePlan``:
+    ``fse_decompress_device_batch``'s and ``PicsDecodePlan``'s): returns
     (result, streams routed to the tANS kernel, streams routed to the
     host) over the call."""
-    from mic_tpu_torch.tpu import ref_decode
+    from mic_tpu_torch.tpu import tans_decode
 
     seen = {"kernel": 0, "host": 0}
-    batch = ref_decode.fse_decompress_device_batch
+    init = tans_decode.TansDecodePlan.__init__
 
-    def observed(blobs, device, stats=None):
-        st = {}
-        out = batch(blobs, device, stats=st)
-        seen["kernel"] += st["kernel"]
-        seen["host"] += len(st["host"])
-        return out
+    def observed(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        seen["kernel"] += self.stats["kernel"]
+        seen["host"] += len(self.stats["host"])
 
-    ref_decode.fse_decompress_device_batch = observed
+    tans_decode.TansDecodePlan.__init__ = observed
     try:
         return fn(), seen["kernel"], seen["host"]
     finally:
-        ref_decode.fse_decompress_device_batch = batch
+        tans_decode.TansDecodePlan.__init__ = init
 
 
 def _reader_call(what, fn, px_bytes, launched):
@@ -2796,6 +2858,7 @@ def _writers_phase(dev):
         read_wsi_header,
     )
     from mic_tpu_torch.ops.pyramid import downsample2x_rgb
+    from mic_tpu_torch.tpu import post
     from mic_tpu_torch.tpu import rans_decode as rd
     from mic_tpu_torch.tpu import rans_encode as renc
     from mic_tpu_torch.utils.io import read_mic1
@@ -2833,12 +2896,17 @@ def _writers_phase(dev):
     pics = [written[("pics", (k, MOSAIC_COPIES))][1] for k in (4, 8)] + [
         written[("fixture", n)][1] for n in pics_names]
     want = [mosaic] * 2 + [_raw_u16(n[:-5]) for n in pics_names]
+    post.post_decode_groups.launches = 0
     outs = _reader_call(f"decompress_pics_device_many ({len(pics)} PICS: the mosaic's 2 + "
                         f"(a)'s {len(pics_names)})",
                         lambda: decompress_pics_device_many(pics, dev),
                         sum(w.nbytes for w in want), launched.setdefault("pics", []))
     if not all(np.array_equal(px, w) for (px, _w, _h), w in zip(outs, want)):
         raise AssertionError("decompress_pics_device_many decoded wrong pixels")
+    print(f"reader decompress_pics_device_many: post launches={post.post_decode_groups.launches}")
+    if post.post_decode_groups.launches != 1:
+        raise AssertionError(f"decompress_pics_device_many: {post.post_decode_groups.launches} "
+                             "post launches (one a plan)")
     for img, psize in (("CT", 512), ("MR", 256)):
         frames = _rolled_series(_raw_u16(f"{img}_2s").reshape(psize, psize), SERIES_FRAMES)
         for temporal in (False, True):
@@ -3535,6 +3603,7 @@ def main() -> int:
     post_blobs, post_expected, post_names = _post_batch(dev)
     _post_kernels_vs_plain(dev, report, post_blobs)
     _post_stage_vs_plain(dev, report, post_blobs)
+    _avg_i_stage_vs_plain(dev, report)
     scan_blobs, scan_expected, scan_names = _scan_batch()
     _lanes_kernels_vs_plain(dev, report, scan_blobs)
     _tans_kernels_vs_plain(dev, report)

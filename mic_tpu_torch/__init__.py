@@ -36,7 +36,9 @@ entropy stage on the GPU too: ``fse_decompress_device_batch`` decodes
 FF 02/04/84/08 streams through a hand-written tANS kernel (1-state
 streams and streams past its caps on the host), and the
 ``decompress_*_device`` functions of ``tpu.ref_decode`` serve MIC1
-frames, PICS containers, MIC2 series and MIC3 pyramids through it;
+frames, PICS containers, MIC2 series and MIC3 pyramids through it (PICS
+through ``PicsDecodePlan``, which keeps its answer on the GPU, as
+``MicwDecodePlan`` does);
 ``tpu.ingest`` (``transcode_frame``, ``transcode_pics``,
 ``transcode_auto``, ``ingest_plan``) transcodes them to MICW,
 byte-identical to ``mic_tpu.tpu.ingest``.
@@ -162,6 +164,7 @@ from .tpu.ingest import ingest_plan, transcode_auto, transcode_frame, transcode_
 from .tpu.kernels import wavelet_forward_2d_separated, wavelet_inverse_2d_separated
 from .tpu.rans_encode import micw_compress_device, micw_compress_device_many
 from .tpu.ref_decode import (
+    PicsDecodePlan,
     decompress_frames_device,
     decompress_mic2_device,
     decompress_mic2_frame_device,
@@ -307,6 +310,7 @@ __all__ = [
     "micw_decompress_scan",
     "micw_parse",
     "MicwDecodePlan",
+    "PicsDecodePlan",
     "micwr_compress",
     "micwr_compress_device",
     "micwr_compress_device_many",

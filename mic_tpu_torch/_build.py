@@ -81,8 +81,11 @@ _SIGNATURES = {
     # groups, blocks, n_blocks, ents, cols (host arrays), n_groups, out, runs,
     # flags, stream
     "mic_post_groups": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
-    # out (int[3]: shared bytes a block, blocks an SM, registers a thread)
-    "mic_post_shape": [_P],
+    # the same, and busy, n_slots before the stream
+    "mic_post_groups_interleaved": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P],
+    # out (int[3]: shared bytes a block, blocks an SM, registers a thread),
+    # interleaved
+    "mic_post_shape": [_P, _I],
 }
 
 

@@ -20,6 +20,15 @@
 //                    offsets are escape markers and the token after each
 //                    is a raw pixel), then the segmented left-delta
 //                    inverse (zz) or the avg(left, top) inverse (avg).
+//   avg_i            the reference formats' strips (a PICS strip, a
+//                    single-frame blob): the symbols are the Init word
+//                    and an interleaved RLE stream (a count <= mid and a
+//                    value, or a count > mid and count - mid literals,
+//                    ops/rle.py), whose run headers are found here; then
+//                    the escape parse and the avg inverse as for avg.
+//                    The strip's mid comes from its Init word and its
+//                    delim from token 0 (deltarle.py's reading), so each
+//                    strip has its own (post.py: _interleaved_avg).
 // Every clamp of the twin holds, so damaged streams give its output bit
 // for bit: gathers clipped to the stream, tokens past the expand's count
 // 0, a pixel past the count of token starts takes position 0's value,
@@ -80,10 +89,29 @@
 //    are aligned (8 two-byte loads where not), the next window's in flight,
 //    with their 32 flag bits by a funnel shift.
 //
+// avg_i's front end: warp 0 walks the headers from word 0, a window of 32
+// words a load: each lane computes its word's next header (q + 2 after a
+// same-run count, q + 1 + count - mid after a literal one, clamped to the
+// last word, where a fixed point ends the walk), the walk hops through the
+// window by shuffles and loads the next window where a hop leaves it.  A
+// PICS-8 CT strip has 27-145 runs, its literal runs thousands of words
+// long, so a strip costs about one dependent load a literal run.  The
+// header positions go to the runs' start array, then a thread a run turns
+// them into (first token, source) with one scan of the lengths, and the
+// token location, the parse and the avg inverse run as for avg.  The
+// kernel is a template: post_groups_kernel<true> holds this front end and
+// takes the launches with an avg_i bucket, post_groups_kernel<false>,
+// MICW's routes alone, is the kernel as it was without it.
+//
 // Shared memory, static: the runs (12 bytes a run) or the avg rings, the
 // flag bits, the scans' warp totals.  Device scratch, made by the wrapper:
 // the runs of strips past kRunsSmem runs (16 bytes a run of max_runs a
-// strip) and the flag bits of strips past kFlagBits pixels.
+// strip) and the flag bits of strips past kFlagBits pixels.  An avg_i
+// bucket's runs scratch is not a strip's but a slot's: the walk finds a
+// strip's header count only as it goes, so where it passes kRunsSmem the
+// block claims one of Slots' n slots (the blocks of the instance resident
+// on the card at once) and frees it once its parse has read the runs; a
+// holder waits on nothing, so a claim always ends.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (mic_tpu_torch/_build.py).  The C entry point returns
@@ -139,8 +167,8 @@ constexpr int kAvgBytes = kWarps * 2 * 16;  // the warps' rings: two steps of 8 
 constexpr int kRunsBytes = kRunsSmem * 12;
 constexpr int kPoolBytes = kRunsBytes > kAvgBytes ? kRunsBytes : kAvgBytes;
 
-// post.py: PREDICTORS
-enum Pred { kZzd = 0, kVdd, kPdd, kZzr, kVdr, kPdr, kZz, kAvg };
+// post.py: ROUTES
+enum Pred { kZzd = 0, kVdd, kPdd, kZzr, kVdr, kPdr, kZz, kAvg, kAvgI };
 
 // One bucket's post stage (post.py: _GROUP_DESC, 64 bytes).
 struct Group {
@@ -155,6 +183,13 @@ struct Group {
 struct Ents {
   const uint16_t* p[kMaxGroups];
   int cols[kMaxGroups];
+};
+
+// avg_i's runs-scratch slots: busy[i] is 1 while a block holds slot i, 0
+// before and after every launch (post.py: PostPacking.slots, .busy).
+struct Slots {
+  int* busy;
+  int n;
 };
 
 // The escape parse's map of a stretch of positions: incoming marker bit
@@ -601,10 +636,182 @@ __device__ void avg_rows(uint16_t* o, const unsigned* fw, int w, int h, int thr,
   }
 }
 
+// The raw flags of strip s of an escaped route, a bit a pixel, zeroed: in
+// shared memory up to kFlagBits pixels, else in the flags scratch.
+__device__ __forceinline__ unsigned* zeroed_flags(const Group& g, int s, long long need,
+                                                  unsigned* s_flags, unsigned* flags) {
+  unsigned* fw =
+      need <= kFlagBits ? s_flags : flags + g.flags_off + (long long)s * ((need + 31) >> 5);
+  for (long long i = threadIdx.x; i < (need + 31) >> 5; i += kThreads) fw[i] = 0;
+  return fw;
+}
+
+// The bit length of v (0 for 0).
+__device__ __forceinline__ int bit_length(unsigned v) { return v ? 32 - __clz((int)v) : 0; }
+
+// avg_i: slot i of group g's runs scratch, (source, start) of max_runs
+// runs each.
+__device__ __forceinline__ long long* slot_runs(const Group& g, unsigned char* runs, int i) {
+  return (long long*)(runs + 16 * (g.runs_off + (long long)i * g.max_runs));
+}
+
+// avg_i: a free slot, claimed from the block's own onwards.
+__device__ int claim_slot(const Slots& sl) {
+  for (int i = blockIdx.x % sl.n;; i = i + 1 < sl.n ? i + 1 : 0)
+    if (atomicCAS(sl.busy + i, 0, 1) == 0) {
+      __threadfence();
+      return i;
+    }
+}
+
+// avg_i: the run headers of the words r[q] = syms[1 + q], q < W, from q = 0
+// while q < n_stream (post.py: rle_expand's pointer doubling reaches the
+// same positions); warp 0 calls it.  Header k goes to s_hdr[k] below
+// kRunsSmem, from there to the start array of the slot that lane 0 claims
+// at header kRunsSmem and returns in *slot (-1 on every other lane, and
+// where the strip has no more headers); at most max_runs are kept (the
+// wrapper gives max_runs >= interleaved_runs(cols), which every row
+// keeps under).  Returns the header count on every lane.
+__device__ int walk_headers(const uint16_t* syms, int W, int n_stream, int mid, const Group& g,
+                            const Slots& sl, unsigned char* runs, int* s_hdr, int* slot) {
+  const int lane = threadIdx.x & 31, max_runs = g.max_runs;
+  int p = 0, k = 0;
+  int* g_hdr = nullptr;
+  *slot = -1;
+  while (p < n_stream && k < max_runs) {  // a window of 32 words from header p
+    const int q = p + lane;
+    const unsigned c = q < W ? syms[1 + q] : 0u;
+    const long long nl = c <= (unsigned)mid ? (long long)q + 2 : (long long)q + 1 + (c - mid);
+    const int nx = (int)(nl < W - 1 ? nl : W - 1);
+    for (int d = 0;;) {  // warp-uniform: d and the next header come by shuffle
+      const int h = p + d;
+      if (lane == 0) {
+        if (k < kRunsSmem) {
+          s_hdr[k] = h;
+        } else {
+          if (k == kRunsSmem) {
+            *slot = claim_slot(sl);
+            g_hdr = (int*)(slot_runs(g, runs, *slot) + max_runs);
+          }
+          g_hdr[k] = h;
+        }
+      }
+      ++k;
+      const int next = (int)__shfl_sync(kFull, (unsigned)nx, d);
+      if (next == h || next >= n_stream || k >= max_runs) {
+        p = n_stream;
+        break;
+      }
+      d = next - p;
+      if (d >= 32) {
+        p = next;
+        break;
+      }
+    }
+  }
+  return k;
+}
+
+// avg_i: the n_valid headers in start[] into (first token, source), a
+// thread a run: a same-run's source is kSameTag + r[q + 1], a literal
+// run's the symbol index of its first literal less its first token (q +
+// 2 - first); returns the expand's token count.  wsum: 2 * kWarps values.
+__device__ long long build_runs_interleaved(const uint16_t* syms, long long cols, int mid,
+                                            int n_valid, int* start, long long* source,
+                                            long long* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long carry = 0;
+  for (int r0 = 0, round = 0; r0 < n_valid; r0 += kThreads, ++round) {
+    const int r = r0 + threadIdx.x;
+    long long len = 0, src = 0;
+    if (r < n_valid) {
+      const int q = start[r];
+      const unsigned c = syms[1 + q];
+      const bool same = c <= (unsigned)mid;
+      len = same ? c : (long long)c - mid;
+      src = same ? kSameTag + syms[clampll(q + 2, 0, cols - 1)] : (long long)q + 2;
+    }
+    long long a = len;  // inclusive warp scan
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long u = __shfl_up_sync(kFull, a, off);
+      if (lane >= off) a += u;
+    }
+    long long* buf = wsum + (round & 1) * kWarps;  // two rounds' buffers: one barrier a round
+    if (lane == 31) buf[warp] = a;
+    __syncthreads();
+    long long pa = 0, ta = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      if (v < warp) pa += buf[v];
+      ta += buf[v];
+    }
+    if (r < n_valid) {
+      const long long first = carry + pa + a - len;
+      start[r] = first < kIntMax ? (int)first : kIntMax;
+      source[r] = src >= kSameTag ? src : src - first;
+    }
+    carry += ta;
+  }
+  __syncthreads();  // the runs, for every thread's cursor
+  return carry;
+}
+
+// avg_i, one strip (every thread of the block): the headers, the runs (in
+// shared memory up to kRunsSmem, else in a slot of the runs scratch, freed
+// once the parse has read them), the strip's delim from token 0, the
+// parse, the avg inverse.
+__device__ void interleaved_avg(const Group& g, const Slots& sl, const uint16_t* syms,
+                                long long cols, const long long* m, uint16_t* o, long long need,
+                                unsigned* fw, unsigned char* runs, unsigned char* pool,
+                                long long* s_sum, Fn* s_fn) {
+  const int W = (int)(cols - 1);
+  const int n_stream = (int)clampll(m[0] - 1, 0, W);
+  const unsigned v0 = syms[0];
+  const int mid = v0 ? (int)(1u << (bit_length(v0) - 1)) - 1 : 0;
+  long long* source = (long long*)pool;
+  int* start = (int*)(pool + 8 * kRunsSmem);
+  int* s_n = (int*)(s_sum + 2 * kWarps);  // past build_runs_interleaved's buffers
+  if (threadIdx.x < 32) {
+    int slot;
+    const int n = walk_headers(syms, W, n_stream, mid, g, sl, runs, start, &slot);
+    if (threadIdx.x == 0) {
+      s_n[0] = n;
+      s_n[1] = slot;
+    }
+  }
+  __syncthreads();
+  const int n_valid = s_n[0], slot = s_n[1];
+  if (n_valid > kRunsSmem) {  // the slot takes them all: the first kRunsSmem from shared
+    long long* g_source = slot_runs(g, runs, slot);
+    int* g_start = (int*)(g_source + g.max_runs);
+    for (int i = threadIdx.x; i < kRunsSmem; i += kThreads) g_start[i] = start[i];
+    __syncthreads();
+    source = g_source;
+    start = g_start;
+  }
+  const long long n_tok = build_runs_interleaved(syms, cols, mid, n_valid, start, source,
+                                                 s_sum);
+  int delim = 0;
+  if (MIC_POST_STAGE != 0) {
+    Tokens tk = {syms, cols, start, source, n_valid, n_tok, 0};
+    Tokens first = tk;
+    delim = (int)((1u << bit_length(first.at(0))) - 1u);
+    if (MIC_POST_STAGE != 3) parse(tk, g.max_tokens - 1, n_tok - 1, delim, need, o, fw, s_fn);
+  }
+  __syncthreads();  // every thread is done with the runs
+  if (slot >= 0 && threadIdx.x == 0) {
+    __threadfence();
+    atomicExch(sl.busy + slot, 0);
+  }
+  if (MIC_POST_STAGE <= 1) return;
+  avg_rows(o, fw, g.width, g.strip_h, delim >> 1, pool);
+}
+
+template <bool kInterleaved>
 __global__ void __launch_bounds__(kThreads, MIC_POST_MIN_BLOCKS)
 post_groups_kernel(const Group* __restrict__ groups, const int2* __restrict__ blocks,
                    const __grid_constant__ Ents ents, uint16_t* out, unsigned char* runs,
-                   unsigned* flags) {
+                   unsigned* flags, Slots sl) {
   __shared__ __align__(16) unsigned char s_pool[kPoolBytes];  // the runs, then avg's rings
   __shared__ unsigned s_flags[kFlagBits > 0 ? kFlagBits / 32 : 1];
   __shared__ long long s_sum[4 * kWarps];
@@ -630,6 +837,11 @@ post_groups_kernel(const Group* __restrict__ groups, const int2* __restrict__ bl
   }
 
   const long long* m = g.meta + 3LL * s;
+  if (kInterleaved && g.pred == kAvgI) {
+    unsigned* fw = zeroed_flags(g, s, need, s_flags, flags);
+    interleaved_avg(g, sl, syms, cols, m, o, need, fw, runs, s_pool, s_sum, s_fn);
+    return;
+  }
   const long long n_tokens = m[0], n_runs = m[1], n_same = m[2];
   const int n_valid = (int)clampll(n_runs, 0, g.max_runs);
   long long* source = (long long*)s_pool;
@@ -638,11 +850,7 @@ post_groups_kernel(const Group* __restrict__ groups, const int2* __restrict__ bl
     source = (long long*)(runs + 16 * (g.runs_off + (long long)s * g.max_runs));
     start = (int*)(source + g.max_runs);
   }
-  unsigned* fw = nullptr;
-  if (g.pred >= kZz) {
-    fw = need <= kFlagBits ? s_flags : flags + g.flags_off + (long long)s * ((need + 31) >> 5);
-    for (long long i = threadIdx.x; i < (need + 31) >> 5; i += kThreads) fw[i] = 0;
-  }
+  unsigned* fw = g.pred >= kZz ? zeroed_flags(g, s, need, s_flags, flags) : nullptr;
   const long long n_tok = build_runs(syms, cols, n_runs, n_same, g.mid, n_valid, start, source,
                                      s_sum);
   if (MIC_POST_STAGE == 0) return;
@@ -683,6 +891,24 @@ post_groups_kernel(const Group* __restrict__ groups, const int2* __restrict__ bl
     avg_rows(o, fw, w, h, g.delim >> 1, s_pool);
 }
 
+// The launch of either instance.
+int launch(bool interleaved, const void* groups, const void* blocks, int n_blocks,
+           const void* const* ents, const int* cols, int n_groups, void* out, void* runs,
+           void* flags, Slots sl, void* stream) {
+  if (n_groups < 1 || n_groups > kMaxGroups || n_blocks < 1 || (interleaved && sl.n < 1))
+    return (int)cudaErrorInvalidValue;
+  Ents e = {};
+  for (int i = 0; i < n_groups; ++i) {
+    e.p[i] = (const uint16_t*)ents[i];
+    e.cols[i] = cols[i];
+  }
+  const auto kernel = interleaved ? post_groups_kernel<true> : post_groups_kernel<false>;
+  kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const Group*)groups, (const int2*)blocks, e, (uint16_t*)out, (unsigned char*)runs,
+      (unsigned*)flags, sl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -693,33 +919,38 @@ extern "C" {
 // their column counts; out the flat output buffer the groups' out_off
 // index; runs and flags the scratch.  Returns cudaErrorInvalidValue for
 // sizes the kernel does not take, else the launch's error
-// (cudaGetLastError()).
+// (cudaGetLastError()).  MICW's routes only.
 int mic_post_groups(const void* groups, const void* blocks, int n_blocks,
                     const void* const* ents, const int* cols, int n_groups, void* out,
                     void* runs, void* flags, void* stream) {
-  if (n_groups < 1 || n_groups > kMaxGroups || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  Ents e = {};
-  for (int i = 0; i < n_groups; ++i) {
-    e.p[i] = (const uint16_t*)ents[i];
-    e.cols[i] = cols[i];
-  }
-  post_groups_kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const Group*)groups, (const int2*)blocks, e, (uint16_t*)out, (unsigned char*)runs,
-      (unsigned*)flags);
-  return (int)cudaGetLastError();
+  return launch(false, groups, blocks, n_blocks, ents, cols, n_groups, out, runs, flags,
+                Slots{nullptr, 0}, stream);
 }
 
-// The launch's shape: out[0] shared bytes a block, out[1] blocks resident
-// an SM, out[2] registers a thread.  Returns the first CUDA error, else
-// cudaSuccess.
-int mic_post_shape(int* out) {
+// The same launch through the kernel's instance with the avg_i front end:
+// every route, the reference formats' too.  busy (int [n_slots] on the
+// device, zero) are the avg_i buckets' runs-scratch slots, n_slots >= 1;
+// every launch leaves them zero.
+int mic_post_groups_interleaved(const void* groups, const void* blocks, int n_blocks,
+                                const void* const* ents, const int* cols, int n_groups,
+                                void* out, void* runs, void* flags, void* busy, int n_slots,
+                                void* stream) {
+  return launch(true, groups, blocks, n_blocks, ents, cols, n_groups, out, runs, flags,
+                Slots{(int*)busy, n_slots}, stream);
+}
+
+// The launch's shape (MICW's instance, or the interleaved one where
+// interleaved is nonzero): out[0] shared bytes a block, out[1] blocks
+// resident an SM, out[2] registers a thread.  Returns the first CUDA
+// error, else cudaSuccess.
+int mic_post_shape(int* out, int interleaved) {
+  const auto kernel = interleaved ? post_groups_kernel<true> : post_groups_kernel<false>;
   cudaFuncAttributes fa;
-  const cudaError_t e = cudaFuncGetAttributes(&fa, post_groups_kernel);
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
   out[0] = (int)fa.sharedSizeBytes;
   out[2] = fa.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], post_groups_kernel, kThreads,
-                                                          0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, kThreads, 0);
 }
 
 }  // extern "C"

@@ -409,27 +409,27 @@ def _table_step(table_size: int) -> int:
 def _spread_symbols(norm: np.ndarray, symbol_len: int, table_log: int) -> np.ndarray:
     """Spread symbols over the state table: low-probability (-1) symbols
     occupy the top of the table; the rest are scattered by the co-prime
-    step walk skipping the low-prob region (fsedecompressu16.go:221-240)."""
+    step walk skipping the low-prob region (fsedecompressu16.go:221-240).
+    The walk visits k * step mod size for k = 0, 1, ... (step is odd, so
+    every position once a cycle), skipping the top: the positions are
+    that progression filtered, and symbol i of the spread takes the i-th
+    of them, cycle after cycle, the last write holding."""
     table_size = 1 << table_log
     table_symbol = np.zeros(table_size, dtype=np.uint16)
-    high_threshold = table_size - 1
-    for i in range(symbol_len):
-        if norm[i] == -1:
-            table_symbol[high_threshold] = i
-            high_threshold -= 1
-
-    step = _table_step(table_size)
-    mask = table_size - 1
-    position = 0
-    for sym in range(symbol_len):
-        v = int(norm[sym])
-        for _ in range(v if v > 0 else 0):
-            table_symbol[position] = sym
-            position = (position + step) & mask
-            while position > high_threshold:
-                position = (position + step) & mask
-    if position != 0:
+    norm = np.asarray(norm[:symbol_len], dtype=np.int64)
+    present = np.flatnonzero(norm)  # a 16-bit alphabet holds a few hundred symbols
+    counts = norm[present]
+    low = present[counts == -1]
+    table_symbol[table_size - 1 - np.arange(low.size)] = low
+    high_threshold = table_size - 1 - low.size
+    syms = np.repeat(present[counts > 0], counts[counts > 0])
+    walk = (np.arange(table_size) * _table_step(table_size)) & (table_size - 1)
+    walk = walk[walk <= high_threshold]
+    if syms.size and (walk.size == 0 or syms.size % walk.size):
         raise ValueError("corrupted input (position != 0)")
+    if syms.size:
+        keep = syms[-walk.size:]  # a spread past one cycle: its last cycle holds
+        table_symbol[walk[np.arange(syms.size - keep.size, syms.size) % walk.size]] = keep
     return table_symbol
 
 
@@ -492,23 +492,24 @@ def build_dtable(
     norm = np.asarray(norm, dtype=np.int64)
     table_symbol = _spread_symbols(norm, symbol_len, table_log)
 
-    zero_bits = bool(np.any(norm[norm != -1] >= (1 << (table_log - 1))))
+    zero_bits = bool(np.any(norm >= (1 << (table_log - 1))))  # -1 never reaches it
 
     # Each slot's occurrence rank within its symbol group, in table order:
-    # symbol_next[s] starts at norm[s] (1 for low-prob) and counts up.
-    start = np.where(norm == -1, 1, np.maximum(norm, 0)).astype(np.int64)
+    # symbol_next[s] starts at norm[s] (1 for low-prob) and counts up.  The
+    # arithmetic runs over the symbols with a count (and symbol 0, which a
+    # slot the spread left empty holds): k maps each slot's symbol to them.
+    has = norm != 0
+    has[:1] = True
+    present = np.flatnonzero(has)
+    start = np.where(norm[present] == -1, 1, np.maximum(norm[present], 0))
+    k = np.searchsorted(present, table_symbol)
     order = np.argsort(table_symbol, kind="stable")
-    first_slot = np.concatenate(([0], np.cumsum(start)))[:-1]
+    first_slot = np.cumsum(start) - start
     ranks = np.empty(table_size, dtype=np.int64)
-    ranks[order] = np.arange(table_size) - first_slot[table_symbol[order]]
+    ranks[order] = np.arange(table_size) - first_slot[k[order]]
 
-    next_state = start[table_symbol] + ranks
-    hb = np.zeros(table_size, dtype=np.int64)  # exact floor(log2)
-    v = next_state.copy()
-    for shift in (16, 8, 4, 2, 1):
-        m = v >= (1 << shift)
-        hb[m] += shift
-        v[m] >>= shift
+    next_state = start[k] + ranks
+    hb = np.frexp(next_state)[1].astype(np.int64) - 1  # exact floor(log2): next_state >= 1
     nb = table_log - hb
     new_state = ((next_state << nb) - table_size).astype(np.int64)
     if np.any((new_state < 0) | (new_state >= table_size)):

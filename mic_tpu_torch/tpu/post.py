@@ -18,6 +18,16 @@ CUDA launch for every post bucket of a plan, ``csrc/post.cu``:
   :func:`post_batch` bucket by bucket on the CPU; :func:`post_decode` is
   the one-bucket call.
 
+Besides MICW's routes (``PREDICTORS``) the kernel takes one route of the
+reference formats, ``avg_i`` (``ROUTES``): a strip of a PICS container or
+a single-frame blob, its tANS symbols an interleaved RLE stream (the Init
+word, then blocks of a count and a value or a count and its literals,
+``ops/rle.py``) whose run headers are found on the card, then the escape
+parse and the avg inverse.  The strip's midCount comes from its Init
+word and its delimiter from its first token (the image's maxValue), as
+``ops/deltarle.py`` reads them, so nothing of a strip's symbols is read
+on the host.
+
 :func:`post_batch` is the kernel's plain twin: the functions below in
 plain torch ops, batched over the strips of a bucket (a leading axis
 where JAX vmaps), on whatever device their input lies.  Each function
@@ -41,6 +51,7 @@ from .verify import _on
 __all__ = [
     "MAX_GROUPS",
     "PREDICTORS",
+    "ROUTES",
     "PostPacking",
     "post_decode",
     "post_decode_groups",
@@ -49,6 +60,7 @@ __all__ = [
     "parse_escaped",
     "zz_delta_inverse",
     "avg_delta_inverse",
+    "interleaved_runs",
     "zzd_inverse",
     "vdd_inverse",
     "pdd_inverse",
@@ -67,60 +79,68 @@ def _exclusive(v: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(v, dim=1) - v
 
 
-def rle_expand(stream: torch.Tensor, n_stream: int, mid_count: int, max_out: int):
+def rle_expand(stream: torch.Tensor, n_stream, mid_count, max_out: int):
     """``pipeline.rle_expand_device``: expand one RLE stream of the host
     (interleaved) format, without its leading maxValue word.  ``stream``
     is int [m_pad] (the RLE words, padded), ``n_stream`` the word count.
-    Returns (tokens int64 [max_out], n_tokens int64 scalar tensor).
+    Returns (tokens int64 [max_out], n_tokens int64 scalar tensor).  A
+    batch of streams [S, m_pad] expands row by row the same way, with
+    ``n_stream`` and ``mid_count`` each a number or one a row ([S] or [S,
+    1]), and returns ([S, max_out], [S, 1]).
 
     The block headers are found by pointer doubling over the speculative
     next-header map (p + 2 after a same-run header, p + 1 + literals after
     a literal one), then each output slot takes its run's value or
     literal.  The scatters are ``scatter_reduce`` (amax, the original's
-    ``.at[].max``) and ``index_add_`` into a slot past the end for every
+    ``.at[].max``) and ``scatter_add_`` into a slot past the end for every
     out-of-range position, which the original drops."""
-    stream = stream.to(torch.int64)
-    m_pad, dev = stream.shape[0], stream.device
-    pos = torch.arange(m_pad, device=dev)
+    single = stream.dim() == 1
+    stream = stream.to(torch.int64).reshape(-1, stream.shape[-1])
+    S, m_pad = stream.shape
+    dev = stream.device
+    n_stream, mid_count = _col(n_stream, S, dev), _col(mid_count, S, dev)
+    pos = torch.arange(m_pad, device=dev)[None, :].expand(S, -1)
     is_same = stream <= mid_count
     nxt = torch.where(is_same, pos + 2, pos + 1 + (stream - mid_count))
     nxt = torch.minimum(nxt, torch.tensor(m_pad, device=dev))
     nxt = torch.where(pos >= n_stream, m_pad - 1, nxt)
     nxt = nxt.clamp(max=m_pad - 1)
 
-    header = torch.zeros(m_pad, dtype=torch.int64, device=dev)
-    header[0] = 1
+    header = torch.zeros((S, m_pad), dtype=torch.int64, device=dev)
+    header[:, 0] = 1
     g = nxt
     for _ in range(max(1, (max(m_pad, 2) - 1).bit_length())):
-        header = header.scatter_reduce(0, g, header, reduce="amax", include_self=True)
-        g = g[g]
+        header = header.scatter_reduce(1, g, header, reduce="amax", include_self=True)
+        g = torch.gather(g, 1, g)
     header = (header > 0) & (pos < n_stream)
 
     length = torch.where(is_same, stream, stream - mid_count)
     length = torch.where(header, length, 0)
-    out_start = torch.cumsum(length, 0) - length
-    n_tokens = length.sum()
+    out_start = torch.cumsum(length, 1) - length
+    n_tokens = length.sum(dim=1, keepdim=True)
 
-    marks = torch.zeros(max_out + 2, dtype=torch.int64, device=dev)
+    marks = torch.zeros((S, max_out + 2), dtype=torch.int64, device=dev)
     hdr_idx = torch.where(header, out_start, max_out)
     hdr_idx = torch.where((hdr_idx >= 0) & (hdr_idx <= max_out), hdr_idx, max_out + 1)
-    marks.index_add_(0, hdr_idx, torch.ones_like(hdr_idx))
-    run_id = torch.cumsum(marks[:max_out], 0) - 1
+    marks.scatter_add_(1, hdr_idx, torch.ones_like(hdr_idx))
+    run_id = torch.cumsum(marks[:, :max_out], 1) - 1
 
-    hdr_rank = torch.cumsum(header.to(torch.int64), 0) - 1
-    run_hdr_pos = torch.zeros(m_pad, dtype=torch.int64, device=dev).scatter_reduce(
-        0, torch.where(header, hdr_rank, m_pad - 1), pos, reduce="amax", include_self=True)
-    run_is_same = is_same[run_hdr_pos]
-    run_value = stream[(run_hdr_pos + 1).clamp(max=m_pad - 1)]
-    run_out_start = out_start[run_hdr_pos]
+    hdr_rank = torch.cumsum(header.to(torch.int64), 1) - 1
+    run_hdr_pos = torch.zeros((S, m_pad), dtype=torch.int64, device=dev).scatter_reduce(
+        1, torch.where(header, hdr_rank, m_pad - 1), pos, reduce="amax", include_self=True)
+    run_is_same = torch.gather(is_same, 1, run_hdr_pos)
+    run_value = torch.gather(stream, 1, (run_hdr_pos + 1).clamp(max=m_pad - 1))
+    run_out_start = torch.gather(out_start, 1, run_hdr_pos)
 
-    out_idx = torch.arange(max_out, device=dev)
+    out_idx = torch.arange(max_out, device=dev)[None, :]
     rid = run_id.clamp(0, m_pad - 1)
-    lit_pos = run_hdr_pos[rid] + 1 + (out_idx - run_out_start[rid])
-    lit_v = stream[lit_pos.clamp(0, m_pad - 1)]
-    tokens = torch.where(run_is_same[rid], run_value[rid], lit_v)
+    lit_pos = (torch.gather(run_hdr_pos, 1, rid) + 1
+               + (out_idx - torch.gather(run_out_start, 1, rid)))
+    lit_v = torch.gather(stream, 1, lit_pos.clamp(0, m_pad - 1))
+    tokens = torch.where(torch.gather(run_is_same, 1, rid), torch.gather(run_value, 1, rid),
+                         lit_v)
     tokens = torch.where(out_idx < n_tokens, tokens, 0)
-    return tokens, n_tokens
+    return (tokens[0], n_tokens[0, 0]) if single else (tokens, n_tokens)
 
 
 def soa_rle_expand(syms: torch.Tensor, n_runs, n_same, mid_count: int, max_runs: int,
@@ -232,8 +252,11 @@ def avg_delta_inverse(values: torch.Tensor, is_raw: torch.Tensor, thr: int, widt
     neighbours lie on earlier wavefronts), over the grid stored skewed,
     B[i, 2i + j] = A[i, j].  The 2(h - 1) + w wavefronts are dependent
     steps, each a few torch ops over every strip of the batch at once.
-    Returns int64 [S, height * width] u16 pixels."""
+    ``thr`` is one threshold, or a tensor of one a strip.  Returns int64
+    [S, height * width] u16 pixels."""
     S, dev = values.shape[0], values.device
+    if isinstance(thr, torch.Tensor):
+        thr = thr.reshape(1, S, 1)
     h, w = height, width
     K = 2 * (h - 1) + w
     i_col = torch.arange(h, device=dev)[:, None]
@@ -299,6 +322,47 @@ def _pad_cols(a: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, n - a.shape[1])) if a.shape[1] < n else a
 
 
+def _bit_length(v: torch.Tensor) -> torch.Tensor:
+    """``int.bit_length`` of each element of an int64 tensor of values
+    below 2^32."""
+    n = torch.zeros_like(v)
+    for sh in (16, 8, 4, 2, 1):
+        big = v >= (1 << sh)
+        n = n + big * sh
+        v = torch.where(big, v >> sh, v)
+    return n + (v > 0).to(v.dtype)
+
+
+def interleaved_runs(cols: int) -> int:
+    """The most run headers an interleaved RLE stream of entropy rows of
+    ``cols`` symbols can hold (headers lie two words apart or more, the
+    last one word on where the walk is clamped): the ``max_runs`` an
+    ``avg_i`` bucket must give, which sizes the kernel's runs scratch."""
+    return (cols - 1) // 2 + 1
+
+
+def _interleaved_avg(syms: torch.Tensor, count, width: int, strip_h: int, max_tokens: int):
+    """The ``avg_i`` route over S strips: ``syms`` int64 [S, cols] u16
+    symbols, each row the Init word and then an interleaved RLE stream
+    (``ops/deltarle.py``'s layout), ``count`` each strip's symbol count.
+    Per strip, the words r = syms[1:] (W = cols - 1 of them) of which the
+    first ``clamp(count - 1, 0, W)`` are the stream; its midCount from the
+    Init word v0 (``(1 << (bit_length(v0) - 1)) - 1``, 0 for v0 = 0);
+    :func:`rle_expand` to ``max_tokens`` tokens; the delimiter from token
+    0 t0 (``(1 << bit_length(t0)) - 1``), the threshold half of it; then
+    :func:`parse_escaped` of tokens[1:] and :func:`avg_delta_inverse`.
+    Returns int64 [S, width * strip_h] u16 pixels."""
+    S, cols = syms.shape
+    dev = syms.device
+    n_stream = (_col(count, S, dev) - 1).clamp(0, cols - 1)
+    v0 = syms[:, :1]
+    mid = torch.where(v0 > 0, (1 << (_bit_length(v0) - 1).clamp(min=0)) - 1, 0)
+    tokens, n_tok = rle_expand(syms[:, 1:], n_stream, mid, max_tokens)
+    delim = (1 << _bit_length(tokens[:, :1])) - 1
+    vals, is_raw = parse_escaped(tokens[:, 1:], n_tok - 1, delim, width * strip_h)
+    return avg_delta_inverse(vals, is_raw, (delim >> 1).reshape(-1), width, strip_h)
+
+
 def post_batch(ent: torch.Tensor, n_tokens, n_runs, n_same, *, width: int, strip_h: int,
                max_runs: int, max_tokens: int, mid_count: int, delim: int,
                predictor: str) -> torch.Tensor:
@@ -309,12 +373,18 @@ def post_batch(ent: torch.Tensor, n_tokens, n_runs, n_same, *, width: int, strip
     the expand, the escape parse and the zz or avg inverse (zz, avg;
     token 0 is the strip's maxValue word).  ``n_tokens``, ``n_runs`` and
     ``n_same`` are the strips' table entries; ``mid_count`` and ``delim``
-    those of ``strips._post_params``.  Returns int16 [S, width * strip_h].
-    ``.calls`` counts the calls."""
+    those of ``strips._post_params``.  The reference formats' route
+    ``avg_i`` (:func:`_interleaved_avg`) takes each strip's symbol count
+    as ``n_tokens`` and reads its midCount and delimiter from its symbols:
+    ``n_runs``, ``n_same``, ``max_runs``, ``mid_count`` and ``delim`` go
+    unread.  Returns int16 [S, width * strip_h].  ``.calls`` counts the
+    calls."""
     post_batch.calls += 1
     syms = ent.reshape(ent.shape[0], -1).to(torch.int64) & 0xFFFF
     need = width * strip_h
-    if predictor in ("zzd", "vdd", "pdd"):
+    if predictor == "avg_i":
+        pix = _interleaved_avg(syms, n_tokens, width, strip_h, max_tokens)
+    elif predictor in ("zzd", "vdd", "pdd"):
         pix = _DIRECT_INVERSE[predictor](_pad_cols(syms, need), width, strip_h)
     else:
         tokens, _nt = soa_rle_expand(syms, n_runs, n_same, mid_count, max_runs, max_tokens)
@@ -338,7 +408,8 @@ post_batch.calls = 0
 # The kernel: csrc/post.cu's post_groups_kernel over every post bucket
 # ---------------------------------------------------------------------------
 
-PREDICTORS = ("zzd", "vdd", "pdd", "zzr", "vdr", "pdr", "zz", "avg")  # post.cu: Pred
+PREDICTORS = ("zzd", "vdd", "pdd", "zzr", "vdr", "pdr", "zz", "avg")  # MICW's, post.cu: Pred
+ROUTES = PREDICTORS + ("avg_i",)  # and the reference formats' interleaved-RLE avg
 MAX_GROUPS = 128  # buckets a launch (post.cu: kMaxGroups)
 _RUN_BYTES = 16  # a run in the runs scratch (post.cu: its source and its start)
 _KWARGS = ("width", "strip_h", "max_runs", "max_tokens", "mid_count", "delim", "predictor")
@@ -346,7 +417,8 @@ _GROUP_DESC = np.dtype([("meta", "<u8"), ("out_off", "<i8"), ("runs_off", "<i8")
                         ("flags_off", "<i8"), ("width", "<i4"), ("strip_h", "<i4"),
                         ("max_runs", "<i4"), ("max_tokens", "<i4"), ("mid", "<i4"),
                         ("delim", "<i4"), ("pred", "<i4"), ("pad", "<i4")])
-_COST = {"avg": 0, "zz": 1}  # block order: the longest chains first
+_ESCAPED = ("zz", "avg", "avg_i")  # the routes with the escape parse (flag bits a pixel)
+_COST = {"avg": 0, "avg_i": 0, "zz": 1}  # block order: the longest chains first
 
 
 def _static(kw) -> dict:
@@ -355,12 +427,12 @@ def _static(kw) -> dict:
     not know or a size it does not take."""
     if set(kw) != set(_KWARGS):
         raise ValueError(f"post arguments must be {_KWARGS}, got {sorted(kw)}")
-    if kw["predictor"] not in PREDICTORS:
-        raise ValueError(f"unknown predictor {kw['predictor']!r} (the kernel takes {PREDICTORS})")
+    if kw["predictor"] not in ROUTES:
+        raise ValueError(f"unknown predictor {kw['predictor']!r} (the kernel takes {ROUTES})")
     ints = {k: kw[k] for k in _KWARGS[:-1]}
     if not all(isinstance(v, (int, np.integer)) for v in ints.values()):
         raise ValueError(f"post arguments must be ints, got {ints}")
-    lo = 2 if kw["predictor"] in ("zz", "avg") else 1  # tokens[1:] holds one at least
+    lo = 2 if kw["predictor"] in _ESCAPED else 1  # tokens[1:] holds one at least
     if (kw["width"] < 1 or kw["strip_h"] < 1 or kw["width"] * kw["strip_h"] >= 1 << 31
             or not 1 <= kw["max_runs"] < 1 << 31 or not lo <= kw["max_tokens"] < 1 << 31
             or not -(1 << 31) <= min(kw["mid_count"], kw["delim"])
@@ -381,21 +453,31 @@ class PostPacking:
     [n, 2]: group, strip) a block a strip, ``parts`` the (first group,
     end group, first block, end block) of each launch, ``MAX_GROUPS``
     buckets a launch, the avg strips' blocks first in a launch, then zz,
-    then the rest, group numbers counted from the part's first.
+    then the rest, group numbers counted from the part's first;
+    ``interleaved`` says of each part whether it holds an ``avg_i``
+    bucket, which the kernel's instance with the interleaved-RLE front end
+    takes (MICW's routes alone take the instance without it).
     ``out_total`` (elements), ``runs_total`` (runs: ``max_runs`` a strip
     of the expanding modes, which the kernel uses where a strip's runs
-    outgrow its shared memory) and ``flags_total`` (32-bit words: a bit a
-    pixel of the zz / avg strips, used past the kernel's shared flag
-    bits) size the output and the scratch.  On a CUDA
-    device the descriptors and blocks go to the card here, in one copy
-    from pinned memory, queued on the current stream.  Raises
-    ValueError for what the kernel does not take."""
+    outgrow its shared memory; an ``avg_i`` bucket's ``max_runs`` a slot of
+    ``slots``, the blocks of the interleaved instance resident on the card
+    at once, one held by each block whose strip's runs outgrow shared
+    memory while it reads them) and ``flags_total`` (32-bit words: a bit a
+    pixel of the zz / avg / avg_i strips, used past the kernel's shared
+    flag bits) size the output and the scratch.  On a CUDA device the
+    descriptors and blocks go to the card here, in one copy from pinned
+    memory, queued on the current stream, and ``busy`` (int32 [slots],
+    zero) marks the held slots.  Raises ValueError for what the kernel
+    does not take."""
 
     def __init__(self, groups, device):
         self.device = torch.device(device)
         self.metas, self.kws, self.rows = [], [], []
         self.desc = np.zeros(len(groups), _GROUP_DESC)
         out_total = runs_total = flags_total = 0
+        self.slots = 1  # one at a time on the CPU (tests/cuda_emu)
+        if self.device.type == "cuda" and any(kw.get("predictor") == "avg_i" for _m, kw in groups):
+            self.slots = _resident_blocks(self.device)
         for g, (meta, kw) in enumerate(groups):
             kw = _static(kw)
             if (meta.dtype != torch.int64 or meta.dim() != 2 or meta.shape[1] != 3
@@ -410,20 +492,23 @@ class PostPacking:
             self.rows.append(S)
             self.desc[g] = (0, out_total, runs_total, flags_total, kw["width"], kw["strip_h"],
                             kw["max_runs"], kw["max_tokens"], kw["mid_count"], kw["delim"],
-                            PREDICTORS.index(pred), 0)
+                            ROUTES.index(pred), 0)
             out_total += S * need
-            if pred not in ("zzd", "vdd", "pdd"):
+            if pred == "avg_i":
+                runs_total += self.slots * kw["max_runs"]
+            elif pred not in ("zzd", "vdd", "pdd"):
                 runs_total += S * kw["max_runs"]
-            if pred in ("zz", "avg"):
+            if pred in _ESCAPED:
                 flags_total += S * -(-need // 32)
         self.out_total, self.runs_total, self.flags_total = out_total, runs_total, flags_total
-        blocks, self.parts = [], []
+        blocks, self.parts, self.interleaved = [], [], []
         for g0 in range(0, len(self.rows), MAX_GROUPS):
             g1, b0 = min(g0 + MAX_GROUPS, len(self.rows)), sum(len(b) for b in blocks)
             for g in sorted(range(g0, g1), key=lambda g: _COST.get(self.kws[g]["predictor"], 2)):
                 blocks.append(np.stack([np.full(self.rows[g], g - g0), np.arange(self.rows[g])],
                                        axis=1).astype(np.int32))
             self.parts.append((g0, g1, b0, sum(len(b) for b in blocks)))
+            self.interleaved.append(any(kw["predictor"] == "avg_i" for kw in self.kws[g0:g1]))
         self.blocks = np.concatenate(blocks) if blocks else np.zeros((0, 2), np.int32)
         if self.device.type == "cuda":
             self._upload()
@@ -444,6 +529,7 @@ class PostPacking:
         self._buf, self._host = buf, host  # the pinned source lives until the copy has run
         self.gdesc_ptr = buf.data_ptr()
         self.bdesc_ptr = buf.data_ptr() + b_at
+        self.busy = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
 
     def holds(self, groups) -> bool:
         """Whether ``groups`` ([(ent, meta, kw)]) are the buckets this
@@ -452,9 +538,13 @@ class PostPacking:
             m is pm and kw == pkw for (_e, m, kw), pm, pkw in zip(groups, self.metas, self.kws))
 
 
-def _entropy_rows(ent: torch.Tensor, S: int, device: torch.device, g: int) -> torch.Tensor:
+def _entropy_rows(ent: torch.Tensor, S: int, device: torch.device, g: int,
+                  kw: dict) -> torch.Tensor:
     """A group's entropy output as int16 [S, cols]; raises ValueError unless
-    it is int16, [S, ...], contiguous and on ``device``."""
+    it is int16, [S, ...], contiguous and on ``device``, and, for an
+    ``avg_i`` group, of two columns or more with ``max_runs`` at least
+    :func:`interleaved_runs` of them (the runs scratch holds every header
+    a row can have)."""
     if (ent.dtype != torch.int16 or ent.dim() < 2 or ent.shape[0] != S or ent.numel() == 0
             or not _on(ent, device)):
         raise ValueError(f"group {g}: expected the entropy output int16 [{S}, ...] on {device}, "
@@ -462,7 +552,13 @@ def _entropy_rows(ent: torch.Tensor, S: int, device: torch.device, g: int) -> to
     if not ent.is_contiguous():
         raise ValueError(f"group {g}: the entropy output must be contiguous "
                          f"(strides {ent.stride()})")
-    return ent.view(S, -1)
+    rows = ent.view(S, -1)
+    if kw["predictor"] == "avg_i" and (rows.shape[1] < 2
+                                       or kw["max_runs"] < interleaved_runs(rows.shape[1])):
+        raise ValueError(f"group {g}: an avg_i group of {rows.shape[1]} columns needs two columns "
+                         f"or more and max_runs >= {interleaved_runs(rows.shape[1])}, got "
+                         f"{kw['max_runs']}")
+    return rows
 
 
 def post_decode_groups(groups, packing: PostPacking | None = None) -> list[torch.Tensor]:
@@ -482,8 +578,8 @@ def post_decode_groups(groups, packing: PostPacking | None = None) -> list[torch
         packing = PostPacking([(m, kw) for _e, m, kw in groups], groups[0][0].device)
     elif not packing.holds(groups):
         raise ValueError("packing was built for other groups")
-    ents = [_entropy_rows(e, S, packing.device, g)
-            for g, ((e, _m, _kw), S) in enumerate(zip(groups, packing.rows))]
+    ents = [_entropy_rows(e, S, packing.device, g, kw)
+            for g, ((e, _m, _kw), S, kw) in enumerate(zip(groups, packing.rows, packing.kws))]
     if packing.device.type == "cpu":
         return [post_batch(e, m[:, 0], m[:, 1], m[:, 2], **kw)
                 for e, m, kw in zip(ents, packing.metas, packing.kws)]
@@ -497,6 +593,8 @@ def post_decode_groups(groups, packing: PostPacking | None = None) -> list[torch
 def _post_launch(packing: PostPacking, ents, lib=None) -> list[torch.Tensor]:
     """``post_groups_kernel`` over ``packing``'s parts on the entropy
     outputs ``ents`` (int16 [S, cols] on the card, checked by the caller),
+    a part with an ``avg_i`` bucket through the kernel's interleaved
+    instance (``mic_post_groups_interleaved``),
     from ``lib`` (a library of another form:
     ``scripts/post_design_points.py``) or the kernel library; counts no
     launch.  Returns one int16 [S, width * strip_h] view a group."""
@@ -512,12 +610,16 @@ def _post_launch(packing: PostPacking, ents, lib=None) -> list[torch.Tensor]:
     cols = np.array([e.shape[1] for e in ents], np.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        for g0, g1, b0, b1 in packing.parts:
-            rc = lib.mic_post_groups(
-                packing.gdesc_ptr + g0 * _GROUP_DESC.itemsize, packing.bdesc_ptr + b0 * 8,
-                b1 - b0, ptrs.ctypes.data + 8 * g0, cols.ctypes.data + 4 * g0, g1 - g0,
-                out.data_ptr(), scratch.data_ptr(),
-                scratch.data_ptr() + _RUN_BYTES * packing.runs_total, stream)
+        for (g0, g1, b0, b1), inter in zip(packing.parts, packing.interleaved):
+            args = (packing.gdesc_ptr + g0 * _GROUP_DESC.itemsize, packing.bdesc_ptr + b0 * 8,
+                    b1 - b0, ptrs.ctypes.data + 8 * g0, cols.ctypes.data + 4 * g0, g1 - g0,
+                    out.data_ptr(), scratch.data_ptr(),
+                    scratch.data_ptr() + _RUN_BYTES * packing.runs_total)
+            if inter:
+                rc = lib.mic_post_groups_interleaved(*args, packing.busy.data_ptr(),
+                                                     packing.slots, stream)
+            else:
+                rc = lib.mic_post_groups(*args, stream)
             if rc != 0:
                 raise RuntimeError(f"mic_post_groups launch failed: CUDA error {rc}")
     outs, off = [], 0
@@ -528,10 +630,11 @@ def _post_launch(packing: PostPacking, ents, lib=None) -> list[torch.Tensor]:
     return outs
 
 
-def _launch_shape(lib=None) -> tuple[int, int, int]:
-    """The kernel's launch (of ``lib``, or the kernel library): (shared
-    memory bytes a block, blocks resident an SM, registers a thread), from
-    the CUDA occupancy query."""
+def _launch_shape(lib=None, interleaved: bool = False) -> tuple[int, int, int]:
+    """The kernel's launch (of ``lib``, or the kernel library; MICW's
+    instance, or the interleaved one): (shared memory bytes a block,
+    blocks resident an SM, registers a thread), from the CUDA occupancy
+    query."""
     import ctypes
 
     if lib is None:
@@ -539,10 +642,18 @@ def _launch_shape(lib=None) -> tuple[int, int, int]:
 
         lib = kernel_library()
     out = (ctypes.c_int * 3)()
-    rc = lib.mic_post_shape(out)
+    rc = lib.mic_post_shape(out, int(interleaved))
     if rc != 0:
         raise RuntimeError(f"mic_post_shape failed: CUDA error {rc}")
     return tuple(out)
+
+
+def _resident_blocks(device: torch.device) -> int:
+    """The blocks of the kernel's interleaved instance resident on
+    ``device`` at once: the ``avg_i`` buckets' runs-scratch slots."""
+    with torch.cuda.device(device):
+        per_sm = _launch_shape(interleaved=True)[1]
+        return max(1, per_sm) * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 post_decode_groups.launches = 0

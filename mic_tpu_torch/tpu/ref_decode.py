@@ -6,16 +6,25 @@ and an added ``device``.  The entropy stage of every frame, strip or
 tile plane of a call joins one batch of ``tans_decode``
 (``fse_decompress_device_batch``: one kernel launch per coder and state
 count; 1-state streams and streams past the kernel's caps decode on the
-host, as in ``mic_tpu``).  The RLE expansion, the predictor inverse, the
-temporal add chain and the YCoCg-R inverse stay host numpy, as in
-``mic_tpu`` (``ops/deltarle.py``, ``ops/rle.py``, ``ops/predictors.py``,
-``ops/color.py``).  Bit-exact against ``mic_tpu``'s entry points
-(``tests/test_torch_ref_decode.py``).
+host, as in ``mic_tpu``).  For MIC1 frames, MIC2 series and MIC3 tiles
+the RLE expansion, the predictor inverse, the temporal add chain and the
+YCoCg-R inverse stay host numpy, as in ``mic_tpu`` (``ops/deltarle.py``,
+``ops/rle.py``, ``ops/predictors.py``, ``ops/color.py``).  Bit-exact
+against ``mic_tpu``'s entry points (``tests/test_torch_ref_decode.py``).
+
+PICS containers of the avg kind (every writer of the reference's
+``parallelstrips.go``) decode on the card end to end through
+:class:`PicsDecodePlan`, a staged plan as ``strips.MicwDecodePlan`` is:
+the tANS kernel, then the post kernel's interleaved-RLE route
+(``post.py``: ``avg_i``), then the shared device assemble
+(``strips.DeviceAssemble``); its answer stays on the card.
 
 * :func:`decompress_frames_device` — single-frame blobs (avg, grad, or
   RLE-only residual);
 * :func:`decompress_pics_device` / :func:`decompress_pics_device_many` —
-  PICS containers, strips as the batch axis;
+  PICS containers, strips as the batch axis: the avg kind through
+  :class:`PicsDecodePlan`, the grad and residual kinds through the
+  entropy batch and the host post stage;
 * :func:`decompress_mic2_device` / :func:`decompress_mic2_frame_device` —
   MIC2 series, independent or temporal;
 * :func:`decompress_wsi_tile_device` / :func:`decompress_wsi_region_device`
@@ -24,21 +33,28 @@ temporal add chain and the YCoCg-R inverse stay host numpy, as in
 
 from __future__ import annotations
 
+import itertools
 import struct
 
 import numpy as np
+import torch
 
+from .. import trace
 from ..models.rgb import PLANE_COMPRESSED, PLANE_CONSTANT, PLANE_CONSTANT_ZERO, PLANE_RAW
 from ..ops.color import ycocgr_inverse
 from ..ops.deltarle import delta_rle_decompress, grad_delta_rle_decompress
+from ..ops.fse_codec import fse_decompress_auto
 from ..ops.predictors import temporal_delta_decode
 from ..ops.rle import rle_decompress
 from ..parallel.multiframe import extract_frame, read_mic2_header
 from ..parallel.strips import pics_strip_blobs
 from ..parallel.wsi import _bytes_per_pixel, _u16_to_bytes, extract_tile_blob, read_mic3_header
-from .tans_decode import fse_decompress_device_batch
+from .post import PostPacking, interleaved_runs, post_decode_groups
+from .strips import DeviceAssemble, gather_plan
+from .tans_decode import TansDecodePlan, fse_decompress_device_batch
 
 __all__ = [
+    "PicsDecodePlan",
     "decompress_frames_device",
     "decompress_pics_device",
     "decompress_pics_device_many",
@@ -82,17 +98,27 @@ def decompress_frames_device(blobs, dims, device, kind: str = "avg"):
 
 
 def decompress_pics_device(blob: bytes, device, kind: str = "avg"):
-    """Decode one PICS container with its strips as the batch axis.
-    Returns (pixels, width, height)."""
-    (px,), ((w, h),) = _pics_many([blob], device, kind)
+    """Decode one PICS container with its strips as the batch axis
+    (:func:`decompress_pics_device_many` of one).  Returns (pixels,
+    width, height)."""
+    ((px, w, h),) = decompress_pics_device_many([blob], device, kind)
     return px, w, h
 
 
 def decompress_pics_device_many(blobs, device, kind: str = "avg"):
     """Decode many PICS containers: every strip of every container joins
-    one batch, so same-format strips across images share launches.
-    Returns a list of (pixels, width, height)."""
-    pixels, dims = _pics_many(list(blobs), device, kind)
+    one batch, so same-format strips across images share launches.  The
+    avg kind runs one :class:`PicsDecodePlan` (one tANS launch, one post
+    launch, the assemble on the card) and copies its images back; the grad
+    and residual kinds decode their entropy stage in one batch and their
+    post stage on the host; another kind raises ValueError.  Returns a
+    list of (pixels, width, height)."""
+    blobs = list(blobs)
+    if kind == "avg":
+        plan = PicsDecodePlan(blobs, device)
+        return [(px.cpu().numpy().view(np.uint16), w, h)
+                for px, w, h in plan.assemble_device(plan.run())]
+    pixels, dims = _pics_many(blobs, device, kind)
     return [(px, w, h) for px, (w, h) in zip(pixels, dims)]
 
 
@@ -277,6 +303,8 @@ def decompress_wsi_level_device(data: bytes, level: int, device) -> bytes:
 
 
 def _pics_many(blobs, device, kind: str):
+    """PICS containers of the grad or residual kind: the strips' entropy
+    stage as one device batch, the post stage on the host."""
     parsed = [pics_strip_blobs(b) for b in blobs]
     flat, owner = [], []
     for i, (_w, _h, _sh, strips) in enumerate(parsed):
@@ -289,3 +317,153 @@ def _pics_many(blobs, device, kind: str):
         w = parsed[i][0]
         outs[i][y0 * w : (y0 + sh) * w] = _invert(syms, w, sh, kind)
     return outs, [(p[0], p[1]) for p in parsed]
+
+
+class PicsDecodePlan(DeviceAssemble):
+    """A staged decode of a fixed batch of PICS containers of the avg kind
+    (the reference's ``CompressParallelStrips`` writers at 2, 4 or 8
+    states) on ``device``, as ``strips.MicwDecodePlan`` is of MICW ones.
+
+    ``__init__`` (the span ``plan.stage``) parses the containers
+    (``plan.parse``), routes and stages every strip's entropy stream as
+    :class:`tans_decode.TansDecodePlan` does (one group a coder and state
+    count, one launch; its rows ordered by the strips' geometry, so each
+    geometry's strips are consecutive rows), and lays out every
+    kernel-routed strip's post stage as an ``avg_i`` bucket a run of rows
+    of one geometry (``plan.tables``, ``plan.upload``: the buckets' table
+    entries, each strip's symbol count, and a :class:`post.PostPacking`).
+    ``run()`` makes one tANS launch and one post launch (``run.tans``,
+    ``run.post``) and returns {post bucket: int16 [S, width * strip_h]},
+    plus ``"host"``: the pixels of the host-routed strips (a 1-state
+    stream or tableLog > 13), decoded on the host inside ``run()`` and
+    uploaded in one copy.  :meth:`assemble_device` gives the images on the
+    card through ``strips.DeviceAssemble``, the assemble of
+    ``MicwDecodePlan``.
+
+    Other kinds raise ValueError (``decompress_pics_device_many`` decodes
+    them through its host post stage).  Counters at staging:
+    ``strips.pics`` (strips on the card's route) and ``strips.tans_host``
+    (strips whose stream decodes on the host); at each run
+    ``work_bytes.tans`` (each kernel-routed strip's compressed bytes read
+    once and 2 x its symbols written once) and ``work_bytes.post`` (2 x
+    its symbols read once and 2 x its pixels written once).
+    """
+
+    def __init__(self, blobs, device, kind: str = "avg"):
+        if kind != "avg":
+            raise ValueError(f"PicsDecodePlan decodes the avg kind, not {kind!r} (the grad and "
+                             "residual kinds: decompress_pics_device_many's host post stage)")
+        with trace.span("plan.stage") as sp:
+            self._stage(blobs, device)
+            if sp is not None:
+                sp.attrs.update(strips=len(self.strips), buckets=len(self._post_rows))
+
+    def _stage(self, blobs, device):
+        self.device = torch.device(device)
+        self.blobs = list(blobs)
+        with trace.span("plan.parse"):
+            parsed = [pics_strip_blobs(b) for b in self.blobs]
+            self.metas = [(w, h) for w, h, _sh, _st in parsed]
+            self.strips = [(bi, y0, sh, w) for bi, (w, _h, _sh, st) in enumerate(parsed)
+                           for y0, sh, _data in st]  # blob, first row, rows, width
+            streams = [data for _w, _h, _sh, st in parsed for _y0, _sh2, data in st]
+        geometry = [(w, sh) for _bi, _y0, sh, w in self.strips]
+        self.tans = TansDecodePlan(streams, self.device, keys=geometry)
+        with trace.span("plan.tables"):
+            # each post bucket: the rows r0:r1 of tANS group g, one geometry
+            self._post_rows, kws, metas = [], [], []
+            self.where = [None] * len(self.strips)  # strip -> (post bucket, row)
+            for g, (idx, counts, _ops, kw) in enumerate(self.tans.groups):
+                cols = kw["steps"] * kw["n_states"]
+                r0 = 0
+                for (w, sh), rows in itertools.groupby(idx, key=geometry.__getitem__):
+                    rows = list(rows)
+                    for r, i in enumerate(rows):
+                        self.where[i] = (len(self._post_rows), r)
+                    self._post_rows.append((g, r0, r0 + len(rows)))
+                    kws.append(dict(width=w, strip_h=sh, max_runs=interleaved_runs(cols),
+                                    max_tokens=2 * w * sh + 1, mid_count=0, delim=0,
+                                    predictor="avg_i"))
+                    meta = np.zeros((len(rows), 3), np.int64)
+                    meta[:, 0] = counts[r0:r0 + len(rows)]
+                    metas.append(meta)
+                    r0 += len(rows)
+        with trace.span("plan.upload"):
+            self._post_groups = [(torch.from_numpy(m).to(self.device), kw)
+                                 for m, kw in zip(metas, kws)]
+            self.post_packing = (PostPacking(self._post_groups, self.device)
+                                 if self._post_groups else None)
+        self.host = list(self.tans.host)  # strip indices whose stream decodes on the host
+        cuda = self.device.type == "cuda"
+        self._launches = {"tans": self.tans.stats["launches"] if cuda else 0,
+                          "post": len(self.post_packing.parts) if self.post_packing and cuda
+                          else 0}
+        kernel = [i for i, wh in enumerate(self.where) if wh is not None]
+        symbols = {bi: c for idx, counts, _o, _k in self.tans.groups
+                   for bi, c in zip(idx, counts)}
+        self.work_bytes = {
+            "tans": sum(len(streams[i]) + 2 * symbols[i] for i in kernel),
+            "post": sum(2 * symbols[i] + 2 * geometry[i][0] * geometry[i][1] for i in kernel)}
+        self._gather = None  # assemble_device's copy lists, built at its first call
+        trace.count("strips.pics", len(kernel))
+        trace.count("strips.tans_host", len(self.host))
+
+    def _host_pixels(self) -> torch.Tensor:
+        """The host-routed strips decoded on the host (their entropy stream,
+        RLE and avg inverse) and uploaded: int16 pixels of every such strip
+        in turn."""
+        parts = []
+        for i in self.host:
+            _bi, _y0, sh, w = self.strips[i]
+            parts.append(_invert(fse_decompress_auto(self.tans.blobs[i]), w, sh, "avg"))
+        flat = np.concatenate(parts).astype(np.uint16)
+        return torch.from_numpy(flat.view(np.int16)).to(self.device)
+
+    def run(self) -> dict:
+        """One tANS launch for every kernel-routed strip, then one post
+        launch (``post.post_decode_groups``; its plain twin on the CPU),
+        and the host-routed strips' pixels; returns {post bucket: int16
+        [S, width * strip_h], "host": int16 pixels} on the device, nothing
+        copied to the host.  Traced, the spans ``plan.run`` with
+        ``run.tans``, ``run.host`` and ``run.post`` (their ``launches``
+        an attribute) and the counters ``work_bytes.tans`` and
+        ``work_bytes.post``."""
+        with trace.span("plan.run"):
+            outs = {}
+            if self.tans.groups:
+                with trace.span("run.tans") as sp:
+                    ent = self.tans.run()
+                    if sp is not None:
+                        sp.attrs["launches"] = self._launches["tans"]
+                trace.count("work_bytes.tans", self.work_bytes["tans"])
+            if self.host:
+                with trace.span("run.host"):
+                    outs["host"] = self._host_pixels()
+            if self._post_rows:
+                with trace.span("run.post") as sp:
+                    outs.update(enumerate(post_decode_groups(
+                        [(ent[g][r0:r1], *pg) for (g, r0, r1), pg in zip(self._post_rows,
+                                                                         self._post_groups)],
+                        self.post_packing)))
+                    if sp is not None:
+                        sp.attrs["launches"] = self._launches["post"]
+                trace.count("work_bytes.post", self.work_bytes["post"])
+            return outs
+
+    def _gather_plan(self, decoded: dict):
+        """The copies of :meth:`assemble_device` (``strips.gather_plan``):
+        each kernel-routed strip's row of its post bucket, each host-routed
+        strip's pixels from ``"host"``, into the images in blob order."""
+        bases = np.concatenate([[0], np.cumsum([w * h for w, h in self.metas])])
+        segs: dict = {}
+        host_at = 0  # the host-routed strips lie in turn in "host"
+        for i, (bi, y0, sh, w) in enumerate(self.strips):
+            n, dst = sh * w, int(bases[bi]) + y0 * w
+            if self.where[i] is None:
+                segs.setdefault("host", []).append((host_at, dst, n))
+                host_at += n
+            else:
+                k, row = self.where[i]
+                segs.setdefault(k, []).append((row * decoded[k].shape[1], dst, n))
+        images = [(int(b), w, h, None) for b, (w, h) in zip(bases, self.metas)]
+        return gather_plan(segs, np.zeros(0, np.uint16), images, self.device)

@@ -134,6 +134,8 @@ __all__ = [
     "micw_decompress_device",
     "micw_decompress_scan",
     "micw_decode_batch",
+    "gather_plan",
+    "DeviceAssemble",
     "MICW_MAGIC",
     "MICW_BAND_W",
 ]
@@ -919,7 +921,51 @@ def _work_bytes(buckets: dict, sizes: dict) -> dict:
     return work
 
 
-class MicwDecodePlan:
+class DeviceAssemble:
+    """The device assemble that the staged plans share
+    (``MicwDecodePlan``, ``ref_decode.PicsDecodePlan``).  A subclass
+    sets ``device`` and ``_gather = None`` when it stages and gives
+    ``_gather_plan(decoded)``, which returns its :func:`gather_plan`;
+    :meth:`assemble_device` builds that at its first call and keeps it."""
+
+    def _gather_plan(self, decoded: dict):
+        raise NotImplementedError
+
+    def assemble_device(self, decoded: dict):
+        """One run's outputs ``decoded`` ({source: int16 tensor}) as
+        per-image tensors on the plan's device, blob order: [(pixels int16
+        [width * height] (bit-view of u16), width, height)].  Each source's
+        rows go to a flat output with one ``index_select`` and one
+        ``index_copy_`` (raw and constant strips uploaded once a plan),
+        then each image is a view of it (a banded one un-banded by torch
+        reshapes).  Traced: the span ``plan.assemble`` with
+        ``assemble.gather_plan`` (the first call), ``assemble.gathers`` and
+        ``assemble.images``, and the counter ``assemble.gather_plans``."""
+        with trace.span("plan.assemble"):
+            if self._gather is None:
+                with trace.span("assemble.gather_plan"):
+                    self._gather = self._gather_plan(decoded)
+                trace.count("assemble.gather_plans")
+            raw_dev, total, copies, images = self._gather
+            flat = torch.empty(total, dtype=torch.int16, device=self.device)
+            with trace.span("assemble.gathers"):
+                for k, g, src_index, dst_index in copies:
+                    src = raw_dev if k == "raw" else decoded[k].reshape(-1)
+                    blocks = src[: src.numel() // g * g].view(-1, g).index_select(0, src_index)
+                    flat[: total // g * g].view(-1, g).index_copy_(0, dst_index, blocks)
+            with trace.span("assemble.images", images=len(images)):
+                results = []
+                for base, width, height, band in images:
+                    px = flat[base : base + width * height]
+                    if band is not None:
+                        ow, oh = band
+                        px = px.view(ow // width, oh, width).permute(1, 0, 2).reshape(-1)
+                        width, height = ow, oh
+                    results.append((px, width, height))
+            return results
+
+
+class MicwDecodePlan(DeviceAssemble):
     """A staged decode of a fixed batch of MICW blobs on ``device``.
 
     Host work (parsing, table building, the copy of operands to the
@@ -1210,15 +1256,13 @@ class MicwDecodePlan:
         return results
 
     def _gather_plan(self, decoded: dict):
-        """The copies :meth:`assemble_device` makes, built at its first
-        call: the raw and constant strips' pixels as one tensor on the
-        device, the pixel count of the whole batch, and per source (a
-        bucket key, or "raw") a pair of index tensors that map blocks of
-        ``g`` pixels of the flattened source to blocks of the flat output,
-        ``g`` the largest block that divides every segment and offset of
-        that source (a strip of 128 rows of 256 pixels is one block)."""
+        """The copies of :meth:`assemble_device` (:func:`gather_plan`):
+        each bucket row's pixels and each raw or constant strip's (one
+        tensor on the device, uploaded here), and each image, un-banded
+        where its container is banded."""
         raw_parts, raw_at = [], 0
         segs: dict = {}  # source -> [(source offset, output offset, pixels)]
+        images = []  # (output offset, width, height, (original width, height) or None)
         base = 0
         for bi, (width, height, _ns, _sh) in enumerate(self.metas):
             for y0, sh, k, idx in self._strip_rows(bi):
@@ -1232,55 +1276,37 @@ class MicwDecodePlan:
                 if n > cols:
                     raise ValueError(f"bucket {k}: a strip of {n} pixels in rows of {cols}")
                 segs.setdefault(k, []).append((idx * cols, base + y0 * width, n))
+            images.append((base, width, height, micw_band_info(self.blobs[bi])))
             base += width * height
         raw = np.concatenate(raw_parts) if raw_parts else np.zeros(0, np.uint16)
-        raw_dev = torch.from_numpy(raw.astype(np.uint16).view(np.int16)).to(self.device)
+        return gather_plan(segs, raw, images, self.device)
 
-        def block_index(offs, counts):  # concatenated arange(offs[i], offs[i] + counts[i])
-            first = np.cumsum(counts) - counts
-            return torch.from_numpy(np.repeat(offs - first, counts)
-                                    + np.arange(int(counts.sum()))).to(self.device)
 
-        copies = []
-        for k, items in segs.items():
-            src_off, dst_off, n = np.array(items, dtype=np.int64).T
-            g = int(np.gcd.reduce(np.concatenate([src_off, dst_off, n])))
-            copies.append((k, g, block_index(src_off // g, n // g),
-                           block_index(dst_off // g, n // g)))
-        return raw_dev, base, copies
+def gather_plan(segs: dict, raw: np.ndarray, images, device):
+    """The copies of :meth:`DeviceAssemble.assemble_device`, built once a plan.
+    ``segs`` maps each source (a key of the decoded outputs, or "raw") to
+    its [(source offset, output offset, pixels)]; ``raw`` holds the "raw"
+    source's u16 pixels, uploaded here; ``images`` is [(output offset,
+    width, height, (original width, height) of a banded container or
+    None)].  Returns (the raw pixels on ``device``, the pixel count of the
+    batch, per source a pair of index tensors that map blocks of ``g``
+    pixels of the flattened source to blocks of the flat output, ``g`` the
+    largest block that divides every segment and offset of that source (a
+    strip of 128 rows of 256 pixels is one block), the images)."""
+    raw_dev = torch.from_numpy(raw.astype(np.uint16).view(np.int16)).to(device)
+    total = sum(w * h for _b, w, h, _band in images)
 
-    def assemble_device(self, decoded: dict):
-        """One run's outputs as per-image tensors on the plan's device,
-        blob order: [(pixels int16 [width * height] (bit-view of u16),
-        width, height)], the same pixels as :meth:`assemble`.  Rows are
-        gathered from each bucket's output with one indexed copy, raw and
-        constant strips are uploaded once per plan, and banded containers
-        are un-banded with torch reshapes."""
-        with trace.span("plan.assemble"):
-            if self._gather is None:
-                with trace.span("assemble.gather_plan"):
-                    self._gather = self._gather_plan(decoded)
-                trace.count("assemble.gather_plans")
-            raw_dev, total, copies = self._gather
-            flat = torch.empty(total, dtype=torch.int16, device=self.device)
-            with trace.span("assemble.gathers"):
-                for k, g, src_index, dst_index in copies:
-                    src = raw_dev if k == "raw" else decoded[k].reshape(-1)
-                    blocks = src[: src.numel() // g * g].view(-1, g).index_select(0, src_index)
-                    flat[: total // g * g].view(-1, g).index_copy_(0, dst_index, blocks)
-            with trace.span("assemble.images", images=len(self.blobs)):
-                results, base = [], 0
-                for bi, blob in enumerate(self.blobs):
-                    width, height = self.metas[bi][:2]
-                    px = flat[base : base + width * height]
-                    base += width * height
-                    info = micw_band_info(blob)
-                    if info is not None:
-                        ow, oh = info
-                        px = px.view(ow // width, oh, width).permute(1, 0, 2).reshape(-1)
-                        width, height = ow, oh
-                    results.append((px, width, height))
-            return results
+    def block_index(offs, counts):  # concatenated arange(offs[i], offs[i] + counts[i])
+        first = np.cumsum(counts) - counts
+        return torch.from_numpy(np.repeat(offs - first, counts)
+                                + np.arange(int(counts.sum()))).to(device)
+
+    copies = []
+    for k, items in segs.items():
+        src_off, dst_off, n = np.array(items, dtype=np.int64).T
+        g = int(np.gcd.reduce(np.concatenate([src_off, dst_off, n])))
+        copies.append((k, g, block_index(src_off // g, n // g), block_index(dst_off // g, n // g)))
+    return raw_dev, total, copies, images
 
 
 def micw_decode_many(blobs, device):

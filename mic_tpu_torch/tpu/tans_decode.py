@@ -61,7 +61,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.bitio import ReverseBitReader
+from ..native import read_ncount_native
 from ..ops.fse import build_dtable, read_ncount
 from ..ops.fse_codec import (
     MAGIC_2STATE,
@@ -232,44 +234,51 @@ def _check_sizes(sizes, R: int, ts: int, asz: int, dev) -> np.ndarray:
 
 def tans_decode_plain(init, pos, cnt, tpk, alpha, words, *, steps: int, n_states: int,
                       table_log: int, sizes=None) -> torch.Tensor:
-    """Plain-PyTorch twin of the tANS kernel (any device).  Same operands
-    and output as :func:`tans_decode`."""
+    """Plain twin of the tANS kernel (any device).  Same operands and
+    output as :func:`tans_decode`.  The steps run in NumPy on the host,
+    each a few array operations over every stream's lanes (a decode step
+    depends on the one before it), and the output goes back to the
+    operands' device."""
     R, ts, asz, wb = _tans_operands(init, pos, cnt, tpk, alpha, words, steps, n_states,
                                     table_log)
     N, spr, dev = n_states, 128 // n_states, init.device
     own_ts, own_asz = ts, asz
     if sizes is not None:
-        _check_sizes(sizes, R, ts, asz, dev)
-        own_ts, own_asz = sizes[:, :1].to(torch.int64), sizes[:, 1:].to(torch.int64)
-    x = _u(init[:, :N])
-    p = pos[:, :1].to(torch.int64)
-    c = cnt[:, :1].to(torch.int64)  # the int32 view: the Pallas kernel compares as int32
-    tpk, alpha = _u(tpk), _u(alpha)
-    w = _u(words).reshape(R, -1)
-    lane = torch.arange(N, device=dev)
-    out = torch.zeros((R, steps, N), dtype=torch.int16, device=dev)
+        host = _check_sizes(sizes, R, ts, asz, dev).astype(np.int64)
+        own_ts, own_asz = host[:, :1], host[:, 1:]
+
+    def u32(t):
+        return _u(t).cpu().numpy()
+
+    x = u32(init[:, :N])
+    p = pos[:, :1].cpu().numpy().astype(np.int64)
+    c = cnt[:, :1].cpu().numpy().astype(np.int64)  # the int32 view: Pallas compares as int32
+    tpk, alpha, w = u32(tpk).ravel(), u32(alpha).ravel(), u32(words).ravel()
+    row_t, row_a, row_w = (np.arange(R)[:, None] * n for n in (ts, asz, wb * 128))
+    lane = np.arange(N)
+    out = np.zeros((R, steps, N), np.int64)
     # Rows past every stream's count have no active lane: they stay 0.
     rows = min(steps // spr, -(-max(int(c.max()) if R else 0, 0) // (spr * N)))
     for row in range(rows):
-        base = (((p - 128 * table_log - 64).clamp(min=0) >> 12) << 7).clamp(max=(wb - 2) * 128)
+        base = np.minimum(((np.maximum(p - 128 * table_log - 64, 0) >> 12) << 7),
+                          (wb - 2) * 128)
         for t in range(row * spr, (row + 1) * spr):
-            pk = torch.where(x < own_ts, torch.gather(tpk, 1, x.clamp(max=ts - 1)), 0)
+            pk = np.where(x < own_ts, tpk[row_t + np.minimum(x, ts - 1)], 0)
             rank = pk >> 19
-            sym = torch.where(rank < own_asz,
-                              torch.gather(alpha, 1, rank.clamp(max=asz - 1)), 0)
+            sym = np.where(rank < own_asz, alpha[row_a + np.minimum(rank, asz - 1)], 0)
             active = (t * N + lane) < c
-            nb = torch.where(active, pk & 31, 0)
-            cum = torch.cumsum(nb, dim=1)
+            nb = np.where(active, pk & 31, 0)
+            cum = np.cumsum(nb, axis=1)
             start = p - cum
-            idx = base + (start >> 5).sub(base).clamp(0, 254)
+            idx = row_w + base + np.clip((start >> 5) - base, 0, 254)
             off = start & 31
-            lo = torch.gather(w, 1, idx) >> off
-            hi = torch.where(off > 0, (torch.gather(w, 1, idx + 1) << (32 - off)) & _U32, 0)
+            lo = w[idx] >> off
+            hi = np.where(off > 0, (w[idx + 1] << (32 - off)) & _U32, 0)
             val = (lo | hi) & ((1 << nb) - 1)
-            x = torch.where(active, ((pk >> 5) & 0x3FFF) + val, x)
+            x = np.where(active, ((pk >> 5) & 0x3FFF) + val, x)
             p = p - cum[:, -1:]
-            out[:, t] = _as_i16(torch.where(active, sym, 0))
-    return out.reshape(R, steps * N // 128, 128)
+            out[:, t] = np.where(active, sym, 0)
+    return _as_i16(torch.from_numpy(out).to(dev)).reshape(R, steps * N // 128, 128)
 
 
 def tans_decode_groups_plain(groups) -> list[torch.Tensor]:
@@ -495,6 +504,18 @@ tans_decode_groups.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _read_ncount(body: bytes):
+    """A stream's normalized-count header, from the C++ host tier's reader
+    (``native.read_ncount_native``, the one the MICW plan's staging uses);
+    where it finds the header invalid, the Python reader, which raises its
+    own error.  Returns (norm int64, symbol_len, table_log, consumed)."""
+    nat = read_ncount_native(body)
+    if nat is None:
+        return read_ncount(body)
+    norm, symbol_len, table_log, consumed = nat
+    return norm.astype(np.int64), symbol_len, table_log, consumed
+
+
 def _step_bucket(count: int, n: int) -> int:
     """``mic_tpu``'s power-of-two step bucket (part of its routing key)."""
     b = 8 * (128 // n)
@@ -541,7 +562,14 @@ class TansDecodePlan:
     launch (:class:`TansPacking`); ``run()`` launches the kernel once and
     returns one output per group; ``results(outs)`` decodes the
     host-routed streams and returns every stream's symbols (numpy uint16)
-    in blob order.
+    in blob order.  Traced, the three parts are the spans ``plan.parse``
+    (the headers and the routing), ``plan.tables`` (the operands on the
+    host) and ``plan.upload`` (the copies and the packing).
+
+    ``keys``, when given, holds a sortable key a blob: a group's streams
+    are ordered by key first, then longest first, so that the streams of
+    one key take consecutive rows of the group's output (a consumer on
+    the device reads a key's rows as one slice).
 
     ``stats``: ``streams`` (blobs), ``kernel`` (streams routed to the
     kernel), ``host`` (the blob indices routed to the host, in order),
@@ -550,51 +578,56 @@ class TansDecodePlan:
     with no kernel stream), ``table_logs`` (kernel streams per tableLog).
     """
 
-    def __init__(self, blobs, device):
+    def __init__(self, blobs, device, keys=None):
         self.blobs = list(blobs)
         self.device = torch.device(device)
         host, routed = [], {}
-        for bi, blob in enumerate(self.blobs):
-            n, count, body, coder = fse_parse_header(blob)
-            if n == 1 or count is None:
-                host.append(bi)
-                continue
-            norm, symbol_len, tl, consumed = read_ncount(body)
-            if tl > TANS_MAX_TABLE_LOG:
-                host.append(bi)
-                continue
-            entry = (count, norm, symbol_len, tl, body[consumed:])
-            routed.setdefault((coder, n, tl, _step_bucket(count, n)), []).append((bi, entry))
-        launch = {}
-        for (coder, n, _tl, _b), items in routed.items():
-            built = build_tans_batch([e for _bi, e in items], n, min_steps=8 * (128 // n),
-                                     coder=coder)
-            if built is None:
-                host += [bi for bi, _e in items]
-            else:
-                launch.setdefault((coder, n), []).append((items, built))
-        self.host = sorted(host)
-        self.groups = []  # (blob indices, counts, device operands, kwargs)
-        self.sizes = []   # per group: int32 [R, 2] on the device
-        table_logs = {}
-        for (coder, n), parts in launch.items():
-            items = [it for its, _b in parts for it in its]
-            ops = [_stack_padded([b[0][k] for _its, b in parts]) for k in range(6)]
-            order = np.argsort([-e[0] for _bi, e in items], kind="stable")
-            ops = [a[order] for a in ops]
-            items = [items[i] for i in order]
-            kw = dict(steps=max(b[1] for _its, b in parts), n_states=n,
-                      table_log=max(b[2] for _its, b in parts))
-            self.groups.append(([bi for bi, _e in items], [e[0] for _bi, e in items],
-                                to_device(ops, self.device), kw))
-            sizes = _own_sizes([e[3] for _bi, e in items], ops[4])
-            self.sizes.append(torch.from_numpy(sizes).to(self.device))
-            for _bi, e in items:
-                table_logs[e[3]] = table_logs.get(e[3], 0) + 1
-        self._launch_groups = [(ops, sizes, kw)
-                               for (_i, _c, ops, kw), sizes in zip(self.groups, self.sizes)]
-        self.packing = (TansPacking(self._launch_groups)
-                        if self.groups and self.device.type == "cuda" else None)
+        with trace.span("plan.parse"):
+            for bi, blob in enumerate(self.blobs):
+                n, count, body, coder = fse_parse_header(blob)
+                if n == 1 or count is None:
+                    host.append(bi)
+                    continue
+                norm, symbol_len, tl, consumed = _read_ncount(body)
+                if tl > TANS_MAX_TABLE_LOG:
+                    host.append(bi)
+                    continue
+                entry = (count, norm, symbol_len, tl, body[consumed:])
+                routed.setdefault((coder, n, tl, _step_bucket(count, n)), []).append((bi, entry))
+        with trace.span("plan.tables"):
+            launch = {}
+            for (coder, n, _tl, _b), items in routed.items():
+                built = build_tans_batch([e for _bi, e in items], n, min_steps=8 * (128 // n),
+                                         coder=coder)
+                if built is None:
+                    host += [bi for bi, _e in items]
+                else:
+                    launch.setdefault((coder, n), []).append((items, built))
+            self.host = sorted(host)
+            staged, table_logs = [], {}
+            for (coder, n), parts in launch.items():
+                items = [it for its, _b in parts for it in its]
+                ops = [_stack_padded([b[0][k] for _its, b in parts]) for k in range(6)]
+                order = sorted(range(len(items)), key=lambda i: (
+                    () if keys is None else keys[items[i][0]], -items[i][1][0]))
+                ops = [a[order] for a in ops]
+                items = [items[i] for i in order]
+                kw = dict(steps=max(b[1] for _its, b in parts), n_states=n,
+                          table_log=max(b[2] for _its, b in parts))
+                staged.append((items, ops, kw, _own_sizes([e[3] for _bi, e in items], ops[4])))
+                for _bi, e in items:
+                    table_logs[e[3]] = table_logs.get(e[3], 0) + 1
+        with trace.span("plan.upload"):
+            self.groups = []  # (blob indices, counts, device operands, kwargs)
+            self.sizes = []   # per group: int32 [R, 2] on the device
+            for items, ops, kw, sizes in staged:
+                self.groups.append(([bi for bi, _e in items], [e[0] for _bi, e in items],
+                                    to_device(ops, self.device), kw))
+                self.sizes.append(torch.from_numpy(sizes).to(self.device))
+            self._launch_groups = [(ops, sizes, kw)
+                                   for (_i, _c, ops, kw), sizes in zip(self.groups, self.sizes)]
+            self.packing = (TansPacking(self._launch_groups)
+                            if self.groups and self.device.type == "cuda" else None)
         n_kernel = sum(len(g[0]) for g in self.groups)
         self.stats = {"streams": len(self.blobs), "kernel": n_kernel, "host": list(self.host),
                       "symbols": sum(sum(g[1]) for g in self.groups),

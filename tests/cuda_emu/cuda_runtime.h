@@ -10,7 +10,8 @@
 // reach it, as the full mask says.  The slots alternate between two
 // arrays, one barrier an exchange: a lane writes an array again only after
 // the next exchange's barrier, which every lane reaches after its read.
-// __syncwarp is the warp's barrier; atomicOr is a host atomic.
+// __syncwarp is the warp's barrier; atomicOr, atomicCAS and atomicExch are
+// host atomics and __threadfence a sequentially consistent fence.
 // __shared__ variables become function statics (one copy, shared by the
 // block's threads), so blocks must not overlap: emu_launch runs them in
 // turn.  The test rewrites the one piece of CUDA syntax the host compiler
@@ -110,6 +111,12 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
 inline unsigned atomicOr(unsigned* a, unsigned v) {
   return __atomic_fetch_or(a, v, __ATOMIC_SEQ_CST);
 }
+inline int atomicCAS(int* a, int expected, int v) {
+  __atomic_compare_exchange_n(a, &expected, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST);
+  return expected;
+}
+inline int atomicExch(int* a, int v) { return __atomic_exchange_n(a, v, __ATOMIC_SEQ_CST); }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 
 template <class K, class... A>
 void emu_launch(K kernel, int n_blocks, int threads, int, A... args) {

@@ -13,7 +13,12 @@ whole plan on the card, one post-kernel launch a plan with post buckets,
 against the same plan on the CPU.  The MWR3 and
 W3D1 containers add their own headers: truncated or damaged ones raise
 ValueError, and a damaged plane stream decodes to garbage of the right
-shape or raises, as above.  Needs no jax.
+shape or raises, as above.  The PICS plan (``ref_decode.PicsDecodePlan``:
+the tANS kernel, then the post kernel's interleaved-RLE route) takes
+PICS-8 strips with damaged words, states, counts and headers: on the CPU
+they stay in bounds, and the ``cuda`` test holds the plan on the card,
+one tANS launch and one post launch, against the same plan on the CPU.
+Needs no jax.
 """
 
 import struct
@@ -31,9 +36,12 @@ from mic_tpu_torch import (
     w3d_decompress_level,
     w3d_decompress_region,
 )
+from mic_tpu_torch.parallel import strips as ps
 from mic_tpu_torch.tpu import device_rans as dr
 from mic_tpu_torch.tpu import post
 from mic_tpu_torch.tpu import rans_decode as rd
+from mic_tpu_torch.tpu import tans_decode as td
+from mic_tpu_torch.tpu.ref_decode import PicsDecodePlan
 
 ROOT = Path(__file__).resolve().parent.parent
 TESTDATA = ROOT / "web" / "testdata"
@@ -192,3 +200,81 @@ def test_cuda_corrupt_streams_match_plain():
         for k in want:
             assert torch.equal(got[k].cpu(), want[k]), (name, kind, k)
     assert checked and posted
+
+
+# ---------------------------------------------------------------------------
+# PICS: the tANS kernel, then the post kernel's interleaved route
+# ---------------------------------------------------------------------------
+
+PICS_KINDS = ["words", "states", "count_up", "count_down", "ncount", "cut", "init_word"]
+
+
+def _pics_corrupt(kind: str) -> bytes:
+    """A seeded 72 x 40 image as a PICS-8 container of three strips, its
+    first strip's stream damaged: bitstream words, the initial states (the
+    stream's top bytes), the symbol count up or down, the normalized-count
+    header, the strip cut short, or bytes flipped just past the header
+    (where the Init word's and the first runs' bits lie)."""
+    rng = np.random.default_rng(31 + PICS_KINDS.index(kind))
+    img = (rng.standard_normal((40, 72)).cumsum(0).cumsum(1) * 5).astype(np.int64)
+    px = (img - img.min()).clip(0, 60000).astype(np.uint16).ravel()
+    blob = bytearray(ps.compress_parallel_strips_8state(px, 72, 40, int(px.max()), num_strips=3))
+    off, length = struct.unpack_from("<II", blob, 20)
+    at = 20 + 8 * 3 + off  # the first strip's FF 84 magic
+    count = struct.unpack_from("<I", blob, at + 2)[0]
+    end = at + length
+    if kind == "words":
+        for o in rng.integers(at + 40, end - 8, 24):
+            blob[o] ^= 0xFF
+    elif kind == "states":
+        for o in range(end - 8, end - 1):
+            blob[o] ^= 0x5A
+    elif kind in ("count_up", "count_down"):
+        struct.pack_into("<I", blob, at + 2, count * 2 if kind == "count_up" else count // 2)
+    elif kind == "ncount":
+        blob[at + 7] ^= 0x3C
+    elif kind == "cut":
+        struct.pack_into("<I", blob, 24, length // 2)
+    else:
+        for o in range(end - 24, end - 8):
+            blob[o] ^= 0xA5
+    return bytes(blob)
+
+
+@pytest.mark.parametrize("kind", PICS_KINDS)
+def test_corrupt_pics_stays_in_bounds(kind):
+    blob = _pics_corrupt(kind)
+    try:
+        plan = PicsDecodePlan([blob], CPU)
+    except (ValueError, NotImplementedError):
+        return  # rejected at parse or table build
+    (px, w, h), = plan.assemble_device(plan.run())
+    assert (w, h) == (72, 40) and px.dtype == torch.int16 and px.numel() == w * h
+
+
+@pytest.mark.cuda
+def test_cuda_corrupt_pics_match_plain():
+    """Each damaged container's plan on the card: one tANS launch and one
+    post launch, no twin called, and the same outputs as the plan on the
+    CPU (the tANS twin, then ``post_batch``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    checked = 0
+    for kind in PICS_KINDS:
+        blob = _pics_corrupt(kind)
+        try:
+            plan = PicsDecodePlan([blob], torch.device("cuda"))
+        except (ValueError, NotImplementedError):
+            continue
+        tans, posts = td.tans_decode_groups.launches, post.post_decode_groups.launches
+        calls = post.post_batch.calls
+        got = plan.run()
+        torch.cuda.synchronize()
+        assert td.tans_decode_groups.launches - tans == 1
+        assert post.post_decode_groups.launches - posts == 1 and post.post_batch.calls == calls
+        want = PicsDecodePlan([blob], CPU).run()
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (kind, k)
+        checked += 1
+    assert checked

@@ -15,8 +15,15 @@
   barriers and warp exchanges) and run against ``post_batch`` on those
   buckets, clean and with damaged symbols, and on seeded random operands
   and table entries (damaged streams of every kind);
-* the ``cuda`` test: the kernel on the card against ``post_batch`` on
-  every post bucket of the fixtures, clean and damaged, one launch a call.
+* the reference formats' route ``avg_i`` (interleaved RLE, its run
+  headers found on the card): the twin against the host decode on the
+  PICS writers' strips at 2, 4 and 8 states, its packing, its checks, and
+  the kernel's interleaved instance emulated against the twin on those
+  strips, damaged ones, seeded random streams and a strip of more runs
+  than shared memory holds;
+* the ``cuda`` tests: the kernel on the card against ``post_batch`` on
+  every post bucket of the fixtures, clean and damaged, one launch a
+  call; the interleaved instance on the ``avg_i`` cases above.
 
 Tolerance 0: a lossless codec.  The module needs no jax at import (the
 ``ref`` fixture imports it), so the ``cuda`` test runs on a machine with
@@ -318,14 +325,16 @@ def emulated(tmp_path_factory):
     res = subprocess.run(cmd, capture_output=True, text=True)
     assert res.returncode == 0, res.stdout + res.stderr
     lib = ctypes.CDLL(str(lib_path))
-    lib.mic_post_groups.argtypes = _build._SIGNATURES["mic_post_groups"]
-    lib.mic_post_groups.restype = ctypes.c_int
+    for name in ("mic_post_groups", "mic_post_groups_interleaved"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
 def _emulated_groups(lib, groups):
     """``groups`` through the emulated kernel, laid out by
-    ``PostPacking`` as the card's launch is."""
+    ``PostPacking`` as the card's launch is, a part with an ``avg_i``
+    bucket through the interleaved instance."""
     pk = post.PostPacking([(m, kw) for _e, m, kw in groups], CPU)
     desc = pk.desc.copy()
     desc["meta"] = [m.data_ptr() for m in pk.metas]
@@ -334,14 +343,19 @@ def _emulated_groups(lib, groups):
     out = np.zeros(pk.out_total, np.int16)
     runs = np.full(16 * pk.runs_total + 16, 0xA5, np.uint8)  # garbage, as on the card
     flags = np.full(pk.flags_total + 4, 0xA5A5A5A5, np.uint32)
+    busy = np.zeros(pk.slots, np.int32)
     ptrs = np.array([e.data_ptr() for e in ents], np.uint64)
     cols = np.array([e.shape[1] for e in ents], np.int32)
-    for g0, g1, b0, b1 in pk.parts:
-        rc = lib.mic_post_groups(desc.ctypes.data + g0 * desc.itemsize,
-                                 blocks.ctypes.data + b0 * 8, b1 - b0, ptrs.ctypes.data + 8 * g0,
-                                 cols.ctypes.data + 4 * g0, g1 - g0, out.ctypes.data,
-                                 runs.ctypes.data, flags.ctypes.data, None)
+    for (g0, g1, b0, b1), inter in zip(pk.parts, pk.interleaved):
+        args = (desc.ctypes.data + g0 * desc.itemsize, blocks.ctypes.data + b0 * 8, b1 - b0,
+                ptrs.ctypes.data + 8 * g0, cols.ctypes.data + 4 * g0, g1 - g0,
+                out.ctypes.data, runs.ctypes.data, flags.ctypes.data)
+        if inter:
+            rc = lib.mic_post_groups_interleaved(*args, busy.ctypes.data, pk.slots, None)
+        else:
+            rc = lib.mic_post_groups(*args, None)
         assert rc == 0
+    assert not busy.any()  # every runs-scratch slot freed
     res, off = [], 0
     for S, kw in zip(pk.rows, pk.kws):
         need = kw["width"] * kw["strip_h"]
@@ -528,3 +542,176 @@ def test_cuda_kernel_matches_post_batch():
     decoded = plan.run()
     assert post.post_batch.calls == calls
     assert plan.verify_batch(decoded, [st.micw_decompress_host(b)[0] for b in plan.blobs]) == 0
+
+
+# ---------------------------------------------------------------------------
+# the reference formats' route, avg_i: interleaved RLE found on the card
+# ---------------------------------------------------------------------------
+
+
+def _pics_groups(states=8):
+    """The strips of a seeded 100 x 40 image written as PICS by the
+    reference writer of ``states`` states, in three strips (the last one
+    shorter), each an ``avg_i`` bucket of its symbols (padded with zeros
+    to rows of 128 words and one more row).  Returns (the groups, the
+    image, the strips)."""
+    from mic_tpu_torch.ops.fse_codec import fse_decompress_auto
+    from mic_tpu_torch.parallel import strips as ps
+
+    rng = np.random.default_rng(5)
+    img = (rng.standard_normal((40, 100)).cumsum(0).cumsum(1) * 5).astype(np.int64)
+    px = (img - img.min()).clip(0, 60000).astype(np.uint16).ravel()
+    writer = {2: ps.compress_parallel_strips, 4: ps.compress_parallel_strips_4state,
+              8: ps.compress_parallel_strips_8state}[states]
+    w, _h, _sh, strips = ps.pics_strip_blobs(writer(px, 100, 40, int(px.max()), num_strips=3))
+    groups = []
+    for _y0, sh, blob in strips:
+        syms = fse_decompress_auto(blob)
+        cols = 128 * -(-len(syms) // 128) + 128
+        row = np.zeros((1, cols), np.uint16)
+        row[0, :len(syms)] = syms
+        groups.append((torch.from_numpy(row.view(np.int16)),
+                       torch.tensor([[len(syms), 0, 0]], dtype=torch.int64),
+                       dict(width=w, strip_h=sh, max_runs=post.interleaved_runs(cols),
+                            max_tokens=2 * w * sh + 1, mid_count=0, delim=0,
+                            predictor="avg_i")))
+    return groups, px, strips
+
+
+def _interleaved_group(rng):
+    """A bucket of seeded interleaved RLE streams: an Init word for a
+    midCount of 0, 1, 3, 127 or 32767 (or 0 or 1 itself), then same-runs,
+    literal runs and stray words, cut at the row's end; symbol counts
+    below, at and past the row's; any geometry and max_tokens: honest and
+    damaged streams alike."""
+    w = int(rng.choice([1, 5, 33, 64, 100]))
+    h = int(rng.choice([1, 2, 7, 40]))
+    S, C = int(rng.integers(1, 3)), int(rng.choice([2, 3, 128, 256, 1024, 4096]))
+    syms = np.empty((S, C), np.int64)
+    for s in range(S):
+        mid = int(rng.choice([0, 1, 3, 127, 32767]))
+        row = [2 * mid + 1 if mid else int(rng.integers(0, 2))]
+        while len(row) < C:
+            r = rng.random()
+            if r < 0.4:
+                row += [int(rng.integers(0, mid + 1)), int(rng.integers(0, 1 << 16))]
+            elif r < 0.8:
+                k = int(rng.integers(1, 12))
+                row += [mid + k] + rng.integers(0, 1 << 16, k).tolist()
+            else:
+                row.append(int(rng.integers(0, 1 << 16)))
+        syms[s] = row[:C]
+    meta = np.stack([rng.integers(-5, C + 10, S), rng.integers(-5, 10, S),
+                     rng.integers(-5, 10, S)], axis=1).astype(np.int64)
+    kw = dict(width=w, strip_h=h, max_runs=post.interleaved_runs(C) + int(rng.integers(0, 3)),
+              max_tokens=int(rng.choice([2, 128, w * h + 7, 2 * w * h + 300])),
+              mid_count=int(rng.choice([0, 127])), delim=int(rng.choice([0, 4095])),
+              predictor="avg_i")
+    return (torch.from_numpy(syms.astype(np.uint16).view(np.int16).copy()),
+            torch.from_numpy(meta), kw)
+
+
+def _many_runs_group(rows: int = 1):
+    """``rows`` strips of 3,000 same-runs of 3: more runs than the kernel's
+    shared memory holds, so each strip's block claims a slot of the runs
+    scratch."""
+    syms = [65535] + [3, 7] * 3000
+    row = np.zeros((rows, 6144), np.uint16)
+    row[:, :len(syms)] = syms
+    return (torch.from_numpy(row.view(np.int16)), torch.tensor([[len(syms), 0, 0]] * rows),
+            dict(width=100, strip_h=100, max_runs=post.interleaved_runs(6144), max_tokens=20001,
+                 mid_count=0, delim=0, predictor="avg_i"))
+
+
+@pytest.mark.parametrize("states", [2, 4, 8])
+def test_avg_i_twin_decodes_the_reference_writers(states):
+    """The twin's route on PICS strips of every state count equals the
+    source pixels and the host decode (``delta_rle_decompress``)."""
+    from mic_tpu_torch.ops.deltarle import delta_rle_decompress
+    from mic_tpu_torch.ops.fse_codec import fse_decompress_auto
+
+    groups, px, strips = _pics_groups(states)
+    for (e, m, kw), (y0, sh, blob), got in zip(groups, strips, _twin(groups)):
+        want = px[y0 * 100:(y0 + sh) * 100]
+        assert np.array_equal(got.numpy().view(np.uint16).ravel(), want)
+        assert np.array_equal(delta_rle_decompress(fse_decompress_auto(blob), 100, sh), want)
+
+
+def test_avg_i_packing_takes_the_interleaved_instance():
+    groups, _px, _strips = _pics_groups()
+    mixed_in = groups + [_many_runs_group()]
+    pk = post.PostPacking([(m, kw) for _e, m, kw in mixed_in], CPU)
+    assert pk.interleaved == [True]
+    assert [int(d["pred"]) for d in pk.desc] == [post.ROUTES.index("avg_i")] * 4
+    assert pk.slots == 1  # the CPU's stand-in runs a block at a time
+    assert pk.runs_total == sum(kw["max_runs"] for _e, _m, kw in mixed_in)
+    assert pk.flags_total == sum(-(-kw["width"] * kw["strip_h"] // 32) for _e, _m, kw in mixed_in)
+    micw = post.PostPacking([(torch.zeros((1, 3), dtype=torch.int64),
+                              dict(groups[0][2], predictor="avg"))], CPU)
+    assert micw.interleaved == [False]
+
+
+def test_avg_i_runs_scratch_is_a_slot_a_resident_block():
+    """An ``avg_i`` bucket's runs scratch is ``max_runs`` a slot, not a
+    strip: five strips on the CPU take one slot, beside an avg bucket of
+    MICW's, which takes ``max_runs`` a strip."""
+    e, m, kw = _many_runs_group(5)
+    avg = (torch.zeros((3, 3), dtype=torch.int64), dict(kw, predictor="avg", max_runs=7))
+    pk = post.PostPacking([(m, kw), avg], CPU)
+    assert pk.slots == 1 and pk.runs_total == kw["max_runs"] + 3 * 7
+    assert [int(d["runs_off"]) for d in pk.desc] == [0, kw["max_runs"]]
+
+
+@pytest.mark.parametrize("fault", ["max_runs", "one_column"])
+def test_avg_i_without_room_for_its_runs_raises(fault):
+    e, m, kw = _pics_groups()[0][0]
+    if fault == "max_runs":
+        kw = dict(kw, max_runs=post.interleaved_runs(e.shape[1]) - 1)
+    else:
+        e = e[:, :1].contiguous()
+    with pytest.raises(ValueError, match="avg_i"):
+        post.post_decode_groups([(e, m, kw)])
+
+
+def test_post_cu_emulated_avg_i(emulated):
+    """``csrc/post.cu``'s interleaved instance, emulated, equals the twin
+    on the writers' strips (clean and with symbols flipped), on seeded
+    random streams (damaged ones of every kind) and on strips of more
+    runs than shared memory holds, three in one bucket taking the one slot
+    in turn (every slot free after the launch)."""
+    groups = _pics_groups()[0] + [_many_runs_group(), _many_runs_group(3)]
+    groups += _flipped(groups, 20, 7)
+    for seed in range(3):
+        rng = np.random.default_rng(4000 + seed)
+        groups += [_interleaved_group(rng) for _ in range(4)]
+    for (_e, _m, kw), g, w in zip(groups, _emulated_groups(emulated, groups), _twin(groups)):
+        assert torch.equal(g, w), (kw, int((g != w).sum()))
+
+
+@pytest.mark.cuda
+def test_cuda_avg_i_matches_post_batch():
+    """The interleaved instance on the card equals the twin on the
+    writers' strips, clean and damaged, random streams and many runs (a
+    bucket of 1,500 such strips, more than the card's slots, so blocks
+    wait for one), one launch a call, every slot free after it; MICW's
+    buckets in the same call take that instance too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(4100)
+    groups = _pics_groups()[0] + [_many_runs_group(), _many_runs_group(1500)]
+    groups += _flipped(groups, 20, 7) + [_interleaved_group(rng) for _ in range(12)]
+    plan, micw = st.MicwDecodePlan(_blobs(), CPU), None
+    outs = dict(zip(plan._direct_keys, rd.rans_decode_direct_groups(plan._direct_groups)))
+    outs.update(zip(plan._scan_keys, sd.rans_decode_lanes_groups(plan._scan_groups)))
+    micw = [(outs[k], *g) for k, g in zip(plan._post_keys, plan._post_groups)]
+    for batch in (groups, groups + micw):
+        on_card = [(e.to(dev), m.to(dev), kw) for e, m, kw in batch]
+        launches = post.post_decode_groups.launches
+        pk = post.PostPacking([(m, kw) for _e, m, kw in on_card], dev)
+        got = post.post_decode_groups(on_card, pk)
+        torch.cuda.synchronize()
+        assert post.post_decode_groups.launches == launches + 1
+        assert 1500 > pk.slots > 100 and not pk.busy.any()
+        for (_e, _m, kw), g, w in zip(batch, got, _twin(batch)):
+            assert torch.equal(g.cpu(), w), kw

@@ -9,6 +9,13 @@ against mic_tpu and the in-repo fixtures.
   many at once, MIC2 series independent and temporal, MIC3 tiles,
   regions and levels (RGB with YCoCg-R, grey 16-bit), and an unsupported
   kind raising;
+* ``PicsDecodePlan`` (the PICS plan that keeps its answer on the
+  device) on CT and MR fixture crops at 2, 4 and 8 states, with a last
+  strip shorter than the others and widths that are not multiples of
+  128, against ``mic_tpu``'s ``decompress_pics_device_many`` (8 states;
+  its host reader at 2 and 4), the benchmark's plain reference
+  (``portbench/reference_pics.py``) and the port's entropy batch with the
+  host post stage; its kinds and routes;
 * the in-repo fixtures against their ``.raw`` pixels through the port
   alone: the MR MIC1 payloads (FF 02/04/84/08), the four PICS containers
   (``CT_pics4`` takes both routes: strip 0 the kernel, strips 1-3 the
@@ -279,3 +286,87 @@ def test_mic3_fixtures_decode():
     tissue = (TESTDATA / "tissue.mic3").read_bytes()
     want = np.fromfile(TESTDATA / "tissue.raw", np.uint8)
     assert rd.decompress_wsi_level_device(tissue, 0, CPU) == want.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# PicsDecodePlan: the answer on the device
+# ---------------------------------------------------------------------------
+
+
+def _crops():
+    """Crops of the CT and MR fixtures (200 x 70 and 90 x 50, the top left
+    corners: widths not multiples of 128; smaller or noisier CT crops are
+    incompressible at these sizes) and a smooth seeded image (72 x 40)."""
+    ct = _raw("CT_dev").reshape(512, 512)[:70, :200]
+    mr = _raw("MR_2s").reshape(256, 256)[:50, :90]
+    smooth = _image(np.random.default_rng(9), 40, 72)
+    return [(np.ascontiguousarray(ct).ravel(), 200, 70), (np.ascontiguousarray(mr).ravel(), 90, 50),
+            (smooth, 72, 40)]
+
+
+@pytest.mark.parametrize("states", [2, 4, 8])
+def test_pics_plan_matches_reference_and_plain(ref, states):
+    """Three strips a crop, so each crop's last strip is shorter; the
+    plan's device answer equals the pixels, ``mic_tpu``'s decode (its
+    device decode at 8 states, the benchmark cell's format; its host
+    reader at 2 and 4, where the device decode's interpret-mode compile
+    would take most of a minute), the plain reference and the entropy
+    batch with the host post stage."""
+    from portbench.reference_pics import decode_pics
+
+    writer = getattr(ref.strips, {2: "compress_parallel_strips",
+                                  4: "compress_parallel_strips_4state",
+                                  8: "compress_parallel_strips_8state"}[states])
+    crops = _crops()
+    blobs = [writer(px, w, h, int(px.max()), num_strips=3) for px, w, h in crops]
+    plan = rd.PicsDecodePlan(blobs, CPU)
+    assert plan.host == [] and plan.tans.stats["groups"] == 1
+    assert len(plan._post_rows) == len({(w, -(-h // 3)) for _p, w, h in crops}
+                                       | {(w, h - 2 * -(-h // 3)) for _p, w, h in crops})
+    images = plan.assemble_device(plan.run())
+    want = (ref.rd.decompress_pics_device_many(blobs) if states == 8
+            else [ref.strips.decompress_parallel_strips(b) for b in blobs])
+    host = rd._pics_many(blobs, CPU, "avg")[0]
+    for (px, w, h), (got, gw, gh), (wpx, ww, wh), blob, hp in zip(crops, images, want, blobs, host):
+        got = got.numpy().view(np.uint16)
+        assert (gw, gh) == (w, h) == (ww, wh) and got.dtype == np.uint16
+        assert np.array_equal(got, px) and np.array_equal(got, wpx) and np.array_equal(got, hp)
+        assert np.array_equal(decode_pics(blob)[0], px)
+
+
+def _pics_with_a_one_state_strip():
+    """A seeded 72 x 40 image as a 2-state PICS container of three strips
+    whose middle strip is a 1-state stream (the writers' last fallback),
+    which the kernel does not take.  Returns (container, pixels)."""
+    import struct
+
+    from mic_tpu_torch.ops.deltarle import delta_rle_compress
+    from mic_tpu_torch.ops.fse_codec import fse_compress
+
+    px = _image(np.random.default_rng(12), 40, 72)
+    w, h, sh, st = strips.pics_strip_blobs(
+        strips.compress_parallel_strips(px, 72, 40, int(px.max()), num_strips=3))
+    y0, rows, _b = st[1]
+    parts = [st[0][2], fse_compress(delta_rle_compress(px[y0 * w:(y0 + rows) * w], w, rows,
+                                                       int(px.max()))), st[2][2]]
+    offsets = np.concatenate([[0], np.cumsum([len(b) for b in parts])])
+    table = b"".join(struct.pack("<II", int(o), len(b)) for o, b in zip(offsets, parts))
+    return b"PICS" + struct.pack("<IIII", w, h, 3, sh) + table + b"".join(parts), px
+
+
+def test_pics_plan_kinds_and_host_route():
+    """Only the avg kind takes the plan; an unknown kind raises; a stream
+    the kernel cannot take (a 1-state strip) decodes on the host inside
+    ``run()``, its pixels one copy to the device."""
+    blob, px = _pics_with_a_one_state_strip()
+    with pytest.raises(ValueError, match="avg kind"):
+        rd.PicsDecodePlan([blob], CPU, kind="grad")
+    with pytest.raises(ValueError):
+        rd.decompress_pics_device(blob, CPU, kind="nope")
+    plan = rd.PicsDecodePlan([blob, blob], CPU)
+    assert plan.host == [1, 4] and [w is None for w in plan.where] == [False, True, False] * 2
+    outs = plan.run()
+    assert set(outs) == {0, 1, "host"} and outs["host"].numel() == 2 * 72 * 14
+    for got, w, h in plan.assemble_device(outs):
+        assert (w, h) == (72, 40) and np.array_equal(got.numpy().view(np.uint16), px)
+    assert np.array_equal(rd.decompress_pics_device(blob, CPU)[0], px)

@@ -14,6 +14,13 @@ counters the decode plan records, on the CPU.
 * A plan of four crops of the slice, one a route (direct, r-mode, and
   two post): ``work_bytes.direct``, ``.rle`` and ``.post`` against the
   containers' strip tables and MICT headers.
+* A PICS plan (``ref_decode.PicsDecodePlan``) of a crop of the slice
+  written at 8 states and of a container with a 1-state strip: its
+  staging parts inside ``plan.stage`` (the entropy plan's and its own),
+  ``run.tans``, ``run.host`` and ``run.post`` inside ``plan.run``, the
+  shared assemble's spans, ``strips.pics`` and ``strips.tans_host``
+  against its routes, and ``work_bytes.tans`` and ``.post`` against the
+  strips' compressed bytes, symbol counts and pixels.
 """
 
 import struct
@@ -437,3 +444,85 @@ def test_strip_counters_of_the_mixed_plan_name_each_route(mixed):
                          else "raw")
             want[f"strips.{route}"] = want.get(f"strips.{route}", 0) + 1
     assert strips == want
+
+
+# -- the PICS plan's spans and counters --------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pics(ct):
+    """A PICS plan of two containers: a 70 x 200 crop of the slice at 8
+    states in three strips, and a 72 x 40 image whose middle strip is a
+    1-state stream (the host route); staged, run and assembled with
+    tracing on."""
+    from mic_tpu_torch.ops.deltarle import delta_rle_compress
+    from mic_tpu_torch.ops.fse_codec import fse_compress
+    from mic_tpu_torch.parallel import strips as ps
+    from mic_tpu_torch.tpu.ref_decode import PicsDecodePlan
+
+    crop = np.ascontiguousarray(ct.px.reshape(512, 512)[:70, :200]).ravel()
+    first = ps.compress_parallel_strips_8state(crop, 200, 70, int(crop.max()), num_strips=3)
+    rng = np.random.default_rng(12)
+    img = (rng.standard_normal((40, 72)).cumsum(0).cumsum(1) * 5).astype(np.int64)
+    px = (img - img.min()).clip(0, 60000).astype(np.uint16).ravel()
+    w, h, sh, st = ps.pics_strip_blobs(ps.compress_parallel_strips(px, 72, 40, int(px.max()),
+                                                                   num_strips=3))
+    parts = [st[0][2], fse_compress(delta_rle_compress(px[sh * w:2 * sh * w], w, sh,
+                                                       int(px.max()))), st[2][2]]
+    at = np.concatenate([[0], np.cumsum([len(b) for b in parts])])
+    second = (b"PICS" + struct.pack("<IIII", w, h, 3, sh)
+              + b"".join(struct.pack("<II", int(o), len(b)) for o, b in zip(at, parts))
+              + b"".join(parts))
+    trace.take()
+    trace.enable()
+    try:
+        plan = PicsDecodePlan([first, second], "cpu")
+        staged = trace.take()
+        with trace.request(0):
+            images = plan.assemble_device(plan.run())
+        served = trace.take()
+    finally:
+        trace.disable()
+        trace.take()
+    return SimpleNamespace(plan=plan, staged=staged, served=served, images=images,
+                           pixels=[crop, px], streams=[b for c in (first, second)
+                                                       for _y, _h, b in ps.pics_strip_blobs(c)[3]])
+
+
+def test_pics_plan_staging_spans(pics):
+    spans = pics.staged[0]
+    (stage,) = _named(spans, "plan.stage")
+    assert stage.attrs == {"strips": 6, "buckets": len(pics.plan._post_rows)}
+    for name in ("plan.parse", "plan.tables", "plan.upload"):
+        parts = _named(spans, name)
+        assert len(parts) == 2  # the entropy plan's, then the PICS plan's own
+        assert all(p.parent == stage.id and stage.start <= p.start <= p.end <= stage.end
+                   for p in parts)
+    for got, want in zip(pics.images, pics.pixels):
+        assert np.array_equal(got[0].numpy().view(np.uint16), want)
+
+
+def test_pics_plan_run_and_assemble_spans(pics):
+    spans = pics.served[0]
+    (run,) = _named(spans, "plan.run")
+    for name in ("run.tans", "run.host", "run.post"):
+        (s,) = _named(spans, name)
+        assert s.parent == run.id and s.request == 0
+    assert _named(spans, "run.tans")[0].attrs == {"launches": 0}  # none on the CPU
+    (asm,) = _named(spans, "plan.assemble")
+    for name in ("assemble.gather_plan", "assemble.gathers", "assemble.images"):
+        (s,) = _named(spans, name)
+        assert s.parent == asm.id
+    assert _named(spans, "assemble.images")[0].attrs == {"images": 2}
+
+
+def test_pics_plan_counters(pics):
+    staged, served = pics.staged[1], pics.served[1]
+    assert staged["strips.pics"] == 5 and staged["strips.tans_host"] == 1
+    plan = pics.plan
+    kernel = [i for i, w in enumerate(plan.where) if w is not None]
+    counts = {bi: c for idx, cs, _o, _k in plan.tans.groups for bi, c in zip(idx, cs)}
+    pixels = [s[2] * s[3] for s in plan.strips]
+    assert served["work_bytes.tans"] == sum(len(pics.streams[i]) + 2 * counts[i] for i in kernel)
+    assert served["work_bytes.post"] == sum(2 * counts[i] + 2 * pixels[i] for i in kernel)
+    assert served["assemble.gather_plans"] == 1
